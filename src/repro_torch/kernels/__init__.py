@@ -1,0 +1,12 @@
+"""Hopper kernels of the port, each beside its plain PyTorch version.
+
+- paged_attention / paged_decode_write: CUDA C++ (``csrc/``), decode
+  attention and the one-token write against the block-paged KV pool
+- masked_dequant: Triton, fused int8 dequant + license-interval mask
+
+``ops`` holds the dispatchers and launch counters, ``ref`` the plain
+versions, ``build`` the compile-at-first-use loader.
+"""
+from repro_torch.kernels import ops, ref
+
+__all__ = ["ops", "ref"]

@@ -1,0 +1,63 @@
+// Python bindings of the port's CUDA kernels.  The only translation unit
+// that includes torch/extension.h (it is the slow header to compile); the
+// kernels themselves live in *.cu files with plain pointer interfaces.
+// Shapes, dtypes, devices and contiguity are validated by the Python
+// wrappers in repro_torch/kernels/paged_attention.py before these run.
+
+#include <torch/extension.h>
+
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAGuard.h>
+
+namespace repro_torch {
+
+void launch_paged_attention(const void* q, const void* k_blocks, const void* v_blocks,
+                            const int32_t* tables, const int32_t* lens, float* out,
+                            int batch, int n_tab, int block_size, int kv_heads,
+                            int groups, int head_dim, bool bf16, cudaStream_t stream);
+
+void launch_paged_decode_write(void* k_blocks, void* v_blocks, const void* new_k,
+                               const void* new_v, const int32_t* block_ids,
+                               const int32_t* offsets, int batch, int block_size,
+                               int row, bool in_bf16, bool pool_bf16,
+                               cudaStream_t stream);
+
+at::Tensor paged_attention(const at::Tensor& q, const at::Tensor& k_blocks,
+                           const at::Tensor& v_blocks, const at::Tensor& tables,
+                           const at::Tensor& lens) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int64_t batch = q.size(0), heads = q.size(1), head_dim = q.size(2);
+  const int64_t block_size = k_blocks.size(1), kv_heads = k_blocks.size(2);
+  auto out = at::empty({batch, heads, head_dim}, q.options().dtype(at::kFloat));
+  launch_paged_attention(q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(),
+                         tables.data_ptr<int32_t>(), lens.data_ptr<int32_t>(),
+                         out.data_ptr<float>(), static_cast<int>(batch),
+                         static_cast<int>(tables.size(1)), static_cast<int>(block_size),
+                         static_cast<int>(kv_heads), static_cast<int>(heads / kv_heads),
+                         static_cast<int>(head_dim), q.scalar_type() == at::kBFloat16,
+                         at::cuda::getCurrentCUDAStream());
+  return out;
+}
+
+// the pools are written in place through their data pointers
+void paged_decode_write(at::Tensor k_blocks, at::Tensor v_blocks, const at::Tensor& new_k,
+                        const at::Tensor& new_v, const at::Tensor& block_ids,
+                        const at::Tensor& offsets) {
+  const c10::cuda::CUDAGuard guard(k_blocks.device());
+  launch_paged_decode_write(
+      k_blocks.data_ptr(), v_blocks.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+      block_ids.data_ptr<int32_t>(), offsets.data_ptr<int32_t>(),
+      static_cast<int>(new_k.size(0)), static_cast<int>(k_blocks.size(1)),
+      static_cast<int>(new_k.size(1) * new_k.size(2)),
+      new_k.scalar_type() == at::kBFloat16, k_blocks.scalar_type() == at::kBFloat16,
+      at::cuda::getCurrentCUDAStream());
+}
+
+}  // namespace repro_torch
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("paged_attention", &repro_torch::paged_attention,
+        "decode attention through a block table; (B, H, hd) f32");
+  m.def("paged_decode_write", &repro_torch::paged_decode_write,
+        "in-place write of one K/V token per lane into the block pools");
+}

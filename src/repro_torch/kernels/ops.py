@@ -1,0 +1,54 @@
+"""Public kernel entry points of the port and their launch counters.
+
+``LAUNCHES`` counts kernel launches per kernel name: each wrapper adds
+one exactly where it launches its CUDA or Triton kernel (never on the
+CPU path), so a run can prove that its main path went through the
+kernels.  ``masked_dequant`` here is the dispatcher the licensed int8
+views call: unlike the JAX package's (which sends shapes under 256x256
+to the oracle), the CUDA path has no small-shape shortcut — the Triton
+kernel takes any shape and masks the ragged edge itself.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+MAX_INTERVALS = 8
+
+LAUNCHES: Dict[str, int] = {"paged_attention": 0, "paged_decode_write": 0,
+                            "masked_dequant": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def pack_intervals(intervals: Sequence[Tuple[float, float]],
+                   device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad a license tier's interval list to (MAX_INTERVALS,) f32 lo/hi;
+    padding slots have lo == hi == 0 and are inert."""
+    ivs = list(intervals)[:MAX_INTERVALS]
+    lo = np.zeros(MAX_INTERVALS, np.float32)
+    hi = np.zeros(MAX_INTERVALS, np.float32)
+    for i, (a, b) in enumerate(ivs):
+        lo[i], hi[i] = a, b
+    return (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device))
+
+
+def masked_dequant(codes: torch.Tensor, scale: torch.Tensor,
+                   intervals: Sequence[Tuple[float, float]] = (), *,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """Licensed weights from int8 codes in one fused pass (paper §3.5).
+
+    ``scale`` is per column ((C,) or (1, C)), per row ((R, 1)) or a scalar
+    ((1, 1)), as in ``repro.kernels.ops.masked_dequant``."""
+    from repro_torch.kernels.masked_dequant import masked_dequant as _kernel
+
+    r, c = codes.shape
+    if scale.ndim != 2:
+        scale = scale.reshape(1, -1) if scale.numel() == c else scale.reshape(-1, 1)
+    lo, hi = pack_intervals(intervals, codes.device)
+    return _kernel(codes, scale, lo, hi, out_dtype=out_dtype)

@@ -1,0 +1,234 @@
+"""Neural layers of the port for the dense GQA model: RMS norm, RoPE,
+causal attention (prefill, decode, chunked ``attend_cache``), the
+kernel-resident paged decode attention, and the SwiGLU MLP.
+
+Counterpart of ``repro/models/layers.py`` restricted to what qwen2.5-3b
+runs; numerics follow it step by step (f32 norms and RoPE, q scaled in
+its own dtype, f32 scores, ``finfo.min`` masking, probabilities cast to
+``v.dtype`` before the value product).  Tensors keep the JAX layouts:
+activations (B, S, D), heads (B, S, H, hd), caches (B, cap, KH, hd) and
+paged blocks (P+1, bs, KH, hd).  Cache leaves are updated IN PLACE: a
+cache handed to a block comes back holding the new tokens.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+# --------------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                    # (hd/2,)
+    angles = positions[..., None].float() * freqs              # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., : hd // 2], x32[..., hd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    scores = torch.where(mask, scores,
+                         torch.tensor(torch.finfo(scores.dtype).min,
+                                      dtype=scores.dtype, device=scores.device))
+    probs = torch.softmax(scores.float(), dim=-1)
+    # rows with no valid key (padded decode) -> zeros
+    any_valid = mask.any(-1, keepdim=True)
+    return torch.where(any_valid, probs, torch.zeros_like(probs))
+
+
+def _scale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q * scale with the scale rounded to q's dtype first (the JAX
+    package multiplies by ``jnp.asarray(scale, q.dtype)``)."""
+    return q * torch.tensor(scale, dtype=q.dtype)
+
+
+def attention_core(
+    q: torch.Tensor,              # (B, Sq, H, hd)
+    k: torch.Tensor,              # (B, Sk, KH, hd)
+    v: torch.Tensor,              # (B, Sk, KH, hd)
+    *,
+    q_offset,                     # int or (B,): absolute position of q[:, 0]
+    kv_len: Optional[torch.Tensor] = None,  # (B,) valid cache length (decode)
+) -> torch.Tensor:
+    """Causal attention with key slot ``i`` holding absolute position ``i``
+    (linear cache / fresh prefill).  The JAX package scans query chunks
+    of ``q_chunk`` rows to bound memory at 32k tokens; each row's softmax
+    is independent, so one pass over all rows computes the same values."""
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    groups = h // kh
+    qg = _scale_q(q, 1.0 / math.sqrt(hd)).reshape(b, sq, kh, groups, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    k_pos = torch.arange(sk, device=q.device)
+    q_off = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1)   # (B|1, 1)
+    q_pos = q_off + torch.arange(sq, device=q.device)                    # (B|1, Sq)
+    mask = k_pos[None, None, :] <= q_pos[:, :, None]                     # (B|1, Sq, Sk)
+    if kv_len is not None:
+        mask = mask & (k_pos[None, None, :] < kv_len.reshape(-1, 1, 1))
+    probs = _masked_softmax(scores, mask[:, None, None])
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+def _attn_qkv(p: Dict[str, Any], x: torch.Tensor, cfg, positions: torch.Tensor):
+    """Shared GQA q/k/v projection + bias + RoPE of the contiguous and the
+    paged paths (``positions`` broadcastable to (B, S))."""
+    b, s, _ = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(b, s, kh, hd), positions, cfg.rope_theta)
+    return q, k, v.reshape(b, s, kh, hd)
+
+
+def attention_block(
+    p: Dict[str, Any], x: torch.Tensor, cfg, *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    pos=0, attend_cache: bool = False, chunk_valid=None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """GQA attention over a linear cache ``k``/``v`` (B, cap, KH, hd) +
+    ``len`` (B,).
+
+    Modes as in the JAX package: prefill (no cache, or a cache filled
+    from empty), decode (S == 1) and, with ``attend_cache=True``, chunked
+    prefill: S tokens starting at absolute ``pos`` (an int, or (B,) per
+    lane) attend over the updated cache.  Chunk writes beyond the last
+    slot clamp onto it instead of wrapping, so a lane's right-padding
+    rows ("junk", past ``chunk_valid`` real rows) never overwrite live
+    prefix slots; they are causally invisible to every real query.
+    """
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    pos_t = torch.as_tensor(pos, device=x.device).reshape(-1, 1)
+    positions = (pos_t + torch.arange(s, device=x.device)).expand(b, s)
+    q, k, v = _attn_qkv(p, x, cfg, positions)
+
+    if cache is None:
+        out = attention_core(q, k, v, q_offset=pos)
+        new_cache = None
+    else:
+        cap = cache["k"].shape[1]
+        if attend_cache:
+            slot = positions.clamp(0, cap - 1)
+        else:
+            slot = positions % cap
+        rows = torch.arange(b, device=x.device)[:, None].expand(b, s)
+        ck, cv = cache["k"], cache["v"]
+        ck[rows, slot] = k.to(ck.dtype)
+        cv[rows, slot] = v.to(cv.dtype)
+        cv_n = s if chunk_valid is None else torch.as_tensor(chunk_valid,
+                                                              device=x.device)
+        new_len = torch.clamp(cache["len"] + cv_n, max=cap).to(cache["len"].dtype)
+        if s == 1 or attend_cache:
+            out = attention_core(q, ck, cv, q_offset=pos,
+                                 kv_len=None if attend_cache else new_len)
+        else:
+            out = attention_core(q, k, v, q_offset=pos)
+        new_cache = {"k": ck, "v": cv, "len": new_len}
+    y = out.reshape(b, s, h * hd) @ p["wo"]
+    return y, new_cache
+
+
+# ---------------------------------------------- kernel-resident paged decode
+def gather_paged(blocks: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """(P, bs, *rest) physical blocks + (B, T) tables -> (B, T*bs, *rest)."""
+    g = blocks[tables.long()]
+    s = g.shape
+    return g.reshape(s[0], s[1] * s[2], *s[3:])
+
+
+def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        ctx: torch.Tensor) -> torch.Tensor:
+    """One-token-per-lane attention over a table-gathered cache — the
+    plain path of paged decode.
+
+    q (B, H, hd); k/v (B, S, KH, hd) in logical order with junk past each
+    lane's ``ctx`` (B,) valid length (masked).  Mirrors the decode
+    numerics of :func:`attention_core`: q scaled in its own dtype, f32
+    scores, :func:`_masked_softmax`, probs cast to ``v.dtype``."""
+    b, h, hd = q.shape
+    kh = k.shape[2]
+    groups = h // kh
+    qg = _scale_q(q, 1.0 / math.sqrt(hd)).reshape(b, kh, groups, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qg.float(), k.float())
+    mask = torch.arange(k.shape[1], device=q.device)[None, :] < ctx[:, None]
+    probs = _masked_softmax(scores, mask[:, None, None, :])
+    out = torch.einsum("bkgs,bskh->bkgh", probs.to(v.dtype), v)
+    return out.reshape(b, h, v.shape[-1])
+
+
+def attention_block_paged(
+    p: Dict[str, Any], x: torch.Tensor, cfg, *,
+    cache: Dict[str, torch.Tensor], tables: torch.Tensor, pos: torch.Tensor,
+    use_kernel: bool,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """GQA decode straight against the paged pool — no contiguous view.
+
+    ``x`` (B, 1, d), one token per lane; ``cache`` holds this layer's
+    physical block pools ``k``/``v`` (P+1, bs, KH, hd), shared by every
+    lane, and the per-lane ``len`` (B,); ``tables`` (B, T) int32 names
+    each lane's blocks in logical order; ``pos`` (B,) int32 absolute
+    positions.  The new K/V token is written in place through
+    ``(tables[b, pos // bs], pos % bs)``.
+
+    ``use_kernel=True`` writes and attends through the Hopper kernels
+    (their wrappers take the plain versions for CPU tensors); the kernel
+    returns f32, cast to ``x.dtype``.  ``use_kernel=False`` is the plain
+    path: an indexed write, a table gather and :func:`paged_decode_attend`.
+    """
+    b, s, _ = x.shape
+    assert s == 1, s
+    h, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = _attn_qkv(p, x, cfg, pos[:, None])
+    kc, vc = cache["k"], cache["v"]
+    bs = kc.shape[1]
+    blk = torch.gather(tables, 1, (pos // bs)[:, None].long())[:, 0]
+    off = (pos % bs).to(torch.int32)
+    if use_kernel:
+        from repro_torch.kernels.paged_attention import (paged_attention,
+                                                         paged_decode_write)
+
+        paged_decode_write(kc, vc, k[:, 0], v[:, 0], blk, off)
+        out = paged_attention(q[:, 0], kc, vc, tables,
+                              (pos + 1).to(torch.int32)).to(x.dtype)
+    else:
+        from repro_torch.kernels import ref
+
+        ref.paged_decode_write(kc, vc, k[:, 0], v[:, 0], blk, off)
+        out = paged_decode_attend(q[:, 0], gather_paged(kc, tables),
+                                  gather_paged(vc, tables), pos + 1)
+    # len + 1 never clamps here: the gateway admits pos < capacity only
+    new_cache = {"k": kc, "v": vc, "len": cache["len"] + 1}
+    y = out.reshape(b, 1, h * hd) @ p["wo"]
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------- MLPs
+def mlp_block(p: Dict[str, Any], x: torch.Tensor, cfg) -> torch.Tensor:
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    return (F.silu(g) * u) @ p["w_down"]

@@ -1,0 +1,169 @@
+"""Decoder-only dense GQA model of the port (qwen2.5-3b family).
+
+Counterpart of ``repro/models/model.py`` for ``layer_pattern ==
+("attn",)``.  Parameters keep the JAX package's nested-dict layout and
+key names, with every block weight stacked on a leading *unit* axis
+``(U, in, out)``; the JAX ``lax.scan`` over units becomes a Python loop
+over that axis.  Caches are dicts of tensors updated in place.
+
+Entry points:
+  init_params(cfg, seed=, device=)           -> param dict
+  params_from_jax(flat_numpy, device=)       -> the same dict from the
+                                                JAX package's weights
+  init_cache(cfg, batch, capacity, device=)  -> contiguous cache dict
+  forward(params, cfg, tokens, ...)          -> (logits, cache)
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pytree_io import unflatten
+from repro_torch.models import layers as L
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port runs the dense GQA decoder only; everything else raises."""
+    dense = (cfg.layer_pattern == ("attn",) and not cfg.use_mla
+             and not cfg.num_experts and cfg.mlp_type == "swiglu"
+             and not cfg.norm_layernorm and cfg.window == 0
+             and cfg.frontend == "none" and not cfg.kv_cache_int8)
+    if not dense:
+        raise NotImplementedError(
+            f"{cfg.name}: only dense GQA models are ported; see ROADMAP.md, "
+            f"'the other architectures'")
+
+
+# ------------------------------------------------------------------- params
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]:
+    """Random weights with the JAX package's distributions (normal /
+    sqrt(fan_in) matrices, 0.02-scaled embedding and head, zero biases,
+    unit norms), drawn from a ``torch.Generator`` seeded with ``seed`` —
+    the values differ from ``jax.random``'s."""
+    check_supported(cfg)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    dt, u = cfg.dtype, cfg.pattern_units
+    d, h, kh, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim, cfg.d_ff)
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return (w * scale).to(dt)
+
+    def dense(fan_in, fan_out):
+        return normal((u, fan_in, fan_out), fan_in ** -0.5)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    mixer = {"wq": dense(d, h * hd), "wk": dense(d, kh * hd),
+             "wv": dense(d, kh * hd), "wo": dense(h * hd, d)}
+    if cfg.attn_bias:
+        mixer.update(bq=zeros(u, h * hd), bk=zeros(u, kh * hd), bv=zeros(u, kh * hd))
+    block = {"norm1": {"norm_scale": ones(u, d)}, "mixer": mixer,
+             "norm2": {"norm_scale": ones(u, d)},
+             "ffn": {"w_gate": dense(d, ff), "w_up": dense(d, ff),
+                     "w_down": dense(ff, d)}}
+    return {"embed": {"tok": normal((cfg.padded_vocab, d), 0.02)},
+            "units": {"b0": block},
+            "final_norm": {"norm_scale": ones(d)},
+            "lm_head": normal((d, cfg.padded_vocab), 0.02)}
+
+
+def _to_tensor(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":     # ml_dtypes: reinterpret the bits
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def params_from_jax(flat: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """Carry the JAX package's weights across: ``flat`` is
+    ``repro.core.pytree_io.flatten_params(params)`` ({'units/b0/mixer/wq':
+    ndarray, ...}); the result is the port's nested dict on ``device``."""
+    return unflatten({name: _to_tensor(a, device) for name, a in flat.items()})
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, device="cuda") -> Dict[str, Any]:
+    check_supported(cfg)
+    u, kh, hd = cfg.pattern_units, cfg.num_kv_heads, cfg.head_dim
+    return {"units": {"b0": {
+        "k": torch.zeros((u, batch, capacity, kh, hd), dtype=cfg.dtype, device=device),
+        "v": torch.zeros((u, batch, capacity, kh, hd), dtype=cfg.dtype, device=device),
+        "len": torch.zeros((u, batch), dtype=torch.int32, device=device),
+    }}}
+
+
+# ------------------------------------------------------------------ forward
+def _apply_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
+                 cache, pos, attend_cache, chunk_valid, paged_tables,
+                 paged_kernel) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Pre-norm residual block: attention then SwiGLU MLP."""
+    h = L.rms_norm(x, p["norm1"]["norm_scale"])
+    if paged_tables is not None:
+        y, new_cache = L.attention_block_paged(
+            p["mixer"], h, cfg, cache=cache, tables=paged_tables, pos=pos,
+            use_kernel=paged_kernel)
+    else:
+        y, new_cache = L.attention_block(
+            p["mixer"], h, cfg, cache=cache, pos=pos,
+            attend_cache=attend_cache, chunk_valid=chunk_valid)
+    x = x + y.to(x.dtype)
+    h2 = L.rms_norm(x, p["norm2"]["norm_scale"])
+    return x + L.mlp_block(p["ffn"], h2, cfg).to(x.dtype), new_cache
+
+
+def _unit(tree: Dict[str, Any], u: int) -> Dict[str, Any]:
+    return {k: (_unit(v, u) if isinstance(v, dict) else v[u]) for k, v in tree.items()}
+
+
+def forward(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                 # (B, S) int
+    *,
+    cache: Optional[Dict[str, Any]] = None,
+    pos=0,
+    attend_cache: bool = False,
+    chunk_valid=None,
+    paged_tables: Optional[torch.Tensor] = None,
+    paged_kernel: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Returns (logits (B, S, padded_vocab) f32, cache or None).
+
+    ``cache`` leaves are updated in place and the same dict comes back.
+    ``attend_cache=True`` is chunked prefill: ``tokens`` continue prompts
+    whose positions ``[0, pos)`` are already in ``cache``; ``pos`` may be
+    (B,) per lane and ``chunk_valid`` (B,) counts each lane's real rows.
+
+    ``paged_tables`` (B, T) int32 selects kernel-resident paged decode:
+    ``cache`` is ``PagedCachePool.decode_cache`` (the pool's physical
+    block tensors (U, P+1, bs, KH, hd) plus per-lane ``len`` (U, B)),
+    ``pos`` is (B,) int32 and ``tokens`` (B, 1).  ``paged_kernel`` routes
+    the write and the attention through the Hopper kernels; ``False`` is
+    the plain path with the same semantics.
+    """
+    check_supported(cfg)
+    if paged_tables is not None:
+        assert cache is not None and not attend_cache
+    x = params["embed"]["tok"][tokens.long()]
+    for u in range(cfg.pattern_units):
+        unit_params = _unit(params["units"], u)
+        unit_cache = None if cache is None else _unit(cache["units"], u)
+        c = None if unit_cache is None else unit_cache["b0"]
+        x, nc = _apply_block(unit_params["b0"], x, cfg, cache=c, pos=pos,
+                             attend_cache=attend_cache, chunk_valid=chunk_valid,
+                             paged_tables=paged_tables, paged_kernel=paged_kernel)
+        if nc is not None:
+            c["len"].copy_(nc["len"])     # k/v were written in place
+    x = L.rms_norm(x, params["final_norm"]["norm_scale"])
+    logits = (x @ params["lm_head"]).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e9
+    return logits, cache

@@ -1,0 +1,17 @@
+"""Serving layer of the port: the licensed continuous-batching gateway
+(gateway.py) over a per-model slot (fleet.py), its scheduler
+(scheduler.py), the block-paged KV pool (paging.py), the serving steps
+(engine.py) and the int8 store with licensed views (quantized.py)."""
+from repro_torch.serving.engine import (prefill_chunk_step, sample_lane,
+                                        serve_step_paged)
+from repro_torch.serving.fleet import ModelSlot
+from repro_torch.serving.gateway import LicensedGateway
+from repro_torch.serving.paging import BlockAllocator, PagedCachePool
+from repro_torch.serving.scheduler import (GatewayRequest, RequestState,
+                                           ScheduledAction, Scheduler,
+                                           TierViewCache)
+
+__all__ = ["prefill_chunk_step", "sample_lane", "serve_step_paged",
+           "ModelSlot", "LicensedGateway", "BlockAllocator", "PagedCachePool",
+           "GatewayRequest", "RequestState", "ScheduledAction", "Scheduler",
+           "TierViewCache"]

@@ -1,0 +1,72 @@
+"""Serving steps of the port: chunked prefill, kernel-resident paged
+decode, and per-lane sampling.
+
+Counterpart of the parts of ``repro/serving/engine.py`` the gateway's
+main path uses.  The JAX package ``vmap``\\ s a batch-1 step over lanes;
+here the lane axis is the model's batch dimension, with per-lane
+positions written out.  Sampling draws from a ``torch.Generator`` seeded
+per (request seed, token index), so a restarted request reproduces its
+tokens; the draws cannot match the JAX package's ``fold_in`` keys, so
+only greedy tokens are comparable across the two.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as model_lib
+
+
+def prefill_chunk_step(params, cfg: ModelConfig, tokens: torch.Tensor,
+                       caches: Dict[str, Any], pos: torch.Tensor,
+                       chunk_valid: Optional[torch.Tensor] = None):
+    """Left-aligned chunked prefill: advance each lane's cursor by up to
+    W tokens against its own cache.
+
+    ``tokens`` (B, W) holds each lane's next chunk starting at that
+    lane's absolute cursor ``pos`` (B,); a lane with fewer tokens left
+    right-pads its row and reports its real rows in ``chunk_valid`` (B,).
+    ``caches`` is a contiguous batch cache (``PagedCachePool.gather``).
+    Returns the per-chunk logits (B, W, V) and the (in-place updated)
+    caches."""
+    return model_lib.forward(params, cfg, tokens, cache=caches, pos=pos,
+                             attend_cache=True, chunk_valid=chunk_valid)
+
+
+def serve_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
+                     cache: Dict[str, Any], tables: torch.Tensor,
+                     pos: torch.Tensor, *, kernel: bool):
+    """ONE kernel-resident decode step over the paged pool.
+
+    ``tokens`` (B, 1); ``cache`` from ``PagedCachePool.decode_cache``;
+    ``tables`` (B, T) int32 trimmed to the micro-batch's used width;
+    ``pos`` (B,) int32 absolute positions.  ``kernel=True`` writes and
+    attends through the Hopper kernels, ``False`` through the plain path.
+    Returns (last-token logits (B, V), cache)."""
+    logits, cache = model_lib.forward(params, cfg, tokens, cache=cache, pos=pos,
+                                      paged_tables=tables, paged_kernel=kernel)
+    return logits[:, -1], cache
+
+
+def lane_generator(seed: int, n_out: int, device) -> torch.Generator:
+    """The generator a lane draws its ``n_out``-th token from."""
+    return torch.Generator(device=device).manual_seed(
+        ((int(seed) & 0xFFFFFFFF) << 20) ^ int(n_out))
+
+
+def sample_lane(logits: torch.Tensor, generator: Optional[torch.Generator],
+                temperature: float, top_k: int) -> torch.Tensor:
+    """One lane's token from its logits row (V,): greedy (argmax) when
+    ``temperature <= 0``, else a temperature-scaled categorical draw,
+    restricted to the ``top_k`` largest logits when ``top_k > 0``."""
+    if temperature <= 0:
+        return torch.argmax(logits, -1).to(torch.int32)
+    scaled = logits.float() / max(temperature, 1e-6)
+    if top_k:
+        kth = torch.topk(scaled, min(int(top_k), scaled.shape[-1])).values[-1]
+        scaled = torch.where(scaled < kth, torch.full_like(scaled, -float("inf")),
+                             scaled)
+    probs = torch.softmax(scaled, -1)
+    return torch.multinomial(probs, 1, generator=generator)[0].to(torch.int32)

@@ -1,0 +1,384 @@
+"""Licensed serving gateway of the port: continuous batching over
+(tier, version)-keyed weight views, on the block-paged KV pool.
+
+Counterpart of ``repro/serving/gateway.py::LicensedGateway`` in its main
+configuration.  Requests tagged with a ``LicenseTier`` stream in; the
+scheduler groups them into tier-homogeneous micro-batches, each served
+through one cached licensed view of the single stored weight set (the
+paper's one-stored-model-many-tiers claim, §3.5):
+
+* float weights: the view is ``apply_license(base, tier)``;
+* ``quantized=True, materialize_int8_views=True``: ONE int8 store, and
+  the view is its fused masked-dequant (the Triton kernel on CUDA).
+
+Prompts prefill in left-aligned chunks (each lane at its own cursor,
+``chunk_size`` tokens per prefill action, strictly alternating with
+decode steps) into the pool through gathered per-lane views.  Decode is
+kernel-resident: one batched step whose cache operands are the pool's
+physical block tensors; the ``paged_decode_write`` kernel writes the new
+K/V token per lane in place and ``paged_attention`` reads each live
+cache byte once through the micro-batch's trimmed block tables.  When
+the pool runs out of blocks, the youngest running request is preempted
+back to the queue head and recomputed later (generation is deterministic
+per (seed, prompt, view), so it reproduces its tokens).
+
+Left out of this port so far (see ROADMAP.md): the prefix cache,
+telemetry and tracing, staged weight sync and the update path, the
+license server lease, fleets and tenants.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.serving.engine import (lane_generator, prefill_chunk_step,
+                                        sample_lane, serve_step_paged)
+from repro_torch.serving.fleet import ModelSlot
+from repro_torch.serving.paging import cdiv
+from repro_torch.serving.scheduler import (GatewayRequest, RequestState,
+                                           ScheduledAction)
+
+
+def _pow2(n: int) -> int:
+    """Smallest power of two >= n (bounds the distinct step widths)."""
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+class LicensedGateway:
+    """Continuous-batching serving gateway with per-tier licensed views.
+
+    Parameters
+    ----------
+    cfg, params:
+        Model config and float weights (the port's nested dict, on
+        ``device``).
+    tiers:
+        Name -> :class:`LicenseTier`; ``"full"`` is always available.
+    quantized / materialize_int8_views:
+        Serve from ONE int8 store (``params`` quantized here); each
+        (tier, version) view is built once by the fused masked-dequant
+        and cached.  ``quantized`` needs ``materialize_int8_views=True``
+        in this port.
+    max_batch:
+        Lanes per micro-batch (the decode step's batch width).
+    max_prompt / max_new_cap:
+        Longest admitted prompt, and the decode budget per request.
+    block_size / num_blocks / max_lanes:
+        Paged-pool geometry; prompts prefill one block per chunk.
+        ``num_blocks`` defaults to full provisioning (``max_lanes *
+        ceil(capacity / block_size)``); size it smaller to oversubscribe
+        and exercise preemption.
+    decode_kernels:
+        Route the decode write and attention through the Hopper kernels.
+        Default: on a CUDA device; ``True`` elsewhere raises, ``False``
+        selects the plain path.
+    clock:
+        Host clock for request timestamps (injectable for tests).
+    device:
+        Where the pool and the views live (default ``cuda``).
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Any, **kw):
+        self.slot = ModelSlot(cfg, params, **kw)
+        self.slot.gateway = self
+
+    def __getattr__(self, name: str):
+        # reached only when normal lookup fails: slot state resolves here
+        slot = object.__getattribute__(self, "__dict__").get("slot")
+        if slot is None:
+            raise AttributeError(name)
+        return getattr(slot, name)
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        slot = self.__dict__.get("slot")
+        if slot is not None and hasattr(slot, name):
+            setattr(slot, name, value)
+        else:
+            object.__setattr__(self, name, value)
+
+    def view_for(self, tier: str, version: Optional[int] = None):
+        """Licensed weight view for (tier, version) — cached."""
+        return self.views.get(tier, self.version if version is None else version)
+
+    # -------------------------------------------------------------- admission
+    def _reject(self, req: GatewayRequest, error: str) -> GatewayRequest:
+        req.state = RequestState.REJECTED
+        req.error = error
+        self.stats["rejected"] += 1
+        return req
+
+    def submit(self, prompt, *, license: str = "full", max_new_tokens: int = 16,
+               temperature: float = 0.0, top_k: int = 0,
+               seed: int = 0) -> GatewayRequest:
+        """Admit one request: validate the tier, pin the weight version."""
+        req = GatewayRequest(
+            prompt=np.asarray(prompt, np.int32).reshape(-1),
+            max_new_tokens=min(int(max_new_tokens), self.max_new_cap),
+            license=license,
+            # sub-epsilon temperatures are greedy (the sampler clamps its
+            # divisor at 1e-6)
+            temperature=0.0 if temperature <= 1e-6 else temperature,
+            top_k=min(max(0, int(top_k)), self.cfg.padded_vocab), seed=seed,
+        )
+        req.rid = self._next_rid
+        self._next_rid += 1
+        req.submit_t = self.clock()
+        try:
+            self._resolve_tier(license)
+        except KeyError as e:
+            return self._reject(req, str(e))
+        if not 1 <= len(req.prompt) <= self.max_prompt:
+            return self._reject(req, f"prompt length {len(req.prompt)} "
+                                     f"outside [1, {self.max_prompt}]")
+        if req.max_new_tokens < 1:
+            return self._reject(req, "max_new_tokens < 1")
+        if not -2**31 <= int(seed) < 2**31:
+            return self._reject(req, f"seed {seed} outside int32 range")
+        req.version = self.version
+        self.scheduler.submit(req)
+        self.stats["admitted"] += 1
+        return req
+
+    # ------------------------------------------------------------- scheduling
+    def step(self) -> Optional[ScheduledAction]:
+        """Run ONE scheduler iteration: one prefill chunk or one decode
+        micro-batch."""
+        act = self.scheduler.next_action()
+        if act is None:
+            return None
+        if act.kind == "prefill":
+            self._run_chunked_prefill(act)
+        else:
+            self._run_decode(act)
+        # a decode whose whole batch was preempted executed nothing
+        if act.requests:
+            self.trace.append((act.kind, act.tier, act.version,
+                               len(act.requests)))
+        return act
+
+    def run(self, max_steps: int = 1_000_000) -> List[GatewayRequest]:
+        """Drain the queue; returns requests completed during this call."""
+        drained: List[GatewayRequest] = []
+        self._drain_sink = drained
+        try:
+            for _ in range(max_steps):
+                if self.step() is None:
+                    break
+        finally:
+            self._drain_sink = None
+        return drained
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _sample(self, logits: torch.Tensor, reqs: List[GatewayRequest]) -> np.ndarray:
+        """Per-lane epilogue of a step, on the device: greedy lanes take
+        the argmax, sampling lanes draw from their own generator; only
+        one token id per lane comes back to the host."""
+        rows = logits[: len(reqs)]
+        toks = torch.argmax(rows, -1).to(torch.int32)
+        for i, r in enumerate(reqs):
+            if r.temperature > 0:
+                gen = lane_generator(r.seed, len(r.out_tokens), self.device)
+                toks[i] = sample_lane(rows[i], gen, r.temperature, r.top_k)
+        return toks.cpu().numpy()
+
+    def _alloc_blocks(self, n: int) -> List[int]:
+        """Allocate ``n`` blocks; the scheduler's admission budget
+        guarantees this succeeds for any admitted prefill."""
+        got = self.pool.allocator.alloc(n)
+        assert got is not None, "scheduler admitted past the block budget"
+        return got
+
+    def _release_blocks(self, req: GatewayRequest) -> None:
+        for b in req.blocks:
+            self.pool.allocator.decref(b)
+        req.blocks = []
+
+    # ------------------------------------------------------ chunked prefill
+    def _run_chunked_prefill(self, act: ScheduledAction) -> None:
+        """One chunked-prefill action: admit newly scheduled requests
+        (allocate their prompt blocks, take a lane), then advance every
+        member one ``chunk_size`` chunk — so a prompt no longer than one
+        chunk reaches its first token in a single step."""
+        if act.requests[0].state is not RequestState.PREFILLING:
+            self._admit_chunked(act)
+        self._run_prefill_chunk(act)
+
+    def _admit_chunked(self, act: ScheduledAction) -> None:
+        bs = self.pool.block_size
+        for r in act.requests:
+            self.scheduler.start(r)
+            r.blocks = self._alloc_blocks(cdiv(len(r.prompt), bs))
+            r.cursor = 0
+        self._note_block_use()
+        self.stats["prefill_batches"] += 1
+        self.stats["max_running"] = max(self.stats["max_running"],
+                                        len(self.scheduler.running))
+
+    def _run_prefill_chunk(self, act: ScheduledAction) -> None:
+        """Advance every member by one left-aligned chunk.
+
+        All lanes share the ``chunk_size`` width; a lane with fewer
+        tokens left is right-padded with junk rows whose writes land
+        past its real rows.  The gathered table covers cursor + width
+        INCLUDING the junk, so the attend-cache slot clamp never folds a
+        junk row onto a real one; junk lands in the lane's own later
+        rows (overwritten before anything attends them) or the null
+        block.  Lane count and table width are rounded up to powers of
+        two, as in the JAX package.  A lane whose cursor reaches the
+        prompt end emits its first token and enters decode."""
+        view = self.views.get(act.tier, act.version)
+        reqs = act.requests
+        w = self.chunk_size
+        bs = self.pool.block_size
+        b = min(self.max_batch, _pow2(len(reqs)))
+        need = max(cdiv(r.cursor + w, bs) for r in reqs)
+        cols = min(self.pool.blocks_per_lane, _pow2(need))
+        sub = np.zeros((b, w), np.int32)
+        poss = np.zeros(b, np.int32)
+        lasts = np.zeros(b, np.int64)
+        fills = np.zeros(b, np.int32)
+        valid = np.zeros(len(reqs), np.int32)
+        for i, r in enumerate(reqs):
+            v = min(w, len(r.prompt) - r.cursor)
+            valid[i] = v
+            sub[i, :v] = r.prompt[r.cursor: r.cursor + v]
+            sub[i, v:] = int(r.prompt[-1])     # right pad: junk region
+            poss[i] = r.cursor
+            lasts[i] = v - 1
+            fills[i] = r.cursor + v
+        lane_ids = self.pool.pad_lanes([r.lane for r in reqs], b)
+        tables = self.pool.pad_tables([r.blocks[:cols] for r in reqs], b,
+                                      n_cols=cols)
+        caches = self.pool.gather(tables)
+        logits, caches = prefill_chunk_step(view, self.cfg, self._to_device(sub),
+                                            caches, self._to_device(poss))
+        rows = logits[torch.arange(b, device=self.device), self._to_device(lasts)]
+        outs = self._sample(rows, reqs)
+        caches = self.pool.override_counters(caches, fills)
+        self.pool.scatter(lane_ids, tables, caches)
+        self.stats["prefill_lane_tokens"] += w * len(reqs)
+        self.stats["prefill_chunks"] += 1
+        now = self.clock()
+        for i, r in enumerate(reqs):
+            r.cursor += int(valid[i])
+            if r.cursor < len(r.prompt):
+                continue
+            r.state = RequestState.RUNNING
+            r.pos = len(r.prompt)
+            r.first_token_t = now
+            self._emit(r, int(outs[i]))
+
+    # ------------------------------------------------------------ decode
+    def _grow_one(self, r: GatewayRequest,
+                  keep: List[GatewayRequest]) -> Optional[int]:
+        """One block for ``r``: from the free list, else by preempting the
+        youngest running request.  None if ``r`` itself was preempted."""
+        while True:
+            got = self.pool.allocator.alloc(1)
+            if got is not None:
+                return got[0]
+            victim = self.scheduler.youngest_running()
+            if victim is r and len(self.scheduler.running) == 1:
+                raise RuntimeError("block pool exhausted by a single request")
+            self._preempt(victim)
+            if victim in keep:
+                keep.remove(victim)
+            if victim is r:
+                return None
+
+    def _grow_block_tables(self, reqs: List[GatewayRequest]) -> List[GatewayRequest]:
+        """Give every request the block its next decode write needs,
+        preempting youngest-first on exhaustion; a victim inside this
+        micro-batch is dropped from it.  Terminates because the pool
+        holds at least one full request and the oldest running request
+        is never chosen while others run."""
+        keep = list(reqs)
+        for r in list(keep):
+            if r.state != RequestState.RUNNING:
+                continue                   # preempted earlier in this pass
+            needed = r.pos // self.pool.block_size + 1
+            while len(r.blocks) < needed:
+                b = self._grow_one(r, keep)
+                if b is None:
+                    break                  # r was preempted
+                r.blocks.append(b)
+        self._note_block_use()
+        return keep
+
+    def _preempt(self, req: GatewayRequest) -> None:
+        self._release_blocks(req)
+        # the restart re-emits these tokens; keep the counter equal to
+        # tokens actually delivered
+        self.stats["tokens_generated"] -= len(req.out_tokens)
+        self.scheduler.preempt(req)
+        self.stats["preempted"] += 1
+
+    def _note_block_use(self) -> None:
+        self.stats["max_blocks_in_use"] = max(
+            self.stats["max_blocks_in_use"], self.pool.allocator.num_held)
+
+    def _run_decode(self, act: ScheduledAction) -> None:
+        """One kernel-resident decode step: the pool's block tensors ARE
+        the cache operands; tables are trimmed to the batch's used width,
+        so attention reads O(context) bytes, once, through the table."""
+        act.requests = self._grow_block_tables(act.requests)
+        if not act.requests:
+            return                         # whole batch preempted
+        view = self.views.get(act.tier, act.version)
+        reqs = act.requests
+        lanes = self.pool.pad_lanes([r.lane for r in reqs], self.max_batch)
+        toks = np.zeros((self.max_batch, 1), np.int32)
+        poss = np.zeros(self.max_batch, np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, 0] = r.out_tokens[-1]
+            poss[i] = r.pos
+        used = max(r.pos // self.pool.block_size + 1 for r in reqs)
+        tables = self.pool.pad_tables([r.blocks[:used] for r in reqs],
+                                      self.max_batch, used)
+        caches = self.pool.decode_cache(lanes)
+        logits, caches = serve_step_paged(view, self.cfg, self._to_device(toks),
+                                          caches, self._to_device(tables),
+                                          self._to_device(poss),
+                                          kernel=self.decode_kernels)
+        outs = self._sample(logits, reqs)
+        self.pool.absorb_decode(lanes, caches)
+        for i, r in enumerate(reqs):
+            r.pos += 1
+            self._emit(r, int(outs[i]))
+        self.stats["decode_steps"] += 1
+
+    def _emit(self, req: GatewayRequest, tok: int) -> None:
+        """Append one token and retire the request if it is finished."""
+        req.out_tokens.append(tok)
+        self.stats["tokens_generated"] += 1
+        if len(req.out_tokens) >= req.max_new_tokens:
+            self.scheduler.finish(req)
+            self._release_blocks(req)
+            self.completed.append(req)
+            if self._drain_sink is not None:
+                self._drain_sink.append(req)
+            self.stats["completed"] += 1
+
+    # ---------------------------------------------------------------- metrics
+    def metrics(self) -> Dict[str, Any]:
+        """Counters, queue-wait ages, pool occupancy, latency percentiles
+        (host clock; the port has no telemetry histograms yet)."""
+        out: Dict[str, Any] = dict(self.stats)
+        out["view_cache"] = self.views.stats()
+        out["oldest_wait_s"] = self.scheduler.oldest_wait_s()
+        out["queue_wait_by_tier"] = self.scheduler.queue_wait_by_tier()
+        out["cache_pool"] = {"paged": True, **self.pool.stats()}
+        out["decode_path"] = {"kernel_resident": True,
+                              "kernels": self.decode_kernels}
+        out["chunked_prefill"] = {"enabled": True, "chunk_size": self.chunk_size,
+                                  "chunks": self.stats["prefill_chunks"]}
+        lats = [r.latency for r in self.completed if r.latency is not None]
+        if lats:
+            out["latency_p50_ms"] = float(np.percentile(lats, 50) * 1e3)
+            out["latency_p99_ms"] = float(np.percentile(lats, 99) * 1e3)
+        return out

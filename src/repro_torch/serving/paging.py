@@ -1,0 +1,252 @@
+"""Block-paged KV cache pool under the licensed gateway.
+
+Counterpart of ``repro/serving/paging.py`` for the dense GQA model:
+
+* :class:`BlockAllocator` — host-side free list of physical block ids
+  with per-block reference counts and the double-alloc / double-free /
+  incref-on-freed guards (a verbatim copy: it is pure Python).
+* :class:`PagedCachePool` — the device store.  K and V live as physical
+  blocks ``(U, P+1, bs, KH, hd)`` — unit axis first, block ``P`` is the
+  *null block* that absorbs writes of padding rows — addressed through
+  per-request block tables; the per-lane ``len`` counters live as
+  ``(num_lanes+1, U)``, lane ``num_lanes`` being the *scratch lane*.
+
+Prefill chunks ``gather`` each lane's logical cache through its table
+into a contiguous batch and ``scatter`` it back.  Decode does not copy:
+``decode_cache`` hands the batched step the pool's block tensors by
+reference and the kernels write the one new token per lane in place.
+The JAX package has to donate those arrays into the step and adopt the
+returned ones (``absorb_decode``); here the write already landed, so
+``absorb_decode`` only stores the lane counters.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pad_lane_ids(lanes: Sequence[int], width: int, scratch: int) -> List[int]:
+    """Pad a lane-id list to ``width`` with the scratch lane."""
+    lanes = list(lanes)
+    assert len(lanes) <= width, (len(lanes), width)
+    return lanes + [scratch] * (width - len(lanes))
+
+
+class BlockAllocator:
+    """Free list of physical cache blocks with double-alloc/free guards
+    and per-block reference counts.
+
+    Allocation is all-or-nothing (``alloc`` returns ``None`` rather than a
+    partial grant) so a caller never holds a half-provisioned request.
+    A freshly allocated block holds one reference; ``incref``/``decref``
+    manage shared holders and the block returns to the free list when the
+    last reference drops.  ``incref`` on a block that is not live raises,
+    and the hard :meth:`free` refuses blocks with other live references.
+    """
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        self.num_blocks = int(num_blocks)
+        self._free: List[int] = list(range(self.num_blocks))
+        self._ref: Dict[int, int] = {}   # live block id -> reference count
+        self.alloc_count = 0             # cumulative blocks ever allocated
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_held(self) -> int:
+        return len(self._ref)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """Atomically allocate ``n`` blocks; None if the pool can't cover it."""
+        if n < 0:
+            raise ValueError(f"alloc({n})")
+        if n > len(self._free):
+            return None
+        got = [self._free.pop() for _ in range(n)]
+        for b in got:
+            self._ref[b] = 1
+        self.alloc_count += n
+        return got
+
+    def refcount(self, block: int) -> int:
+        return self._ref.get(block, 0)
+
+    def incref(self, block: int) -> int:
+        if block not in self._ref:
+            raise ValueError(f"incref of unallocated block {block}")
+        self._ref[block] += 1
+        return self._ref[block]
+
+    def decref(self, block: int) -> int:
+        """Drop one reference; the block is freed when the count reaches
+        zero.  Returns the remaining count; over-release raises."""
+        if block not in self._ref:
+            raise ValueError(f"decref of unallocated block {block}")
+        self._ref[block] -= 1
+        left = self._ref[block]
+        if left == 0:
+            del self._ref[block]
+            self._free.append(block)
+        return left
+
+    def free(self, blocks: Sequence[int]) -> None:
+        """Return exclusively-held blocks; double-frees, foreign ids and
+        blocks with live shared references raise."""
+        for b in blocks:
+            if b not in self._ref:
+                raise ValueError(f"free of unallocated block {b}")
+            if self._ref[b] != 1:
+                raise ValueError(
+                    f"free of block {b} with {self._ref[b]} live refs; "
+                    f"shared blocks must be released via decref")
+            del self._ref[b]
+            self._free.append(b)
+
+    def stats(self) -> Dict[str, int]:
+        return {"num_blocks": self.num_blocks, "free": self.num_free,
+                "held": self.num_held, "alloc_count": self.alloc_count,
+                "shared": sum(1 for c in self._ref.values() if c > 1)}
+
+
+class PagedCachePool:
+    """Block-paged KV store behind per-request block tables.
+
+    ``num_lanes`` per-lane counter slots, ``capacity`` logical tokens per
+    request, ``block_size`` tokens per block and ``num_blocks`` physical
+    blocks shared by every lane and license tier (at least one full
+    request's worth, the preemption policy's termination guarantee).
+    """
+
+    def __init__(self, cfg: ModelConfig, num_lanes: int, capacity: int,
+                 block_size: int, num_blocks: int, *, device="cuda"):
+        self.cfg = cfg
+        self.num_lanes = int(num_lanes)
+        self.capacity = int(capacity)
+        self.block_size = int(block_size)
+        self.num_blocks = int(num_blocks)
+        if self.block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.blocks_per_lane = cdiv(self.capacity, self.block_size)
+        if self.num_blocks < self.blocks_per_lane:
+            raise ValueError(
+                f"num_blocks={num_blocks} cannot hold one full request "
+                f"({self.blocks_per_lane} blocks of {self.block_size})")
+        self.allocator = BlockAllocator(self.num_blocks)
+        self.device = torch.device(device)
+        u, kh, hd = cfg.pattern_units, cfg.num_kv_heads, cfg.head_dim
+        shape = (u, self.num_blocks + 1, self.block_size, kh, hd)
+        self.k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.lens = torch.zeros((self.num_lanes + 1, u), dtype=torch.int32,
+                                device=self.device)
+
+    # ------------------------------------------------------------- indices
+    @property
+    def scratch(self) -> int:
+        """Scratch lane id absorbing padded per-lane-state writes."""
+        return self.num_lanes
+
+    @property
+    def null_block(self) -> int:
+        """Null block id absorbing padded block-table writes."""
+        return self.num_blocks
+
+    @property
+    def cache_tokens(self) -> int:
+        return self.num_blocks * self.block_size
+
+    @property
+    def block_bytes(self) -> int:
+        """Bytes one physical block occupies across K and V."""
+        return 2 * self.k[:, 0].numel() * self.k.element_size()
+
+    def pad_lanes(self, lanes: Sequence[int], width: int) -> List[int]:
+        return pad_lane_ids(lanes, width, self.scratch)
+
+    def pad_tables(self, tables: Sequence[Sequence[int]], width: int,
+                   n_cols: Optional[int] = None) -> np.ndarray:
+        """(width, n_cols) int32 table matrix, null-padded.  ``n_cols``
+        defaults to ``blocks_per_lane``; decode trims it to the
+        micro-batch's used blocks so attention reads O(context)."""
+        n_cols = self.blocks_per_lane if n_cols is None else int(n_cols)
+        assert len(tables) <= width, (len(tables), width)
+        out = np.full((width, n_cols), self.null_block, np.int32)
+        for i, t in enumerate(tables):
+            assert len(t) <= n_cols, (len(t), n_cols)
+            out[i, : len(t)] = t
+        return out
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int32)).to(self.device)
+
+    # ------------------------------------------------------- gather/scatter
+    def gather(self, tables) -> Dict[str, Any]:
+        """Contiguous per-lane views for a prefill chunk: ``tables`` (B, T)
+        -> cache ``k``/``v`` (U, B, T*bs, KH, hd) in logical order, with
+        fresh (zero) ``len`` counters — the chunk step masks positionally
+        and the gateway pins the counters to the true fill afterwards."""
+        tab = self._tensor(tables).long()
+        b, t = tab.shape
+        u, _, bs, kh, hd = self.k.shape
+        return {"units": {"b0": {
+            "k": self.k[:, tab].reshape(u, b, t * bs, kh, hd),
+            "v": self.v[:, tab].reshape(u, b, t * bs, kh, hd),
+            "len": torch.zeros((u, b), dtype=torch.int32, device=self.device),
+        }}}
+
+    def scatter(self, lanes: Sequence[int], tables, caches: Dict[str, Any]) -> None:
+        """Write chunk views back through the tables and the counters by
+        lane id.  Padding rows target the null block / scratch lane, so
+        duplicate pad indices never race a live lane."""
+        tab = self._tensor(tables).long()
+        b, t = tab.shape
+        u, _, bs, kh, hd = self.k.shape
+        c = caches["units"]["b0"]
+        self.k[:, tab] = c["k"].reshape(u, b, t, bs, kh, hd).to(self.k.dtype)
+        self.v[:, tab] = c["v"].reshape(u, b, t, bs, kh, hd).to(self.v.dtype)
+        self.lens[self._tensor(lanes).long()] = c["len"].t().to(torch.int32)
+
+    # ----------------------------------------------- kernel-resident decode
+    def decode_cache(self, lanes: Sequence[int]) -> Dict[str, Any]:
+        """Cache dict for the batched kernel-resident decode step: the
+        pool's block tensors by reference plus the lanes' counters
+        (U, B)."""
+        return {"units": {"b0": {
+            "k": self.k, "v": self.v,
+            "len": self.lens[self._tensor(lanes).long()].t().contiguous(),
+        }}}
+
+    def absorb_decode(self, lanes: Sequence[int], caches: Dict[str, Any]) -> None:
+        """Adopt a decode step's outputs: its K/V token writes already
+        landed in the pool in place; store the advanced counters."""
+        c = caches["units"]["b0"]
+        assert c["k"] is self.k and c["v"] is self.v
+        self.lens[self._tensor(lanes).long()] = c["len"].t().to(torch.int32)
+
+    def override_counters(self, caches: Dict[str, Any], value) -> Dict[str, Any]:
+        """Pin the gathered ``len`` counters to the true logical fill
+        (``value`` scalar or (B,) per lane): a chunk step only counts its
+        own W rows."""
+        c = caches["units"]["b0"]
+        val = torch.as_tensor(value, dtype=torch.int32, device=self.device)
+        c["len"] = val.reshape(1, -1).expand_as(c["len"]).clone()
+        return caches
+
+    def stats(self) -> Dict[str, int]:
+        st = self.allocator.stats()
+        st.update(block_size=self.block_size, cache_tokens=self.cache_tokens,
+                  blocks_per_lane=self.blocks_per_lane,
+                  num_lanes=self.num_lanes, block_bytes=self.block_bytes)
+        return st

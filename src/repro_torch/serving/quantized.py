@@ -1,0 +1,114 @@
+"""Quantized licensed serving: ONE int8 weight store, a licensed view per tier.
+
+Counterpart of ``repro/serving/quantized.py``.  Block weights are kept
+as (codes int8, scale f32) with per-output-channel scales; a tier's view
+is built by the fused masked-dequant (``kernels/masked_dequant.py``, the
+Triton kernel on CUDA), once per (tier, version), and cached by the
+gateway (``materialize_int8_views``).  The in-scan variant of the JAX
+package, which dequantizes inside every forward step, is not ported yet
+(ROADMAP, "the in-scan int8 dequant").
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.licensing import LicenseTier
+from repro_torch.kernels.ops import pack_intervals
+
+# leaves excluded from quantization (precision- or structure-critical)
+_SKIP = ("norm", "bias", "router", "conv", "A_log", "dt_bias", "D_skip",
+         "a_param", "tok", "lm_head", "scale")
+
+
+def _eligible(name: str, leaf) -> bool:
+    short = name.split("/")[-1]
+    if any(k in short for k in _SKIP):
+        return False
+    if not hasattr(leaf, "ndim"):
+        return False
+    # unit-stacked weights are (U, in, out); plain 2-D under units are
+    # stacked biases — leave those alone
+    if "units/" in name:
+        return leaf.ndim >= 3
+    return "tail/" in name and leaf.ndim >= 2
+
+
+def _quantize_leaf(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-output-channel symmetric int8: the scale reduces over the
+    second-to-last (contraction) dim.  ``torch.round`` rounds half to
+    even, as ``jnp.round`` does, so the codes match the JAX package's."""
+    w = w.float()
+    amax = w.abs().amax(dim=-2, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    codes = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return {"codes": codes, "scale": scale}
+
+
+def quantize_serving_params(params: Any, prefix: str = "") -> Any:
+    """Same-structure tree; eligible weights become {"codes","scale"} dicts."""
+    if isinstance(params, dict):
+        return {k: quantize_serving_params(v, f"{prefix}/{k}" if prefix else k)
+                for k, v in params.items()}
+    return _quantize_leaf(params) if _eligible(prefix, params) else params
+
+
+def is_qleaf(leaf) -> bool:
+    return isinstance(leaf, dict) and "codes" in leaf and "scale" in leaf
+
+
+def _map_qleaves(fn, tree: Any) -> Any:
+    if is_qleaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_qleaves(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def materialize_licensed_view(qparams: Any, tier: Optional[LicenseTier],
+                              dtype) -> Any:
+    """Run the fused masked-dequant once, returning a full-precision
+    licensed view of the int8 store (the gateway's
+    ``materialize_int8_views`` path).  2-D weight slices go through
+    ``kernels.ops.masked_dequant``; stacked leaves (U, in, out) are
+    dequantized slice by slice along the unit axis, one kernel launch per
+    slice.  Non-quantized leaves are shared with the store."""
+    from repro_torch.kernels import ops
+
+    li = tier_intervals(tier)
+    if li is None:
+        ivs = []
+    else:
+        lo, hi = li
+        ivs = [(float(a), float(b)) for a, b in zip(lo.tolist(), hi.tolist()) if b > a]
+
+    def dq(leaf):
+        codes, scale = leaf["codes"], leaf["scale"]
+        if codes.ndim == 2:
+            return ops.masked_dequant(codes, scale, ivs, out_dtype=dtype)
+        lead = codes.shape[:-2]
+        r, c = codes.shape[-2:]
+        flat_c = codes.reshape(-1, r, c)
+        flat_s = scale.expand(*lead, 1, c).reshape(-1, 1, c)
+        slices = [ops.masked_dequant(flat_c[i], flat_s[i], ivs, out_dtype=dtype)
+                  for i in range(flat_c.shape[0])]
+        return torch.stack(slices).reshape(*lead, r, c)
+
+    return _map_qleaves(dq, qparams)
+
+
+def tier_intervals(tier: Optional[LicenseTier]) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Pack a tier's intervals for the fused dequant, copied as the JAX
+    package has it: the '*' intervals first, then every other pattern's,
+    merged into ONE global set (so on a tier with per-layer patterns the
+    int8 view masks more than ``apply_license`` does)."""
+    if tier is None or not tier.masks:
+        return None
+    ivs = list(tier.masks.get("*", ()))
+    for pat, v in tier.masks.items():
+        if pat != "*":
+            ivs.extend(v)
+    if not ivs:
+        return None
+    return pack_intervals(ivs)

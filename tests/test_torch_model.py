@@ -1,0 +1,153 @@
+"""The port's dense GQA model against ``repro.models.model.forward``.
+
+Weights are the JAX package's ``init_params(PRNGKey(0), smoke qwen2.5-3b)``
+carried across with ``params_from_jax``; inputs come from numpy seeds.
+Logits are compared at atol = rtol = 1e-4 in f32: the two frameworks sum
+the matrix products and softmaxes in different orders, and RoPE's
+``theta ** x`` may differ in its last bit (observed error ~1e-6).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import smoke_variant as jax_smoke_variant
+from repro.core.pytree_io import flatten_params as jax_flatten_params
+from repro.models import init_params as jax_init_params
+from repro.models import model as jax_model
+from repro.serving.engine import prefill_chunk_step as jax_prefill_chunk_step
+from repro.serving.engine import serve_step_paged as jax_serve_step_paged
+from repro.serving.engine import stack_lane_caches
+
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.models import model
+from repro_torch.serving.engine import prefill_chunk_step, serve_step_paged
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = jax_smoke_variant(jax_get_config("qwen2.5-3b"))
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = smoke_variant(get_config("qwen2.5-3b"))
+    return jcfg, jparams, cfg, model.params_from_jax(jax_flatten_params(jparams))
+
+
+def _tokens(seed, shape):
+    return np.random.default_rng(seed).integers(0, 500, shape, dtype=np.int32)
+
+
+def test_config_fields_match_jax(weights):
+    jcfg, _, cfg, _ = weights
+    for f in ("num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim",
+              "d_ff", "vocab_size", "padded_vocab", "rope_theta", "attn_bias",
+              "layer_pattern", "pattern_units", "name"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    full = get_config("qwen2.5-3b")
+    assert (full.num_layers, full.d_model, full.padded_vocab) == (36, 2048, 152064)
+    assert full.dtype == torch.bfloat16
+
+
+def test_one_shot_prefill(weights):
+    jcfg, jparams, cfg, params = weights
+    toks = _tokens(0, (2, 9))
+    want, _, _ = jax_model.forward(jparams, jcfg, jnp.asarray(toks))
+    got, _ = model.forward(params, cfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert (got[..., cfg.vocab_size:] == -1e9).all()
+
+
+def test_prefill_then_decode(weights):
+    jcfg, jparams, cfg, params = weights
+    toks, nxt, cap = _tokens(1, (2, 6)), _tokens(2, (2, 1)), 10
+    jcache = jax_model.init_cache(jcfg, 2, cap)
+    _, _, jcache = jax_model.forward(jparams, jcfg, jnp.asarray(toks), cache=jcache)
+    want, _, _ = jax_model.forward(jparams, jcfg, jnp.asarray(nxt), cache=jcache, pos=6)
+    cache = model.init_cache(cfg, 2, cap, device="cpu")
+    model.forward(params, cfg, torch.from_numpy(toks), cache=cache)
+    got, cache = model.forward(params, cfg, torch.from_numpy(nxt), cache=cache, pos=6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert cache["units"]["b0"]["len"].tolist() == [[7, 7], [7, 7]]
+
+
+def test_chunked_attend_cache_ragged(weights):
+    """Three lanes at different cursors, one chunk of width 4 with ragged
+    real-row counts: the JAX step vmaps batch-1 lanes, the port runs one
+    batch with per-lane positions.  Junk rows are never compared; lane 2's
+    two junk rows (positions 10 and 11) clamp onto the last slot (10),
+    past its real rows."""
+    jcfg, jparams, cfg, params = weights
+    cap, w = 11, 4
+    prefix = _tokens(3, (3, 8))
+    pos = np.asarray([2, 5, 8], np.int32)
+    valid = np.asarray([4, 2, 2], np.int32)
+    chunk = _tokens(4, (3, w))
+    # lane caches already holding each lane's first `pos` tokens
+    jcaches = stack_lane_caches(jcfg, 3, cap)
+    cache = model.init_cache(cfg, 3, cap, device="cpu")
+    for i, p in enumerate(pos):
+        row = prefix[i:i + 1, :p]
+        _, _, c = jax_model.forward(jparams, jcfg, jnp.asarray(row),
+                                    cache=jax_model.init_cache(jcfg, 1, cap))
+        jcaches = jax.tree_util.tree_map(lambda a, b: a.at[i].set(b), jcaches, c)
+    lanes = [model.init_cache(cfg, 1, cap, device="cpu") for _ in pos]
+    for i, p in enumerate(pos):
+        model.forward(params, cfg, torch.from_numpy(prefix[i:i + 1, :p]), cache=lanes[i])
+    for key in ("k", "v", "len"):
+        cache["units"]["b0"][key] = torch.cat(
+            [c["units"]["b0"][key] for c in lanes], dim=1)
+    want, _ = jax_prefill_chunk_step(jparams, jcfg, jnp.asarray(chunk), jcaches,
+                                     jnp.asarray(pos), chunk_valid=jnp.asarray(valid))
+    got, cache = prefill_chunk_step(params, cfg, torch.from_numpy(chunk), cache,
+                                    torch.from_numpy(pos), torch.from_numpy(valid))
+    want = np.asarray(want)
+    for i, v in enumerate(valid):
+        np.testing.assert_allclose(got[i, :v].numpy(), want[i, :v], **TOL)
+    assert cache["units"]["b0"]["len"][0].tolist() == [6, 7, 10]
+
+
+def _paged_case(jcfg, seed):
+    """A decode step against a random pool: 3 live lanes + 1 pad lane."""
+    r = np.random.default_rng(seed)
+    u, kh, hd, bs, p = jcfg.pattern_units, jcfg.num_kv_heads, jcfg.head_dim, 4, 12
+    pool_k = r.standard_normal((u, p + 1, bs, kh, hd)).astype(np.float32)
+    pool_v = r.standard_normal((u, p + 1, bs, kh, hd)).astype(np.float32)
+    pos = np.asarray([5, 13, 2, 0], np.int32)
+    tables = np.full((4, 4), p, np.int32)              # null-padded
+    perm = r.permutation(p)
+    tables[0, :2], tables[1, :4], tables[2, :1] = perm[:2], perm[2:6], perm[6:7]
+    toks = r.integers(0, 500, (4, 1)).astype(np.int32)
+    return pool_k, pool_v, pos, tables, toks
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_paged_decode_matches_jax(weights, route):
+    """Port paged decode vs JAX ``serve_step_paged``: the plain path
+    against ``kernel="off"``, and the kernel route (whose wrappers take
+    the plain versions on CPU tensors) against the Pallas kernels in
+    interpret mode."""
+    jcfg, jparams, cfg, params = weights
+    pool_k, pool_v, pos, tables, toks = _paged_case(jcfg, 5)
+    u, b = jcfg.pattern_units, len(pos)
+    jcache = {"units": {"b0": {"k": jnp.asarray(pool_k)[:, None],
+                               "v": jnp.asarray(pool_v)[:, None],
+                               "len": jnp.zeros((u, b), jnp.int32)}}}
+    want, jcache = jax_serve_step_paged(
+        jparams, jcfg, jnp.asarray(toks), jcache, jnp.asarray(tables),
+        jnp.asarray(pos), kernel="off" if route == "plain" else "interpret")
+    cache = {"units": {"b0": {"k": torch.from_numpy(pool_k.copy()),
+                              "v": torch.from_numpy(pool_v.copy()),
+                              "len": torch.zeros((u, b), dtype=torch.int32)}}}
+    got, cache = serve_step_paged(params, cfg, torch.from_numpy(toks), cache,
+                                  torch.from_numpy(tables), torch.from_numpy(pos),
+                                  kernel=route == "kernel")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    null = pool_k.shape[1] - 1
+    for key in ("k", "v"):       # the written tokens (null block excluded)
+        np.testing.assert_allclose(cache["units"]["b0"][key][:, :null].numpy(),
+                                   np.asarray(jcache["units"]["b0"][key])[:, 0, :null],
+                                   atol=1e-5, rtol=1e-5)
+    assert cache["units"]["b0"]["len"].tolist() == [[1] * b] * u
