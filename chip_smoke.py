@@ -6,10 +6,12 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi), and the kernel build
    from the sources in this checkout (``src/repro_torch/kernels``);
-2. every kernel of the main path against its plain PyTorch version, on
+2. every kernel of the main paths against its plain PyTorch version, on
    the card, at the shapes the gateway gives it, with its time (CUDA
-   events), the plain version's time and its bound on this card;
-3. the main path: ``LicensedGateway`` serving requests in two license
+   events), the plain version's time, the time of one PyTorch library
+   call computing the same function where there is one, and its bound
+   on this card;
+3. the serving path: ``LicensedGateway`` serving requests in two license
    tiers at the full width and depth of qwen2.5-3b (random bf16 weights
    from a seed), through float views and through int8 views built by the
    fused masked-dequant; the launch counters are zeroed just before and
@@ -17,7 +19,23 @@ Phases (each prints its own lines; any failure exits non-zero):
 4. one decode step's logits through the kernels vs the plain path on the
    same pool state, and the greedy-token agreement of a whole plain-path
    run (for information);
-5. a ``kernels`` JSON line, and the result line last.
+5. the update path (paper §3.1.2, §4.3), launch counters zeroed just
+   before: a ``LicenseServer`` over an in-memory ``WeightStore`` gets v1
+   (phase 3's weights) and a ``free`` tier; a float gateway boots
+   ``from_server`` at full width and depth (the boot pull through the
+   ``delta_apply`` kernel, checked bit for bit against v1) and takes
+   phase 3's request stream; v2 (units 32-35 changed: norms and q/k/v
+   biases as rows, 1% of each block matrix as chunk pages) is published
+   and staged mid-stream (``begin_sync`` then ``run``).  The in-flight
+   requests must stay on v1 with phase 3's tokens, exactly one flip must
+   happen, the flipped weights must equal v2 bit for bit, and a request
+   after the flip must be served on v2 through a prewarmed view;
+6. the same sync on an int8 gateway with materialized views, at full
+   width and a depth of 4 units (a second full-depth boot pull would
+   cost the same host time again); its v2 int8 store must equal
+   ``quantize_serving_params(v2)``.  Both ``delta_apply`` forms must have
+   been launched on phases 5-6;
+7. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
 device is present or when run outside a checkout of the repository.
@@ -26,6 +44,7 @@ from __future__ import annotations
 
 import gc
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -187,10 +206,84 @@ def check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md):
         ms=times[0][0], plain_ms=times[0][1], bound_ms=bnd, bound_by=by,
         library_ms=None)
     log(f"  masked_dequant 11008x2048: {times[1][0]:.4f} ms (plain {times[1][1]:.4f} ms)")
+    rows["delta_apply"] = check_delta_apply(peaks, torch, ref, dev, gen)
     for name, row in rows.items():
         log(f"  {name}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows
+
+
+def check_delta_apply(peaks, torch, ref, dev, gen):
+    """Both forms of the scatter kernel vs the plain version, bit-exact:
+    out of place at the boot pull's largest layer (every index of a
+    36x2048x11008 bf16 buffer, bf16 values), in place at a staged-sync
+    part (a 36x2048 bf16 norm, f32 values for units 32-35, plus padding
+    indices equal to N).  The library column is one ``index_put`` call
+    (in-range indices, values already in buf's dtype)."""
+    from repro_torch.kernels.delta_apply import delta_apply
+
+    forms = {}
+    # out of place, boot shape: every index of the buffer (n = N)
+    n = 36 * 2048 * 11008
+    buf = torch.zeros(n, dtype=torch.bfloat16, device=dev)
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    val = torch.randn(n, dtype=torch.float32, device=dev).bfloat16()
+    got = delta_apply(buf, idx, val)
+    want = ref.delta_apply(buf, idx, val)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.equal(got, want) or buf.count_nonzero().item():
+        fail("delta_apply (out of place) disagrees with its plain version")
+    del got, want
+    # the function's bytes, not the clone-then-scatter design's: n int64
+    # indices and bf16 values read, buf read once and the output written
+    # once (N x 2 B each)
+    bnd, by = bound_ms(n * (8 + 2) + 2 * n * 2, 0, peaks)
+    forms["delta_apply"] = dict(
+        shape=f"N={n} bf16, n={n} int64 / bf16", max_abs_err=err,
+        replaces="src/repro/kernels/delta_apply.py:63",
+        ms=time_ms(lambda: delta_apply(buf, idx, val), iters=20, warmup=2),
+        plain_ms=time_ms(lambda: ref.delta_apply(buf, idx, val), iters=3, warmup=1),
+        library_ms=time_ms(lambda: buf.index_put((idx,), val), iters=20, warmup=2),
+        bound_ms=bnd, bound_by=by)
+    del buf, idx, val
+    torch.cuda.empty_cache()
+
+    # in place, a sync part: 8,192 f32 values into a bf16 norm + padding
+    n_buf, pad = 36 * 2048, 16
+    buf = torch.randn(n_buf, generator=gen).bfloat16().to(dev)
+    live = torch.arange(32 * 2048, 36 * 2048, dtype=torch.int64)
+    idx = torch.cat([live[torch.randperm(live.numel(), generator=gen)],
+                     torch.full((pad,), n_buf, dtype=torch.int64)]).to(dev)
+    val = torch.randn(idx.numel(), generator=gen).to(dev)
+    work = buf.clone()
+    got = delta_apply(work, idx, val, donate=True)
+    want = ref.delta_apply(buf.clone(), idx, val, donate=True)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if got.data_ptr() != work.data_ptr() or not torch.equal(got, want):
+        fail("delta_apply_inplace disagrees with its plain version")
+    n_live = live.numel()
+    # every int64 index and f32 value read; only the in-range entries write
+    bnd, by = bound_ms(idx.numel() * (8 + 4) + n_live * 2, 0, peaks)
+    in_range, cast = idx[:n_live], val[:n_live].bfloat16()
+    forms["delta_apply_inplace"] = dict(
+        shape=f"N={n_buf} bf16, n={idx.numel()} int64 / f32 ({pad} padding)",
+        max_abs_err=err, replaces="src/repro/kernels/delta_apply.py:82",
+        ms=time_ms(lambda: delta_apply(work, idx, val, donate=True)),
+        plain_ms=time_ms(lambda: ref.delta_apply(work, idx, val, donate=True)),
+        library_ms=time_ms(lambda: work.index_put_((in_range,), cast)),
+        bound_ms=bnd, bound_by=by)
+    for name, f in forms.items():
+        log(f"  {name} [{f['shape']}]: max_abs_err {f['max_abs_err']:.1e} (exact), "
+            f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, index_put "
+            f"{f['library_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms ({f['bound_by']})")
+    top = forms["delta_apply"]
+    return dict(route="cuda", source="src/repro_torch/kernels/csrc/delta_apply.cu",
+                replaces="src/repro/kernels/delta_apply.py:63",
+                max_abs_err=max(f["max_abs_err"] for f in forms.values()),
+                ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"], library_ms=top["library_ms"], forms=forms)
 
 
 # ------------------------------------------------------------ phase 3 / 4
@@ -279,7 +372,226 @@ def decode_logits_check(gw, cfg, np, torch):
     return err, scale, same, len(reqs), tier
 
 
+# ------------------------------------------------------------ phase 5 / 6
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def make_v2(v1, units, torch):
+    """v1 with ``units`` changed: norm scales and q/k/v biases (rows-mode
+    layers) redrawn, and 1% of the entries of each block matrix slice
+    (chunk-mode layers) replaced.  Untouched layers are shared with v1."""
+    gen = torch.Generator().manual_seed(SEED + 2)
+    blk = v1["units"]["b0"]
+    new = {"norm1": {}, "norm2": {}, "mixer": {}, "ffn": {}}
+    for grp, key in (("norm1", "norm_scale"), ("norm2", "norm_scale"),
+                     ("mixer", "bq"), ("mixer", "bk"), ("mixer", "bv")):
+        w = blk[grp][key].clone()
+        base = 1.0 if grp.startswith("norm") else 0.0
+        w[units] = (base + 0.05 * torch.randn(w[units].shape, generator=gen)).to(w.dtype)
+        new[grp][key] = w
+    for grp, key in (("mixer", "wq"), ("mixer", "wk"), ("mixer", "wv"), ("mixer", "wo"),
+                     ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")):
+        w = blk[grp][key].clone()
+        sl = w[units].reshape(-1)                  # a copy of the slice
+        hit = torch.randperm(sl.numel(), generator=gen)[: sl.numel() // 100]
+        sl[hit] = (torch.randn(hit.numel(), generator=gen) * 0.02).to(w.dtype)
+        w[units] = sl.reshape(w[units].shape)
+        new[grp][key] = w
+    units_new = {g: {**blk[g], **new[g]} for g in blk}
+    return {**v1, "units": {"b0": units_new}}
+
+
+def flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat_leaves(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def same_weights(got, want, torch):
+    """Names of the layers where the card's tensors differ from the host
+    reference (compared on the card, one layer at a time)."""
+    want_flat = dict(flat_leaves(want))
+    bad = [name for name, t in flat_leaves(got)
+           if not torch.equal(t, want_flat[name].to(t.device))]
+    return bad + sorted(set(want_flat) - {n for n, _ in flat_leaves(got)})
+
+
+class Timed:
+    """Host-clock sums around library calls of the boot pull (each ends
+    in a device synchronize), installed on the modules that call them."""
+
+    def __init__(self):
+        self.s = {}
+        self._undo = []
+
+    def wrap(self, owner, attr, label):
+        fn = getattr(owner, attr)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            self.s[label] = self.s.get(label, 0.0) + time.perf_counter() - t0
+            return out
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def restore(self):
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo = []
+
+
+def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None,
+                 max_step_bytes=16 << 20):
+    """Publish v1, boot a gateway from the server, serve the stream, and
+    stage v2 mid-stream; every check of phases 5/6.  Returns a summary."""
+    from repro_torch.core import delta as delta_lib
+    from repro_torch.core import transport as transport_lib
+    from repro_torch.core.licensing import LicenseTier
+    from repro_torch.core.protocol import LicenseServer
+    from repro_torch.core.weightstore import WeightStore
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import LicensedGateway
+    from repro_torch.serving.quantized import quantize_serving_params
+
+    out = {}
+    u = cfg.pattern_units
+    units = list(range(max(0, u - 4), u))
+    v1 = tree_map(lambda t: t.cpu(), init_params(cfg, seed=SEED, device=device))
+    v2 = make_v2(v1, units, torch)
+    # chunk pages stored raw: random bf16 weights do not compress, and
+    # zlib over the 6.8 GB model would cost about a minute of host time
+    server = LicenseServer(WeightStore(":memory:", compress_chunks=False))
+    t0 = time.perf_counter()
+    server.publish("lm", v1, tag="v1")
+    server.publish_tier("lm", LicenseTier(name="free", masks=FREE_TIER))
+    out["publish_v1_s"] = time.perf_counter() - t0
+
+    template = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device), v1)
+    timed = Timed()
+    timed.wrap(server.store, "delta_since", "delta_query_s")
+    timed.wrap(transport_lib, "packet_checksum", "checksums_s")
+    timed.wrap(delta_lib, "to_tensor", "transfer_s")
+    timed.wrap(ops, "delta_apply", "apply_s")
+    t0 = time.perf_counter()
+    try:
+        gw = LicensedGateway.from_server(cfg, server, "lm", template, device=device,
+                                         **gw_kw, **GEOMETRY)
+        sync()
+    finally:
+        timed.restore()
+    boot = time.perf_counter() - t0
+    del template
+    out["boot_pull"] = {"total_s": boot, **timed.s,
+                        "other_s": boot - sum(timed.s.values()),
+                        "wire_bytes": gw._client.bytes_downloaded}
+    log(f"  {label}: boot pull {boot:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in timed.s.items())
+        + f"), {gw._client.bytes_downloaded / 1e9:.2f} GB on the wire")
+    bad = same_weights(gw._client.params, v1, torch)
+    if bad:
+        fail(f"{label}: boot pull differs from v1 in {bad[:5]}")
+    log(f"  {label}: pulled weights equal v1 bit for bit "
+        f"({sum(1 for _ in flat_leaves(v1))} layers)")
+
+    for tier in ("full", "free"):    # views first, as in phase 3, so the
+        gw.view_for(tier)           # step before the sync is a plain one
+    reqs = submit_all(gw, cfg, np)
+    steps = {"before": [], "during": [], "after": []}
+    phases = {}
+    flip_t = None
+
+    def step():
+        nonlocal flip_t
+        when = ("during" if gw.sync_active else
+                "before" if gw.version == 1 else "after")
+        if gw.sync_active:
+            phases[gw._stager.phase] = phases.get(gw._stager.phase, 0) + 1
+        t = time.perf_counter()
+        act = LicensedGateway.step(gw)
+        sync()
+        dt = time.perf_counter() - t
+        if act is not None or when == "during":
+            steps[when].append(dt)
+        if flip_t is None and gw.version != 1:
+            flip_t = time.perf_counter()
+        return act
+
+    gw.step = step                 # run() drives this timed step
+    gw.step()
+    t0 = time.perf_counter()
+    server.publish("lm", v2, tag="v2")
+    out["publish_v2_s"] = time.perf_counter() - t0
+    wire0 = gw._client.bytes_downloaded
+    t_begin = time.perf_counter()
+    if not gw.begin_sync(max_step_bytes=max_step_bytes):
+        fail(f"{label}: begin_sync found no newer version")
+    out["begin_sync_s"] = time.perf_counter() - t_begin
+    gw.run()
+    sync()
+    st = gw.metrics()["staged_update"]
+    if flip_t is None or st["flips"] != 1 or gw.version != 2:
+        fail(f"{label}: expected exactly one flip to v2, got {st['flips']} "
+             f"(version {gw.version})")
+    bad = [r.rid for r in reqs if r.version != 1 or r.state.value != "done"
+           or len(r.out_tokens) != r.max_new_tokens]
+    if bad:
+        fail(f"{label}: in-flight requests {bad} left v1 or did not finish")
+    if ref_tokens is not None and [r.out_tokens for r in reqs] != ref_tokens:
+        fail(f"{label}: in-flight tokens differ from the update-free run")
+    if gw.quantized:
+        want = quantize_serving_params(tree_map(lambda t: t.to(device), v2))
+        bad = same_weights(gw._weights[2], want, torch)
+        del want
+        if bad:
+            fail(f"{label}: v2 int8 store differs from quantize_serving_params(v2) "
+                 f"in {bad[:5]}")
+    bad = same_weights(gw._client.params, v2, torch)
+    if bad:
+        fail(f"{label}: flipped weights differ from v2 in {bad[:5]}")
+    misses = gw.views.misses
+    late = [gw.submit(np.arange(1, 20, dtype=np.int32), license=t, max_new_tokens=4)
+            for t in ("full", "free")]
+    gw.run()
+    if any(r.version != 2 or r.state.value != "done" for r in late) \
+            or gw.views.misses != misses:
+        fail(f"{label}: post-flip requests not served on v2 through prewarmed views")
+    out.update(
+        sync_steps_by_phase=phases, parts_applied=st["parts_applied"],
+        bytes_applied=st["bytes_applied"], layers_touched=st["layers_touched"],
+        layers_requantized=st["layers_requantized"],
+        views_prewarmed=st["views_prewarmed"], wire=st["wire"],
+        sync_wire_bytes=gw._client.bytes_downloaded - wire0,
+        begin_to_flip_s=flip_t - t_begin,
+        step_ms={k: {"n": len(v), "max": 1e3 * max(v) if v else None,
+                     "median": 1e3 * float(np.median(v)) if v else None}
+                 for k, v in steps.items()},
+        tokens=[r.out_tokens for r in reqs])
+    log(f"  {label}: v2 staged in {sum(phases.values())} steps {phases}, "
+        f"{st['parts_applied']} parts, {st['bytes_applied'] / 1e6:.1f} MB applied, "
+        f"{out['sync_wire_bytes'] / 1e6:.1f} MB on the wire; begin_sync "
+        f"{out['begin_sync_s']:.2f} s, begin->flip {out['begin_to_flip_s']:.2f} s")
+    sm = out["step_ms"]
+    log(f"  {label}: longest scheduler step before the sync "
+        f"{sm['before']['max']:.1f} ms, during {sm['during']['max']:.1f} ms "
+        f"(median {sm['during']['median']:.1f} ms over {sm['during']['n']}), after "
+        f"{sm['after']['max']:.1f} ms; in-flight requests stayed on v1, one flip, "
+        f"v2 bit-exact, post-flip requests on prewarmed v2 views")
+    del gw
+    gc.collect()
+    return out
+
+
 def main() -> None:
+    t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
              f"checkout of the repository")
@@ -343,9 +655,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  launches on the main path: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    for name in ("paged_attention", "paged_decode_write", "masked_dequant"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the serving path")
 
     # ---------------------------------------------------------- phase 4
     log("phase 4: kernel path vs plain path")
@@ -370,12 +682,51 @@ def main() -> None:
     log(f"  greedy tokens equal between kernel and plain decode: {agree}/{total} "
         f"(information only: bf16 rounding may flip near-ties)")
 
+    del gw, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- phase 5
+    log(f"phase 5: update path, {ARCH} at full width and depth")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    upd = update_phase("float gateway", cfg, {}, torch, np,
+                       ref_tokens=[r.out_tokens for r in float_reqs])
+    upd["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the process's peak resident host memory so far (ru_maxrss is in KiB)
+    upd["host_maxrss_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    log(f"  float gateway: in-flight tokens equal phase 3's update-free run; "
+        f"max_memory_allocated {upd['max_memory_allocated_gb']:.1f} GB, "
+        f"host peak RSS {upd['host_maxrss_gb']:.1f} GB")
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- phase 6
+    log(f"phase 6: update path on an int8 gateway, {ARCH} at full width, 4 units")
+    torch.cuda.reset_peak_memory_stats()
+    cfg4 = cfg.replace(num_layers=4)
+    upd8 = update_phase("int8 gateway", cfg4,
+                        dict(quantized=True, materialize_int8_views=True), torch, np)
+    upd8["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    upd_launches = dict(ops.LAUNCHES)
+    log(f"  launches on the update path: {upd_launches}")
+    for name in ("delta_apply", "delta_apply_inplace"):
+        if upd_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the update path")
+    for name in ("delta_apply", "delta_apply_inplace"):
+        rows["delta_apply"]["forms"][name]["launches"] = upd_launches[name]
+    launches["delta_apply"] = (upd_launches["delta_apply"]
+                               + upd_launches["delta_apply_inplace"])
+
+    # ---------------------------------------------------------- phase 7
     kernels = [dict(name=name, launches=launches[name], **row)
                for name, row in rows.items()]
+    for u in (upd, upd8):
+        u.pop("tokens")
+    log(f"whole script {time.perf_counter() - t_script:.1f} s (kernel build included)")
     log(json.dumps({"gateway": {"float": float_t, "int8": int8_t,
                                 "plain_decode": plain_t,
-                                "decode_logits_max_abs_err": err}}))
+                                "decode_logits_max_abs_err": err},
+                    "update": {"float_full_depth": upd, "int8_depth4": upd8}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

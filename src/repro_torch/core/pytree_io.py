@@ -1,4 +1,4 @@
-"""Nested parameter dicts <-> flat {layer_name: tensor} by '/'-joined paths.
+"""Nested parameter dicts <-> flat {layer_name: leaf} by '/'-joined paths.
 
 Mirrors ``repro.core.pytree_io``: names and their order are the JAX
 package's, which flattens dicts in **sorted-key** order — ``LicenseTier``
@@ -35,3 +35,20 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[last] = leaf
     return out
+
+
+def unflatten_like(template: Any, flat: Dict[str, Any], prefix: str = "") -> Any:
+    """Rebuild ``template``'s nested structure from a flat dict, checking
+    that every layer is present with the template leaf's shape (the
+    ``WeightStore`` boundary's guard, as in ``repro.core.pytree_io``)."""
+    if isinstance(template, dict):
+        return {key: unflatten_like(template[key], flat,
+                                    f"{prefix}/{key}" if prefix else str(key))
+                for key in template}
+    if prefix not in flat:
+        raise KeyError(f"missing layer {prefix!r} in store payload")
+    leaf = flat[prefix]
+    if tuple(leaf.shape) != tuple(template.shape):
+        raise ValueError(f"shape mismatch for {prefix!r}: store "
+                         f"{tuple(leaf.shape)} vs template {tuple(template.shape)}")
+    return leaf

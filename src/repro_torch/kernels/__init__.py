@@ -3,6 +3,8 @@
 - paged_attention / paged_decode_write: CUDA C++ (``csrc/``), decode
   attention and the one-token write against the block-paged KV pool
 - masked_dequant: Triton, fused int8 dequant + license-interval mask
+- delta_apply / delta_apply_inplace: CUDA C++ (``csrc/``), the sparse
+  weight-delta scatter of the update path
 
 ``ops`` holds the dispatchers and launch counters, ``ref`` the plain
 versions, ``build`` the compile-at-first-use loader.

@@ -2,7 +2,8 @@
 // that includes torch/extension.h (it is the slow header to compile); the
 // kernels themselves live in *.cu files with plain pointer interfaces.
 // Shapes, dtypes, devices and contiguity are validated by the Python
-// wrappers in repro_torch/kernels/paged_attention.py before these run.
+// wrappers in repro_torch/kernels/paged_attention.py and delta_apply.py
+// before these run.
 
 #include <torch/extension.h>
 
@@ -21,6 +22,10 @@ void launch_paged_decode_write(void* k_blocks, void* v_blocks, const void* new_k
                                const int32_t* offsets, int batch, int block_size,
                                int row, bool in_bf16, bool pool_bf16,
                                cudaStream_t stream);
+
+void launch_delta_apply(void* buf, const void* indices, const void* values, int64_t n,
+                        int64_t size, bool buf_bf16, bool val_bf16, bool idx64,
+                        cudaStream_t stream);
 
 at::Tensor paged_attention(const at::Tensor& q, const at::Tensor& k_blocks,
                            const at::Tensor& v_blocks, const at::Tensor& tables,
@@ -53,6 +58,15 @@ void paged_decode_write(at::Tensor k_blocks, at::Tensor v_blocks, const at::Tens
       at::cuda::getCurrentCUDAStream());
 }
 
+// buf is scattered into in place through its data pointer
+void delta_apply(at::Tensor buf, const at::Tensor& indices, const at::Tensor& values) {
+  const c10::cuda::CUDAGuard guard(buf.device());
+  launch_delta_apply(buf.data_ptr(), indices.data_ptr(), values.data_ptr(), indices.numel(),
+                     buf.numel(), buf.scalar_type() == at::kBFloat16,
+                     values.scalar_type() == at::kBFloat16,
+                     indices.scalar_type() == at::kLong, at::cuda::getCurrentCUDAStream());
+}
+
 }  // namespace repro_torch
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -60,4 +74,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "decode attention through a block table; (B, H, hd) f32");
   m.def("paged_decode_write", &repro_torch::paged_decode_write,
         "in-place write of one K/V token per lane into the block pools");
+  m.def("delta_apply", &repro_torch::delta_apply,
+        "in-place scatter buf[indices] = values, out-of-range indices dropped");
 }

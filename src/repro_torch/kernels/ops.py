@@ -18,7 +18,8 @@ import torch
 MAX_INTERVALS = 8
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0, "paged_decode_write": 0,
-                            "masked_dequant": 0}
+                            "masked_dequant": 0, "delta_apply": 0,
+                            "delta_apply_inplace": 0}
 
 
 def reset_launches() -> None:
@@ -52,3 +53,11 @@ def masked_dequant(codes: torch.Tensor, scale: torch.Tensor,
         scale = scale.reshape(1, -1) if scale.numel() == c else scale.reshape(-1, 1)
     lo, hi = pack_intervals(intervals, codes.device)
     return _kernel(codes, scale, lo, hi, out_dtype=out_dtype)
+
+
+# ``buf[indices] = values`` via the scatter kernel, as
+# ``repro.kernels.ops.delta_apply`` (``donate=True`` lands in place).
+# Unlike the JAX dispatcher there is no padding and no small-shape
+# shortcut: the kernel takes any N and any number of entries.  Imported
+# last because the wrapper counts into ``LAUNCHES`` above.
+from repro_torch.kernels.delta_apply import delta_apply  # noqa: E402

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels.
 
 Each function computes what its kernel computes, in plain tensor ops:
-the wrappers in ``paged_attention.py`` / ``masked_dequant.py`` take them
+the wrappers in ``paged_attention.py`` / ``masked_dequant.py`` /
+``delta_apply.py`` take them
 for CPU tensors, the CPU tests hold them against the JAX oracles
 (``repro.kernels.ref``), and ``chip_smoke.py`` holds each kernel against
 them on the card.  Like the JAX oracles they mask with -1e30 (the
@@ -33,6 +34,22 @@ def masked_dequant(codes: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor,
     for i in range(lo.shape[0]):
         dead |= (mag >= lo[i]) & (mag < hi[i])
     return torch.where(dead, torch.zeros_like(w), w).to(out_dtype)
+
+
+def delta_apply(buf: torch.Tensor, indices: torch.Tensor, values: torch.Tensor,
+                *, donate: bool = False) -> torch.Tensor:
+    """Sparse scatter-set ``buf[indices] = values`` into a flat (N,) buffer.
+
+    Indices are unique; entries outside ``[0, N)`` are dropped (the JAX
+    contract pads with N; a negative index never writes).  Values are
+    cast to buf's dtype first (round to nearest even, as ``astype``
+    does).  ``donate`` writes into ``buf``; otherwise a copy is returned
+    and ``buf`` is untouched."""
+    out = buf if donate else buf.clone()
+    idx = indices.long()
+    keep = (idx >= 0) & (idx < buf.shape[0])
+    out[idx[keep]] = values[keep].to(buf.dtype)
+    return out
 
 
 def paged_attention(q: torch.Tensor, k_blocks: torch.Tensor,

@@ -83,10 +83,11 @@ def _to_tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(device)
 
 
-def params_from_jax(flat: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+def params_from_jax(flat: Dict[str, Any], *, device) -> Dict[str, Any]:
     """Carry the JAX package's weights across: ``flat`` is
     ``repro.core.pytree_io.flatten_params(params)`` ({'units/b0/mixer/wq':
-    ndarray, ...}); the result is the port's nested dict on ``device``."""
+    ndarray, ...}); the result is the port's nested dict on ``device``
+    (no default: the caller names the device)."""
     return unflatten({name: _to_tensor(a, device) for name, a in flat.items()})
 
 

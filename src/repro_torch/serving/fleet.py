@@ -1,12 +1,16 @@
 """Per-model serving state of the port: ``ModelSlot``.
 
 Counterpart of the part of ``repro/serving/fleet.py::ModelSlot`` that a
-single licensed gateway uses: the weight store, the (tier, version)-keyed
-view cache, the block-paged KV pool, the chunked-prefill scheduler and
-the serving stats.  ``LicensedGateway`` (``gateway.py``) wraps one slot
-and forwards attribute access to it, as in the JAX package.  The fleet
-itself (``FleetGateway``, tenants, the global cache budget) is not ported
-yet.
+single licensed gateway uses: the weight versions, the (tier,
+version)-keyed view cache, the block-paged KV pool, the chunked-prefill
+scheduler, the serving stats, and the license-server state of the update
+path (transport, retry policy, sync failures and version quarantine,
+tiers learned from the server, pending tier changes, the active staged
+sync).  ``LicensedGateway`` (``gateway.py``) wraps one slot and forwards
+attribute access to it, as in the JAX package.  The fleet itself
+(``FleetGateway``, tenants, the global cache budget) and the license
+lease state machine are not ported yet: ``_lease_renew`` records the
+time of the last good server exchange and nothing reads it.
 
 Constructor arguments of the JAX slot whose features are not ported are
 still recognised: passing the value the port implements is accepted,
@@ -23,6 +27,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.licensing import FULL_TIER, LicenseTier, apply_license
+from repro_torch.core.transport import (DirectTransport, RetryPolicy, Transport,
+                                        TransportDisconnect, TransportError,
+                                        TransportTimeout)
 from repro_torch.models.model import check_supported
 from repro_torch.serving.paging import PagedCachePool, cdiv
 from repro_torch.serving.scheduler import GatewayRequest, Scheduler, TierViewCache
@@ -34,10 +41,6 @@ _LEFT_OUT: Dict[str, Tuple[Any, str]] = {
     "sanitize": (None, "telemetry and tracing"),
     "paged": (True, "the other architectures"),
     "kernel_decode": (True, "the other architectures"),
-    "server": (None, "staged sync"),
-    "transport": (None, "staged sync"),
-    "retry_policy": (None, "staged sync"),
-    "quarantine_after": (None, "staged sync"),
     "lease_ttl_s": (None, "the fleet, tenants and lease"),
     "lease_grace_s": (None, "the fleet, tenants and lease"),
     "lease_policy": (None, "the fleet, tenants and lease"),
@@ -75,7 +78,14 @@ class ModelSlot:
         num_blocks: Optional[int] = None,
         max_lanes: Optional[int] = None,
         decode_kernels: Optional[bool] = None,
+        view_capacity: int = 8,
+        version: int = 1,
+        server: Any = None,
+        model: str = "model",
         clock: Optional[Callable[[], float]] = None,
+        transport: Optional[Transport] = None,
+        retry_policy: Optional[RetryPolicy] = None,
+        quarantine_after: int = 3,
         device="cuda",
         **left_out: Any,
     ):
@@ -102,13 +112,11 @@ class ModelSlot:
         self.max_new_cap = int(max_new_cap)
         self.capacity = self.max_prompt + self.max_new_cap
 
-        # one weight version until the update path is ported; requests
-        # still pin it and views are keyed by it, as in the JAX package
-        self.version = 1
+        self.version = int(version)
         self._weights: Dict[int, Any] = {self.version: params}
         self.tiers: Dict[str, LicenseTier] = dict(tiers or {})
         self.tiers.setdefault("full", FULL_TIER)
-        self.views = TierViewCache(self._materialize)
+        self.views = TierViewCache(self._materialize, capacity=view_capacity)
 
         # the kernel-resident decode routes its write and attention
         # through the Hopper kernels on a CUDA device; the plain path
@@ -134,6 +142,38 @@ class ModelSlot:
             self.max_lanes, self.max_batch, allocator=self.pool.allocator,
             blocks_needed=self._blocks_needed, clock=self.clock)
 
+        if transport is not None and server is None:
+            server = transport.server
+        self._server = server
+        # every wire call to the license server goes through the
+        # transport seam; a raw server gets the pass-through wrapper
+        if transport is not None:
+            self._transport: Optional[Transport] = transport
+        elif isinstance(server, Transport):
+            self._transport = server
+            self._server = server.server
+        else:
+            self._transport = (DirectTransport(server)
+                               if server is not None else None)
+        self.retry_policy = (retry_policy if retry_policy is not None
+                             else RetryPolicy())
+        self._lease_renewed_t = self.clock()  # guarded-by: owner(__init__, _lease_renew)
+        # version quarantine: consecutive failed syncs per target version
+        self.quarantine_after = int(quarantine_after)
+        self._sync_failures: Dict[int, int] = {}
+        self.quarantined_versions: set = set()
+        self.model = model
+        self._client = None           # EdgeClient when booted from a server
+        self._server_tiers: set = set()  # tier names learned from the server
+        # tier updates deferred while their requests are in flight;
+        # value None = pending revocation
+        self._pending_tiers: Dict[str, Optional[LicenseTier]] = {}
+        # staged weight sync (serving/updates.py): the active stager (one
+        # bounded step interleaved per scheduler step) and the version it
+        # is pre-registering weights/views under before the flip
+        self._stager = None
+        self._staging_version: Optional[int] = None
+
         self.gateway: Any = None
         self._next_rid = 0
         # bounded: a long-lived gateway must not grow host memory with
@@ -147,11 +187,67 @@ class ModelSlot:
             "prefill_batches": 0, "decode_steps": 0, "tokens_generated": 0,
             "preempted": 0, "max_running": 0, "max_blocks_in_use": 0,
             "prefill_lane_tokens": 0, "prefill_chunks": 0,
+            # fault tolerance: wire retries across all sync/tier calls,
+            # the subset whose cause was a timeout/disconnect, and
+            # versions quarantined after repeated failed syncs
+            "sync_retries": 0, "sync_timeouts": 0, "sync_quarantines": 0,
         }
+
+    # ------------------------------------------------------- license server
+    def _lease_renew(self) -> None:
+        """Record a successful server exchange (a timestamp store, safe
+        from the background fetch worker)."""
+        self._lease_renewed_t = self.clock()
+
+    def _count_wire_retry(self, attempt: int, exc: BaseException,
+                          delay: float, to_version: Optional[int] = None,
+                          ) -> None:
+        """RetryPolicy ``on_retry`` hook: counters per backoff."""
+        self.stats["sync_retries"] += 1
+        if isinstance(exc, (TransportTimeout, TransportDisconnect)):
+            self.stats["sync_timeouts"] += 1
+
+    def _note_sync_failure(self, version: int) -> None:
+        """Count a consecutive failed sync toward quarantining ``version``."""
+        n = self._sync_failures.get(version, 0) + 1
+        self._sync_failures[version] = n
+        if (n >= self.quarantine_after
+                and version not in self.quarantined_versions):
+            self.quarantined_versions.add(version)
+            self.stats["sync_quarantines"] += 1
+
+    def _note_sync_success(self, version: int) -> None:
+        self._sync_failures.pop(version, None)
+        self._lease_renew()
+
+    def clear_quarantine(self, version: Optional[int] = None) -> None:
+        """Operator override: drop the quarantine (one version or all)."""
+        if version is None:
+            self.quarantined_versions.clear()
+            self._sync_failures.clear()
+        else:
+            self.quarantined_versions.discard(version)
+            self._sync_failures.pop(version, None)
 
     # ------------------------------------------------------------ weight views
     def _resolve_tier(self, name: str) -> LicenseTier:
+        """A known tier, or one learned from the license server (and
+        remembered, so a sync re-pulls it)."""
         tier = self.tiers.get(name)
+        if tier is None and self._server is not None:
+            try:
+                tier = self.retry_policy.run(
+                    lambda: self._transport.tier(self.model, name),
+                    on_retry=self._count_wire_retry)
+                self._lease_renew()
+                self.tiers[name] = tier
+                self._server_tiers.add(name)
+            except KeyError:
+                tier = None
+            except TransportError as exc:
+                raise KeyError(
+                    f"unknown license tier {name!r} (license server "
+                    f"unreachable: {exc})") from exc
         if tier is None:
             raise KeyError(f"unknown license tier {name!r}")
         return tier

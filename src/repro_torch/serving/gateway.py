@@ -22,9 +22,19 @@ the pool runs out of blocks, the youngest running request is preempted
 back to the queue head and recomputed later (generation is deterministic
 per (seed, prompt, view), so it reproduces its tokens).
 
+The update path (paper §3.1.2, §4.3): :meth:`LicensedGateway.from_server`
+boots the gateway as an edge pod of a ``LicenseServer`` by pulling the
+full production snapshot through the delta protocol (the ``delta_apply``
+kernel scatters it into the template on the card), and
+:meth:`~LicensedGateway.begin_sync` / :meth:`~LicensedGateway.sync`
+stage newer versions in bounded steps interleaved with serving
+(``serving/updates.py``), flipping weights and tier redefinitions in
+atomically at a step boundary; in-flight requests stay on the version
+they were admitted under.
+
 Left out of this port so far (see ROADMAP.md): the prefix cache,
-telemetry and tracing, staged weight sync and the update path, the
-license server lease, fleets and tenants.
+telemetry and tracing, the license lease state machine, fleets and
+tenants.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.transport import Transport, TransportError
 from repro_torch.serving.engine import (lane_generator, prefill_chunk_step,
                                         sample_lane, serve_step_paged)
 from repro_torch.serving.fleet import ModelSlot
@@ -75,6 +86,19 @@ class LicensedGateway:
         Route the decode write and attention through the Hopper kernels.
         Default: on a CUDA device; ``True`` elsewhere raises, ``False``
         selects the plain path.
+    view_capacity:
+        Licensed views kept in the (tier, version) LRU cache.
+    version / model:
+        The weight version ``params`` are, and the model's name at the
+        license server.
+    server / transport / retry_policy:
+        The ``LicenseServer`` this gateway syncs from (set by
+        :meth:`from_server`), the wire seam every call to it goes
+        through (a ``DirectTransport`` by default), and the retry policy
+        of those calls.  Unknown tiers are resolved against the server.
+    quarantine_after:
+        Consecutive failed syncs toward one version before it is
+        quarantined (no further sync attempts until cleared).
     clock:
         Host clock for request timestamps (injectable for tests).
     device:
@@ -98,6 +122,55 @@ class LicensedGateway:
             setattr(slot, name, value)
         else:
             object.__setattr__(self, name, value)
+
+    # ------------------------------------------------------------ server tiers
+    def _refresh_server_tiers(self) -> None:
+        """Re-pull tiers learned from the server.
+
+        A redefined or revoked tier must not keep serving its old masks,
+        but in-flight requests are never re-masked mid-generation: the
+        change is deferred until the tier's requests drain, and while it
+        is pending new admissions to the tier are refused.  Under a wire
+        fault the refresh defers and the current tiers keep serving."""
+        touched = False
+        for name in list(self._server_tiers):
+            try:
+                fresh = self.retry_policy.run(
+                    lambda n=name: self._transport.tier(self.model, n),
+                    on_retry=self._count_wire_retry)
+                touched = True
+            except KeyError:
+                fresh = None                       # revoked server-side
+                touched = True
+            except TransportError:
+                if touched:
+                    self._lease_renew()
+                self._apply_pending_tiers()
+                return
+            cur = self.tiers.get(name)
+            if fresh is not None and cur is not None and fresh.masks == cur.masks:
+                self._pending_tiers.pop(name, None)
+                continue
+            self._pending_tiers[name] = fresh
+        if touched:
+            self._lease_renew()
+        self._apply_pending_tiers()
+
+    def _tier_in_flight(self, name: str) -> bool:
+        return (any(r.license == name for r in self.scheduler.waiting)
+                or any(r.license == name for r in self.scheduler.running))
+
+    def _apply_pending_tiers(self) -> None:
+        for name, fresh in list(self._pending_tiers.items()):
+            if self._tier_in_flight(name):
+                continue                           # defer until drained
+            if fresh is None:
+                self.tiers.pop(name, None)
+                self._server_tiers.discard(name)
+            else:
+                self.tiers[name] = fresh
+            self.views.invalidate(tier=name)
+            del self._pending_tiers[name]
 
     def view_for(self, tier: str, version: Optional[int] = None):
         """Licensed weight view for (tier, version) — cached."""
@@ -127,6 +200,14 @@ class LicensedGateway:
         self._next_rid += 1
         req.submit_t = self.clock()
         try:
+            if license in self._pending_tiers:
+                # a pending revocation or redefinition refuses admissions:
+                # nothing new is served under the superseded masks, so the
+                # tier drains (and the change lands) in bounded time
+                verb = ("revoked" if self._pending_tiers[license] is None
+                        else "redefined; retry once in-flight requests "
+                             "drain")
+                raise KeyError(f"license tier {license!r} is being {verb}")
             self._resolve_tier(license)
         except KeyError as e:
             return self._reject(req, str(e))
@@ -143,16 +224,27 @@ class LicensedGateway:
         return req
 
     # ------------------------------------------------------------- scheduling
-    def step(self) -> Optional[ScheduledAction]:
-        """Run ONE scheduler iteration: one prefill chunk or one decode
-        micro-batch."""
+    def step(self, *, drive_stager: bool = True) -> Optional[ScheduledAction]:
+        """Run ONE scheduler iteration (one prefill chunk or one decode
+        micro-batch), plus — when a staged weight sync is active — ONE
+        bounded stager step, so a version bump's work rides along with
+        serving instead of stalling it."""
         act = self.scheduler.next_action()
+        if act is not None:
+            if act.kind == "prefill":
+                self._run_chunked_prefill(act)
+            else:
+                self._run_decode(act)
+        if drive_stager and self._stager is not None and self._stager.active:
+            try:
+                self._stager.step()
+            except TransportError:
+                # retries exhausted: the stager aborted inside step()
+                # (staged weights dropped, failure counted toward
+                # quarantine); serving continues on the current version
+                pass
         if act is None:
             return None
-        if act.kind == "prefill":
-            self._run_chunked_prefill(act)
-        else:
-            self._run_decode(act)
         # a decode whose whole batch was preempted executed nothing
         if act.requests:
             self.trace.append((act.kind, act.tier, act.version,
@@ -160,12 +252,14 @@ class LicensedGateway:
         return act
 
     def run(self, max_steps: int = 1_000_000) -> List[GatewayRequest]:
-        """Drain the queue; returns requests completed during this call."""
+        """Drain the queue; returns requests completed during this call.
+        An active staged sync keeps stepping after the queue empties, so
+        returning from ``run`` implies any begun version flip landed."""
         drained: List[GatewayRequest] = []
         self._drain_sink = drained
         try:
             for _ in range(max_steps):
-                if self.step() is None:
+                if self.step() is None and not self.sync_active:
                     break
         finally:
             self._drain_sink = None
@@ -363,6 +457,145 @@ class LicensedGateway:
             if self._drain_sink is not None:
                 self._drain_sink.append(req)
             self.stats["completed"] += 1
+            self._gc_versions()
+
+    # ---------------------------------------------------------- weight updates
+    def update_weights(self, params: Any, *, version: Optional[int] = None) -> int:
+        """Install new float weights under a new version (quantized here
+        on an int8 gateway).  In-flight requests stay pinned to their
+        admitted version; new admissions pin the new one; a version's
+        views go once its last request drains."""
+        if self.quantized:
+            from repro_torch.serving.quantized import quantize_serving_params
+
+            params = quantize_serving_params(params)
+        version = self.version + 1 if version is None else int(version)
+        if version < self.version:
+            raise ValueError(f"version {version} is older than the current "
+                             f"version {self.version}")
+        if version in self._weights:
+            # overwriting a live version: views built from the old
+            # weights must not survive the swap
+            self.views.invalidate(version=version)
+        self._weights[version] = params
+        self.version = version
+        self._gc_versions()
+        return version
+
+    def _gc_versions(self) -> None:
+        live = self.scheduler.pinned_versions() | {self.version}
+        if self._staging_version is not None:
+            # a staged sync pre-registers the incoming version (and may
+            # have prewarmed its views) before any request pins it
+            live.add(self._staging_version)
+        for v in [v for v in self._weights if v not in live]:
+            del self._weights[v]
+            self.views.invalidate(version=v)
+        if self._pending_tiers:
+            self._apply_pending_tiers()
+
+    # ------------------------------------------------------- protocol plumbing
+    @classmethod
+    def from_server(cls, cfg: ModelConfig, server, model: str, template: Any,
+                    transport: Optional[Transport] = None,
+                    retry: Any = None, **kw) -> "LicensedGateway":
+        """Boot a gateway as an edge serving pod of ``server`` (Fig. 2).
+
+        ``template`` is a zeroed parameter dict on the serving device;
+        the full production snapshot is pulled through the §3.1.2 delta
+        protocol into a copy of it (the ``delta_apply`` kernel on CUDA),
+        and :meth:`sync` keeps pulling increments from then on.  An
+        explicit ``transport`` routes every wire call (the boot pull
+        included) through it; ``retry`` overrides the RetryPolicy."""
+        from repro_torch.core.protocol import EdgeClient
+
+        client = EdgeClient(model, template, license_name="full")
+        client.request_update(transport if transport is not None else server,
+                              retry=retry)
+        gw = cls(cfg, client.params, server=server, model=model,
+                 version=client.version, transport=transport,
+                 **({} if retry is None else {"retry_policy": retry}), **kw)
+        gw._client = client
+        return gw
+
+    def _register_staging(self, version: int, params: Any) -> None:
+        """Pre-register a staged version's serving params so its views can
+        be prewarmed before the flip; ``_gc_versions`` keeps it alive."""
+        if version in self._weights:
+            self.views.invalidate(version=version)
+        self._staging_version = version
+        self._weights[version] = params
+
+    def _install_staged(self, version: int) -> None:
+        """The stager's atomic flip: bump the served version AND apply the
+        tier redefinitions published alongside it, with no scheduler
+        iteration in between.  Prewarmed views survive; in-flight
+        requests stay pinned to the version they were admitted under."""
+        if version != self._staging_version:
+            raise RuntimeError(f"flip to version {version}, but version "
+                               f"{self._staging_version} is staged")
+        if version < self.version:
+            raise ValueError(f"version {version} is older than the current "
+                             f"version {self.version}")
+        self.version = version
+        self._staging_version = None
+        if self._server is not None:
+            self._refresh_server_tiers()
+        self._gc_versions()
+
+    def begin_sync(self, server: Any = None, **stager_kw) -> bool:
+        """Start a *staged* (non-blocking) sync against the license server.
+
+        Returns True when a newer production version exists and a staging
+        session began: each later :meth:`step` carries one bounded unit
+        of fetch/apply/requantize/prewarm work, and the new version flips
+        in atomically at a step boundary.  Returns False when the client
+        is already current (tier-only redefinitions apply at once), when
+        the newer version is quarantined, or when a wire fault outlives
+        the retry budget during the probe.  A sync already in progress is
+        left to finish (True)."""
+        server = server or self._server
+        if server is None or self._client is None:
+            raise RuntimeError("gateway was not booted with from_server()")
+        if self._stager is not None and self._stager.active:
+            return True
+        from repro_torch.serving.updates import UpdateStager
+
+        stager = UpdateStager(self, server, **stager_kw)
+        try:
+            if stager.begin():
+                self._stager = stager
+                return True
+        except TransportError:
+            pass
+        return False
+
+    def sync_step(self) -> Optional[str]:
+        """Advance an active staged sync by one bounded unit (for callers
+        driving the stager without scheduler traffic); returns the phase
+        that executed, or None when no sync is active."""
+        if self._stager is None or not self._stager.active:
+            return None
+        return self._stager.step()
+
+    @property
+    def sync_active(self) -> bool:
+        return self._stager is not None and self._stager.active
+
+    def sync(self, server: Any = None, **stager_kw) -> bool:
+        """Pull newer production weights (and tier redefinitions) — a
+        blocking loop over the same staged machinery as
+        :meth:`begin_sync`, so the weights + tiers flip is atomic either
+        way.  Returns True if a new version was installed."""
+        flipped = False
+        while self.sync_active:           # finish a staged sync first
+            self._stager.step()
+            flipped = True
+        if not self.begin_sync(server, **stager_kw):
+            return flipped
+        while self.sync_active:
+            self._stager.step()
+        return True
 
     # ---------------------------------------------------------------- metrics
     def metrics(self) -> Dict[str, Any]:
@@ -377,6 +610,9 @@ class LicensedGateway:
                               "kernels": self.decode_kernels}
         out["chunked_prefill"] = {"enabled": True, "chunk_size": self.chunk_size,
                                   "chunks": self.stats["prefill_chunks"]}
+        out["staged_update"] = ({"active": False} if self._stager is None
+                                else {"active": self._stager.active,
+                                      **self._stager.stats()})
         lats = [r.latency for r in self.completed if r.latency is not None]
         if lats:
             out["latency_p50_ms"] = float(np.percentile(lats, 50) * 1e3)

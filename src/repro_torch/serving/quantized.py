@@ -10,7 +10,7 @@ package, which dequantizes inside every forward step, is not ported yet
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,6 +56,27 @@ def quantize_serving_params(params: Any, prefix: str = "") -> Any:
 
 def is_qleaf(leaf) -> bool:
     return isinstance(leaf, dict) and "codes" in leaf and "scale" in leaf
+
+
+def requantize_layers(qparams: Any, new_flat: Dict[str, Any],
+                      touched: Sequence[str]) -> Any:
+    """Incremental requantize: the int8 store with ONLY ``touched`` layers
+    re-derived from ``new_flat`` (flat name -> new float tensor); every
+    other leaf is shared with ``qparams``.  Whether a layer is quantized
+    follows the existing store (same names and shapes across versions),
+    so the result equals ``quantize_serving_params`` of the whole new
+    tree bit for bit — the staged update's bounded requant step."""
+    want = set(touched)
+
+    def walk(leaf: Any, name: str) -> Any:
+        if name in want:
+            new = new_flat[name]
+            return _quantize_leaf(new) if is_qleaf(leaf) else new
+        if isinstance(leaf, dict) and not is_qleaf(leaf):
+            return {k: walk(v, f"{name}/{k}" if name else k) for k, v in leaf.items()}
+        return leaf
+
+    return walk(qparams, "")
 
 
 def _map_qleaves(fn, tree: Any) -> Any:

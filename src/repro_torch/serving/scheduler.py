@@ -90,7 +90,9 @@ class TierViewCache:
 
     ``build(tier_name, version)`` materializes a view on miss
     (``apply_license`` for float weights, the fused masked-dequant for
-    the int8 store); hit/miss/eviction counters feed ``stats``."""
+    the int8 store); hit/miss/eviction/invalidation counters feed
+    ``stats``.  A staged weight update drops a version's or a redefined
+    tier's entries with :meth:`invalidate`."""
 
     def __init__(self, build: Callable[[str, Optional[int]], Any],
                  capacity: int = 8):
@@ -100,6 +102,7 @@ class TierViewCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.invalidations = 0
 
     def get(self, tier: str, version: Optional[int] = None) -> Any:
         key = (tier, version)
@@ -115,12 +118,27 @@ class TierViewCache:
             self.evictions += 1
         return view
 
+    def __contains__(self, key: Tuple[str, Optional[int]]) -> bool:
+        return key in self._entries
+
     def __len__(self) -> int:
         return len(self._entries)
+
+    def invalidate(self, *, tier: Optional[str] = None,
+                   version: Optional[int] = None) -> int:
+        """Drop entries matching the given tier and/or version (None = any)."""
+        doomed = [k for k in self._entries
+                  if (tier is None or k[0] == tier)
+                  and (version is None or k[1] == version)]
+        for k in doomed:
+            del self._entries[k]
+        self.invalidations += len(doomed)
+        return len(doomed)
 
     def stats(self) -> Dict[str, int]:
         return {"hits": self.hits, "misses": self.misses,
                 "evictions": self.evictions,
+                "invalidations": self.invalidations,
                 "entries": len(self._entries)}
 
 
@@ -203,6 +221,18 @@ class Scheduler:
         if not self.running:
             return None
         return max(self.running, key=lambda r: r.start_seq)
+
+    def pinned_versions(self) -> set:
+        """Weight versions still referenced by queued or running requests."""
+        return {r.version for r in self.waiting} | {r.version for r in self.running}
+
+    def hot_tiers(self) -> List[str]:
+        """License tiers with queued or running requests, busiest first —
+        the tiers the staged update prewarms at the new version."""
+        counts: Dict[str, int] = {}
+        for r in list(self.running) + list(self.waiting):
+            counts[r.license] = counts.get(r.license, 0) + 1
+        return sorted(counts, key=lambda t: (-counts[t], t))
 
     # --------------------------------------------------------- wait metrics
     def oldest_wait_s(self, now: Optional[float] = None) -> float:

@@ -8,10 +8,10 @@ run them.  Tolerances:
 * ``paged_attention``: 1e-5 in f32 — the two frameworks reduce the
   softmax and the value product in different orders (the JAX tests hold
   the Pallas kernel to 2e-3, a tolerance sized for TPU dtypes);
-* ``paged_decode_write`` and ``masked_dequant``: exact — a copy with a
-  cast, and f32 multiply / compare / select, leave no room for rounding
-  differences.  The null block's content is garbage by contract and is
-  never compared.
+* ``paged_decode_write``, ``masked_dequant`` and ``delta_apply``: exact
+  — a copy with a cast, and f32 multiply / compare / select, leave no
+  room for rounding differences.  The null block's content is garbage by
+  contract and is never compared.
 
 The cases marked ``gpu`` hold each CUDA / Triton kernel against its plain
 version on the card; they skip on a machine without one.
@@ -27,6 +27,7 @@ from repro.kernels.paged_attention import paged_attention as jax_paged_attention
 from repro.kernels.paged_attention import paged_decode_write as jax_paged_decode_write
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.delta_apply import delta_apply
 from repro_torch.kernels.masked_dequant import masked_dequant
 from repro_torch.kernels.paged_attention import paged_attention, paged_decode_write
 
@@ -147,6 +148,65 @@ def test_pack_intervals_matches_jax():
     assert ops.MAX_INTERVALS == jax_ops.MAX_INTERVALS
 
 
+def _delta_case(seed, n, n_delta, n_pad):
+    """A flat buffer, unique in-range indices (shuffled), ``n_pad``
+    padding indices equal to N, and values.  Index 0 stays out of the
+    delta: the JAX oracle aims its padding lanes at index 0 (rewriting
+    the old value), and a real entry there would race them."""
+    r = np.random.default_rng(seed)
+    buf = r.standard_normal(n).astype(np.float32)
+    idx = np.concatenate([1 + r.choice(n - 1, n_delta, replace=False),
+                          np.full(n_pad, n)]).astype(np.int64)
+    val = r.standard_normal(n_delta + n_pad).astype(np.float32)
+    return buf, idx, val
+
+
+DELTA_CASES = {
+    # 2 tiles of the JAX kernel's 4096 block: the Pallas kernel runs
+    "pallas_tiles": dict(n=8192, n_delta=40, n_pad=3),
+    # ragged N (the JAX dispatcher pads to a block multiple)
+    "ragged": dict(n=10_000, n_delta=25, n_pad=2),
+    # under one block: the JAX dispatcher takes its oracle
+    "small": dict(n=300, n_delta=17, n_pad=1),
+    "empty": dict(n=8192, n_delta=0, n_pad=0),
+}
+
+
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("buf_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DELTA_CASES))
+def test_delta_apply_matches_jax(case, buf_dtype, donate):
+    """``ops.delta_apply`` on the CPU vs the JAX dispatcher (Pallas in
+    interpret mode where it tiles) and the JAX oracle: padding indices
+    dropped, f32 values into a bf16 buffer rounded like ``astype``, the
+    donated buffer written in place and the copy leaving it untouched."""
+    buf, idx, val = _delta_case(13, **DELTA_CASES[case])
+    jdt, tdt = getattr(jnp, buf_dtype), getattr(torch, buf_dtype)
+    tbuf = torch.from_numpy(buf).to(tdt)
+    before = tbuf.clone()
+    got = ops.delta_apply(tbuf, torch.from_numpy(idx), torch.from_numpy(val),
+                          donate=donate)
+    assert got.dtype == tdt and got.shape == tbuf.shape
+    assert (got.data_ptr() == tbuf.data_ptr()) == donate
+    if not donate:
+        assert torch.equal(tbuf, before)
+    jbuf = jnp.asarray(buf, jdt)
+    want = jax_ops.delta_apply(jbuf, jnp.asarray(idx), jnp.asarray(val),
+                               interpret=True)
+    oracle = jax_ref.delta_apply(jbuf, jnp.asarray(idx), jnp.asarray(val))
+    got = got.float().numpy()
+    np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+    np.testing.assert_array_equal(got, np.asarray(oracle, np.float32))
+
+
+def test_delta_apply_drops_negative_indices():
+    buf = torch.zeros(8)
+    out = ops.delta_apply(buf, torch.tensor([-1, 3, 8, -9]),
+                          torch.tensor([1.0, 2.0, 3.0, 4.0]))
+    assert out.tolist() == [0, 0, 0, 2.0, 0, 0, 0, 0]
+    assert ops.LAUNCHES["delta_apply"] == 0          # CPU: the plain version
+
+
 # ------------------------------------------------------- on the card only
 @pytest.fixture
 def cuda():
@@ -198,3 +258,24 @@ def test_masked_dequant_kernel_matches_plain(cuda, scale_kind):
         want = ref.masked_dequant(codes, scale, lo, hi, dtype)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("idx_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("val_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("buf_dtype", ["float32", "bfloat16"])
+def test_delta_apply_kernel_matches_plain(cuda, buf_dtype, val_dtype, idx_dtype):
+    """Bit-exact against the plain version, both forms, padding included;
+    the out-of-place form leaves its input untouched."""
+    buf, idx, val = _delta_case(14, n=1 << 20, n_delta=50_000, n_pad=7)
+    b = torch.from_numpy(buf).to(cuda, getattr(torch, buf_dtype))
+    i = torch.from_numpy(idx).to(cuda, getattr(torch, idx_dtype))
+    v = torch.from_numpy(val).to(cuda, getattr(torch, val_dtype))
+    want = ref.delta_apply(b, i, v)
+    before = b.clone()
+    got = delta_apply(b, i, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(b, before)
+    got = delta_apply(b, i, v, donate=True)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == b.data_ptr() and torch.equal(b, want)

@@ -37,7 +37,7 @@ def weights(request):
     cfg = jax_smoke_variant(jax_get_config("qwen2.5-3b")).replace(
         dtype_name=request.param)
     jparams = jax_init_params(jax.random.PRNGKey(0), cfg)
-    return jparams, params_from_jax(jax_flatten_params(jparams))
+    return jparams, params_from_jax(jax_flatten_params(jparams), device="cpu")
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

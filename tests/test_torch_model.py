@@ -33,7 +33,7 @@ def weights():
     jcfg = jax_smoke_variant(jax_get_config("qwen2.5-3b"))
     jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
     cfg = smoke_variant(get_config("qwen2.5-3b"))
-    return jcfg, jparams, cfg, model.params_from_jax(jax_flatten_params(jparams))
+    return jcfg, jparams, cfg, model.params_from_jax(jax_flatten_params(jparams), device="cpu")
 
 
 def _tokens(seed, shape):
