@@ -10,12 +10,18 @@ Phases (each prints its own lines; any failure exits non-zero):
    the card, at the shapes the gateway gives it, with its time (CUDA
    events), the plain version's time, the time of one PyTorch library
    call computing the same function where there is one, and its bound
-   on this card;
+   on this card; then the prefill attention and int8 MLP product
+   (``flash_attention`` and ``ops.quant_matmul``, which no serving path
+   calls) driven through their entry points at qwen2.5-3b's shapes, with
+   the launch counters zeroed just before and read just after, and the
+   same checks and times;
 3. the serving path: ``LicensedGateway`` serving requests in two license
    tiers at the full width and depth of qwen2.5-3b (random bf16 weights
    from a seed), through float views and through int8 views built by the
    fused masked-dequant; the launch counters are zeroed just before and
-   read just after, and every kernel must have run;
+   read just after, and every kernel must have run; then ``quant_matmul``
+   on a real leaf of the int8 store (unit 0's ``ffn/w_up``) against x @
+   its masked-dequant;
 4. one decode step's logits through the kernels vs the plain path on the
    same pool state, and the greedy-token agreement of a whole plain-path
    run (for information);
@@ -56,8 +62,10 @@ ARCH = "qwen2.5-3b"
 FREE_TIER = {"*": ((0.0, 0.01),)}
 
 # published peaks (NVIDIA data sheets, SXM parts): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores — the rate the kernels' f32 arithmetic runs at
-CARD_PEAKS = {"H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
+# outside the tensor cores (the rate the kernels' f32 arithmetic runs at),
+# and the dense bf16 tensor-core FLOP/s (bounds work on bf16 inputs)
+CARD_PEAKS = {"H100": (3.35e12, 67e12, 989e12), "H200": (4.8e12, 67e12, 989e12)}
+RATE_NAMES = {1: "f32 67e12 FLOP/s", 2: "bf16 tensor cores 989e12 FLOP/s"}
 
 
 def fail(msg: str) -> None:
@@ -94,11 +102,12 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
-def bound_ms(nbytes: float, flops: float, peaks) -> tuple:
+def bound_ms(nbytes: float, flops: float, peaks, rate: int = 1) -> tuple:
     """Least time for the work on this card: the larger of bytes over the
-    memory rate and operations over the f32 rate."""
+    memory rate and operations over the f32 rate (``rate=2``: the bf16
+    tensor-core rate)."""
     t_bytes = nbytes / peaks[0] * 1e3
-    t_ops = flops / peaks[1] * 1e3
+    t_ops = flops / peaks[rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -206,7 +215,7 @@ def check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md):
         ms=times[0][0], plain_ms=times[0][1], bound_ms=bnd, bound_by=by,
         library_ms=None)
     log(f"  masked_dequant 11008x2048: {times[1][0]:.4f} ms (plain {times[1][1]:.4f} ms)")
-    rows["delta_apply"] = check_delta_apply(peaks, torch, ref, dev, gen)
+    rows.update(check_delta_apply(peaks, torch, ref, dev, gen))
     for name, row in rows.items():
         log(f"  {name}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -278,12 +287,207 @@ def check_delta_apply(peaks, torch, ref, dev, gen):
         log(f"  {name} [{f['shape']}]: max_abs_err {f['max_abs_err']:.1e} (exact), "
             f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, index_put "
             f"{f['library_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms ({f['bound_by']})")
-    top = forms["delta_apply"]
-    return dict(route="cuda", source="src/repro_torch/kernels/csrc/delta_apply.cu",
-                replaces="src/repro/kernels/delta_apply.py:63",
-                max_abs_err=max(f["max_abs_err"] for f in forms.values()),
-                ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-                bound_by=top["bound_by"], library_ms=top["library_ms"], forms=forms)
+    return {name: dict(route="cuda", source="src/repro_torch/kernels/csrc/delta_apply.cu",
+                       **f) for name, f in forms.items()}
+
+
+# the prefill attention and MLP shapes of qwen2.5-3b (16 q heads over 2 kv
+# heads, head_dim 128, d_model 2048, d_ff 11008): one layer of a 4096-token
+# prompt's causal prefill, the same under a 1024-token window, and the
+# prompt's last 256-token chunk; the int8 up / down products at an 8-lane
+# decode step and at a 4096-token prefill
+FLASH_HEADS = (16, 2, 128, 4096)      # q heads, kv heads, head_dim, prompt tokens
+FLASH_CASES = {"causal": dict(sq=4096, window=0, q_offset=0),
+               "window1024": dict(sq=4096, window=1024, q_offset=0),
+               "chunk256": dict(sq=256, window=0, q_offset=3840)}
+QMM_CASES = {"up_m8": (8, 2048, 11008), "down_m8": (8, 11008, 2048),
+             "up_m4096": (4096, 2048, 11008), "down_m4096": (4096, 11008, 2048)}
+FLASH_TOL = 2e-3      # abs and rel, the JAX kernel tests' tolerance
+
+
+def qmm_tol(k: int) -> float:
+    """quant_matmul's tolerance for bf16 x and bf16 out, relative to the
+    largest |output|.  The products are exact on both sides; the tensor
+    cores add each k16 step into the f32 accumulator with truncation,
+    losing up to about one f32 ulp (2^-23) of the partial sum per step,
+    and then each side rounds its f32 sum to bf16 once, which can differ
+    by one bf16 ulp (at most 2^-7 of the value)."""
+    return -(-k // 16) * 2.0 ** -23 + 2.0 ** -7
+
+
+def attention_pairs(sq, sk, window, q_offset):
+    """Unmasked (q, k) pairs of one head under the causal and window masks."""
+    import numpy as np
+
+    pos = q_offset + np.arange(sq)
+    hi = np.minimum(sk, pos + 1)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros_like(pos)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def check_prefill_mlp(peaks, torch, ops, ref):
+    """``flash_attention`` and ``quant_matmul`` at the shapes above.  No
+    path of either package calls them: their public entry points are the
+    path, driven once with the launch counters zeroed just before and read
+    just after; then each output is held against the plain version, and
+    kernel, plain version and library call are timed."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    bh, bkh, hd, sk = FLASH_HEADS
+    qkv = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(bh, sk, hd, generator=gen).to(dtype).to(dev)
+        k = torch.randn(bkh, sk, hd, generator=gen).to(dtype).to(dev)
+        v = torch.randn(bkh, sk, hd, generator=gen).to(dtype).to(dev)
+        for name, c in FLASH_CASES.items():
+            qkv[name, dtype] = (q[:, -c["sq"]:].contiguous(), k, v)
+    mlp = {}
+    for name, (m, kdim, n) in QMM_CASES.items():
+        mlp[name] = (torch.randn(m, kdim, generator=gen).bfloat16().to(dev),
+                     torch.randint(-127, 128, (kdim, n), generator=gen,
+                                   dtype=torch.int8).to(dev),
+                     (torch.rand(n, generator=gen) * 4e-4 + 1e-5).to(dev))
+
+    def attend(key):
+        c = FLASH_CASES[key[0]]
+        return flash_attention(*qkv[key], causal=True, window=c["window"],
+                               q_offset=c["q_offset"], groups=bh // bkh)
+
+    ops.reset_launches()
+    outs = {key: attend(key) for key in qkv}
+    outs.update({name: ops.quant_matmul(*mlp[name]) for name in mlp})
+    torch.cuda.synchronize()
+    launches = {name: ops.LAUNCHES[name] for name in ("flash_attention", "quant_matmul")}
+    log(f"  prefill / MLP entry points: {len(qkv)} flash_attention and {len(mlp)} "
+        f"quant_matmul calls, launches {launches}")
+    if launches["flash_attention"] < len(qkv) or launches["quant_matmul"] < len(mlp):
+        fail(f"flash_attention / quant_matmul launched {launches}, fewer than the "
+             f"{len(qkv)} / {len(mlp)} calls made")
+
+    cases = {}
+    for key, got in outs.items():
+        if isinstance(key, tuple):
+            name, dtype = key
+            c = FLASH_CASES[name]
+            q, k, v = qkv[key]
+            want = ref.flash_attention(q, k, v, causal=True, window=c["window"],
+                                       q_offset=c["q_offset"], groups=bh // bkh)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            err = diff.max().item()
+            ok = bool((diff <= FLASH_TOL + FLASH_TOL * want.abs()).all())
+            label = f"flash_attention {name} {str(dtype)[6:]}"
+            pairs = bh * attention_pairs(c["sq"], sk, c["window"], c["q_offset"])
+            elt = q.element_size()
+            nbytes = q.numel() * elt + 2 * k.numel() * elt + got.numel() * 4
+            rate = 2 if dtype == torch.bfloat16 else 1
+            bnd, by = bound_ms(nbytes, 4 * hd * pairs, peaks, rate)
+            row = dict(shape=f"q ({bh}, {c['sq']}, {hd}) k/v ({bkh}, {sk}, {hd}), window "
+                             f"{c['window']}, q_offset {c['q_offset']}",
+                       max_abs_err=err, tol=f"{FLASH_TOL} abs + {FLASH_TOL} rel",
+                       ms=time_ms(lambda: attend(key), iters=20, warmup=3),
+                       plain_ms=time_ms(lambda: ref.flash_attention(
+                           q, k, v, causal=True, window=c["window"],
+                           q_offset=c["q_offset"], groups=bh // bkh), iters=3, warmup=1),
+                       bound_ms=bnd, bound_by=by, bound_rate=RATE_NAMES[rate],
+                       flop=4 * hd * pairs, bytes=nbytes, library_ms=None)
+            if name == "causal" and dtype == torch.bfloat16:
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+                row["library_ms"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True,
+                                                         enable_gqa=True), iters=20)
+                row["library"] = ("scaled_dot_product_attention(is_causal=True, "
+                                  "enable_gqa=True), bf16 out")
+        else:
+            label = f"quant_matmul {key}"
+            x, codes, scale = mlp[key]
+            m, kdim, n = QMM_CASES[key]
+            want = ref.quant_matmul(x, codes, scale, torch.bfloat16)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            top = want.float().abs().max().item()
+            tol = qmm_tol(kdim)
+            ok = got.dtype == torch.bfloat16 and err <= tol * top
+            nbytes = x.numel() * 2 + codes.numel() + scale.numel() * 4 + got.numel() * 2
+            bnd, by = bound_ms(nbytes, 2 * m * kdim * n, peaks, 2)
+            row = dict(shape=f"x ({m}, {kdim}) bf16 @ codes ({kdim}, {n}) int8, bf16 out",
+                       max_abs_err=err, tol=f"{tol:.6g} x max|out| ({top:.4g})",
+                       ms=time_ms(lambda: ops.quant_matmul(x, codes, scale), iters=20),
+                       plain_ms=time_ms(lambda: ref.quant_matmul(x, codes, scale,
+                                                                 torch.bfloat16), iters=5),
+                       bound_ms=bnd, bound_by=by, bound_rate=RATE_NAMES[2],
+                       flop=2 * m * kdim * n, bytes=nbytes)
+            row.update(qmm_library(torch, x, codes, scale))
+        if not torch.isfinite(got).all() or not ok:
+            fail(f"{label} disagrees with its plain version (max_abs_err {err:.3e})")
+        cases[label] = row
+        lib = (f", library {row['library_ms']:.4f} ms"
+               if row.get("library_ms") is not None else "")
+        if "dense_bf16_ms" in row:
+            lib += f" (bf16 matmul on the dequantized weight {row['dense_bf16_ms']:.4f} ms)"
+        log(f"  {label} [{row['shape']}]: max_abs_err {err:.3e} (tol {row['tol']}), "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms{lib}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bound_rate']})")
+    del outs, qkv, mlp
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for kernel, head, source, replaces in (
+            ("flash_attention", "flash_attention causal bfloat16",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:84"),
+            ("quant_matmul", "quant_matmul up_m4096",
+             "src/repro_torch/kernels/csrc/quant_matmul.cu",
+             "src/repro/kernels/quant_matmul.py:40")):
+        mine = {k: v for k, v in cases.items() if k.startswith(kernel)}
+        top = mine[head]
+        rows[kernel] = dict(route="cuda", source=source, replaces=replaces,
+                            max_abs_err=max(v["max_abs_err"] for v in mine.values()),
+                            ms=top["ms"], plain_ms=top["plain_ms"],
+                            bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                            bound_rate=top["bound_rate"], library_ms=top["library_ms"],
+                            headline=head, cases=mine)
+    return rows, launches
+
+
+def qmm_library(torch, x, codes, scale):
+    """Yardsticks, timed only: ``torch._weight_int8pack_mm``, PyTorch's one
+    call computing x @ (codes * scale) from int8 weights (it takes them as
+    (N, K)), and a bf16 ``torch.matmul`` on the weight dequantized
+    beforehand (``dense_bf16_ms``: the dense tensor-core rate on the same
+    shape)."""
+    packed, s = codes.t().contiguous(), scale.to(x.dtype)
+    w = (codes.float() * scale[None, :]).to(x.dtype)
+    return dict(library_ms=time_ms(lambda: torch._weight_int8pack_mm(x, packed, s),
+                                   iters=5, warmup=1),
+                library="torch._weight_int8pack_mm (weight (N, K) int8)",
+                dense_bf16_ms=time_ms(lambda: torch.matmul(x, w), iters=20))
+
+
+def store_leaf_check(codes, scale, torch, ops):
+    """``quant_matmul`` on a real int8 store leaf (the int8 gateway's unit
+    0 ``ffn/w_up``) against x @ masked_dequant(codes, scale, []), the
+    weight the gateway's full-tier view serves."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    w = ops.masked_dequant(codes, scale, [], out_dtype=torch.float32)
+    worst = 0.0
+    for m in (8, 4096):
+        x = torch.randn(m, codes.shape[0], generator=gen).bfloat16().to(codes.device)
+        got = ops.quant_matmul(x, codes, scale)
+        want = (x.float() @ w).bfloat16()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        tol = qmm_tol(codes.shape[0])
+        log(f"  quant_matmul on the int8 store's unit-0 ffn/w_up {tuple(codes.shape)}, "
+            f"M={m}: max_abs_err {err:.3e} vs x @ masked_dequant (tol {tol:.6g} x "
+            f"max|out| {top:.4g})")
+        if not torch.isfinite(got).all() or err > tol * top:
+            fail("quant_matmul disagrees with x @ masked_dequant on the store leaf")
+        worst = max(worst, err / top)
+    return worst
 
 
 # ------------------------------------------------------------ phase 3 / 4
@@ -601,6 +805,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
+    # the plain versions' f32 products in full f32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.core.licensing import LicenseTier
     from repro_torch.kernels import masked_dequant as kernels_md
@@ -630,6 +837,9 @@ def main() -> None:
     # ---------------------------------------------------------- phase 2
     log("phase 2: kernels vs their plain versions")
     rows = check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md)
+    log("phase 2: prefill attention and int8 MLP products at qwen2.5-3b's shapes")
+    prefill_rows, prefill_launches = check_prefill_mlp(peaks, torch, ops, ref)
+    rows.update(prefill_rows)
 
     # ---------------------------------------------------------- phase 3
     log(f"phase 3: LicensedGateway, {ARCH} at full width and depth")
@@ -651,6 +861,8 @@ def main() -> None:
                          materialize_int8_views=True, **GEOMETRY)
     _, int8_t = serve("int8 views", gw, cfg, np, torch)
     launches = dict(ops.LAUNCHES)
+    leaf = gw._weights[gw.version]["units"]["b0"]["ffn"]["w_up"]
+    leaf = (leaf["codes"][0].clone(), leaf["scale"][0].reshape(-1).clone())
     del gw
     gc.collect()
     torch.cuda.empty_cache()
@@ -658,6 +870,9 @@ def main() -> None:
     for name in ("paged_attention", "paged_decode_write", "masked_dequant"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the serving path")
+    launches.update(prefill_launches)
+    rows["quant_matmul"]["store_leaf_rel_err"] = store_leaf_check(*leaf, torch, ops)
+    del leaf
 
     # ---------------------------------------------------------- phase 4
     log("phase 4: kernel path vs plain path")
@@ -712,10 +927,7 @@ def main() -> None:
     for name in ("delta_apply", "delta_apply_inplace"):
         if upd_launches[name] <= 0:
             fail(f"kernel {name} was not launched on the update path")
-    for name in ("delta_apply", "delta_apply_inplace"):
-        rows["delta_apply"]["forms"][name]["launches"] = upd_launches[name]
-    launches["delta_apply"] = (upd_launches["delta_apply"]
-                               + upd_launches["delta_apply_inplace"])
+        launches[name] = upd_launches[name]
 
     # ---------------------------------------------------------- phase 7
     kernels = [dict(name=name, launches=launches[name], **row)

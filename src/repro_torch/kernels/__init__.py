@@ -5,9 +5,14 @@
 - masked_dequant: Triton, fused int8 dequant + license-interval mask
 - delta_apply / delta_apply_inplace: CUDA C++ (``csrc/``), the sparse
   weight-delta scatter of the update path
+- flash_attention: CUDA C++ (``csrc/``), causal / windowed / offset
+  online-softmax attention with GQA (tensor cores, scores on chip)
+- quant_matmul: CUDA C++ (``csrc/``), x @ (int8 codes * per-column
+  scale) on the tensor cores, one f32 accumulator over K
 
 ``ops`` holds the dispatchers and launch counters, ``ref`` the plain
-versions, ``build`` the compile-at-first-use loader.
+versions, ``build`` the compile-at-first-use loader; ``csrc/mma.cuh`` the
+tensor-core helpers the last two share.
 """
 from repro_torch.kernels import ops, ref
 

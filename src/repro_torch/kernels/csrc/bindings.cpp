@@ -2,8 +2,8 @@
 // that includes torch/extension.h (it is the slow header to compile); the
 // kernels themselves live in *.cu files with plain pointer interfaces.
 // Shapes, dtypes, devices and contiguity are validated by the Python
-// wrappers in repro_torch/kernels/paged_attention.py and delta_apply.py
-// before these run.
+// wrappers in repro_torch/kernels/{paged_attention,delta_apply,
+// flash_attention,quant_matmul}.py before these run.
 
 #include <torch/extension.h>
 
@@ -26,6 +26,13 @@ void launch_paged_decode_write(void* k_blocks, void* v_blocks, const void* new_k
 void launch_delta_apply(void* buf, const void* indices, const void* values, int64_t n,
                         int64_t size, bool buf_bf16, bool val_bf16, bool idx64,
                         cudaStream_t stream);
+
+void launch_flash_attention(const void* q, const void* k, const void* v, float* out, int bh,
+                            int sq, int sk, int groups, int head_dim, bool bf16, bool causal,
+                            int window, int q_offset, cudaStream_t stream);
+
+void launch_quant_matmul(const void* x, const int8_t* codes, const float* scale, void* out,
+                         int m, int n, int k, bool x_bf16, bool out_bf16, cudaStream_t stream);
 
 at::Tensor paged_attention(const at::Tensor& q, const at::Tensor& k_blocks,
                            const at::Tensor& v_blocks, const at::Tensor& tables,
@@ -67,6 +74,32 @@ void delta_apply(at::Tensor buf, const at::Tensor& indices, const at::Tensor& va
                      indices.scalar_type() == at::kLong, at::cuda::getCurrentCUDAStream());
 }
 
+at::Tensor flash_attention(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                           bool causal, int64_t window, int64_t q_offset, int64_t groups) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = at::empty(q.sizes(), q.options().dtype(at::kFloat));
+  launch_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr<float>(),
+                         static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+                         static_cast<int>(k.size(1)), static_cast<int>(groups),
+                         static_cast<int>(q.size(2)), q.scalar_type() == at::kBFloat16, causal,
+                         static_cast<int>(window), static_cast<int>(q_offset),
+                         at::cuda::getCurrentCUDAStream());
+  return out;
+}
+
+// x (M, K), codes (K, N) int8, scale (N,) f32 -> (M, N) bf16 or f32
+at::Tensor quant_matmul(const at::Tensor& x, const at::Tensor& codes, const at::Tensor& scale,
+                        bool out_bf16) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int64_t m = x.size(0), k = x.size(1), n = codes.size(1);
+  auto out = at::empty({m, n}, x.options().dtype(out_bf16 ? at::kBFloat16 : at::kFloat));
+  launch_quant_matmul(x.data_ptr(), codes.data_ptr<int8_t>(), scale.data_ptr<float>(),
+                      out.data_ptr(), static_cast<int>(m), static_cast<int>(n),
+                      static_cast<int>(k), x.scalar_type() == at::kBFloat16,
+                      out_bf16, at::cuda::getCurrentCUDAStream());
+  return out;
+}
+
 }  // namespace repro_torch
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -76,4 +109,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "in-place write of one K/V token per lane into the block pools");
   m.def("delta_apply", &repro_torch::delta_apply,
         "in-place scatter buf[indices] = values, out-of-range indices dropped");
+  m.def("flash_attention", &repro_torch::flash_attention,
+        "causal / windowed / offset online-softmax attention, GQA; (BH, Sq, hd) f32");
+  m.def("quant_matmul", &repro_torch::quant_matmul,
+        "x @ (int8 codes * per-column scale), f32 accumulation, one cast");
 }

@@ -6,7 +6,11 @@ CPU path), so a run can prove that its main path went through the
 kernels.  ``masked_dequant`` here is the dispatcher the licensed int8
 views call: unlike the JAX package's (which sends shapes under 256x256
 to the oracle), the CUDA path has no small-shape shortcut — the Triton
-kernel takes any shape and masks the ragged edge itself.
+kernel takes any shape and masks the ragged edge itself.  The same holds
+for ``quant_matmul`` (the JAX dispatcher pads to block multiples and sends
+products under 128^3 to the oracle) and ``delta_apply``.
+``flash_attention`` has no dispatcher: its entry point is
+``kernels.flash_attention.flash_attention``.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ MAX_INTERVALS = 8
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0, "paged_decode_write": 0,
                             "masked_dequant": 0, "delta_apply": 0,
-                            "delta_apply_inplace": 0}
+                            "delta_apply_inplace": 0, "flash_attention": 0,
+                            "quant_matmul": 0}
 
 
 def reset_launches() -> None:
@@ -53,6 +58,20 @@ def masked_dequant(codes: torch.Tensor, scale: torch.Tensor,
         scale = scale.reshape(1, -1) if scale.numel() == c else scale.reshape(-1, 1)
     lo, hi = pack_intervals(intervals, codes.device)
     return _kernel(codes, scale, lo, hi, out_dtype=out_dtype)
+
+
+def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
+                 out_dtype=None) -> torch.Tensor:
+    """Activation (..., K) x int8 weights (K, N) with per-column scales
+    (N,) -> (..., N), as ``repro.kernels.ops.quant_matmul``: ``out_dtype``
+    defaults to x's dtype, leading dimensions are flattened and restored.
+    One f32 accumulator over all of K and one cast at the end."""
+    from repro_torch.kernels.quant_matmul import quant_matmul as _kernel
+
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    out = _kernel(x.reshape(-1, x.shape[-1]), codes, scale, out_dtype=out_dtype)
+    return out.reshape(*lead, codes.shape[-1])
 
 
 # ``buf[indices] = values`` via the scatter kernel, as

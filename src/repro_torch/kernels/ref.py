@@ -2,8 +2,8 @@
 
 Each function computes what its kernel computes, in plain tensor ops:
 the wrappers in ``paged_attention.py`` / ``masked_dequant.py`` /
-``delta_apply.py`` take them
-for CPU tensors, the CPU tests hold them against the JAX oracles
+``delta_apply.py`` / ``flash_attention.py`` / ``quant_matmul.py`` take
+them for CPU tensors, the CPU tests hold them against the JAX oracles
 (``repro.kernels.ref``), and ``chip_smoke.py`` holds each kernel against
 them on the card.  Like the JAX oracles they mask with -1e30 (the
 model's own softmax uses ``finfo.min``, see ``models/layers.py``).
@@ -93,3 +93,41 @@ def paged_decode_write(k_blocks: torch.Tensor, v_blocks: torch.Tensor,
     k_blocks[ids, offs] = new_k.to(k_blocks.dtype)
     v_blocks[ids, offs] = new_v.to(v_blocks.dtype)
     return k_blocks, v_blocks
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    groups: int = 1) -> torch.Tensor:
+    """Materialized-softmax attention; returns (BH, Sq, hd) f32.
+
+    q (BH, Sq, hd); k/v (BKH, Sk, hd) with BH == BKH * groups (GQA: q
+    head ``bh`` reads kv head ``bh // groups``).  Query row i sits at
+    position ``q_offset + i``; key j is masked where ``j > pos``
+    (``causal``) or ``j <= pos - window`` (``window != 0``).  A row with
+    no valid key is 0."""
+    sq, hd = q.shape[1], q.shape[2]
+    sk = k.shape[1]
+    kr = k.float().repeat_interleave(groups, dim=0)
+    vr = v.float().repeat_interleave(groups, dim=0)
+    s = torch.einsum("bqh,bkh->bqk", q.float(), kr) / math.sqrt(hd)
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1, keepdim=True)[None], p, torch.zeros_like(p))
+    return torch.einsum("bqk,bkh->bqh", p, vr)
+
+
+def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                 out_dtype=torch.float32) -> torch.Tensor:
+    """x (M, K) @ (codes (K, N) int8 * scale (N,)) -> (M, N) in out_dtype.
+
+    The weight is dequantized in f32 (per output column), the product
+    accumulates in f32, and the result is cast once at the end."""
+    w = codes.to(torch.float32) * scale.to(torch.float32)[None, :]
+    return (x.to(torch.float32) @ w).to(out_dtype)
