@@ -95,6 +95,43 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_graph_ms(fn, iters: int = 20, reps: int = 5, warmup: int = 4) -> float:
+    """Device time of ``fn`` in ms without the host's cost of launching it:
+    ``iters`` calls captured in one CUDA graph, replayed ``reps`` times
+    between CUDA events (a decode step would run captured, too)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def rotating(fns):
+    """One callable that runs ``fns`` in turn, one per call: timed, each
+    call reads another copy of its operands, so copies whose sum exceeds
+    the card's L2 are read from device memory."""
+    turn = [0]
+
+    def call():
+        fns[turn[0] % len(fns)]()
+        turn[0] += 1
+    return call
+
+
 def sync() -> None:
     import torch
 
@@ -303,6 +340,10 @@ FLASH_CASES = {"causal": dict(sq=4096, window=0, q_offset=0),
 QMM_CASES = {"up_m8": (8, 2048, 11008), "down_m8": (8, 11008, 2048),
              "up_m4096": (4096, 2048, 11008), "down_m4096": (4096, 11008, 2048)}
 FLASH_TOL = 2e-3      # abs and rel, the JAX kernel tests' tolerance
+# copies of the codes rotated through for the cold-L2 times of the
+# decode-sized products: 4 x 22.5 MB exceeds the H100's 50 MB L2, as one
+# decode step reads each weight once
+COLD_COPIES = 4
 
 
 def qmm_tol(k: int) -> float:
@@ -331,6 +372,8 @@ def check_prefill_mlp(peaks, torch, ops, ref):
     path, driven once with the launch counters zeroed just before and read
     just after; then each output is held against the plain version, and
     kernel, plain version and library call are timed."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import quant_matmul as qmm_mod
     from repro_torch.kernels.flash_attention import flash_attention
 
     dev = torch.device("cuda")
@@ -392,7 +435,8 @@ def check_prefill_mlp(peaks, torch, ops, ref):
                            q, k, v, causal=True, window=c["window"],
                            q_offset=c["q_offset"], groups=bh // bkh), iters=3, warmup=1),
                        bound_ms=bnd, bound_by=by, bound_rate=RATE_NAMES[rate],
-                       flop=4 * hd * pairs, bytes=nbytes, library_ms=None)
+                       flop=4 * hd * pairs, bytes=nbytes, library_ms=None,
+                       design=fa_mod.design(dtype, hd))
             if name == "causal" and dtype == torch.bfloat16:
                 sdpa = torch.nn.functional.scaled_dot_product_attention
                 q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
@@ -418,8 +462,16 @@ def check_prefill_mlp(peaks, torch, ops, ref):
                        plain_ms=time_ms(lambda: ref.quant_matmul(x, codes, scale,
                                                                  torch.bfloat16), iters=5),
                        bound_ms=bnd, bound_by=by, bound_rate=RATE_NAMES[2],
-                       flop=2 * m * kdim * n, bytes=nbytes)
-            row.update(qmm_library(torch, x, codes, scale))
+                       flop=2 * m * kdim * n, bytes=nbytes,
+                       design=qmm_mod.design(x.dtype, m))
+            cold = m <= qmm_mod.SMALL_M
+            row.update(qmm_library(torch, x, codes, scale, cold))
+            if cold:
+                row["ms_graph"] = time_graph_ms(lambda: ops.quant_matmul(x, codes, scale))
+                copies = [codes.clone() for _ in range(COLD_COPIES)]
+                row["ms_cold"] = time_graph_ms(rotating(
+                    [lambda c=c: ops.quant_matmul(x, c, scale) for c in copies]))
+                del copies
         if not torch.isfinite(got).all() or not ok:
             fail(f"{label} disagrees with its plain version (max_abs_err {err:.3e})")
         cases[label] = row
@@ -427,7 +479,13 @@ def check_prefill_mlp(peaks, torch, ops, ref):
                if row.get("library_ms") is not None else "")
         if "dense_bf16_ms" in row:
             lib += f" (bf16 matmul on the dequantized weight {row['dense_bf16_ms']:.4f} ms)"
-        log(f"  {label} [{row['shape']}]: max_abs_err {err:.3e} (tol {row['tol']}), "
+        if "ms_cold" in row:
+            lib += (f"; in a CUDA graph: kernel {row['ms_graph']:.4f} ms warm; L2-cold "
+                    f"({COLD_COPIES} copies of the weight): kernel {row['ms_cold']:.4f} ms, "
+                    f"library {row['library_ms_cold']:.4f} ms, bf16 matmul "
+                    f"{row['dense_bf16_ms_cold']:.4f} ms")
+        log(f"  {label} [{row['shape']}, {row['design']}]: max_abs_err {err:.3e} "
+            f"(tol {row['tol']}), "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms{lib}, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bound_rate']})")
     del outs, qkv, mlp
@@ -436,10 +494,10 @@ def check_prefill_mlp(peaks, torch, ops, ref):
     rows = {}
     for kernel, head, source, replaces in (
             ("flash_attention", "flash_attention causal bfloat16",
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention.py:84"),
             ("quant_matmul", "quant_matmul up_m4096",
-             "src/repro_torch/kernels/csrc/quant_matmul.cu",
+             "src/repro_torch/kernels/csrc/quant_matmul_sm90.cu",
              "src/repro/kernels/quant_matmul.py:40")):
         mine = {k: v for k, v in cases.items() if k.startswith(kernel)}
         top = mine[head]
@@ -452,18 +510,28 @@ def check_prefill_mlp(peaks, torch, ops, ref):
     return rows, launches
 
 
-def qmm_library(torch, x, codes, scale):
+def qmm_library(torch, x, codes, scale, cold=False):
     """Yardsticks, timed only: ``torch._weight_int8pack_mm``, PyTorch's one
     call computing x @ (codes * scale) from int8 weights (it takes them as
     (N, K)), and a bf16 ``torch.matmul`` on the weight dequantized
     beforehand (``dense_bf16_ms``: the dense tensor-core rate on the same
-    shape)."""
+    shape).  ``cold``: also each rotated over ``COLD_COPIES`` copies of its
+    weight in a CUDA graph (``*_ms_cold``), as the kernel is."""
     packed, s = codes.t().contiguous(), scale.to(x.dtype)
     w = (codes.float() * scale[None, :]).to(x.dtype)
-    return dict(library_ms=time_ms(lambda: torch._weight_int8pack_mm(x, packed, s),
-                                   iters=5, warmup=1),
-                library="torch._weight_int8pack_mm (weight (N, K) int8)",
-                dense_bf16_ms=time_ms(lambda: torch.matmul(x, w), iters=20))
+    row = dict(library_ms=time_ms(lambda: torch._weight_int8pack_mm(x, packed, s),
+                                  iters=5, warmup=1),
+               library="torch._weight_int8pack_mm (weight (N, K) int8)",
+               dense_bf16_ms=time_ms(lambda: torch.matmul(x, w), iters=20))
+    if cold:
+        packs = [packed.clone() for _ in range(COLD_COPIES)]
+        row["library_ms_cold"] = time_graph_ms(rotating(
+            [lambda p=p: torch._weight_int8pack_mm(x, p, s) for p in packs]), iters=8, reps=2)
+        del packs
+        ws = [w.clone() for _ in range(COLD_COPIES)]
+        row["dense_bf16_ms_cold"] = time_graph_ms(rotating(
+            [lambda w=w: torch.matmul(x, w) for w in ws]))
+    return row
 
 
 def store_leaf_check(codes, scale, torch, ops):

@@ -6,13 +6,15 @@
 - delta_apply / delta_apply_inplace: CUDA C++ (``csrc/``), the sparse
   weight-delta scatter of the update path
 - flash_attention: CUDA C++ (``csrc/``), causal / windowed / offset
-  online-softmax attention with GQA (tensor cores, scores on chip)
+  online-softmax attention with GQA (bf16 on wgmma with a cp.async K/V
+  ring, f32 on mma.sync; scores on chip)
 - quant_matmul: CUDA C++ (``csrc/``), x @ (int8 codes * per-column
-  scale) on the tensor cores, one f32 accumulator over K
+  scale) on the tensor cores: bf16 x by a split-K weight-stationary
+  kernel at decode-sized M or by wgmma above it, f32 x on mma.sync
 
 ``ops`` holds the dispatchers and launch counters, ``ref`` the plain
-versions, ``build`` the compile-at-first-use loader; ``csrc/mma.cuh`` the
-tensor-core helpers the last two share.
+versions, ``build`` the compile-at-first-use loader; ``csrc/mma.cuh`` and
+``csrc/wgmma.cuh`` the tensor-core helpers the last two share.
 """
 from repro_torch.kernels import ops, ref
 

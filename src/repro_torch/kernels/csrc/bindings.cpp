@@ -3,7 +3,9 @@
 // kernels themselves live in *.cu files with plain pointer interfaces.
 // Shapes, dtypes, devices and contiguity are validated by the Python
 // wrappers in repro_torch/kernels/{paged_attention,delta_apply,
-// flash_attention,quant_matmul}.py before these run.
+// flash_attention,quant_matmul}.py before these run; the wrappers pick the
+// design (flash_attention vs flash_attention_sm90; quant_matmul vs
+// quant_matmul_splitk / quant_matmul_sm90).
 
 #include <torch/extension.h>
 
@@ -31,8 +33,19 @@ void launch_flash_attention(const void* q, const void* k, const void* v, float* 
                             int sq, int sk, int groups, int head_dim, bool bf16, bool causal,
                             int window, int q_offset, cudaStream_t stream);
 
-void launch_quant_matmul(const void* x, const int8_t* codes, const float* scale, void* out,
-                         int m, int n, int k, bool x_bf16, bool out_bf16, cudaStream_t stream);
+void launch_quant_matmul(const float* x, const int8_t* codes, const float* scale, void* out,
+                         int m, int n, int k, bool out_bf16, cudaStream_t stream);
+
+void launch_flash_attention_sm90(const void* q, const void* k, const void* v, float* out,
+                                 int bh, int sq, int sk, int groups, int head_dim, bool causal,
+                                 int window, int q_offset, cudaStream_t stream);
+
+void launch_quant_matmul_splitk(const void* x, const int8_t* codes, const float* scale,
+                                float* ws, void* out, int m, int n, int k, int slice_k,
+                                int slices, bool out_bf16, cudaStream_t stream);
+
+void launch_quant_matmul_sm90(const void* x, const int8_t* codes, const float* scale, void* out,
+                              int m, int n, int k, bool out_bf16, cudaStream_t stream);
 
 at::Tensor paged_attention(const at::Tensor& q, const at::Tensor& k_blocks,
                            const at::Tensor& v_blocks, const at::Tensor& tables,
@@ -87,16 +100,57 @@ at::Tensor flash_attention(const at::Tensor& q, const at::Tensor& k, const at::T
   return out;
 }
 
-// x (M, K), codes (K, N) int8, scale (N,) f32 -> (M, N) bf16 or f32
+// the mma.sync design: f32 x (M, K), codes (K, N) int8, scale (N,) f32 ->
+// (M, N) bf16 or f32
 at::Tensor quant_matmul(const at::Tensor& x, const at::Tensor& codes, const at::Tensor& scale,
                         bool out_bf16) {
   const c10::cuda::CUDAGuard guard(x.device());
   const int64_t m = x.size(0), k = x.size(1), n = codes.size(1);
   auto out = at::empty({m, n}, x.options().dtype(out_bf16 ? at::kBFloat16 : at::kFloat));
-  launch_quant_matmul(x.data_ptr(), codes.data_ptr<int8_t>(), scale.data_ptr<float>(),
+  launch_quant_matmul(x.data_ptr<float>(), codes.data_ptr<int8_t>(), scale.data_ptr<float>(),
                       out.data_ptr(), static_cast<int>(m), static_cast<int>(n),
-                      static_cast<int>(k), x.scalar_type() == at::kBFloat16,
-                      out_bf16, at::cuda::getCurrentCUDAStream());
+                      static_cast<int>(k), out_bf16, at::cuda::getCurrentCUDAStream());
+  return out;
+}
+
+// the wgmma design: bf16 q/k/v, head_dim 64 or 128
+at::Tensor flash_attention_sm90(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                                bool causal, int64_t window, int64_t q_offset, int64_t groups) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = at::empty(q.sizes(), q.options().dtype(at::kFloat));
+  launch_flash_attention_sm90(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr<float>(),
+                              static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+                              static_cast<int>(k.size(1)), static_cast<int>(groups),
+                              static_cast<int>(q.size(2)), causal, static_cast<int>(window),
+                              static_cast<int>(q_offset), at::cuda::getCurrentCUDAStream());
+  return out;
+}
+
+// bf16 x (M <= 32, K), codes (K, N) int8, scale (N,) f32; ws (slices, M, N)
+// f32 holds the K slices' partials -> (M, N) bf16 or f32
+at::Tensor quant_matmul_splitk(const at::Tensor& x, const at::Tensor& codes,
+                               const at::Tensor& scale, at::Tensor ws, int64_t slice_k,
+                               bool out_bf16) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int64_t m = x.size(0), k = x.size(1), n = codes.size(1);
+  auto out = at::empty({m, n}, x.options().dtype(out_bf16 ? at::kBFloat16 : at::kFloat));
+  launch_quant_matmul_splitk(x.data_ptr(), codes.data_ptr<int8_t>(), scale.data_ptr<float>(),
+                             ws.data_ptr<float>(), out.data_ptr(), static_cast<int>(m),
+                             static_cast<int>(n), static_cast<int>(k),
+                             static_cast<int>(slice_k), static_cast<int>(ws.size(0)), out_bf16,
+                             at::cuda::getCurrentCUDAStream());
+  return out;
+}
+
+// bf16 x (M, K), codes (K, N) int8, scale (N,) f32 -> (M, N) bf16 or f32
+at::Tensor quant_matmul_sm90(const at::Tensor& x, const at::Tensor& codes,
+                             const at::Tensor& scale, bool out_bf16) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int64_t m = x.size(0), k = x.size(1), n = codes.size(1);
+  auto out = at::empty({m, n}, x.options().dtype(out_bf16 ? at::kBFloat16 : at::kFloat));
+  launch_quant_matmul_sm90(x.data_ptr(), codes.data_ptr<int8_t>(), scale.data_ptr<float>(),
+                           out.data_ptr(), static_cast<int>(m), static_cast<int>(n),
+                           static_cast<int>(k), out_bf16, at::cuda::getCurrentCUDAStream());
   return out;
 }
 
@@ -113,4 +167,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "causal / windowed / offset online-softmax attention, GQA; (BH, Sq, hd) f32");
   m.def("quant_matmul", &repro_torch::quant_matmul,
         "x @ (int8 codes * per-column scale), f32 accumulation, one cast");
+  m.def("flash_attention_sm90", &repro_torch::flash_attention_sm90,
+        "flash_attention on wgmma with a cp.async K/V ring (bf16, hd 64 / 128)");
+  m.def("quant_matmul_splitk", &repro_torch::quant_matmul_splitk,
+        "quant_matmul for small M: weight-stationary mma.sync split over K, fixed-order sum");
+  m.def("quant_matmul_sm90", &repro_torch::quant_matmul_sm90,
+        "quant_matmul for large M: wgmma with a cp.async ring, codes converted in shared memory");
 }

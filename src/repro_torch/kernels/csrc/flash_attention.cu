@@ -1,5 +1,8 @@
-// Hopper (sm_90a) kernel of prefill attention: causal / windowed / offset
-// online-softmax attention with GQA, f32 out.
+// Hopper (sm_90a) kernel of prefill attention on mma.sync: causal /
+// windowed / offset online-softmax attention with GQA, f32 out.  The
+// wrapper (kernels/flash_attention.py) sends it f32 inputs and head dim
+// 32; bf16 inputs at head dim 64 and 128 go to the wgmma design of
+// flash_attention_sm90.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:84
 // (flash_attention, pallas_call at :108).  On the TPU the grid is
@@ -34,15 +37,14 @@
 // PERF.md.  The softmax state, the masks and the final division by
 // max(l, 1e-20) (rows with no valid key give 0, not NaN) are f32.
 //
-// What bounds it on this card: operations.  At a 4096-token causal prefill
-// of qwen2.5-3b (16 q heads over 2 kv heads, hd 128) the unmasked pairs
-// need 6.87e10 flop against 54.5 MB of bf16 q/k/v read and f32 output
-// written: 0.069 ms at the dense bf16 tensor-core rate, 0.016 ms for the
-// bytes.  The design keeps every score on chip (registers), reads each
-// K/V tile once per q tile into shared memory, reuses the score fragments
-// as the A operand of p.v without a shared-memory round trip, and reads
-// V's B fragments with ldmatrix.trans.  Not done yet (later work): wgmma,
-// TMA and a pipelined (multi-stage) K/V ring; loads here are synchronous.
+// What bounds it on this card: operations.  For f32 inputs the split
+// products are counted at the f32 rate (the tensor cores take the bf16
+// terms, so the kernel runs close to that bound: PERF.md).  The design
+// keeps every score on chip (registers), reads each K/V tile once per q
+// tile into shared memory, reuses the score fragments as the A operand of
+// p.v without a shared-memory round trip, and reads V's B fragments with
+// ldmatrix.trans.  Loads are synchronous; the bf16 path that needed a
+// pipelined ring and wgmma has its own kernel (flash_attention_sm90.cu).
 
 #include <cmath>
 #include <cstdint>
@@ -334,9 +336,11 @@ void launch_hd(const void* q, const void* k, const void* v, float* out, int bh, 
 void launch_flash_attention(const void* q, const void* k, const void* v, float* out, int bh,
                             int sq, int sk, int groups, int head_dim, bool bf16, bool causal,
                             int window, int q_offset, cudaStream_t stream) {
-  if (bf16) {
-    launch_hd<__nv_bfloat16>(q, k, v, out, bh, sq, sk, groups, head_dim, causal, window,
-                             q_offset, stream);
+  if (bf16) {  // hd 64 and 128 take flash_attention_sm90.cu
+    TORCH_CHECK(head_dim == 32, "flash_attention (mma.sync): bf16 head_dim ", head_dim,
+                " belongs to the wgmma kernel");
+    launch_typed<__nv_bfloat16, 32>(q, k, v, out, bh, sq, sk, groups, causal, window, q_offset,
+                                    stream);
   } else {
     launch_hd<float>(q, k, v, out, bh, sq, sk, groups, head_dim, causal, window, q_offset,
                      stream);

@@ -1,6 +1,8 @@
-// Hopper (sm_90a) kernel of the int8-weight matrix product:
+// Hopper (sm_90a) kernel of the int8-weight matrix product on mma.sync:
 // out = x (M, K) @ (codes (K, N) int8 * scale (N,)), f32 accumulation,
-// one cast to the output dtype at the end.
+// one cast to the output dtype at the end.  The wrapper
+// (kernels/quant_matmul.py) sends it f32 x; bf16 x goes to the split-K and
+// wgmma designs of quant_matmul_sm90.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/quant_matmul.py:40
 // (quant_matmul, pallas_call at :62).  The TPU kernel dequantizes each
@@ -12,28 +14,23 @@
 // into shared memory as bf16 (codes -127..127 are exact in bf16), runs
 // bf16 x bf16 products on the tensor cores (mma.sync m16n8k16) into ONE
 // f32 accumulator over all of K, and multiplies by scale and casts once in
-// the epilogue, as the oracle (repro/kernels/ref.py) does.
-// * bf16 x: every product x*code is exact in f32.
-// * f32 x (no TF32): x is split into three bf16 terms that hold all of its
-//   significand (mma.cuh split3), and three products per step recover
-//   x*code exactly; only the f32 summation order differs from the oracle.
+// the epilogue, as the oracle (repro/kernels/ref.py) does.  No TF32: x is
+// split into three bf16 terms that hold all of its significand (mma.cuh
+// split3), and three products per step recover x*code exactly; only the
+// f32 summation order differs from the oracle.
 // Any M, K and N: loads past the edges read zeros and stores are masked,
 // so the caller pads nothing (M = 8 decode steps included).
 //
-// What bounds it on this card, at qwen2.5-3b's MLP shapes:
-// * decode (M = 8): bytes.  The 2048 x 11008 codes (22.5 MB) dominate;
-//   0.0067 ms at 3.35 TB/s against 3.6e8 flop.
-// * prefill (M = 4096): operations.  1.85e11 flop, 0.187 ms at the dense
-//   bf16 tensor-core rate, against 129.5 MB.
+// What bounds it on this card: operations at a prefill's M (the three
+// products per term triple the tensor-core work), bytes at a decode's.
 // Block tile 64 x 128 over 4 warps (32 x 64 each), K in steps of 32; the
 // codes are read once per M tile with 4-byte coalesced loads and
 // transposed into (n, k) rows at staging so every fragment read is one
-// conflict-free 32-bit load.  Not done yet (later work): a split over K
-// for small M (the decode shapes launch only 86 and 16 blocks on 132 SMs),
-// a pipelined (multi-stage) ring, wgmma and TMA.
+// conflict-free 32-bit load.  Staging is synchronous, between two
+// barriers; the bf16 designs that needed a split over K and wgmma have
+// their own kernels (quant_matmul_sm90.cu).
 
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,55 +49,35 @@ constexpr int kBK = 32;
 constexpr int kLd = kBK + 8;  // staged row stride in bf16: conflict-free fragment reads
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // 16 consecutive values of x (row gm, columns gk..gk+15) as f32, zeros past the edges
-template <typename T>
-__device__ __forceinline__ void load_x16(const T* __restrict__ x, int m, int k, int gm, int gk,
-                                         bool vec, float (&v)[16]) {
-  const T* p = x + static_cast<size_t>(gm) * k + gk;
+__device__ __forceinline__ void load_x16(const float* __restrict__ x, int m, int k, int gm,
+                                         int gk, bool vec, float (&v)[16]) {
+  const float* p = x + static_cast<size_t>(gm) * k + gk;
   if (gm < m && vec && gk + 16 <= k) {
-    if constexpr (std::is_same_v<T, float>) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 w = reinterpret_cast<const float4*>(p)[i];
-        v[4 * i] = w.x;
-        v[4 * i + 1] = w.y;
-        v[4 * i + 2] = w.z;
-        v[4 * i + 3] = w.w;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const uint4 w = reinterpret_cast<const uint4*>(p)[i];
-        const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          __nv_bfloat162 b;
-          memcpy(&b, &words[j], sizeof(b));
-          const float2 f = __bfloat1622float2(b);
-          v[8 * i + 2 * j] = f.x;
-          v[8 * i + 2 * j + 1] = f.y;
-        }
-      }
+    for (int i = 0; i < 4; ++i) {
+      const float4 w = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = w.x;
+      v[4 * i + 1] = w.y;
+      v[4 * i + 2] = w.z;
+      v[4 * i + 3] = w.w;
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) v[i] = (gm < m && gk + i < k) ? to_f32(p[i]) : 0.f;
+    for (int i = 0; i < 16; ++i) v[i] = (gm < m && gk + i < k) ? p[i] : 0.f;
   }
 }
 
 // grid (N tiles, M tiles), 4 warps in a 2 x 2 arrangement over the 64 x 128 tile
-template <typename T, typename Tout>
+template <typename Tout>
 __global__ void __launch_bounds__(kThreads)
-    quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ codes,
+    quant_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ codes,
                         const float* __restrict__ scale, Tout* __restrict__ out, int m, int n,
                         int k, bool x_vec, bool c_vec) {
-  constexpr int kTerms = std::is_same_v<T, float> ? 3 : 1;  // bf16 terms of x
+  constexpr int kTerms = 3;  // bf16 terms of x
   __shared__ uint4 a_raw[kTerms][kBM * kLd / 8];
   __shared__ uint4 b_raw[kBN * kLd / 8];
   __nv_bfloat16* a_s[kTerms];
@@ -131,13 +108,7 @@ __global__ void __launch_bounds__(kThreads)
       load_x16(x, m, k, m0 + r, k0 + c, x_vec, v);
       uint32_t w[kTerms][8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if constexpr (kTerms == 3) {
-          mma::split3(v[2 * i], v[2 * i + 1], w[0][i], w[1][i], w[2][i]);
-        } else {
-          w[0][i] = mma::pack(v[2 * i], v[2 * i + 1]);  // exact: v came from bf16
-        }
-      }
+      for (int i = 0; i < 8; ++i) mma::split3(v[2 * i], v[2 * i + 1], w[0][i], w[1][i], w[2][i]);
 #pragma unroll
       for (int s = 0; s < kTerms; ++s) {
         uint4* dst = reinterpret_cast<uint4*>(a_s[s] + r * kLd + c);
@@ -223,31 +194,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, typename Tout>
-void launch_typed(const void* x, const int8_t* codes, const float* scale, void* out, int m,
+template <typename Tout>
+void launch_typed(const float* x, const int8_t* codes, const float* scale, void* out, int m,
                   int n, int k, cudaStream_t stream) {
   // vector loads need 16-byte aligned x rows and 4-byte aligned code rows
-  const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     (static_cast<size_t>(k) * sizeof(T)) % 16 == 0;
+  const bool x_vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && k % 4 == 0;
   const bool c_vec = reinterpret_cast<uintptr_t>(codes) % 4 == 0 && n % 4 == 0;
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  quant_matmul_kernel<T, Tout><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), codes, scale, static_cast<Tout*>(out), m, n, k, x_vec, c_vec);
+  quant_matmul_kernel<Tout><<<grid, kThreads, 0, stream>>>(
+      x, codes, scale, static_cast<Tout*>(out), m, n, k, x_vec, c_vec);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 }  // namespace
 
-void launch_quant_matmul(const void* x, const int8_t* codes, const float* scale, void* out,
-                         int m, int n, int k, bool x_bf16, bool out_bf16, cudaStream_t stream) {
-  if (x_bf16 && out_bf16) {
-    launch_typed<__nv_bfloat16, __nv_bfloat16>(x, codes, scale, out, m, n, k, stream);
-  } else if (x_bf16) {
-    launch_typed<__nv_bfloat16, float>(x, codes, scale, out, m, n, k, stream);
-  } else if (out_bf16) {
-    launch_typed<float, __nv_bfloat16>(x, codes, scale, out, m, n, k, stream);
+// f32 x; bf16 x takes quant_matmul_sm90.cu
+void launch_quant_matmul(const float* x, const int8_t* codes, const float* scale, void* out,
+                         int m, int n, int k, bool out_bf16, cudaStream_t stream) {
+  if (out_bf16) {
+    launch_typed<__nv_bfloat16>(x, codes, scale, out, m, n, k, stream);
   } else {
-    launch_typed<float, float>(x, codes, scale, out, m, n, k, stream);
+    launch_typed<float>(x, codes, scale, out, m, n, k, stream);
   }
 }
 

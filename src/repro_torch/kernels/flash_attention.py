@@ -1,25 +1,33 @@
 """Prefill attention on Hopper: ``flash_attention``.
 
 Replaces the Pallas TPU kernel ``flash_attention``
-(``repro/kernels/flash_attention.py:84``) with hand-written CUDA C++
-(``csrc/flash_attention.cu``, built by ``build.load_extension``):
-causal, windowed and offset online-softmax attention with GQA, whose
-scores never leave the chip.  The layout is the JAX function's, q
-``(BH, Sq, hd)`` and k/v ``(BKH, Sk, hd)`` with ``BH == BKH * groups``
-(q head ``bh`` reads kv head ``bh // groups``); the output is f32 whatever
-the input dtype.  Unlike the TPU kernel it takes any Sq and Sk (the kernel
-masks the ragged edge) and has no block-size or ``interpret`` arguments.
+(``repro/kernels/flash_attention.py:84``) with hand-written CUDA C++,
+built by ``build.load_extension``: causal, windowed and offset
+online-softmax attention with GQA, whose scores never leave the chip.
+The layout is the JAX function's, q ``(BH, Sq, hd)`` and k/v
+``(BKH, Sk, hd)`` with ``BH == BKH * groups`` (q head ``bh`` reads kv
+head ``bh // groups``); the output is f32 whatever the input dtype.
+Unlike the TPU kernel it takes any Sq and Sk (the kernels mask the
+ragged edge) and has no block-size or ``interpret`` arguments.
 
 What bounds it on the card: operations (4 * hd flop per unmasked (q, k)
-pair against a few bytes per row); the kernel skips the k tiles that the
-causal or window mask removes entirely, and keeps every score in
-registers.  Source notes in ``csrc/flash_attention.cu`` say how f32
-inputs avoid TF32 and what that costs in accuracy.
+pair against a few bytes per row).  Two designs, picked by dtype and head
+dim (``design``):
+
+* bf16 inputs with hd 64 or 128 (qwen2.5-3b's prefill): ``wgmma``
+  (``csrc/flash_attention_sm90.cu``): 128 q rows per block over two
+  warpgroups, 128-key K/V tiles through a 3-stage ``cp.async`` ring, S
+  and P.V as warpgroup products, p carried as two bf16 terms.
+* f32 inputs, and hd 32: ``mma.sync`` (``csrc/flash_attention.cu``),
+  with f32 inputs split into two bf16 terms (no TF32).
+
+Both skip the k tiles that the causal or window mask removes entirely and
+keep every score in registers.  Times on the H100 are in PERF.md.
 
 No path of either package calls it (the prefill keeps its own attention,
 as the JAX prefill keeps ``attention_core``); this function is the entry
 point.  A CPU tensor takes the plain version (``ref.flash_attention``); a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -30,6 +38,13 @@ from repro_torch.kernels.paged_attention import _require_cuda
 
 _HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+_WGMMA_HEAD_DIMS = (64, 128)
+
+
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 at hd 64 / 128,
+    else ``"mma_sync"``."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,7 +82,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return torch.empty(q.shape, dtype=torch.float32, device=q.device)
     from repro_torch.kernels.build import load_extension
 
-    out = load_extension().flash_attention(q, k, v, bool(causal), int(window),
-                                           int(q_offset), int(groups))
+    ext = load_extension()
+    kernel = ext.flash_attention_sm90 if design(q.dtype, hd) == "wgmma" else ext.flash_attention
+    out = kernel(q, k, v, bool(causal), int(window), int(q_offset), int(groups))
     ops.LAUNCHES["flash_attention"] += 1
     return out

@@ -7,8 +7,9 @@ and against the Pallas kernel run in interpret mode, at the JAX tests'
 tolerance (rtol = atol = 2e-3; the two f32 softmaxes differ only in
 summation order).  Ragged Sq / Sk, which the port takes and the Pallas
 kernel does not (it asserts block multiples), are held against the oracle
-only.  The cases marked ``gpu`` hold the CUDA kernel against the plain
-version on the card, in f32 and bf16, at 2e-3; they skip elsewhere.
+only.  The cases marked ``gpu`` hold the CUDA kernels (both designs)
+against the plain version on the card, in f32 and bf16, at 2e-3; they
+skip elsewhere.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -102,6 +103,16 @@ def test_flash_attention_rows_without_keys_are_zero(mask):
     assert (got[:, dead] == 0).all() and (got[:, ~dead] != 0).any(axis=-1).all()
 
 
+def test_flash_attention_design_by_dtype_and_head_dim():
+    """bf16 at hd 64 / 128 takes the wgmma kernel; f32 and hd 32 the
+    mma.sync one (the choice is a function of dtype and hd alone)."""
+    from repro_torch.kernels.flash_attention import design
+
+    assert design(torch.bfloat16, 128) == design(torch.bfloat16, 64) == "wgmma"
+    assert design(torch.bfloat16, 32) == "mma_sync"
+    assert design(torch.float32, 128) == "mma_sync"
+
+
 def test_flash_attention_bf16_inputs_give_f32():
     """bf16 in, f32 out: the plain version upcasts the same bf16 values
     the JAX oracle does."""
@@ -129,6 +140,18 @@ GPU_CASES = {
     # last 512 rows of a 4096-token prompt
     "qwen_full_width": dict(bh=16, sq=512, sk=4096, hd=128, bkh=2,
                             mask=dict(causal=True, q_offset=3584, groups=8)),
+    # off the wgmma design's 128-row q tiles and 128-key k tiles (bf16,
+    # hd 128 and 64): one row, 129 rows, 200 keys, a window with a
+    # negative offset (leading rows without keys)
+    "tiles_sq1": dict(bh=4, sq=1, sk=200, hd=128, bkh=2,
+                      mask=dict(causal=True, q_offset=199, groups=2)),
+    "tiles_sq129_sk200": dict(bh=4, sq=129, sk=200, hd=128, bkh=2,
+                              mask=dict(causal=True, q_offset=71, groups=2)),
+    "tiles_window_negative_offset": dict(bh=4, sq=300, sk=260, hd=128, bkh=2,
+                                         mask=dict(causal=True, window=64, q_offset=-30,
+                                                   groups=2)),
+    "tiles_noncausal_hd64": dict(bh=4, sq=129, sk=200, hd=64, bkh=1,
+                                 mask=dict(causal=False, groups=4)),
 }
 
 
@@ -137,7 +160,9 @@ GPU_CASES = {
 @pytest.mark.parametrize("case", sorted(GPU_CASES))
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):  # noqa: F811
     """2e-3 abs/rel: bf16 products are exact and p is carried as two bf16
-    terms; f32 inputs are split likewise (csrc/flash_attention.cu)."""
+    terms; f32 inputs are split likewise (csrc/flash_attention.cu).  bf16
+    at hd 64 / 128 runs the wgmma kernel (csrc/flash_attention_sm90.cu),
+    the rest the mma.sync one."""
     c = GPU_CASES[case]
     args = [torch.from_numpy(a).to(cuda, getattr(torch, dtype))
             for a in _qkv(24, c["bh"], c["sq"], c["sk"], c["hd"], c["bkh"])]

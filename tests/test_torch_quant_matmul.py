@@ -93,6 +93,13 @@ GPU_CASES = {
     "qwen_up_m8": dict(m=8, k=2048, n=11008),
     "qwen_down_m8": dict(m=8, k=11008, n=2048),
     "qwen_up_m512": dict(m=512, k=2048, n=11008),
+    # across the bf16 designs' boundaries (split-K up to M = SMALL_M = 32,
+    # wgmma above): K off the 64-row slices, N off 8 and 16 (scalar code
+    # loads), K % 8 != 0 (scalar x loads), the prefill's M
+    "splitk_m1_ragged": dict(m=1, k=1000, n=203),
+    "splitk_m32_n1000": dict(m=32, k=4100, n=1000),
+    "wgmma_m33_k700": dict(m=33, k=700, n=256),
+    "qwen_down_m4096": dict(m=4096, k=11008, n=2048),
 }
 
 
@@ -125,3 +132,47 @@ def test_quant_matmul_kernel_matches_plain(cuda, case, x_dtype, out_dtype):  # n
     if out_dtype == "bfloat16":
         tol += 2.0 ** -7
     assert (got.float() - want.float()).abs().max().item() <= tol * top
+
+
+def _qmm_tol(k, terms=1, bf16_out=True):
+    """The gpu cases' bound relative to the largest |output| (see above)."""
+    return -(-k // 16) * terms * 2.0 ** -23 + (2.0 ** -7 if bf16_out else 0.0)
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 33])
+def test_quant_matmul_design_by_dtype_and_m(m):
+    """bf16 x up to SMALL_M rows takes the split-K kernel, more rows the
+    wgmma kernel; f32 x the mma.sync kernel, whatever M."""
+    from repro_torch.kernels.quant_matmul import SMALL_M, design
+
+    assert SMALL_M == 32
+    assert design(torch.bfloat16, m) == ("splitk" if m <= 32 else "wgmma")
+    assert design(torch.float32, m) == "mma_sync"
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 11008, 2048), (8, 2048, 11008), (1, 1000, 203),
+                                   (32, 4100, 512)],
+                         ids=["qwen_down_m8", "qwen_up_m8", "ragged_m1", "m32_k4100"])
+def test_quant_matmul_splitk_arithmetic(m, k, n):
+    """The split-K design's arithmetic in plain PyTorch: f32 partials over
+    the planned K slices (an H100's 132 SMs), summed in slice order, scaled
+    and cast once, agree with ``ref.quant_matmul`` within the kernel's
+    bound; the plan covers K exactly with non-empty 64-row-multiple slices
+    and fills the card with at least 4 blocks per SM where K allows."""
+    from repro_torch.kernels.quant_matmul import splitk_plan
+
+    slices, slice_k = splitk_plan(k, n, 132)
+    assert slice_k % 64 == 0 and (slices - 1) * slice_k < k <= slices * slice_k
+    blocks = -(-n // 128) * slices
+    assert blocks >= 4 * 132 or slice_k == 64
+    x, codes, scale = _case(41, (m,), k, n)
+    tx = torch.from_numpy(x).bfloat16()
+    tc, ts = torch.from_numpy(codes), torch.from_numpy(scale)
+    total = torch.zeros(m, n, dtype=torch.float32)
+    for s in range(slices):
+        ks = slice(s * slice_k, min(k, (s + 1) * slice_k))
+        total += tx[:, ks].float() @ tc[ks].float()
+    got = (total * ts[None, :]).bfloat16()
+    want = ref.quant_matmul(tx, tc, ts, torch.bfloat16)
+    top = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= _qmm_tol(k) * top
