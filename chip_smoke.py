@@ -10,7 +10,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    the card, at the shapes the gateway gives it, with its time (CUDA
    events), the plain version's time, the time of one PyTorch library
    call computing the same function where there is one, and its bound
-   on this card; then the prefill attention and int8 MLP product
+   on this card (``paged_attention`` at three decode shapes: contexts
+   1-600, the serving stream's 9-96 and 8 x 4096 tokens, each back to
+   back, in a CUDA graph and, the last, L2-cold; ``paged_decode_write``
+   back to back and in a graph; the last three back to back also as the
+   extension call alone, without the wrapper's Python); then the prefill
+   attention and int8 MLP product
    (``flash_attention`` and ``ops.quant_matmul``, which no serving path
    calls) driven through their entry points at qwen2.5-3b's shapes, with
    the launch counters zeroed just before and read just after, and the
@@ -120,6 +125,19 @@ def time_graph_ms(fn, iters: int = 20, reps: int = 5, warmup: int = 4) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
+def host_split_ms(wrapped, bare, reps: int = 5):
+    """Back-to-back ms of a wrapper and of its extension call alone (pybind,
+    device guard, launch; none of the wrapper's Python), ``reps`` rounds
+    of ``time_ms`` alternating which goes first; the two medians."""
+    import statistics
+
+    got = ([], [])
+    for r in range(reps):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            got[i].append(time_ms((wrapped, bare)[i]))
+    return statistics.median(got[0]), statistics.median(got[1])
+
+
 def rotating(fns):
     """One callable that runs ``fns`` in turn, one per call: timed, each
     call reads another copy of its operands, so copies whose sum exceeds
@@ -148,16 +166,102 @@ def bound_ms(nbytes: float, flops: float, peaks, rate: int = 1) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# paged_attention at qwen2.5-3b's decode shape (16 q heads over 2 kv heads,
+# head_dim 128) on 16-token blocks, bf16 in the cases below, held to 1e-5 of
+# the plain version (both compute in f32 from the same values; only the
+# order of the sums differs).  Beyond phase 2's ragged case (contexts
+# 1-600): the serving stream's own contexts (prompts 9-64 plus up to 32 new
+# tokens) and a decode after a 4096-token prefill on each of 8 lanes, also
+# timed L2-cold over PA_COLD_COPIES copies of its 33.6 MB of K/V
+PA_SHAPE = (16, 2, 128, 16)           # q heads, kv heads, head_dim, block size
+PA_TOL = 1e-5
+PA_CASES = {"serving": [9, 23, 40, 57, 64, 75, 88, 96], "long": [4096] * 8}
+PA_COLD_COPIES = 4
+
+
+def paged_bound(peaks, q, lens):
+    """Bound of one ``paged_attention`` call: q, every live K/V row of its
+    kv heads, the table, the lengths and the f32 output once; q.k and p.v in
+    f32 over the live keys."""
+    h, kh, hd, _ = PA_SHAPE
+    b, elt, live = q.shape[0], q.element_size(), int(lens.sum())
+    t_cols = -(-int(lens.max()) // PA_SHAPE[3])
+    nbytes = (q.numel() * elt + 2 * live * kh * hd * elt + b * t_cols * 4 + b * 4
+              + q.numel() * 4)
+    return bound_ms(nbytes, 4 * live * h * hd, peaks)
+
+
+def paged_plan(kernels_pa, t_cols, b, torch):
+    """The (splits, columns per split) the wrapper launches at this shape."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return list(kernels_pa.split_plan(t_cols, PA_SHAPE[3], b, PA_SHAPE[1], sms))
+
+
+def paged_case(torch, kernels_pa, ref, peaks, gen, lens, cold=False):
+    """One bf16 decode step at contexts ``lens``: error against the plain
+    version, times back to back (the wrapper and the extension call alone),
+    in a CUDA graph and (``cold``) L2-cold in a graph, bound and split plan.
+    Dead table entries name the null block."""
+    from repro_torch.kernels.build import load_extension
+
+    dev = torch.device("cuda")
+    h, kh, hd, bs = PA_SHAPE
+    b, t_cols = len(lens), -(-max(lens) // bs)
+    p = b * t_cols + 1
+    tables = torch.randperm(p - 1, generator=gen)[: b * t_cols].reshape(b, t_cols)
+    for i, n in enumerate(lens):
+        tables[i, -(-n // bs):] = p - 1
+    tables = tables.int().to(dev)
+    ctx = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn(b, h, hd, generator=gen).bfloat16().to(dev)
+    kb = torch.randn(p, bs, kh, hd, generator=gen).bfloat16().to(dev)
+    vb = torch.randn(p, bs, kh, hd, generator=gen).bfloat16().to(dev)
+
+    def attend(k=kb, v=vb):
+        return kernels_pa.paged_attention(q, k, v, tables, ctx)
+
+    got = attend()
+    want = ref.paged_attention(q, kb, vb, tables, ctx)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or err > PA_TOL:
+        fail(f"paged_attention at contexts {min(lens)}-{max(lens)} disagrees with its "
+             f"plain version (max_abs_err {err:.3e})")
+    del got, want
+    bnd, by = paged_bound(peaks, q, ctx)
+    splits, cols = paged_plan(kernels_pa, t_cols, b, torch)
+    ws = torch.empty((splits, b, h, hd + 2) if splits > 1 else (0,), device=dev)
+    ext = load_extension()
+    ms, ms_ext = host_split_ms(attend, lambda: ext.paged_attention(q, kb, vb, tables, ctx,
+                                                                   ws, cols))
+    row = dict(lens=f"{min(lens)}-{max(lens)}", table_cols=t_cols, live_tokens=sum(lens),
+               max_abs_err=err, ms=ms, ms_ext=ms_ext, ms_graph=time_graph_ms(attend),
+               plain_ms=time_ms(lambda: ref.paged_attention(q, kb, vb, tables, ctx),
+                                iters=10, warmup=2),
+               bound_ms=bnd, bound_by=by, split_plan=[splits, cols])
+    if cold:
+        pools = [(kb, vb)] + [(kb.clone(), vb.clone()) for _ in range(PA_COLD_COPIES - 1)]
+        row["ms_cold"] = time_graph_ms(rotating([lambda k=k, v=v: attend(k, v)
+                                                 for k, v in pools]))
+        row["cold_copies"] = PA_COLD_COPIES
+        del pools
+        torch.cuda.empty_cache()
+    return row
+
+
 # ------------------------------------------------------------ phase 2
 def check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md):
     """Each kernel vs its plain version at the main path's shapes."""
+    from repro_torch.kernels.build import load_extension
+
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     rows = {}
 
     # paged_attention: a decode step of 8 lanes, 16 heads over 2 kv heads,
     # head_dim 128, 16-token blocks, ragged contexts up to ~600 tokens
-    b, h, kh, hd, bs = 8, 16, 2, 128, 16
+    h, kh, hd, bs = PA_SHAPE
+    b = 8
     ctx = torch.tensor([1, 17, 100, 255, 311, 480, 555, 600], dtype=torch.int32)
     t_cols = int((ctx.max() + bs - 1) // bs)
     p = b * t_cols + 1
@@ -166,7 +270,7 @@ def check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md):
         tables[i, -(-n // bs):] = p - 1
     tables, lens = tables.int().to(dev), ctx.to(dev)
     errs = {}
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-5)):
+    for dtype, tol in ((torch.float32, PA_TOL), (torch.bfloat16, PA_TOL)):
         # both versions compute in f32 from the same (upcast) inputs; only
         # the summation order differs, over <= 600 keys
         q = torch.randn(b, h, hd, generator=gen).to(dtype).to(dev)
@@ -180,18 +284,36 @@ def check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md):
         log(f"  paged_attention {dtype}: max_abs_err {err:.3e} (tol {tol:g})")
         if not torch.isfinite(got).all() or err > tol:
             fail(f"paged_attention {dtype} disagrees with its plain version")
-    live = int(ctx.sum())
-    nbytes = (q.numel() * 2 + 2 * live * kh * hd * 2 + tables.numel() * 4
-              + lens.numel() * 4 + b * h * hd * 4)
-    flops = 4 * live * h * hd                      # q.k and p.v, f32
-    bnd, by = bound_ms(nbytes, flops, peaks)
+    bnd, by = paged_bound(peaks, q, lens)
+
+    def attend():
+        return kernels_pa.paged_attention(q, kb, vb, tables, lens)
+
+    cases = {"phase2": dict(
+        lens="1-600", table_cols=t_cols, live_tokens=int(ctx.sum()),
+        max_abs_err=max(errs.values()), ms=time_ms(attend), ms_graph=time_graph_ms(attend),
+        plain_ms=time_ms(lambda: ref.paged_attention(q, kb, vb, tables, lens)),
+        bound_ms=bnd, bound_by=by, split_plan=paged_plan(kernels_pa, t_cols, b, torch))}
+    pa_gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    for name, case_lens in PA_CASES.items():
+        cases[name] = paged_case(torch, kernels_pa, ref, peaks, pa_gen, case_lens,
+                                 cold=name == "long")
+    for name, c in cases.items():
+        cold = f", L2-cold {c['ms_cold']:.4f} ms" if "ms_cold" in c else ""
+        alone = f" (extension call alone {c['ms_ext']:.4f})" if "ms_ext" in c else ""
+        log(f"  paged_attention {name} bf16 [ctx {c['lens']}, {c['table_cols']} table "
+            f"columns, split plan {c['split_plan']}]: max_abs_err {c['max_abs_err']:.3e} "
+            f"(tol {PA_TOL:g}), {c['ms']:.4f} ms back to back{alone}, {c['ms_graph']:.4f} ms in "
+            f"a CUDA graph{cold}, plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} "
+            f"ms ({c['bound_by']})")
+    head = cases["phase2"]
     rows["paged_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:91",
-        max_abs_err=max(errs.values()),
-        ms=time_ms(lambda: kernels_pa.paged_attention(q, kb, vb, tables, lens)),
-        plain_ms=time_ms(lambda: ref.paged_attention(q, kb, vb, tables, lens)),
-        bound_ms=bnd, bound_by=by, library_ms=None)
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        ms=head["ms"], ms_graph=head["ms_graph"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
+        headline="phase2 bf16", cases=cases)
 
     # paged_decode_write: one bf16 token per lane into the pool, 2 pad
     # lanes aimed at the null block
@@ -212,12 +334,22 @@ def check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md):
         fail("paged_decode_write disagrees with its plain version")
     nbytes = 2 * (2 * b * kh * hd * 2) + 2 * b * 4
     bnd, by = bound_ms(nbytes, 0, peaks)
+
+    def write():
+        return kernels_pa.paged_decode_write(pool_k, pool_v, nk, nv, ids, offs)
+
+    ext = load_extension()
+    ms, ms_ext = host_split_ms(write, lambda: ext.paged_decode_write(pool_k, pool_v, nk, nv,
+                                                                     ids, offs))
     rows["paged_decode_write"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:160", max_abs_err=err,
-        ms=time_ms(lambda: kernels_pa.paged_decode_write(pool_k, pool_v, nk, nv, ids, offs)),
+        ms=ms, ms_ext=ms_ext, ms_graph=time_graph_ms(write),
         plain_ms=time_ms(lambda: ref.paged_decode_write(pool_k, pool_v, nk, nv, ids, offs)),
         bound_ms=bnd, bound_by=by, library_ms=None)
+    row = rows["paged_decode_write"]
+    log(f"  paged_decode_write: {row['ms']:.4f} ms back to back (median of 5; the extension "
+        f"call alone {row['ms_ext']:.4f} ms), {row['ms_graph']:.4f} ms in a CUDA graph")
 
     # masked_dequant: the MLP weight slices of one unit, bf16 out, the
     # free tier's interval plus an inert slot

@@ -1,7 +1,9 @@
 """Hopper kernels of the port, each beside its plain PyTorch version.
 
 - paged_attention / paged_decode_write: CUDA C++ (``csrc/``), decode
-  attention and the one-token write against the block-paged KV pool
+  attention split over the context (a cp.async page ring per split, a
+  fixed-order combine) and the one-token write against the block-paged
+  KV pool
 - masked_dequant: Triton, fused int8 dequant + license-interval mask
 - delta_apply / delta_apply_inplace: CUDA C++ (``csrc/``), the sparse
   weight-delta scatter of the update path

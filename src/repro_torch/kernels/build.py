@@ -19,6 +19,13 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "torch_kernels"
 TRITON_CACHE_DIR = REPO_ROOT / "build" / "triton_cache"
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
+# Link the shared libstdc++ that torch's process already holds.  A compiler
+# named by $CXX that links its own libstdc++ statically puts a second copy of
+# the iostream and locale code in the module; its facet ids then index the
+# process's locales wrongly, and the first integer streamed into a message
+# (c10::str, so any failing TORCH_CHECK that formats one) ends the process
+# with SIGSEGV instead of raising.
+LINK_FLAGS = ["-Wl,--push-state,-Bdynamic,-l:libstdc++.so.6,--pop-state"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,7 +37,7 @@ def load_extension() -> Any:
     sources = sorted(str(p) for p in CSRC.glob("*.cu")) + [str(CSRC / "bindings.cpp")]
     return load(name="repro_torch_kernels", sources=sources,
                 build_directory=str(BUILD_DIR), extra_cflags=["-O2"],
-                extra_cuda_cflags=["-O3", *ARCH_FLAGS])
+                extra_cuda_cflags=["-O3", *ARCH_FLAGS], extra_ldflags=LINK_FLAGS)
 
 
 def triton_env() -> None:

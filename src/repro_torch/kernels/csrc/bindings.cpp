@@ -1,23 +1,31 @@
 // Python bindings of the port's CUDA kernels.  The only translation unit
 // that includes torch/extension.h (it is the slow header to compile); the
 // kernels themselves live in *.cu files with plain pointer interfaces.
-// Shapes, dtypes, devices and contiguity are validated by the Python
-// wrappers in repro_torch/kernels/{paged_attention,delta_apply,
-// flash_attention,quant_matmul}.py before these run; the wrappers pick the
-// design (flash_attention vs flash_attention_sm90; quant_matmul vs
-// quant_matmul_splitk / quant_matmul_sm90).
+// paged_attention and paged_decode_write, which run on every layer of every
+// decode step, validate shapes, dtypes, devices and contiguity here
+// (TORCH_CHECK_VALUE raises ValueError, TORCH_CHECK_TYPE TypeError): the
+// same checks in Python cost more host time than the call itself (PERF.md).
+// The other kernels are validated by their Python wrappers in
+// repro_torch/kernels/{delta_apply,flash_attention,quant_matmul}.py before
+// these run; those wrappers pick the design (flash_attention vs
+// flash_attention_sm90; quant_matmul vs quant_matmul_splitk /
+// quant_matmul_sm90).
 
 #include <torch/extension.h>
+
+#include <initializer_list>
+#include <utility>
 
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
 
 namespace repro_torch {
 
-void launch_paged_attention(const void* q, const void* k_blocks, const void* v_blocks,
-                            const int32_t* tables, const int32_t* lens, float* out,
-                            int batch, int n_tab, int block_size, int kv_heads,
-                            int groups, int head_dim, bool bf16, cudaStream_t stream);
+void launch_paged_attention(const void* q, const void* k_pool, const void* v_pool,
+                            const int32_t* tables, const int32_t* lens, float* out, float* ws,
+                            int batch, int n_tab, int block_size, int kv_heads, int groups,
+                            int head_dim, int cols, bool bf16, cudaStream_t stream);
+int paged_attention_splits(int n_tab, int cols);
 
 void launch_paged_decode_write(void* k_blocks, void* v_blocks, const void* new_k,
                                const void* new_v, const int32_t* block_ids,
@@ -47,33 +55,121 @@ void launch_quant_matmul_splitk(const void* x, const int8_t* codes, const float*
 void launch_quant_matmul_sm90(const void* x, const int8_t* codes, const float* scale, void* out,
                               int m, int n, int k, bool out_bf16, cudaStream_t stream);
 
+namespace {
+
+bool float_or_bf16(const at::Tensor& t) {
+  return t.scalar_type() == at::kFloat || t.scalar_type() == at::kBFloat16;
+}
+
+// every tensor on `device` (a CUDA device) and contiguous
+void require_cuda(const char* name, const c10::Device& device,
+                  std::initializer_list<std::pair<const char*, const at::Tensor*>> tensors) {
+  TORCH_CHECK_VALUE(device.is_cuda(), name, ": no kernel for device ", device);
+  for (const auto& [label, t] : tensors) {
+    TORCH_CHECK_VALUE(t->device() == device, name, ": ", label, " on ", t->device(),
+                      ", expected ", device);
+    TORCH_CHECK_VALUE(t->is_contiguous(), name, ": ", label, " must be contiguous");
+  }
+}
+
+}  // namespace
+
+// q (B, H, hd); k/v pools (P, bs, KH, hd) of q's dtype (f32 or bf16); tables
+// (B, T) and lens (B,) int32; ws (S, B, H, hd + 2) f32 when the wrapper's
+// plan has S > 1 splits of `cols` table columns -> (B, H, hd) f32
 at::Tensor paged_attention(const at::Tensor& q, const at::Tensor& k_blocks,
                            const at::Tensor& v_blocks, const at::Tensor& tables,
-                           const at::Tensor& lens) {
-  const c10::cuda::CUDAGuard guard(q.device());
+                           const at::Tensor& lens, const at::Tensor& ws, int64_t cols) {
+  require_cuda("paged_attention", q.device(),
+               {{"k_blocks", &k_blocks}, {"v_blocks", &v_blocks}, {"block_tables", &tables},
+                {"context_lens", &lens}, {"q", &q}});
+  TORCH_CHECK_VALUE(q.dim() == 3 && k_blocks.dim() == 4, "paged_attention: q ", q.sizes(),
+                    " / k blocks ", k_blocks.sizes(), " must be (B, H, hd) / (P, bs, KH, hd)");
   const int64_t batch = q.size(0), heads = q.size(1), head_dim = q.size(2);
   const int64_t block_size = k_blocks.size(1), kv_heads = k_blocks.size(2);
+  TORCH_CHECK_VALUE(v_blocks.sizes() == k_blocks.sizes() && k_blocks.size(3) == head_dim,
+                    "paged_attention: k/v blocks ", k_blocks.sizes(), "/", v_blocks.sizes(),
+                    " do not match q ", q.sizes());
+  TORCH_CHECK_TYPE(float_or_bf16(q) && k_blocks.scalar_type() == q.scalar_type() &&
+                       v_blocks.scalar_type() == q.scalar_type(),
+                   "paged_attention: q/k/v must share one dtype of (Float, BFloat16), got ",
+                   q.scalar_type(), "/", k_blocks.scalar_type(), "/", v_blocks.scalar_type());
+  TORCH_CHECK_VALUE(head_dim == 32 || head_dim == 64 || head_dim == 128 || head_dim == 256,
+                    "paged_attention: head_dim ", head_dim, " not in (32, 64, 128, 256)");
+  TORCH_CHECK_VALUE(kv_heads > 0 && heads % kv_heads == 0 && heads / kv_heads <= 32,
+                    "paged_attention: ", heads, " heads over ", kv_heads,
+                    " kv heads (groups must divide and be <= 32)");
+  TORCH_CHECK_TYPE(tables.scalar_type() == at::kInt && lens.scalar_type() == at::kInt,
+                   "paged_attention: block_tables/context_lens must be int32");
+  TORCH_CHECK_VALUE(tables.dim() == 2 && tables.size(0) == batch && lens.dim() == 1 &&
+                        lens.size(0) == batch,
+                    "paged_attention: tables ", tables.sizes(), " / lens ", lens.sizes(),
+                    " for batch ", batch);
+  TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(k_blocks.data_ptr()) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(v_blocks.data_ptr()) % 16 == 0,
+                    "paged_attention: k/v blocks must start on 16-byte boundaries");
+  const int64_t n_tab = tables.size(1);
+  TORCH_CHECK_VALUE(cols >= 1 && cols <= n_tab + 1 && block_size * (n_tab + 1) < (1LL << 31),
+                    "paged_attention: ", cols, " columns per split of ", n_tab);
+  const int splits = paged_attention_splits(static_cast<int>(n_tab), static_cast<int>(cols));
+  TORCH_CHECK_VALUE(splits <= 65535 && kv_heads <= 65535, "paged_attention: grid of ",
+                    splits, " splits x ", kv_heads, " kv heads");
+  if (splits > 1) {
+    TORCH_CHECK_VALUE(ws.device() == q.device() && ws.scalar_type() == at::kFloat &&
+                          ws.is_contiguous() &&
+                          ws.sizes() == at::IntArrayRef({splits, batch, heads, head_dim + 2}),
+                      "paged_attention: workspace ", ws.sizes(), " ", ws.scalar_type(),
+                      ", expected [", splits, ", ", batch, ", ", heads, ", ", head_dim + 2,
+                      "] Float on ", q.device());
+  }
+  const c10::cuda::CUDAGuard guard(q.device());
   auto out = at::empty({batch, heads, head_dim}, q.options().dtype(at::kFloat));
+  if (out.numel() == 0) return out;
   launch_paged_attention(q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(),
                          tables.data_ptr<int32_t>(), lens.data_ptr<int32_t>(),
-                         out.data_ptr<float>(), static_cast<int>(batch),
-                         static_cast<int>(tables.size(1)), static_cast<int>(block_size),
-                         static_cast<int>(kv_heads), static_cast<int>(heads / kv_heads),
-                         static_cast<int>(head_dim), q.scalar_type() == at::kBFloat16,
+                         out.data_ptr<float>(), splits > 1 ? ws.data_ptr<float>() : nullptr,
+                         static_cast<int>(batch), static_cast<int>(n_tab),
+                         static_cast<int>(block_size), static_cast<int>(kv_heads),
+                         static_cast<int>(heads / kv_heads), static_cast<int>(head_dim),
+                         static_cast<int>(cols), q.scalar_type() == at::kBFloat16,
                          at::cuda::getCurrentCUDAStream());
   return out;
 }
 
-// the pools are written in place through their data pointers
+// the pools are written in place through their data pointers: pools (P,
+// bs, KH, hd), tokens (B, KH, hd) f32 or bf16, block_ids / offsets (B,) int32
 void paged_decode_write(at::Tensor k_blocks, at::Tensor v_blocks, const at::Tensor& new_k,
                         const at::Tensor& new_v, const at::Tensor& block_ids,
                         const at::Tensor& offsets) {
+  require_cuda("paged_decode_write", k_blocks.device(),
+               {{"k_blocks", &k_blocks}, {"v_blocks", &v_blocks}, {"new_k", &new_k},
+                {"new_v", &new_v}, {"block_ids", &block_ids}, {"offsets", &offsets}});
+  TORCH_CHECK_VALUE(new_k.dim() == 3 && k_blocks.dim() == 4 &&
+                        new_v.sizes() == new_k.sizes() &&
+                        v_blocks.sizes() == k_blocks.sizes() &&
+                        k_blocks.size(2) == new_k.size(1) && k_blocks.size(3) == new_k.size(2),
+                    "paged_decode_write: pools ", k_blocks.sizes(), " / tokens ",
+                    new_k.sizes(), " mismatch");
+  const std::initializer_list<std::pair<const char*, const at::Tensor*>> typed = {
+      {"pools", &k_blocks}, {"v pool", &v_blocks}, {"new_k", &new_k}, {"new_v", &new_v}};
+  for (const auto& [label, t] : typed) {
+    TORCH_CHECK_TYPE(float_or_bf16(*t), "paged_decode_write: ", label, " dtype ",
+                     t->scalar_type(), " not in (Float, BFloat16)");
+  }
+  TORCH_CHECK_TYPE(v_blocks.scalar_type() == k_blocks.scalar_type() &&
+                       new_v.scalar_type() == new_k.scalar_type(),
+                   "paged_decode_write: k/v dtypes differ");
+  const int64_t batch = new_k.size(0);
+  TORCH_CHECK_VALUE(block_ids.scalar_type() == at::kInt && offsets.scalar_type() == at::kInt &&
+                        block_ids.dim() == 1 && block_ids.size(0) == batch &&
+                        offsets.dim() == 1 && offsets.size(0) == batch,
+                    "paged_decode_write: block_ids/offsets must be (B,) int32");
+  if (new_k.numel() == 0) return;
   const c10::cuda::CUDAGuard guard(k_blocks.device());
   launch_paged_decode_write(
       k_blocks.data_ptr(), v_blocks.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
-      block_ids.data_ptr<int32_t>(), offsets.data_ptr<int32_t>(),
-      static_cast<int>(new_k.size(0)), static_cast<int>(k_blocks.size(1)),
-      static_cast<int>(new_k.size(1) * new_k.size(2)),
+      block_ids.data_ptr<int32_t>(), offsets.data_ptr<int32_t>(), static_cast<int>(batch),
+      static_cast<int>(k_blocks.size(1)), static_cast<int>(new_k.size(1) * new_k.size(2)),
       new_k.scalar_type() == at::kBFloat16, k_blocks.scalar_type() == at::kBFloat16,
       at::cuda::getCurrentCUDAStream());
 }
@@ -158,7 +254,7 @@ at::Tensor quant_matmul_sm90(const at::Tensor& x, const at::Tensor& codes,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("paged_attention", &repro_torch::paged_attention,
-        "decode attention through a block table; (B, H, hd) f32");
+        "decode attention through a block table, split over the context; (B, H, hd) f32");
   m.def("paged_decode_write", &repro_torch::paged_decode_write,
         "in-place write of one K/V token per lane into the block pools");
   m.def("delta_apply", &repro_torch::delta_apply,

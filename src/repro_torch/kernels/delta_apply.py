@@ -23,7 +23,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.paged_attention import _require_cuda
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _INDEX_DTYPES = (torch.int32, torch.int64)
@@ -39,8 +38,8 @@ def delta_apply(buf: torch.Tensor, indices: torch.Tensor, values: torch.Tensor,
     if buf.device.type == "cpu":
         return ref.delta_apply(buf, indices, values, donate=donate)
     name = "delta_apply_inplace" if donate else "delta_apply"
-    _require_cuda(name, buf.device, (("buf", buf), ("indices", indices),
-                                     ("values", values)))
+    ops.require_cuda(name, buf.device, (("buf", buf), ("indices", indices),
+                                        ("values", values)))
     if buf.ndim != 1 or indices.ndim != 1 or values.shape != indices.shape:
         raise ValueError(f"{name}: buf {tuple(buf.shape)} must be flat and "
                          f"indices {tuple(indices.shape)} / values "

@@ -34,7 +34,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.paged_attention import _require_cuda
 
 _HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -59,7 +58,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, groups=groups)
-    _require_cuda("flash_attention", q.device, (("q", q), ("k", k), ("v", v)))
+    ops.require_cuda("flash_attention", q.device, (("q", q), ("k", k), ("v", v)))
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} must be (BH, Sq, hd) "
                          f"and k/v {tuple(k.shape)}/{tuple(v.shape)} one (BKH, Sk, hd)")

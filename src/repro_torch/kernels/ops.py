@@ -10,10 +10,12 @@ kernel takes any shape and masks the ragged edge itself.  The same holds
 for ``quant_matmul`` (the JAX dispatcher pads to block multiples and sends
 products under 128^3 to the oracle) and ``delta_apply``.
 ``flash_attention`` has no dispatcher: its entry point is
-``kernels.flash_attention.flash_attention``.
+``kernels.flash_attention.flash_attention``.  ``require_cuda`` and
+``num_sms`` are the checks and the SM count the CUDA wrappers share.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +32,24 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0, "paged_decode_write": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def require_cuda(name: str, device: torch.device, tensors) -> None:
+    """Raise ValueError unless ``device`` is a CUDA device and every
+    (label, tensor) of ``tensors`` lies on it, contiguous."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    for label, t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name}: {label} on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    """The SM count of a CUDA device (the split plans size their grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pack_intervals(intervals: Sequence[Tuple[float, float]],

@@ -14,6 +14,18 @@ Unlike the JAX version, ``paged_decode_write`` updates the pools **in
 place** (PyTorch tensors are mutable), so the donate-the-cache /
 adopt-the-outputs exchange of the JAX gateway becomes a direct write.
 
+``paged_attention`` splits each (lane, kv head)'s table columns over
+``S`` blocks (``split_plan``, from host-known shapes only: the wrapper
+never reads ``context_lens`` and never synchronises, so a decode step
+stays capturable in a CUDA graph); with ``S > 1`` the splits' partials go
+to an f32 workspace allocated here and a second kernel combines them in
+split order.  One call is one count in ``ops.LAUNCHES``, the combine
+included.  Both run on every layer of every decode step, so their shape,
+dtype, device and contiguity checks are in the extension
+(``csrc/bindings.cpp``, raising ``ValueError`` / ``TypeError``): in Python
+they cost more host time per call than the extension call itself
+(PERF.md).
+
 Each wrapper takes the plain version (``ref.py``) for CPU tensors only;
 a CUDA tensor launches the kernel or raises.
 """
@@ -24,19 +36,31 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.build import load_extension
 
-_HEAD_DIMS = (32, 64, 128, 256)
-_DTYPES = (torch.float32, torch.bfloat16)
+SPLIT_BLOCKS_PER_SM = 4   # split blocks the plan aims for on each SM
+SPLIT_MIN_KEYS = 32       # keys per split at least (where the table has them)
+SPLIT_MAX_KEYS = 512      # keys per split at most: their scores stay in shared memory
 
 
-def _require_cuda(name: str, device: torch.device, tensors) -> None:
-    if device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {device}")
-    for label, t in tensors:
-        if t.device != device:
-            raise ValueError(f"{name}: {label} on {t.device}, expected {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {label} must be contiguous")
+def split_plan(n_tab: int, block_size: int, batch: int, kv_heads: int,
+               num_sms: int) -> Tuple[int, int]:
+    """(splits, cols): split s of each (lane, kv head) walks table columns
+    [s * cols, (s + 1) * cols).  Enough splits that the grid of batch x
+    kv_heads x splits holds at least ``SPLIT_BLOCKS_PER_SM`` blocks per SM, each
+    split at least ``SPLIT_MIN_KEYS`` and at most ``SPLIT_MAX_KEYS`` keys
+    (one page where a page holds more) and no more columns than the table
+    has.  Reads shapes only, never the context lengths."""
+    n_tab, bs = max(1, n_tab), max(1, block_size)
+    want = -(-SPLIT_BLOCKS_PER_SM * num_sms // max(1, batch * kv_heads))
+    cols = max(n_tab // want, -(-SPLIT_MIN_KEYS // bs))
+    cols = max(1, min(cols, SPLIT_MAX_KEYS // bs, n_tab))
+    return -(-n_tab // cols), cols
+
+
+def _dims(t: torch.Tensor, n: int) -> tuple:
+    """t's first n sizes, padded with 1 (the extension rejects bad ranks)."""
+    return (tuple(t.shape) + (1,) * n)[:n]
 
 
 def paged_attention(q: torch.Tensor, k_blocks: torch.Tensor,
@@ -52,34 +76,15 @@ def paged_attention(q: torch.Tensor, k_blocks: torch.Tensor,
     if q.device.type == "cpu":
         return ref.paged_attention(q, k_blocks, v_blocks, block_tables,
                                    context_lens)
-    _require_cuda("paged_attention", q.device,
-                  (("k_blocks", k_blocks), ("v_blocks", v_blocks),
-                   ("block_tables", block_tables),
-                   ("context_lens", context_lens), ("q", q)))
-    b, h, hd = q.shape
-    p, bs, kh, hd_k = k_blocks.shape
-    if v_blocks.shape != k_blocks.shape or hd_k != hd:
-        raise ValueError(f"paged_attention: k/v blocks {tuple(k_blocks.shape)}/"
-                         f"{tuple(v_blocks.shape)} do not match q {tuple(q.shape)}")
-    if q.dtype not in _DTYPES or k_blocks.dtype != q.dtype \
-            or v_blocks.dtype != q.dtype:
-        raise TypeError(f"paged_attention: q/k/v must share one dtype of "
-                        f"{_DTYPES}, got {q.dtype}/{k_blocks.dtype}/{v_blocks.dtype}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"paged_attention: head_dim {hd} not in {_HEAD_DIMS}")
-    if h % kh or h // kh > 32:
-        raise ValueError(f"paged_attention: {h} heads over {kh} kv heads "
-                         f"(groups must divide and be <= 32)")
-    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
-        raise TypeError("paged_attention: block_tables/context_lens must be int32")
-    if block_tables.ndim != 2 or block_tables.shape[0] != b \
-            or context_lens.shape != (b,):
-        raise ValueError(f"paged_attention: tables {tuple(block_tables.shape)} / "
-                         f"lens {tuple(context_lens.shape)} for batch {b}")
-    from repro_torch.kernels.build import load_extension
-
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: no kernel for device {q.device}")
+    b, h, hd = _dims(q, 3)
+    _, bs, kh, _ = _dims(k_blocks, 4)
+    splits, cols = split_plan(_dims(block_tables, 2)[1], bs, b, kh, ops.num_sms(q.device))
+    ws = torch.empty((splits, b, h, hd + 2) if splits > 1 else (0,),
+                     dtype=torch.float32, device=q.device)
     out = load_extension().paged_attention(q, k_blocks, v_blocks, block_tables,
-                                           context_lens)
+                                           context_lens, ws, cols)
     ops.LAUNCHES["paged_attention"] += 1
     return out
 
@@ -98,27 +103,8 @@ def paged_decode_write(k_blocks: torch.Tensor, v_blocks: torch.Tensor,
     if k_blocks.device.type == "cpu":
         return ref.paged_decode_write(k_blocks, v_blocks, new_k, new_v,
                                       block_ids, offsets)
-    _require_cuda("paged_decode_write", k_blocks.device,
-                  (("k_blocks", k_blocks), ("v_blocks", v_blocks),
-                   ("new_k", new_k), ("new_v", new_v),
-                   ("block_ids", block_ids), ("offsets", offsets)))
-    b, kh, hd = new_k.shape
-    if new_v.shape != new_k.shape or v_blocks.shape != k_blocks.shape \
-            or k_blocks.shape[2:] != (kh, hd):
-        raise ValueError(f"paged_decode_write: pools {tuple(k_blocks.shape)} / "
-                         f"tokens {tuple(new_k.shape)} mismatch")
-    for label, t in (("pools", k_blocks), ("v pool", v_blocks),
-                     ("new_k", new_k), ("new_v", new_v)):
-        if t.dtype not in _DTYPES:
-            raise TypeError(f"paged_decode_write: {label} dtype {t.dtype} "
-                            f"not in {_DTYPES}")
-    if v_blocks.dtype != k_blocks.dtype or new_v.dtype != new_k.dtype:
-        raise TypeError("paged_decode_write: k/v dtypes differ")
-    if block_ids.dtype != torch.int32 or offsets.dtype != torch.int32 \
-            or block_ids.shape != (b,) or offsets.shape != (b,):
-        raise ValueError("paged_decode_write: block_ids/offsets must be (B,) int32")
-    from repro_torch.kernels.build import load_extension
-
+    if k_blocks.device.type != "cuda":
+        raise ValueError(f"paged_decode_write: no kernel for device {k_blocks.device}")
     load_extension().paged_decode_write(k_blocks, v_blocks, new_k, new_v,
                                         block_ids, offsets)
     ops.LAUNCHES["paged_decode_write"] += 1

@@ -32,13 +32,11 @@ or raises.
 """
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.paged_attention import _require_cuda
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -69,19 +67,14 @@ def splitk_plan(k: int, n: int, num_sms: int) -> Tuple[int, int]:
     return max(1, -(-k // slice_k)), slice_k
 
 
-@functools.lru_cache(maxsize=None)
-def _num_sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
                  out_dtype=torch.float32) -> torch.Tensor:
     """x (M, K) f32 or bf16 @ (codes (K, N) int8 * scale (N,) f32) ->
     (M, N) in ``out_dtype`` (f32 or bf16)."""
     if x.device.type == "cpu":
         return ref.quant_matmul(x, codes, scale, out_dtype)
-    _require_cuda("quant_matmul", x.device,
-                  (("x", x), ("codes", codes), ("scale", scale)))
+    ops.require_cuda("quant_matmul", x.device,
+                     (("x", x), ("codes", codes), ("scale", scale)))
     if x.ndim != 2 or codes.ndim != 2 or x.shape[1] != codes.shape[0] \
             or scale.shape != (codes.shape[1],):
         raise ValueError(f"quant_matmul: x {tuple(x.shape)}, codes {tuple(codes.shape)}, "
@@ -103,7 +96,7 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
     out_bf16 = out_dtype == torch.bfloat16
     kind = design(x.dtype, m)
     if kind == "splitk":
-        slices, slice_k = splitk_plan(k, n, _num_sms(x.device))
+        slices, slice_k = splitk_plan(k, n, ops.num_sms(x.device))
         ws = torch.empty(slices, m, n, dtype=torch.float32, device=x.device)
         out = ext.quant_matmul_splitk(x, codes, scale, ws, slice_k, out_bf16)
     elif kind == "wgmma":
