@@ -14,7 +14,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    1-600, the serving stream's 9-96 and 8 x 4096 tokens, each back to
    back, in a CUDA graph and, the last, L2-cold; ``paged_decode_write``
    back to back and in a graph; the last three back to back also as the
-   extension call alone, without the wrapper's Python); then the prefill
+   extension call alone, without the wrapper's Python); ``masked_dequant``
+   bit for bit on two weight slices of a unit (back to back, in a graph,
+   L2-cold) and on a whole stacked (36, 2048, 11008) leaf, as one launch
+   and as the per-slice loop with a stack; ``delta_apply_inplace`` also in
+   a graph beside ``index_put_``; then the prefill
    attention and int8 MLP product
    (``flash_attention`` and ``ops.quant_matmul``, which no serving path
    calls) driven through their entry points at qwen2.5-3b's shapes, with
@@ -24,12 +28,21 @@ Phases (each prints its own lines; any failure exits non-zero):
    tiers at the full width and depth of qwen2.5-3b (random bf16 weights
    from a seed), through float views and through int8 views built by the
    fused masked-dequant; the launch counters are zeroed just before and
-   read just after, and every kernel must have run; then ``quant_matmul``
-   on a real leaf of the int8 store (unit 0's ``ffn/w_up``) against x @
-   its masked-dequant;
+   read just after, and every kernel must have run; each view build is
+   timed (host clock and CUDA events, masked_dequant launches, peak
+   memory); then the whole int8 view of the free and full tiers rebuilt
+   from the store and held bit for bit against the plain version, and
+   ``quant_matmul`` on a real leaf of the int8 store (unit 0's
+   ``ffn/w_up``) against x @ its masked-dequant;
 4. one decode step's logits through the kernels vs the plain path on the
-   same pool state, and the greedy-token agreement of a whole plain-path
-   run (for information);
+   same pool state; every lane whose argmax differs must be a near-tie
+   (the plain path's gap between the two tokens below the step's max
+   |logit diff|); then the greedy-token agreement of a whole plain-path
+   run with phase 3's float stream, and for each request the first step
+   at which its tokens part, read from both streams' own logits rows at
+   that step: the plain path's gap between the two tokens must lie below
+   the lane's max |logit diff|, and that diff within the decode step's
+   tolerance;
 5. the update path (paper §3.1.2, §4.3), launch counters zeroed just
    before: a ``LicenseServer`` over an in-memory ``WeightStore`` gets v1
    (phase 3's weights) and a ``free`` tier; a float gateway boots
@@ -351,44 +364,232 @@ def check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md):
     log(f"  paged_decode_write: {row['ms']:.4f} ms back to back (median of 5; the extension "
         f"call alone {row['ms_ext']:.4f} ms), {row['ms_graph']:.4f} ms in a CUDA graph")
 
-    # masked_dequant: the MLP weight slices of one unit, bf16 out, the
-    # free tier's interval plus an inert slot
-    lo, hi = ops.pack_intervals([(0.0, 0.01), (0.3, 0.3)], dev)
-    worst, times = 0.0, []
-    for r_, c_ in ((2048, 11008), (11008, 2048)):
-        codes = torch.randint(-127, 128, (r_, c_), generator=gen,
-                              dtype=torch.int8).to(dev)
-        scale = (torch.rand(1, c_, generator=gen) * 4e-4 + 1e-5).to(dev)
-        got = kernels_md.masked_dequant(codes, scale, lo, hi, out_dtype=torch.bfloat16)
-        want = ref.masked_dequant(codes, scale, lo, hi, torch.bfloat16)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        exact = torch.equal(got, want)
-        log(f"  masked_dequant {r_}x{c_} bf16: max_abs_err {err:.3e} (exact), "
-            f"masked {float((got == 0).float().mean()):.3f}")
-        if not exact:
-            fail(f"masked_dequant {r_}x{c_} disagrees with its plain version")
-        worst = max(worst, err)
-        times.append((
-            time_ms(lambda: kernels_md.masked_dequant(codes, scale, lo, hi,
-                                                      out_dtype=torch.bfloat16)),
-            time_ms(lambda: ref.masked_dequant(codes, scale, lo, hi, torch.bfloat16),
-                    iters=10)))
-    n = 2048 * 11008                               # per slice, both shapes
-    nbytes = n * 1 + 11008 * 4 + 2 * 8 * 4 + n * 2
-    flops = n * (2 + 3 * ops.MAX_INTERVALS)        # mul, abs, 8 x (2 compares, or)
-    bnd, by = bound_ms(nbytes, flops, peaks)
-    rows["masked_dequant"] = dict(
-        route="triton", source="src/repro_torch/kernels/masked_dequant.py",
-        replaces="src/repro/kernels/masked_dequant.py:39", max_abs_err=worst,
-        ms=times[0][0], plain_ms=times[0][1], bound_ms=bnd, bound_by=by,
-        library_ms=None)
-    log(f"  masked_dequant 11008x2048: {times[1][0]:.4f} ms (plain {times[1][1]:.4f} ms)")
+    rows["masked_dequant"] = check_masked_dequant(peaks, torch, ops, ref, kernels_md, gen)
     rows.update(check_delta_apply(peaks, torch, ref, dev, gen))
     for name, row in rows.items():
         log(f"  {name}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows
+
+
+# masked_dequant at the shapes of a licensed view of qwen2.5-3b: the MLP
+# weight slices of one unit both ways and the whole stacked ffn/w_up leaf,
+# bf16 out, the free tier's interval plus an inert slot; every output held
+# bit for bit against the plain version
+MD_INTERVALS = [(0.0, 0.01), (0.3, 0.3)]
+MD_SLICES = [(2048, 11008), (11008, 2048)]
+MD_LEAF = (36, 2048, 11008)
+MD_SOURCE = "src/repro_torch/kernels/csrc/masked_dequant.cu"
+
+
+def md_bound(peaks, n, cols_scale, live, out_bytes=2):
+    """Bytes: the codes, the scale and the 16 interval floats read once and
+    the output written once; operations: a multiply, an abs and, per live
+    interval, two compares and a select per element (f32 rate)."""
+    return bound_ms(n + cols_scale * 4 + 16 * 4 + n * out_bytes, n * (2 + 3 * live), peaks)
+
+
+def md_exact(got, want):
+    """Same dtype and the same bit patterns (+0.0 and -0.0 differ)."""
+    import torch
+
+    bits = torch.int16 if got.element_size() == 2 else torch.int32
+    return got.dtype == want.dtype and bool(torch.equal(got.view(bits), want.view(bits)))
+
+
+def check_masked_dequant(peaks, torch, ops, ref, kernels_md, gen):
+    """The slices and the leaf above: bit-exact against the plain version,
+    times back to back, in a CUDA graph and (slices) L2-cold in a graph
+    over COLD_COPIES copies of the codes; the leaf both as one launch and
+    as the per-slice loop with a stack (a view build one 2-D slice per
+    launch)."""
+    dev = torch.device("cuda")
+    lo, hi = ops.pack_intervals(MD_INTERVALS, dev)
+    live = sum(1 for a, b in MD_INTERVALS if a < b)
+    cases = {}
+
+    def call(codes, scale):
+        return kernels_md.masked_dequant(codes, scale, lo, hi, out_dtype=torch.bfloat16)
+
+    for r_, c_ in MD_SLICES:
+        codes = torch.randint(-127, 128, (r_, c_), generator=gen, dtype=torch.int8).to(dev)
+        scale = (torch.rand(1, c_, generator=gen) * 4e-4 + 1e-5).to(dev)
+        got = call(codes, scale)
+        want = ref.masked_dequant(codes, scale, lo, hi, torch.bfloat16)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not md_exact(got, want):
+            fail(f"masked_dequant {r_}x{c_} disagrees with its plain version "
+                 f"(max_abs_err {err:.3e})")
+        masked = float((got == 0).float().mean())
+        del got, want
+        copies = [codes] + [codes.clone() for _ in range(COLD_COPIES - 1)]
+        bnd, by = md_bound(peaks, r_ * c_, c_, live)
+        cases[f"slice {r_}x{c_}"] = dict(
+            max_abs_err=err, masked=masked, ms=time_ms(lambda: call(codes, scale)),
+            ms_graph=time_graph_ms(lambda: call(codes, scale)),
+            ms_cold=time_graph_ms(rotating([lambda c=c: call(c, scale) for c in copies])),
+            plain_ms=time_ms(lambda: ref.masked_dequant(codes, scale, lo, hi, torch.bfloat16),
+                             iters=10),
+            bound_ms=bnd, bound_by=by)
+        del copies, codes
+        torch.cuda.empty_cache()
+
+    u, r_, c_ = MD_LEAF
+    codes = torch.randint(-127, 128, MD_LEAF, generator=gen, dtype=torch.int8).to(dev)
+    scale = (torch.rand(u, 1, c_, generator=gen) * 4e-4 + 1e-5).to(dev)
+
+    def per_slice():
+        return torch.stack([call(codes[i], scale[i]) for i in range(u)])
+
+    want = ref.masked_dequant(codes, scale, lo, hi, torch.bfloat16)
+    forms = {"per_slice_stack": per_slice, "one_launch": lambda: call(codes, scale)}
+    bnd, by = md_bound(peaks, codes.numel(), u * c_, live)
+    leaf = dict(shape=f"{MD_LEAF} int8, scale ({u}, 1, {c_}), bf16 out", bound_ms=bnd,
+                bound_by=by, max_abs_err=0.0)
+    for name, fn in forms.items():
+        got = fn()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not md_exact(got, want):
+            fail(f"masked_dequant on the {MD_LEAF} leaf ({name}) disagrees with its plain "
+                 f"version (max_abs_err {err:.3e})")
+        del got
+        leaf["max_abs_err"] = max(leaf["max_abs_err"], err)
+        leaf[f"{name}_ms"] = time_ms(fn, iters=10, warmup=2)
+        leaf[f"{name}_ms_graph"] = time_graph_ms(fn, iters=5, reps=3, warmup=1)
+        torch.cuda.empty_cache()
+    del want
+    torch.cuda.empty_cache()
+    leaf["plain_ms"] = time_ms(lambda: ref.masked_dequant(codes, scale, lo, hi, torch.bfloat16),
+                               iters=2, warmup=1)
+    # a yardstick of the card's streaming rate, not the function: a copy
+    # of a bf16 tensor of the leaf's shape (its bytes read and written once)
+    dst = torch.empty(MD_LEAF, dtype=torch.bfloat16, device=dev)
+    src = torch.zeros_like(dst)
+    leaf["copy_ms"] = time_ms(lambda: dst.copy_(src), iters=10, warmup=2)
+    leaf["copy_tb_s"] = 2 * dst.numel() * 2 / leaf["copy_ms"] / 1e9
+    leaf["one_launch_tb_s"] = codes.numel() * 3 / leaf["one_launch_ms"] / 1e9
+    del dst, src
+    cases["leaf ffn/w_up"] = leaf
+    del codes, scale
+    torch.cuda.empty_cache()
+
+    for name, c in cases.items():
+        if name.startswith("slice"):
+            log(f"  masked_dequant {name} bf16: bit-exact, masked "
+                f"{c['masked']:.3f}, {c['ms']:.4f} ms back to back, {c['ms_graph']:.4f} ms in "
+                f"a CUDA graph, L2-cold {c['ms_cold']:.4f} ms ({COLD_COPIES} copies), plain "
+                f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+        else:
+            log(f"  masked_dequant {name} [{c['shape']}]: bit-exact; per-slice "
+                f"launches + stack {c['per_slice_stack_ms']:.4f} ms back to back, "
+                f"{c['per_slice_stack_ms_graph']:.4f} ms in a graph; one launch "
+                f"{c['one_launch_ms']:.4f} ms back to back ({c['one_launch_tb_s']:.2f} TB/s), "
+                f"{c['one_launch_ms_graph']:.4f} ms in a graph; plain "
+                f"{c['plain_ms']:.4f} ms, a bf16 copy of the leaf's shape {c['copy_ms']:.4f} "
+                f"ms ({c['copy_tb_s']:.2f} TB/s), bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+    head = cases[f"slice {MD_SLICES[0][0]}x{MD_SLICES[0][1]}"]
+    return dict(route="cuda", source=MD_SOURCE,
+                replaces="src/repro/kernels/masked_dequant.py:39",
+                max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+                ms=head["ms"], ms_graph=head["ms_graph"], ms_cold=head["ms_cold"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=None, headline=f"slice {MD_SLICES[0][0]}x{MD_SLICES[0][1]} bf16",
+                cases=cases)
+
+
+def view_build(torch, ops, build):
+    """One licensed view build: its result, and its time on the stream
+    (CUDA events around it), on the host clock (ending in a synchronize),
+    its masked_dequant launches and the peak device memory during it (and
+    above what was allocated before it)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = ops.LAUNCHES["masked_dequant"]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    view = build()
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return view, dict(device_ms=start.elapsed_time(end), host_s=host_s,
+                      launches=ops.LAUNCHES["masked_dequant"] - n0, peak_gb=peak / 1e9,
+                      peak_above_gb=(peak - before) / 1e9)
+
+
+def view_bound(peaks, store, live):
+    """Bound of one int8 view build: md_bound summed over the store's
+    quantized leaves (bf16 out)."""
+    n = scales = 0
+    for _, leaf in _qpaths(store):
+        n += leaf["codes"].numel()
+        scales += leaf["scale"].numel()
+    return md_bound(peaks, n, scales, live)
+
+
+def view_cases(peaks, torch, ops, store, free, dtype, reps=3):
+    """The whole int8 view of the free tier and of the full one, built
+    from ``store`` by ``materialize_licensed_view`` ``reps`` times each (the
+    gateway's path without its cache), bit-exact against the plain
+    version leaf by leaf; the median build and the largest peak."""
+    import statistics
+
+    from repro_torch.kernels import ref
+    from repro_torch.serving.quantized import materialize_licensed_view, tier_intervals
+
+    cases = {}
+    for tier in (free, None):
+        name = f"view {tier.name if tier else 'full'}"
+        li = tier_intervals(tier)
+        live = 0 if li is None else int((li[1] > li[0]).sum())
+        runs = []
+        for _ in range(reps):
+            view, got = view_build(torch, ops, lambda: materialize_licensed_view(
+                store, tier, dtype))
+            runs.append(got)
+            if len(runs) < reps:
+                del view
+        dev = next(_qpaths(store))[1]["codes"].device
+        lo, hi = (t.to(dev) for t in (li if li is not None else ops.pack_intervals([])))
+        for path, q in _qpaths(store):
+            want = ref.masked_dequant(q["codes"], q["scale"], lo, hi, dtype)
+            if not md_exact(_at(view, path), want):
+                fail(f"masked_dequant: {name} differs from the plain version at {path}")
+            del want
+        del view
+        torch.cuda.empty_cache()
+        bnd, by = view_bound(peaks, store, live)
+        cases[name] = dict(
+            device_ms=statistics.median(r["device_ms"] for r in runs),
+            host_s=statistics.median(r["host_s"] for r in runs),
+            launches=runs[0]["launches"], peak_gb=max(r["peak_gb"] for r in runs),
+            peak_above_gb=max(r["peak_above_gb"] for r in runs), reps=reps,
+            bound_ms=bnd, bound_by=by)
+        c = cases[name]
+        log(f"  masked_dequant {name} (bf16, bit-exact): {c['launches']} "
+            f"launches, {c['device_ms']:.3f} ms on the stream, {c['host_s']:.4f} s host "
+            f"(medians of {reps}), peak {c['peak_gb']:.2f} GB ({c['peak_above_gb']:.2f} GB "
+            f"above the store), bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+    return cases
+
+
+def _qpaths(tree, path=()):
+    if isinstance(tree, dict) and "codes" in tree and "scale" in tree:
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _qpaths(v, path + (k,))
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def check_delta_apply(peaks, torch, ref, dev, gen):
@@ -449,13 +650,18 @@ def check_delta_apply(peaks, torch, ref, dev, gen):
         shape=f"N={n_buf} bf16, n={idx.numel()} int64 / f32 ({pad} padding)",
         max_abs_err=err, replaces="src/repro/kernels/delta_apply.py:82",
         ms=time_ms(lambda: delta_apply(work, idx, val, donate=True)),
+        ms_graph=time_graph_ms(lambda: delta_apply(work, idx, val, donate=True)),
         plain_ms=time_ms(lambda: ref.delta_apply(work, idx, val, donate=True)),
         library_ms=time_ms(lambda: work.index_put_((in_range,), cast)),
+        library_ms_graph=time_graph_ms(lambda: work.index_put_((in_range,), cast)),
         bound_ms=bnd, bound_by=by)
     for name, f in forms.items():
+        graph = (f"; in a CUDA graph {f['ms_graph']:.4f} ms, index_put_ "
+                 f"{f['library_ms_graph']:.4f} ms" if "ms_graph" in f else "")
         log(f"  {name} [{f['shape']}]: max_abs_err {f['max_abs_err']:.1e} (exact), "
             f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, index_put "
-            f"{f['library_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms ({f['bound_by']})")
+            f"{f['library_ms']:.4f} ms back to back{graph}, bound {f['bound_ms']:.4f} ms "
+            f"({f['bound_by']})")
     return {name: dict(route="cuda", source="src/repro_torch/kernels/csrc/delta_apply.cu",
                        **f) for name, f in forms.items()}
 
@@ -706,12 +912,19 @@ def submit_all(gw, cfg, np):
 
 
 def serve(label, gw, cfg, np, torch):
-    """Drain one request stream; returns its requests and timings."""
-    t0 = time.perf_counter()
+    """Build both tiers' views (each timed by ``view_build``), then drain
+    one request stream; returns its requests and timings."""
+    from repro_torch.kernels import ops
+
+    views = {}
     for tier in ("full", "free"):                  # build the views first
-        gw.view_for(tier)
-    sync()
-    t_views = time.perf_counter() - t0
+        _, views[tier] = view_build(torch, ops, lambda: gw.view_for(tier))
+        v = views[tier]
+        log(f"  {label}: view of tier {tier} built in {v['host_s']:.3f} s "
+            f"({v['device_ms']:.2f} ms on the stream, {v['launches']} masked_dequant "
+            f"launches, peak {v['peak_gb']:.2f} GB, {v['peak_above_gb']:.2f} GB above "
+            f"the weights)")
+    t_views = sum(v["host_s"] for v in views.values())
     reqs = submit_all(gw, cfg, np)
     t0 = time.perf_counter()
     gw.run()
@@ -730,9 +943,52 @@ def serve(label, gw, cfg, np, torch):
         f"views {t_views:.2f} s, serving {t_run:.2f} s "
         f"({m['tokens_generated'] / t_run:.1f} tokens/s, "
         f"{1e3 * t_run / max(1, m['decode_steps'] + m['prefill_chunks']):.1f} ms/step)")
-    return reqs, dict(views_s=t_views, serve_s=t_run,
+    return reqs, dict(views_s=t_views, views=views, serve_s=t_run,
                       tokens=m["tokens_generated"], decode_steps=m["decode_steps"],
                       prefill_chunks=m["prefill_chunks"])
+
+
+def record_rows(gw):
+    """Keep, on the card, every logits row a token of ``gw``'s stream is
+    sampled from (the gateway's own scores), keyed by (request id, token
+    index); a row recomputed after a preemption replaces the earlier one.
+    Costs one device copy a step."""
+    rows = {}
+    sample = gw._sample
+
+    def recorded(logits, reqs):
+        kept = logits[: len(reqs)].clone()
+        for i, r in enumerate(reqs):
+            rows[(r.rid, len(r.out_tokens))] = kept[i]
+        return sample(logits, reqs)
+
+    gw._sample = recorded
+    return rows
+
+
+def stream_parts(kernel_reqs, plain_reqs, kernel_rows, plain_rows):
+    """For each request, the first step at which the kernel path's and
+    the plain path's greedy tokens part (None: they never do); there,
+    from both paths' own logits rows at that step (the same tokens came
+    before it), the plain path's gap between its token and the kernel
+    path's, the kernel path's gap the other way, and the lane's max
+    |logit diff|.  Later tokens continue different texts."""
+    parts = []
+    for rk, rp in zip(kernel_reqs, plain_reqs):
+        t = next((i for i, (a, b) in enumerate(zip(rk.out_tokens, rp.out_tokens))
+                  if a != b), None)
+        if t is None:
+            parts.append(dict(request=rk.rid, step=None))
+            continue
+        k, p = kernel_rows[(rk.rid, t)].float(), plain_rows[(rp.rid, t)].float()
+        kt, pt = rk.out_tokens[t], rp.out_tokens[t]
+        if (int(k.argmax()), int(p.argmax())) != (kt, pt):
+            fail(f"request {rk.rid} step {t}: the recorded logits rows do not give "
+                 f"the tokens the gateways emitted")
+        parts.append(dict(request=rk.rid, step=t, kernel_token=kt, plain_token=pt,
+                          plain_gap=(p[pt] - p[kt]).item(), kernel_gap=(k[kt] - k[pt]).item(),
+                          lane_max_abs_diff=(k - p).abs().max().item()))
+    return parts
 
 
 def decode_logits_check(gw, cfg, np, torch):
@@ -768,12 +1024,22 @@ def decode_logits_check(gw, cfg, np, torch):
             torch.from_numpy(tables).to(dev), torch.from_numpy(poss).to(dev),
             kernel=kernel)
         out.append(logits[: len(reqs), : cfg.vocab_size].float())
-    err = (out[0] - out[1]).abs().max().item()
-    scale = out[1].abs().max().item()
-    same = int((out[0].argmax(-1) == out[1].argmax(-1)).sum())
     if not (torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()):
         fail("decode logits are not finite")
-    return err, scale, same, len(reqs), tier
+    diff = (out[0] - out[1]).abs()
+    err = diff.max().item()
+    scale = out[1].abs().max().item()
+    top2 = out[1].topk(2, dim=-1)
+    flips = []                        # lanes whose argmax differs
+    for i in range(len(reqs)):
+        kernel_tok, plain_tok = int(out[0][i].argmax()), int(top2.indices[i, 0])
+        if kernel_tok != plain_tok:
+            flips.append(dict(lane=i, plain_token=plain_tok, kernel_token=kernel_tok,
+                              plain_top2_gap=(top2.values[i, 0] - top2.values[i, 1]).item(),
+                              plain_gap_to_kernel_token=(
+                                  out[1][i, plain_tok] - out[1][i, kernel_tok]).item(),
+                              lane_max_abs_diff=diff[i].max().item()))
+    return err, scale, len(reqs) - len(flips), len(reqs), tier, flips
 
 
 # ------------------------------------------------------------ phase 5 / 6
@@ -1054,6 +1320,7 @@ def main() -> None:
     tiers = {"free": LicenseTier(name="free", masks=FREE_TIER)}
     ops.reset_launches()
     gw = LicensedGateway(cfg, params, tiers=tiers, **GEOMETRY)
+    kernel_rows = record_rows(gw)           # read in phase 4
     float_reqs, float_t = serve("float views", gw, cfg, np, torch)
     del gw                      # slot <-> gateway cycle: collect its views
     gc.collect()
@@ -1061,15 +1328,21 @@ def main() -> None:
                          materialize_int8_views=True, **GEOMETRY)
     _, int8_t = serve("int8 views", gw, cfg, np, torch)
     launches = dict(ops.LAUNCHES)
-    leaf = gw._weights[gw.version]["units"]["b0"]["ffn"]["w_up"]
-    leaf = (leaf["codes"][0].clone(), leaf["scale"][0].reshape(-1).clone())
-    del gw
-    gc.collect()
-    torch.cuda.empty_cache()
     log(f"  launches on the main path: {launches}")
     for name in ("paged_attention", "paged_decode_write", "masked_dequant"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the serving path")
+    store = gw._weights[gw.version]
+    leaf = store["units"]["b0"]["ffn"]["w_up"]
+    leaf = (leaf["codes"][0].clone(), leaf["scale"][0].reshape(-1).clone())
+    del gw
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["masked_dequant"]["cases"].update(
+        view_cases(peaks, torch, ops, store, tiers["free"], cfg.dtype))
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
     launches.update(prefill_launches)
     rows["quant_matmul"]["store_leaf_rel_err"] = store_leaf_check(*leaf, torch, ops)
     del leaf
@@ -1077,7 +1350,7 @@ def main() -> None:
     # ---------------------------------------------------------- phase 4
     log("phase 4: kernel path vs plain path")
     gw = LicensedGateway(cfg, params, tiers=tiers, **GEOMETRY)
-    err, scale, same, n_lanes, tier = decode_logits_check(gw, cfg, np, torch)
+    err, scale, same, n_lanes, tier, flips = decode_logits_check(gw, cfg, np, torch)
     # bf16 tolerance: the kernel returns f32 attention cast once to bf16,
     # the plain path casts probabilities to bf16 before the value product;
     # 36 layers of bf16 residual rounding separate the two
@@ -1087,15 +1360,48 @@ def main() -> None:
         f"argmax agrees on {same}/{n_lanes} lanes")
     if not err <= tol:
         fail("decode logits of the kernel path and the plain path disagree")
+    # a lane whose argmax differs is a near-tie when the plain path's two
+    # best logits lie closer than the step's max |logit diff|; a wider gap
+    # would take more than rounding to flip, so it is a fault
+    for f in flips:
+        log(f"  lane {f['lane']}: kernel token {f['kernel_token']}, plain token "
+            f"{f['plain_token']}; plain top-2 gap {f['plain_top2_gap']:.4f} (to the kernel's "
+            f"token {f['plain_gap_to_kernel_token']:.4f}), lane max |logit diff| "
+            f"{f['lane_max_abs_diff']:.4f}, step max |logit diff| {err:.4f}")
+    wide = [f["lane"] for f in flips if not f["plain_gap_to_kernel_token"] < err]
+    if wide:
+        fail(f"argmax flips on lanes {wide} with a plain-path gap of at least the max "
+             f"|logit diff| {err:.4f}: not a near-tie")
+    log(f"  argmax flips: {len(flips)}, every one a near-tie (gap below {err:.4f})")
     del gw
     gc.collect()
     gw = LicensedGateway(cfg, params, tiers=tiers, decode_kernels=False, **GEOMETRY)
+    plain_rows = record_rows(gw)
     plain_reqs, plain_t = serve("float views, plain decode path", gw, cfg, np, torch)
     agree = sum(a == b for r1, r2 in zip(float_reqs, plain_reqs)
                 for a, b in zip(r1.out_tokens, r2.out_tokens))
     total = sum(len(r.out_tokens) for r in float_reqs)
-    log(f"  greedy tokens equal between kernel and plain decode: {agree}/{total} "
-        f"(information only: bf16 rounding may flip near-ties)")
+    parts = stream_parts(float_reqs, plain_reqs, kernel_rows, plain_rows)
+    del kernel_rows, plain_rows
+    log(f"  greedy tokens equal between kernel and plain decode: {agree}/{total}; "
+        f"first differing step per request (None: identical): "
+        f"{[p['step'] for p in parts]}")
+    # where a request's tokens part, both paths had the same tokens before:
+    # a near-tie is a plain-path gap below that lane's |logit diff|, and the
+    # diff itself within the decode step's tolerance above; a gap as wide as
+    # the diff, or a wider diff, takes more than rounding
+    split = [p for p in parts if p["step"] is not None]
+    for p in split:
+        log(f"  request {p['request']} parts at step {p['step']}: kernel token "
+            f"{p['kernel_token']}, plain token {p['plain_token']}; plain-path gap "
+            f"{p['plain_gap']:.4f} (kernel-path gap {p['kernel_gap']:.4f}), lane max "
+            f"|logit diff| {p['lane_max_abs_diff']:.4f} (tol {tol:.4f})")
+    wide = [p["request"] for p in split
+            if not (p["plain_gap"] < p["lane_max_abs_diff"] <= tol)]
+    if wide:
+        fail(f"requests {wide} part at a step whose plain-path gap reaches the lane's "
+             f"|logit diff|, or whose diff exceeds {tol:.4f}: not a near-tie")
+    log(f"  requests parting: {len(split)}, every one at a near-tie")
 
     del gw, params
     gc.collect()
@@ -1137,7 +1443,8 @@ def main() -> None:
     log(f"whole script {time.perf_counter() - t_script:.1f} s (kernel build included)")
     log(json.dumps({"gateway": {"float": float_t, "int8": int8_t,
                                 "plain_decode": plain_t,
-                                "decode_logits_max_abs_err": err},
+                                "decode_logits_max_abs_err": err,
+                                "decode_argmax_flips": flips, "stream_parts": parts},
                     "update": {"float_full_depth": upd, "int8_depth4": upd8}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

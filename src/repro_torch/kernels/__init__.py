@@ -4,7 +4,8 @@
   attention split over the context (a cp.async page ring per split, a
   fixed-order combine) and the one-token write against the block-paged
   KV pool
-- masked_dequant: Triton, fused int8 dequant + license-interval mask
+- masked_dequant: CUDA C++ (``csrc/``), fused int8 dequant +
+  license-interval mask, one launch per stacked (U, R, C) leaf
 - delta_apply / delta_apply_inplace: CUDA C++ (``csrc/``), the sparse
   weight-delta scatter of the update path
 - flash_attention: CUDA C++ (``csrc/``), causal / windowed / offset

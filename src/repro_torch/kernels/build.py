@@ -10,14 +10,12 @@ module of the port on a machine with no CUDA compiler.
 from __future__ import annotations
 
 import functools
-import os
 from pathlib import Path
 from typing import Any
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "torch_kernels"
-TRITON_CACHE_DIR = REPO_ROOT / "build" / "triton_cache"
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 # Link the shared libstdc++ that torch's process already holds.  A compiler
 # named by $CXX that links its own libstdc++ statically puts a second copy of
@@ -39,8 +37,3 @@ def load_extension() -> Any:
                 build_directory=str(BUILD_DIR), extra_cflags=["-O2"],
                 extra_cuda_cflags=["-O3", *ARCH_FLAGS], extra_ldflags=LINK_FLAGS)
 
-
-def triton_env() -> None:
-    """Keep Triton's compile cache inside the checkout's build directory."""
-    TRITON_CACHE_DIR.mkdir(parents=True, exist_ok=True)
-    os.environ.setdefault("TRITON_CACHE_DIR", str(TRITON_CACHE_DIR))

@@ -5,11 +5,12 @@
 // decode step, validate shapes, dtypes, devices and contiguity here
 // (TORCH_CHECK_VALUE raises ValueError, TORCH_CHECK_TYPE TypeError): the
 // same checks in Python cost more host time than the call itself (PERF.md).
-// The other kernels are validated by their Python wrappers in
-// repro_torch/kernels/{delta_apply,flash_attention,quant_matmul}.py before
-// these run; those wrappers pick the design (flash_attention vs
-// flash_attention_sm90; quant_matmul vs quant_matmul_splitk /
-// quant_matmul_sm90).
+// So does masked_dequant, whose shapes and scale forms are read here to
+// derive the kernel's strides.  The other kernels are validated by their
+// Python wrappers in repro_torch/kernels/{delta_apply,flash_attention,
+// quant_matmul}.py before these run; those wrappers pick the design
+// (flash_attention vs flash_attention_sm90; quant_matmul vs
+// quant_matmul_splitk / quant_matmul_sm90).
 
 #include <torch/extension.h>
 
@@ -36,6 +37,11 @@ void launch_paged_decode_write(void* k_blocks, void* v_blocks, const void* new_k
 void launch_delta_apply(void* buf, const void* indices, const void* values, int64_t n,
                         int64_t size, bool buf_bf16, bool val_bf16, bool idx64,
                         cudaStream_t stream);
+
+void launch_masked_dequant(const int8_t* codes, const float* scale, const float* lo,
+                           const float* hi, void* out, int64_t units, int64_t unit_rows,
+                           int64_t cols, int64_t su, int64_t sr, int64_t sc, bool out_bf16,
+                           cudaStream_t stream);
 
 void launch_flash_attention(const void* q, const void* k, const void* v, float* out, int bh,
                             int sq, int sk, int groups, int head_dim, bool bf16, bool causal,
@@ -183,6 +189,48 @@ void delta_apply(at::Tensor buf, const at::Tensor& indices, const at::Tensor& va
                      indices.scalar_type() == at::kLong, at::cuda::getCurrentCUDAStream());
 }
 
+// codes (R, C) or (U, R, C) int8; scale f32 of codes' rank, broadcast to it
+// as per column (.., 1, C), per row (.., R, 1) or scalar (.., 1, 1), its
+// leading axis U or 1; lo / hi (8,) f32 -> codes' shape, bf16 or f32
+at::Tensor masked_dequant(const at::Tensor& codes, const at::Tensor& scale,
+                          const at::Tensor& lo, const at::Tensor& hi, bool out_bf16) {
+  require_cuda("masked_dequant", codes.device(),
+               {{"codes", &codes}, {"scale", &scale}, {"lo", &lo}, {"hi", &hi}});
+  TORCH_CHECK_TYPE(codes.scalar_type() == at::kChar, "masked_dequant: codes must be int8, got ",
+                   codes.scalar_type());
+  TORCH_CHECK_TYPE(scale.scalar_type() == at::kFloat && lo.scalar_type() == at::kFloat &&
+                       hi.scalar_type() == at::kFloat,
+                   "masked_dequant: scale/lo/hi must be float32, got ", scale.scalar_type(),
+                   "/", lo.scalar_type(), "/", hi.scalar_type());
+  TORCH_CHECK_VALUE(lo.dim() == 1 && lo.size(0) == 8 && hi.sizes() == lo.sizes(),
+                    "masked_dequant: lo/hi must be (8,), got ", lo.sizes(), " / ", hi.sizes());
+  TORCH_CHECK_VALUE(codes.dim() == 2 || codes.dim() == 3, "masked_dequant: codes ",
+                    codes.sizes(), " must be (R, C) or (U, R, C)");
+  const bool stacked = codes.dim() == 3;
+  const int64_t units = stacked ? codes.size(0) : 1;
+  const int64_t rows = codes.size(-2), cols = codes.size(-1);
+  TORCH_CHECK_VALUE(scale.dim() == codes.dim(), "masked_dequant: scale ", scale.sizes(),
+                    " must have the rank of codes ", codes.sizes());
+  const int64_t s_units = stacked ? scale.size(0) : 1;
+  const int64_t s_rows = scale.size(-2), s_cols = scale.size(-1);
+  const bool per_column = s_rows == 1 && s_cols == cols;
+  const bool per_row = s_rows == rows && s_cols == 1;
+  TORCH_CHECK_VALUE((s_units == units || s_units == 1) &&
+                        (per_column || per_row || (s_rows == 1 && s_cols == 1)),
+                    "masked_dequant: scale ", scale.sizes(), " not broadcastable to codes ",
+                    codes.sizes(), " as per column, per row or scalar");
+  const int64_t su = s_units == 1 ? 0 : s_rows * s_cols;
+  const int64_t sr = per_column ? 0 : (per_row ? 1 : 0);
+  const int64_t sc = per_column ? 1 : 0;
+  const c10::cuda::CUDAGuard guard(codes.device());
+  auto out = at::empty(codes.sizes(), codes.options().dtype(out_bf16 ? at::kBFloat16
+                                                                     : at::kFloat));
+  launch_masked_dequant(codes.data_ptr<int8_t>(), scale.data_ptr<float>(),
+                        lo.data_ptr<float>(), hi.data_ptr<float>(), out.data_ptr(), units,
+                        rows, cols, su, sr, sc, out_bf16, at::cuda::getCurrentCUDAStream());
+  return out;
+}
+
 at::Tensor flash_attention(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                            bool causal, int64_t window, int64_t q_offset, int64_t groups) {
   const c10::cuda::CUDAGuard guard(q.device());
@@ -259,6 +307,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "in-place write of one K/V token per lane into the block pools");
   m.def("delta_apply", &repro_torch::delta_apply,
         "in-place scatter buf[indices] = values, out-of-range indices dropped");
+  m.def("masked_dequant", &repro_torch::masked_dequant,
+        "int8 codes * scale with the license intervals zeroed, one launch per (U, R, C) leaf");
   m.def("flash_attention", &repro_torch::flash_attention,
         "causal / windowed / offset online-softmax attention, GQA; (BH, Sq, hd) f32");
   m.def("quant_matmul", &repro_torch::quant_matmul,

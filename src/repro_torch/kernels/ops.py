@@ -1,12 +1,13 @@
 """Public kernel entry points of the port and their launch counters.
 
 ``LAUNCHES`` counts kernel launches per kernel name: each wrapper adds
-one exactly where it launches its CUDA or Triton kernel (never on the
-CPU path), so a run can prove that its main path went through the
-kernels.  ``masked_dequant`` here is the dispatcher the licensed int8
-views call: unlike the JAX package's (which sends shapes under 256x256
-to the oracle), the CUDA path has no small-shape shortcut — the Triton
-kernel takes any shape and masks the ragged edge itself.  The same holds
+one exactly where it launches its CUDA kernel (never on the CPU path),
+so a run can prove that its main path went through the kernels.
+``masked_dequant`` here is the dispatcher for a list of intervals:
+unlike the JAX package's (which sends shapes under 256x256 to the
+oracle), the CUDA path has no small-shape shortcut — the kernel takes
+any shape.  The licensed views pack a tier's intervals once per view and
+call ``kernels.masked_dequant`` per stacked leaf instead.  The same holds
 for ``quant_matmul`` (the JAX dispatcher pads to block multiples and sends
 products under 128^3 to the oracle) and ``delta_apply``.
 ``flash_attention`` has no dispatcher: its entry point is
@@ -55,13 +56,14 @@ def num_sms(device: torch.device) -> int:
 def pack_intervals(intervals: Sequence[Tuple[float, float]],
                    device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
     """Pad a license tier's interval list to (MAX_INTERVALS,) f32 lo/hi;
-    padding slots have lo == hi == 0 and are inert."""
+    padding slots have lo == hi == 0 and are inert.  Both are rows of one
+    (2, MAX_INTERVALS) tensor: one host-to-device copy per call."""
     ivs = list(intervals)[:MAX_INTERVALS]
-    lo = np.zeros(MAX_INTERVALS, np.float32)
-    hi = np.zeros(MAX_INTERVALS, np.float32)
+    packed = np.zeros((2, MAX_INTERVALS), np.float32)
     for i, (a, b) in enumerate(ivs):
-        lo[i], hi[i] = a, b
-    return (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device))
+        packed[0, i], packed[1, i] = a, b
+    both = torch.from_numpy(packed).to(device)
+    return both[0], both[1]
 
 
 def masked_dequant(codes: torch.Tensor, scale: torch.Tensor,
@@ -70,11 +72,13 @@ def masked_dequant(codes: torch.Tensor, scale: torch.Tensor,
     """Licensed weights from int8 codes in one fused pass (paper §3.5).
 
     ``scale`` is per column ((C,) or (1, C)), per row ((R, 1)) or a scalar
-    ((1, 1)), as in ``repro.kernels.ops.masked_dequant``."""
+    ((1, 1)), as in ``repro.kernels.ops.masked_dequant``; 3-D codes take
+    the scale forms of ``kernels.masked_dequant``.  Packs ``intervals``
+    on every call (one host-to-device copy on the card)."""
     from repro_torch.kernels.masked_dequant import masked_dequant as _kernel
 
-    r, c = codes.shape
-    if scale.ndim != 2:
+    c = codes.shape[-1]
+    if scale.ndim == 1:
         scale = scale.reshape(1, -1) if scale.numel() == c else scale.reshape(-1, 1)
     lo, hi = pack_intervals(intervals, codes.device)
     return _kernel(codes, scale, lo, hi, out_dtype=out_dtype)

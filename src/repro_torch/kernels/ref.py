@@ -22,9 +22,11 @@ def masked_dequant(codes: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor,
                    hi: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
     """Fused dequant + license-interval mask (paper §3.5).
 
-    w = codes * scale (f32, scale broadcast to codes); w is zeroed where
-    lo[i] <= |w| < hi[i] for any interval i.  Intervals with lo == hi are
-    inert padding.
+    w = codes * scale (f32, scale broadcast to codes: (R, C) codes, or a
+    stacked (U, R, C) leaf whose scale has a leading axis of U or 1); w is
+    zeroed where lo[i] <= |w| < hi[i] for any interval i.  Intervals with
+    lo == hi are inert padding.  Elementwise, so a stacked leaf gives,
+    slice by slice, what the 2-D form gives on each slice.
     """
     w = codes.to(torch.float32) * scale.to(torch.float32)
     mag = w.abs()

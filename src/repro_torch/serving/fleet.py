@@ -12,10 +12,11 @@ attribute access to it, as in the JAX package.  The fleet itself
 lease state machine are not ported yet: ``_lease_renew`` records the
 time of the last good server exchange and nothing reads it.
 
-Constructor arguments of the JAX slot whose features are not ported are
-still recognised: passing the value the port implements is accepted,
-anything else raises ``NotImplementedError`` naming the ROADMAP.md item
-that ports it — never accepted and then ignored.
+Every constructor argument of the JAX slot is recognised.  Those whose
+features are not ported accept the values the port implements (the JAX
+default among them where the port behaves as the JAX slot does at that
+default); anything else raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it — never accepted and then ignored.
 """
 from __future__ import annotations
 
@@ -34,17 +35,28 @@ from repro_torch.models.model import check_supported
 from repro_torch.serving.paging import PagedCachePool, cdiv
 from repro_torch.serving.scheduler import GatewayRequest, Scheduler, TierViewCache
 
-# argument -> (the value the port implements, ROADMAP.md item for the rest)
-_LEFT_OUT: Dict[str, Tuple[Any, str]] = {
-    "prefix_cache": (False, "the prefix cache (serving/prefix.py)"),
-    "telemetry": (False, "telemetry and tracing"),
-    "sanitize": (None, "telemetry and tracing"),
-    "paged": (True, "the other architectures"),
-    "kernel_decode": (True, "the other architectures"),
-    "lease_ttl_s": (None, "the fleet, tenants and lease"),
-    "lease_grace_s": (None, "the fleet, tenants and lease"),
-    "lease_policy": (None, "the fleet, tenants and lease"),
-    "lease_floor_tier": (None, "the fleet, tenants and lease"),
+# argument -> (the values the port implements, ROADMAP.md item for the rest)
+_LEFT_OUT: Dict[str, Tuple[Tuple[Any, ...], str]] = {
+    "prefix_cache": ((False,), "the prefix cache (serving/prefix.py)"),
+    # the admission budget's watermark comes with the prefix cache's
+    # reclaimable blocks, which share that budget in the JAX scheduler
+    "watermark_blocks": ((0,), "the prefix cache (serving/prefix.py)"),
+    "telemetry": ((False,), "telemetry and tracing"),
+    "sanitize": ((None, False), "telemetry and tracing"),
+    "paged": ((True,), "the other architectures and the gateway fallbacks"),
+    "kernel_decode": ((None, True), "the other architectures and the gateway fallbacks"),
+    # None: one block per chunk, the JAX default; 0 is bucket prefill
+    "chunk_size": ((None,), "the other architectures and the gateway fallbacks"),
+    # None: the JAX slot's choice off a TPU ("off"); the port picks its
+    # decode kernels with ``decode_kernels``
+    "decode_pallas": ((None,), "the other architectures and the gateway fallbacks"),
+    # the port samples on the device inside every step and keeps no logits
+    "fuse_sampling": ((True,), "the rest of the package"),
+    "record_logits": ((False,), "the rest of the package"),
+    "lease_ttl_s": ((None,), "the fleet, tenants and lease"),
+    "lease_grace_s": ((None,), "the fleet, tenants and lease"),
+    "lease_policy": ((None,), "the fleet, tenants and lease"),
+    "lease_floor_tier": ((None,), "the fleet, tenants and lease"),
 }
 
 
@@ -53,8 +65,7 @@ def _check_left_out(kw: Dict[str, Any]) -> None:
         if name not in _LEFT_OUT:
             raise TypeError(f"unexpected argument {name!r}")
         ported, item = _LEFT_OUT[name]
-        off = ported in (None, False) and not value
-        if value is not None and value != ported and not off:
+        if value not in ported:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet; see ROADMAP.md, {item!r}")
 
@@ -70,6 +81,7 @@ class ModelSlot:
         *,
         tiers: Optional[Dict[str, LicenseTier]] = None,
         quantized: bool = False,
+        already_quantized: bool = False,
         materialize_int8_views: bool = False,
         max_batch: int = 8,
         max_prompt: int = 32,
@@ -86,6 +98,7 @@ class ModelSlot:
         transport: Optional[Transport] = None,
         retry_policy: Optional[RetryPolicy] = None,
         quarantine_after: int = 3,
+        history: int = 10_000,
         device="cuda",
         **left_out: Any,
     ):
@@ -97,13 +110,13 @@ class ModelSlot:
             raise ValueError(f"params live on {params['embed']['tok'].device}, "
                              f"the gateway on {self.device}")
         self.clock = clock if clock is not None else time.perf_counter
-        self.quantized = bool(quantized)
+        self.quantized = bool(quantized or already_quantized)
         if self.quantized and not materialize_int8_views:
             raise NotImplementedError(
                 "quantized=True without materialize_int8_views=True dequantizes "
                 "inside every step; not ported yet, see ROADMAP.md, "
                 "'the in-scan int8 dequant'")
-        if self.quantized:
+        if self.quantized and not already_quantized:
             from repro_torch.serving.quantized import quantize_serving_params
 
             params = quantize_serving_params(params)
@@ -178,9 +191,9 @@ class ModelSlot:
         self._next_rid = 0
         # bounded: a long-lived gateway must not grow host memory with
         # every request served; metrics percentiles cover this window
-        self.completed: "deque[GatewayRequest]" = deque(maxlen=10_000)
+        self.completed: "deque[GatewayRequest]" = deque(maxlen=history)
         self.trace: "deque[Tuple[str, str, Optional[int], int]]" = \
-            deque(maxlen=10_000)
+            deque(maxlen=history)
         self._drain_sink: Optional[List[GatewayRequest]] = None
         self.stats: Dict[str, int] = {
             "admitted": 0, "rejected": 0, "completed": 0,

@@ -9,7 +9,8 @@ paper's one-stored-model-many-tiers claim, §3.5):
 
 * float weights: the view is ``apply_license(base, tier)``;
 * ``quantized=True, materialize_int8_views=True``: ONE int8 store, and
-  the view is its fused masked-dequant (the Triton kernel on CUDA).
+  the view is its fused masked-dequant (one CUDA launch per stacked
+  leaf on the card).
 
 Prompts prefill in left-aligned chunks (each lane at its own cursor,
 ``chunk_size`` tokens per prefill action, strictly alternating with
@@ -73,6 +74,9 @@ class LicensedGateway:
         (tier, version) view is built once by the fused masked-dequant
         and cached.  ``quantized`` needs ``materialize_int8_views=True``
         in this port.
+    already_quantized:
+        ``params`` already is the int8 store (``quantize_serving_params``
+        of the float weights); implies ``quantized``.
     max_batch:
         Lanes per micro-batch (the decode step's batch width).
     max_prompt / max_new_cap:
@@ -99,6 +103,9 @@ class LicensedGateway:
     quarantine_after:
         Consecutive failed syncs toward one version before it is
         quarantined (no further sync attempts until cleared).
+    history:
+        Completed requests and scheduler actions kept for ``metrics``
+        and ``trace`` (the newest ``history`` of each).
     clock:
         Host clock for request timestamps (injectable for tests).
     device:

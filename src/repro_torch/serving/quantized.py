@@ -2,11 +2,11 @@
 
 Counterpart of ``repro/serving/quantized.py``.  Block weights are kept
 as (codes int8, scale f32) with per-output-channel scales; a tier's view
-is built by the fused masked-dequant (``kernels/masked_dequant.py``, the
-Triton kernel on CUDA), once per (tier, version), and cached by the
-gateway (``materialize_int8_views``).  The in-scan variant of the JAX
-package, which dequantizes inside every forward step, is not ported yet
-(ROADMAP, "the in-scan int8 dequant").
+is built by the fused masked-dequant (``kernels/masked_dequant.py``, one
+CUDA launch per stacked leaf on the card), once per (tier, version), and
+cached by the gateway (``materialize_int8_views``).  The in-scan variant
+of the JAX package, which dequantizes inside every forward step, is not
+ported yet (ROADMAP, "the in-scan int8 dequant").
 """
 from __future__ import annotations
 
@@ -91,30 +91,25 @@ def materialize_licensed_view(qparams: Any, tier: Optional[LicenseTier],
                               dtype) -> Any:
     """Run the fused masked-dequant once, returning a full-precision
     licensed view of the int8 store (the gateway's
-    ``materialize_int8_views`` path).  2-D weight slices go through
-    ``kernels.ops.masked_dequant``; stacked leaves (U, in, out) are
-    dequantized slice by slice along the unit axis, one kernel launch per
-    slice.  Non-quantized leaves are shared with the store."""
-    from repro_torch.kernels import ops
+    ``materialize_int8_views`` path).  The tier's intervals are packed
+    once per view, on the store's device; each quantized leaf, 2-D or
+    stacked (U, in, out), is one ``kernels.masked_dequant`` call on its
+    (units, in, out) form (one launch on the card), written straight
+    into its view tensor.  The JAX
+    package dequantizes stacked leaves slice by slice and stacks them:
+    the function is elementwise, so the results are identical.
+    Non-quantized leaves are shared with the store."""
+    from repro_torch.kernels.masked_dequant import masked_dequant
 
     li = tier_intervals(tier)
-    if li is None:
-        ivs = []
-    else:
-        lo, hi = li
-        ivs = [(float(a), float(b)) for a, b in zip(lo.tolist(), hi.tolist()) if b > a]
+    ivs = [] if li is None else [(a, b) for a, b in zip(*(t.tolist() for t in li)) if b > a]
+    lo, hi = pack_intervals(ivs, qparams["embed"]["tok"].device)
 
     def dq(leaf):
         codes, scale = leaf["codes"], leaf["scale"]
-        if codes.ndim == 2:
-            return ops.masked_dequant(codes, scale, ivs, out_dtype=dtype)
-        lead = codes.shape[:-2]
-        r, c = codes.shape[-2:]
-        flat_c = codes.reshape(-1, r, c)
-        flat_s = scale.expand(*lead, 1, c).reshape(-1, 1, c)
-        slices = [ops.masked_dequant(flat_c[i], flat_s[i], ivs, out_dtype=dtype)
-                  for i in range(flat_c.shape[0])]
-        return torch.stack(slices).reshape(*lead, r, c)
+        out = masked_dequant(codes.reshape(-1, *codes.shape[-2:]),
+                             scale.reshape(-1, *scale.shape[-2:]), lo, hi, out_dtype=dtype)
+        return out.reshape(codes.shape)
 
     return _map_qleaves(dq, qparams)
 

@@ -14,7 +14,9 @@ which moves no argmax at these weights.
 Sampled tokens are not compared: the port draws from torch.Generators,
 the JAX gateway from ``jax.random`` keys.
 """
+import inspect
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -29,12 +31,18 @@ from repro.core.licensing import LicenseTier as JaxLicenseTier
 from repro.core.pytree_io import flatten_params as jax_flatten_params
 from repro.models import init_params as jax_init_params
 from repro.serving import LicensedGateway as JaxGateway
+from repro.serving.fleet import ModelSlot as JaxModelSlot
 from repro.serving.paging import BlockAllocator as JaxBlockAllocator
+from repro.serving.quantized import quantize_serving_params as jax_quantize_serving_params
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.licensing import LicenseTier
 from repro_torch.models.model import params_from_jax
 from repro_torch.serving import BlockAllocator, LicensedGateway, RequestState
+from repro_torch.serving.fleet import _LEFT_OUT
+from repro_torch.serving.quantized import quantize_serving_params
+
+ROADMAP = Path(__file__).resolve().parents[1] / "ROADMAP.md"
 
 FREE = {"*": ((0.0, 0.01),)}
 # mixed tiers, prompt lengths off block multiples (block_size 4)
@@ -64,11 +72,17 @@ def _drain(gw):
     return reqs
 
 
-@pytest.fixture(scope="module", params=["float", "int8"])
+@pytest.fixture(scope="module", params=["float", "int8", "int8_already_quantized"])
 def streams(request, weights):
+    """``int8_already_quantized``: each gateway is handed its package's
+    int8 store of the same weights (``already_quantized=True``)."""
     jcfg, jparams, cfg, params = weights
     mode = ({} if request.param == "float"
             else dict(quantized=True, materialize_int8_views=True))
+    if request.param == "int8_already_quantized":
+        jparams = jax_quantize_serving_params(jparams)
+        params = quantize_serving_params(params)
+        mode = dict(already_quantized=True, materialize_int8_views=True)
     jgw = JaxGateway(jcfg, jparams,
                      tiers={"free": JaxLicenseTier(name="free", masks=FREE)},
                      prefix_cache=False, telemetry=False, **GEOMETRY, **mode)
@@ -154,6 +168,46 @@ def test_left_out_arguments_raise(weights):
         LicensedGateway(cfg, params, device="cpu", no_such_option=1)
     with pytest.raises(ValueError, match="params live on cpu"):
         LicensedGateway(cfg, params, device="meta")
+
+
+def _reference_defaults():
+    """Every keyword argument of the JAX slot with its default."""
+    sig = inspect.signature(JaxModelSlot.__init__)
+    return {n: p.default for n, p in sig.parameters.items()
+            if p.default is not inspect.Parameter.empty}
+
+
+def test_slot_takes_every_reference_default(weights):
+    """A slot built with every keyword default of the JAX slot, except
+    those whose features are queued (the prefix cache, telemetry and the
+    lease: their JAX defaults turn them on).  Each of those raises
+    ``NotImplementedError`` naming its ROADMAP.md item on its own."""
+    _, _, cfg, params = weights
+    queued = {"prefix_cache", "telemetry", "lease_ttl_s", "lease_grace_s",
+              "lease_policy"}
+    defaults = _reference_defaults()
+    assert queued < set(defaults)
+    kw = {n: v for n, v in defaults.items() if n not in queued}
+    gw = LicensedGateway(cfg, params, device="cpu", **kw)
+    assert gw.chunk_size == gw.pool.block_size and not gw.quantized
+    assert gw.completed.maxlen == gw.trace.maxlen == defaults["history"]
+    for name in sorted(queued):
+        with pytest.raises(NotImplementedError, match=re.escape(_LEFT_OUT[name][1])):
+            LicensedGateway(cfg, params, device="cpu", **{name: defaults[name]})
+
+
+# one value each that the JAX slot takes and the port does not implement
+_UNPORTED = {"watermark_blocks": 2, "chunk_size": 0, "decode_pallas": "off",
+             "fuse_sampling": False, "record_logits": True}
+
+
+@pytest.mark.parametrize("name", sorted(_UNPORTED))
+def test_unported_value_names_its_roadmap_item(weights, name):
+    _, _, cfg, params = weights
+    item = _LEFT_OUT[name][1]
+    assert item.split(" (")[0] in ROADMAP.read_text().lower()
+    with pytest.raises(NotImplementedError, match=re.escape(item)):
+        LicensedGateway(cfg, params, device="cpu", **{name: _UNPORTED[name]})
 
 
 @pytest.mark.parametrize("flags", [[], ["--int8-views"]])

@@ -10,11 +10,12 @@ run them.  Tolerances:
   the Pallas kernel to 2e-3, a tolerance sized for TPU dtypes);
 * ``paged_decode_write``, ``masked_dequant`` and ``delta_apply``: exact
   — a copy with a cast, and f32 multiply / compare / select, leave no
-  room for rounding differences.  The null block's content is garbage by
-  contract and is never compared.
+  room for rounding differences (``masked_dequant`` is compared bit for
+  bit, so a -0.0 for a +0.0 would fail).  The null block's content is
+  garbage by contract and is never compared.
 
-The cases marked ``gpu`` hold each CUDA / Triton kernel against its plain
-version on the card; they skip on a machine without one.
+The cases marked ``gpu`` hold each CUDA kernel against its plain version
+on the card; they skip on a machine without one.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -140,6 +141,64 @@ def test_masked_dequant_matches_jax(scale_kind, out_dtype):
     assert (got == 0).mean() > 0.05         # the intervals do mask weights
 
 
+# stacked (U, R, C) scale forms: name -> scale shape
+STACKED_SCALES = {"per_column": lambda u, r, c: (u, 1, c),
+                  "per_column_shared": lambda u, r, c: (1, 1, c),
+                  "per_row": lambda u, r, c: (u, r, 1),
+                  "scalar": lambda u, r, c: (1, 1, 1)}
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    """The bit patterns of a bf16 / f32 array (+0.0 and -0.0 differ)."""
+    return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
+
+
+def _stacked_case(seed, u, r, c, scale_kind):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-127, 128, (u, r, c)).astype(np.int8)
+    scale = (rng.random(STACKED_SCALES[scale_kind](u, r, c)) * 2e-4
+             + 1e-5).astype(np.float32)
+    return codes, scale
+
+
+def _edge_intervals(codes, scale):
+    """INTERVALS plus one whose bounds are two of the weights themselves
+    (|codes * scale| in f32, outside INTERVALS where any two are): a
+    weight equal to lo is masked, one equal to hi is not."""
+    mag = np.unique(np.abs(codes.astype(np.float32) * scale))
+    mag = mag[mag > 0]
+    free = mag[~np.any([(mag >= a) & (mag < b) for a, b in INTERVALS], axis=0)]
+    # a small scalar scale can leave every weight inside INTERVALS
+    mag = free if len(free) >= 2 else mag
+    lo, hi = mag[len(mag) // 4], mag[3 * len(mag) // 4]
+    return INTERVALS + [(float(lo), float(hi))], lo, hi
+
+
+@pytest.mark.parametrize("scale_kind", sorted(STACKED_SCALES))
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_masked_dequant_stacked_matches_jax(scale_kind, out_dtype):
+    """One call on a stacked (U, R, C) leaf (the plain version on the CPU)
+    against the JAX oracle applied slice by slice and stacked, as the JAX
+    package's ``materialize_licensed_view`` builds a leaf; bit for bit."""
+    codes, scale = _stacked_case(21, 3, 40, 72, scale_kind)
+    intervals, edge_lo, edge_hi = _edge_intervals(codes, scale)
+    lo, hi = ops.pack_intervals(intervals)
+    got = masked_dequant(torch.from_numpy(codes), torch.from_numpy(scale), lo, hi,
+                         out_dtype=getattr(torch, out_dtype))
+    assert got.shape == codes.shape and ops.LAUNCHES["masked_dequant"] == 0
+    jlo, jhi = jax_ops.pack_intervals(intervals)
+    full = np.broadcast_to(scale, (codes.shape[0], *scale.shape[1:]))
+    want = np.stack([np.asarray(jax_ref.masked_dequant(
+        jnp.asarray(codes[i]), jnp.asarray(full[i]), jlo, jhi, getattr(jnp, out_dtype)))
+        for i in range(codes.shape[0])])
+    np.testing.assert_array_equal(
+        got.view(torch.int16 if out_dtype == "bfloat16" else torch.int32).numpy(), _bits(want))
+    assert (want == 0).mean() > 0.05
+    mag = np.abs(codes.astype(np.float32) * scale)
+    assert (got.float().numpy()[mag == edge_lo] == 0).all()
+    assert (got.float().numpy()[mag == edge_hi] != 0).all()
+
+
 def test_pack_intervals_matches_jax():
     lo, hi = ops.pack_intervals(INTERVALS)
     jlo, jhi = jax_ops.pack_intervals(INTERVALS)
@@ -243,21 +302,83 @@ def test_paged_decode_write_kernel_matches_plain(cuda):
     assert torch.equal(k1[:null], k2[:null]) and torch.equal(v1[:null], v2[:null])
 
 
+def _scale_for(codes, scale_kind, rng):
+    """A scale of ``scale_kind`` for 2-D or stacked codes."""
+    u, r, c = codes.shape if codes.ndim == 3 else (1, *codes.shape)
+    shape = STACKED_SCALES[scale_kind](u, r, c)
+    shape = shape if codes.ndim == 3 else shape[1:]
+    return (torch.rand(shape, generator=rng) * 2e-4 + 1e-5).to(codes.device)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("scale_kind", sorted(SCALES))
-def test_masked_dequant_kernel_matches_plain(cuda, scale_kind):
-    pytest.importorskip("triton", reason="the masked_dequant kernel is Triton")
-    r = np.random.default_rng(12)
-    rows, cols = 300, 77                      # ragged edges in both dims
-    codes = torch.from_numpy(r.integers(-127, 128, (rows, cols)).astype(np.int8)).to(cuda)
-    scale = torch.from_numpy((r.random(SCALES[scale_kind](rows, cols)) * 2e-4
-                              + 1e-5).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("scale_kind", sorted(STACKED_SCALES))
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("cols", [11008, 2048, 1003])
+def test_masked_dequant_kernel_matches_plain(cuda, scale_kind, stacked, cols):
+    """Bit for bit against the plain version, f32 and bf16 out: the MLP's
+    widths and a ragged one (the one-element-per-thread kernel), 2-D and
+    stacked, every scale form; then codes whose base is off a 16-byte
+    boundary (a view one byte into a buffer)."""
+    rng = torch.Generator().manual_seed(12)
+    shape = (3, 70, cols) if stacked else (300, cols)
+    n = int(np.prod(shape))
+    flat = torch.randint(-127, 128, (n + 1,), generator=rng, dtype=torch.int8).to(cuda)
+    aligned = flat[:n].view(shape)
+    offset = flat[1:].view(shape)
+    assert offset.data_ptr() % 16 != 0
+    scale = _scale_for(aligned, scale_kind, rng)
+    intervals, _, _ = _edge_intervals(aligned.cpu().numpy(), scale.cpu().numpy())
+    lo, hi = ops.pack_intervals(intervals, cuda)
+    for codes in (aligned, offset):
+        for dtype, bits in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+            before = ops.LAUNCHES["masked_dequant"]
+            got = masked_dequant(codes, scale, lo, hi, out_dtype=dtype)
+            want = ref.masked_dequant(codes, scale, lo, hi, dtype)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["masked_dequant"] == before + 1
+            assert got.dtype == dtype and got.shape == codes.shape
+            assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.gpu
+def test_masked_dequant_kernel_in_cuda_graph(cuda):
+    """Captured once, replayed after the codes and the intervals changed
+    in place: the kernel reads both on the card at replay."""
+    rng = torch.Generator().manual_seed(13)
+    codes = torch.randint(-127, 128, (4, 64, 2048), generator=rng, dtype=torch.int8).to(cuda)
+    scale = _scale_for(codes, "per_column", rng)
     lo, hi = ops.pack_intervals(INTERVALS, cuda)
-    for dtype in (torch.float32, torch.bfloat16):
-        got = masked_dequant(codes, scale, lo, hi, out_dtype=dtype)
-        want = ref.masked_dequant(codes, scale, lo, hi, dtype)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want)
+    masked_dequant(codes, scale, lo, hi, out_dtype=torch.bfloat16)   # build, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = masked_dequant(codes, scale, lo, hi, out_dtype=torch.bfloat16)
+    codes.copy_(torch.randint(-127, 128, codes.shape, generator=rng,
+                              dtype=torch.int8).to(cuda))
+    new_lo, new_hi = ops.pack_intervals([(0.0, 0.02)], cuda)
+    lo.copy_(new_lo)
+    hi.copy_(new_hi)
+    graph.replay()
+    want = ref.masked_dequant(codes, scale, lo, hi, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_masked_dequant_kernel_rejects(cuda):
+    codes = torch.zeros(2, 8, 32, dtype=torch.int8, device=cuda)
+    scale = torch.ones(2, 1, 32, device=cuda)
+    lo, hi = ops.pack_intervals(INTERVALS, cuda)
+    with pytest.raises(TypeError, match="int8"):
+        masked_dequant(codes.to(torch.int16), scale, lo, hi)
+    for bad in (torch.ones(2, 1, 31, device=cuda), torch.ones(3, 1, 32, device=cuda),
+                torch.ones(2, 8, 2, device=cuda), torch.ones(1, 32, device=cuda)):
+        with pytest.raises(ValueError, match="scale"):
+            masked_dequant(codes, bad, lo, hi)
+    with pytest.raises(ValueError, match="lo on cpu"):
+        masked_dequant(codes, scale, lo.cpu(), hi)
+    with pytest.raises(TypeError, match="out_dtype"):
+        masked_dequant(codes, scale, lo, hi, out_dtype=torch.float16)
 
 
 @pytest.mark.gpu

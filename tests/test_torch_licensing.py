@@ -89,8 +89,23 @@ def test_quantized_store_identical(weights):
                         quantized.quantize_serving_params(params))
 
 
+def _assert_trees_bit_equal(jtree, ttree):
+    """Leaf by leaf on the bit patterns (+0.0 and -0.0 differ)."""
+    jflat = jax_flatten_params(jtree)
+    tflat = flatten_params(ttree)
+    assert list(tflat) == list(jflat)
+    for name, arr in jflat.items():
+        t = tflat[name]
+        bits = {2: (torch.int16, np.int16), 4: (torch.int32, np.int32)}[t.element_size()]
+        np.testing.assert_array_equal(t.view(bits[0]).numpy(),
+                                      np.asarray(arr).view(bits[1]), err_msg=name)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("tier", sorted(TIERS) + ["full"])
-def test_materialized_int8_view_identical(weights, tier):
+def test_materialized_int8_view_identical(weights, tier, out_dtype):
+    """The port's view (one masked-dequant call per stacked leaf) against
+    the JAX package's (slice by slice, then stacked), bit for bit."""
     jparams, params = weights
     masks = TIERS.get(tier, {})
     jt = jax_licensing.LicenseTier(name=tier, masks=masks)
@@ -101,7 +116,7 @@ def test_materialized_int8_view_identical(weights, tier):
         for a, b in zip(li, jli):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     jview = jax_quantized.materialize_licensed_view(
-        jax_quantized.quantize_serving_params(jparams), jt, jnp.float32)
+        jax_quantized.quantize_serving_params(jparams), jt, getattr(jnp, out_dtype))
     view = quantized.materialize_licensed_view(
-        quantized.quantize_serving_params(params), tt, torch.float32)
-    _assert_trees_equal(jview, view)
+        quantized.quantize_serving_params(params), tt, getattr(torch, out_dtype))
+    _assert_trees_bit_equal(jview, view)
