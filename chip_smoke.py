@@ -33,7 +33,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    memory); then the whole int8 view of the free and full tiers rebuilt
    from the store and held bit for bit against the plain version, and
    ``quant_matmul`` on a real leaf of the int8 store (unit 0's
-   ``ffn/w_up``) against x @ its masked-dequant;
+   ``ffn/w_up``) against x @ its masked-dequant.  Every gateway of the
+   script is the default one (prefix cache on) unless a phase says
+   otherwise;
+3b. the shared-prefix stream (a 48-token system prefix, own suffixes of
+   1-16 tokens, exact repeats; two waves) at full width and depth, launch
+   counters zeroed just before and read just after: (a) with the prefix
+   cache, (b) without it, (c) with it on a 12-block pool, (d) with it
+   through int8 views.  (a) must reuse prefix tokens, copy shared tails
+   and prefill fewer lane-tokens than (b); (c) must evict retained chains
+   and preempt; every request must finish; no decode write may target a
+   shared block; after each drain the allocator holds only the tree's
+   references; and the greedy tokens of (a) and (c) must equal (b)'s or
+   part at a near-tie by phase 4's rule;
 4. one decode step's logits through the kernels vs the plain path on the
    same pool state; every lane whose argmax differs must be a near-tie
    (the plain path's gap between the two tokens below the step's max
@@ -59,7 +71,14 @@ Phases (each prints its own lines; any failure exits non-zero):
    cost the same host time again); its v2 int8 store must equal
    ``quantize_serving_params(v2)``.  Both ``delta_apply`` forms must have
    been launched on phases 5-6;
-7. a ``kernels`` JSON line, and the result line last.
+7. Algorithm 1 on phase 3's weights (re-created from the seed and
+   checked): the quantile edges of every maskable magnitude (by a count
+   of bf16 bit patterns on the card, checked against a sort on one
+   leaf), ``calibrate_license`` to a top-1 agreement of 0.9 over 16
+   teacher-forced 64-token prompts, the tier re-evaluated, its float view
+   in a gateway held bit for bit against ``apply_license``, and the
+   shared-prefix stream served in it with the prefix cache;
+8. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
 device is present or when run outside a checkout of the repository.
@@ -966,13 +985,14 @@ def record_rows(gw):
     return rows
 
 
-def stream_parts(kernel_reqs, plain_reqs, kernel_rows, plain_rows):
+def stream_parts(kernel_reqs, plain_reqs, kernel_rows, plain_rows, vocab):
     """For each request, the first step at which the kernel path's and
     the plain path's greedy tokens part (None: they never do); there,
-    from both paths' own logits rows at that step (the same tokens came
-    before it), the plain path's gap between its token and the kernel
-    path's, the kernel path's gap the other way, and the lane's max
-    |logit diff|.  Later tokens continue different texts."""
+    from both paths' own logits rows at that step over the ``vocab``
+    real ids (the same tokens came before it), the plain path's gap
+    between its token and the kernel path's, the kernel path's gap the
+    other way, the lane's max |logit diff| and the plain row's max
+    |logit|.  Later tokens continue different texts."""
     parts = []
     for rk, rp in zip(kernel_reqs, plain_reqs):
         t = next((i for i, (a, b) in enumerate(zip(rk.out_tokens, rp.out_tokens))
@@ -980,14 +1000,16 @@ def stream_parts(kernel_reqs, plain_reqs, kernel_rows, plain_rows):
         if t is None:
             parts.append(dict(request=rk.rid, step=None))
             continue
-        k, p = kernel_rows[(rk.rid, t)].float(), plain_rows[(rp.rid, t)].float()
+        k = kernel_rows[(rk.rid, t)][:vocab].float()
+        p = plain_rows[(rp.rid, t)][:vocab].float()
         kt, pt = rk.out_tokens[t], rp.out_tokens[t]
         if (int(k.argmax()), int(p.argmax())) != (kt, pt):
             fail(f"request {rk.rid} step {t}: the recorded logits rows do not give "
                  f"the tokens the gateways emitted")
         parts.append(dict(request=rk.rid, step=t, kernel_token=kt, plain_token=pt,
                           plain_gap=(p[pt] - p[kt]).item(), kernel_gap=(k[kt] - k[pt]).item(),
-                          lane_max_abs_diff=(k - p).abs().max().item()))
+                          lane_max_abs_diff=(k - p).abs().max().item(),
+                          plain_max_abs=p.abs().max().item()))
     return parts
 
 
@@ -1040,6 +1062,278 @@ def decode_logits_check(gw, cfg, np, torch):
                                   out[1][i, plain_tok] - out[1][i, kernel_tok]).item(),
                               lane_max_abs_diff=diff[i].max().item()))
     return err, scale, len(reqs) - len(flips), len(reqs), tier, flips
+
+
+# ------------------------------------------------------------ phase 3b
+# the shared-prefix stream: one 48-token system prefix (three full
+# blocks) and an own suffix of 1-16 tokens per request, alternating
+# tiers, then exact repeats of four earlier prompts (a full match capped
+# at len - 1, and the CoW of a partial tail at the first decode); served
+# in two waves, the first one request per tier, so the second finds
+# both tiers' prefixes cached
+SYS_TOKENS = 48
+SHARED_N = 16
+REPEATS = [0, 1, 2, 5]
+SHARED_NEW = 16
+# num_blocks of run (c): 2 of the 8 lanes' worth of 16-token blocks, so
+# retained chains are evicted and running requests preempted
+SMALL_POOL = 12
+
+
+def shared_stream(cfg, np):
+    """(tier, prompt) pairs of the shared-prefix stream, from ``SEED``."""
+    rng = np.random.default_rng(SEED + 6)
+    head = rng.integers(0, cfg.vocab_size, SYS_TOKENS, dtype=np.int32)
+    out = []
+    for i in range(SHARED_N):
+        tail = rng.integers(0, cfg.vocab_size, 1 + (7 * i) % 16, dtype=np.int32)
+        out.append(("free" if i % 2 else "full", np.concatenate([head, tail])))
+    return out + [out[i] for i in REPEATS]
+
+
+def guard_decode_writes(gw):
+    """Fail the run if a decode step's write target (block ``pos // bs``
+    of a lane) is shared when the step launches: ``_grow_block_tables``
+    must have copied it first.  Returns the count of checked writes."""
+    grow = gw._grow_block_tables
+    checked = [0]
+
+    def guarded(reqs):
+        keep = grow(reqs)
+        for r in keep:
+            b = r.blocks[r.pos // gw.pool.block_size]
+            if gw.pool.allocator.refcount(b) != 1:
+                fail(f"request {r.rid}: decode would write block {b} with "
+                     f"{gw.pool.allocator.refcount(b)} references")
+            checked[0] += 1
+        return keep
+
+    gw._grow_block_tables = guarded
+    return checked
+
+
+def prefix_run(label, gw, stream, np, tier=None):
+    """Serve ``stream`` (every request in ``tier`` when given) in its two
+    waves; every request must finish and, after the drain, the allocator
+    must hold only the prefix tree's references.  Returns the requests,
+    their logits rows and a summary."""
+    for t in ({tier} if tier else {t for t, _ in stream}):
+        gw.view_for(t)                     # views first, as in phase 3
+    checked = guard_decode_writes(gw)
+    rows = record_rows(gw)
+    reqs = []
+    t0 = time.perf_counter()
+    for wave in (stream[:2], stream[2:]):
+        reqs += [gw.submit(p, license=tier or t, max_new_tokens=SHARED_NEW)
+                 for t, p in wave]
+        gw.run()
+    sync()
+    dt = time.perf_counter() - t0
+    bad = [r.rid for r in reqs if r.state.value != "done"
+           or len(r.out_tokens) != SHARED_NEW]
+    if bad:
+        fail(f"{label}: requests {bad} did not finish")
+    m = gw.metrics()
+    pc = m["prefix_cache"]
+    held = gw.pool.allocator.num_held
+    if held != (pc["retained_blocks"] if pc["enabled"] else 0) or \
+            (pc["enabled"] and held != pc["cached_blocks"]):
+        fail(f"{label}: after the drain the allocator holds {held} blocks, "
+             f"the prefix tree {pc}")
+    steps = m["decode_steps"] + m["prefill_chunks"]
+    out = dict(serve_s=dt, tokens=m["tokens_generated"],
+               tokens_per_s=m["tokens_generated"] / dt, steps=steps,
+               ms_per_step=1e3 * dt / steps, decode_writes_checked=checked[0],
+               **{k: m[k] for k in ("decode_steps", "prefill_chunks",
+                                    "prefill_lane_tokens", "prefix_tokens_reused",
+                                    "cow_copies", "preempted", "max_blocks_in_use")},
+               prefix_cache=pc)
+    log(f"  {label}: {len(reqs)} requests, {out['tokens']} tokens in {dt:.2f} s "
+        f"({out['tokens_per_s']:.1f} tokens/s, {out['ms_per_step']:.1f} ms per scheduler "
+        f"step over {steps}); prefill_chunks {out['prefill_chunks']}, prefill_lane_tokens "
+        f"{out['prefill_lane_tokens']}, prefix_tokens_reused {out['prefix_tokens_reused']}, "
+        f"cow_copies {out['cow_copies']}, preempted {out['preempted']}, decode writes "
+        f"checked private {checked[0]}")
+    log(f"  {label}: prefix_cache {json.dumps(pc)}")
+    return reqs, rows, out
+
+
+def near_ties(label, reqs, ref_reqs, rows, ref_rows, vocab):
+    """Greedy tokens of ``reqs`` against the cold run's: identical, or
+    each request's first parting a near-tie by phase 4's rule (the cold
+    run's gap between the two tokens below the lane's max |logit diff|,
+    and that diff within 0.05 x max(|logit|, 1) of the cold row)."""
+    parts = stream_parts(reqs, ref_reqs, rows, ref_rows, vocab)
+    split = [p for p in parts if p["step"] is not None]
+    for p in split:
+        p["tol"] = 0.05 * max(p["plain_max_abs"], 1.0)
+        log(f"  {label}: request {p['request']} parts from the cold run at step "
+            f"{p['step']}: token {p['kernel_token']} vs {p['plain_token']}; cold gap "
+            f"{p['plain_gap']:.4f}, lane max |logit diff| {p['lane_max_abs_diff']:.4f} "
+            f"(tol {p['tol']:.4f})")
+    wide = [p["request"] for p in split
+            if not (p["plain_gap"] < p["lane_max_abs_diff"] <= p["tol"])]
+    if wide:
+        fail(f"{label}: requests {wide} part from the cold run at a step that is not "
+             f"a near-tie")
+    same = sum(p["step"] is None for p in parts)
+    log(f"  {label}: greedy tokens identical to the cold run on {same}/{len(parts)} "
+        f"requests, every parting a near-tie")
+    return parts
+
+
+def prefix_phase(cfg, params, tiers, np, device="cuda"):
+    """Phase 3b: the shared-prefix stream (a) with the prefix cache, (b)
+    without, (c) with it on a pool of ``SMALL_POOL`` blocks, and (d) with
+    it through int8 views.  Returns the summary of each run."""
+    from repro_torch.serving import LicensedGateway
+
+    stream = shared_stream(cfg, np)
+    runs, got = {}, {}
+    for name, kw in (("a_prefix", {}), ("b_cold", dict(prefix_cache=False)),
+                     ("c_small_pool", dict(num_blocks=SMALL_POOL)),
+                     ("d_int8", dict(quantized=True, materialize_int8_views=True))):
+        gw = LicensedGateway(cfg, params, tiers=tiers, device=device, **kw, **GEOMETRY)
+        got[name] = prefix_run(f"3b ({name})", gw, stream, np)
+        runs[name] = got[name][2]
+        del gw
+        gc.collect()
+    a, b, c, d = (runs[k] for k in ("a_prefix", "b_cold", "c_small_pool", "d_int8"))
+    if not (a["prefix_tokens_reused"] > 0 and a["cow_copies"] > 0
+            and a["prefill_lane_tokens"] < b["prefill_lane_tokens"]):
+        fail(f"3b: the prefix cache saved nothing: {a} against {b}")
+    if not (c["prefix_cache"]["evicted_blocks"] > 0 and c["preempted"] > 0):
+        fail(f"3b: the small pool neither evicted nor preempted: {c}")
+    if not (d["prefix_tokens_reused"] > 0 and d["cow_copies"] > 0):
+        fail(f"3b: the int8 run reused nothing: {d}")
+    cold = got["b_cold"]
+    for name in ("a_prefix", "c_small_pool"):
+        reqs, rows, _ = got[name]
+        runs[name]["parts"] = near_ties(f"3b ({name})", reqs, cold[0], rows, cold[1],
+                                        cfg.vocab_size)
+    log(f"  3b: prefill lane-tokens {a['prefill_lane_tokens']} with the cache against "
+        f"{b['prefill_lane_tokens']} without ({b['prefill_lane_tokens'] - a['prefill_lane_tokens']} "
+        f"saved); {a['ms_per_step']:.1f} against {b['ms_per_step']:.1f} ms per step, "
+        f"{a['serve_s']:.2f} against {b['serve_s']:.2f} s")
+    del got
+    return runs
+
+
+# ------------------------------------------------------------ phase 7
+CAL_PROMPTS = (16, 64)                 # eval_fn's teacher-forced batch
+CAL = dict(k_intervals=10, interval_mode="quantile", refine_steps=4)
+CAL_TARGET, CAL_TOL = 0.9, 0.02
+
+
+def agreement_eval(cfg, params, np, torch, device="cuda"):
+    """``eval_fn`` of Algorithm 1: the top-1 agreement of a weight set's
+    argmax with ``params``' own over seeded teacher-forced prompts,
+    through ``models.model.forward`` with no cache.  Returns the
+    function and the list its call times go to."""
+    from repro_torch.models.model import forward
+
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, CAL_PROMPTS,
+                                         dtype=np.int32)).to(device)
+
+    def top1(p):
+        with torch.no_grad():
+            return forward(p, cfg, toks)[0][..., : cfg.vocab_size].argmax(-1)
+
+    want = top1(params)
+    times = []
+
+    def eval_fn(p):
+        t0 = time.perf_counter()
+        acc = (top1(p) == want).float().mean().item()
+        times.append(time.perf_counter() - t0)
+        return acc
+
+    return eval_fn, times
+
+
+def same_bits(a, b, torch):
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and bool(torch.equal(a.view(bits), b.view(bits)))
+
+
+def calibration_phase(cfg, params, np, torch, device="cuda"):
+    """Phase 7: Algorithm 1 on ``params``, the tier's checks, then the
+    shared-prefix stream served in it with the prefix cache."""
+    from repro_torch.core import licensing
+    from repro_torch.core.pytree_io import flatten_params
+    from repro_torch.serving import LicensedGateway
+
+    out = {}
+    flat = flatten_params(params)
+    maskable = [n for n, t in flat.items()
+                if not licensing.is_dynamics_param(n) and t.ndim >= 2]
+    leaves = [flat[n] for n in maskable]
+    n_weights = sum(t.numel() for t in leaves)
+    # the count route on the card against one sort, on a real leaf's slice
+    probe = [flat["units/b0/mixer/wq"][0]]
+    ks = np.linspace(0, probe[0].numel() - 1, 11).astype(np.int64)
+    if licensing._order_stats_16bit(probe, ks) != licensing._order_stats_sorted(probe, ks):
+        fail("7: the bit-pattern count and a sort give different order statistics")
+    sync()
+    t0 = time.perf_counter()
+    edges = licensing.magnitude_quantiles(leaves, np.linspace(0.0, 1.0, CAL["k_intervals"] + 1))
+    sync()
+    out["edges_s"] = time.perf_counter() - t0
+    out["edges"] = edges.tolist()
+    log(f"  quantile edges of {n_weights} magnitudes over {len(leaves)} leaves "
+        f"({cfg.dtype_name}) in {out['edges_s']:.3f} s: {out['edges']}")
+
+    eval_fn, times = agreement_eval(cfg, params, np, torch, device)
+    sync()
+    t0 = time.perf_counter()
+    tier, trace = licensing.calibrate_license(params, eval_fn, CAL_TARGET,
+                                              tolerance=CAL_TOL, tier_name="cal", **CAL)
+    sync()
+    out.update(calibrate_s=time.perf_counter() - t0, evals=len(times),
+               eval_ms_median=1e3 * float(np.median(times)),
+               eval_ms_max=1e3 * max(times), steps=len(trace),
+               layer_order=maskable, accuracy=tier.accuracy,
+               trace=[dict(interval=s.interval, layer=s.layer, accuracy=s.accuracy)
+                      for s in trace],
+               masks={k: [list(iv) for iv in v] for k, v in tier.masks.items()})
+    log(f"  calibrate_license (target {CAL_TARGET}, tolerance {CAL_TOL}, {CAL}): "
+        f"{len(trace)} steps, {len(times)} evals of {CAL_PROMPTS[0]} x {CAL_PROMPTS[1]} "
+        f"tokens (median {out['eval_ms_median']:.1f} ms, max {out['eval_ms_max']:.1f} ms), "
+        f"{out['calibrate_s']:.2f} s in all; layer order {maskable}")
+    for s in trace:
+        log(f"    cut [{s.interval[0]:.6g}, {s.interval[1]:.6g}) on {s.layer}: "
+            f"agreement {s.accuracy:.4f}")
+    reached = tier.accuracy <= CAL_TARGET + CAL_TOL
+    unreachable = len(trace) == CAL["k_intervals"] * len(maskable)
+    if not (reached or unreachable):
+        fail(f"7: the tier's agreement {tier.accuracy} misses the target "
+             f"{CAL_TARGET} + {CAL_TOL} and the trace did not exhaust the intervals")
+    again = eval_fn(licensing.apply_license(params, tier))
+    if again != tier.accuracy:
+        fail(f"7: eval_fn(apply_license(params, tier)) = {again}, the tier "
+             f"says {tier.accuracy}")
+    out["license_stats"] = licensing.license_stats(params, tier)
+    log(f"  tier 'cal': agreement {tier.accuracy:.4f} (re-evaluated {again:.4f}), "
+        f"license_stats {out['license_stats']}, masks {out['masks']}")
+
+    gw = LicensedGateway(cfg, params, tiers={"cal": tier}, device=device, **GEOMETRY)
+    want = flatten_params(licensing.apply_license(params, tier))
+    view = flatten_params(gw.view_for("cal"))
+    bad = [n for n in want if not same_bits(view[n], want[n], torch)]
+    if bad or set(view) != set(want):
+        fail(f"7: the gateway's view of the calibrated tier differs from "
+             f"apply_license in {bad[:5]}")
+    del want, view
+    log("  the gateway's float view of tier 'cal' equals apply_license bit for bit")
+    stream = shared_stream(cfg, np)
+    _, _, served = prefix_run("7 (tier cal, prefix cache)", gw, stream, np, tier="cal")
+    if served["prefix_cache"]["hits"] <= 0:
+        fail("7: the shared-prefix stream in the calibrated tier had no prefix hits")
+    out["served"] = served
+    del gw
+    gc.collect()
+    return out
 
 
 # ------------------------------------------------------------ phase 5 / 6
@@ -1347,6 +1641,17 @@ def main() -> None:
     rows["quant_matmul"]["store_leaf_rel_err"] = store_leaf_check(*leaf, torch, ops)
     del leaf
 
+    # ---------------------------------------------------------- phase 3b
+    log(f"phase 3b: the shared-prefix stream, {ARCH} at full width and depth")
+    ops.reset_launches()
+    prefix_runs = prefix_phase(cfg, params, tiers, np)
+    prefix_launches = dict(ops.LAUNCHES)
+    log(f"  launches on the shared-prefix path: {prefix_launches}")
+    for name in ("paged_attention", "paged_decode_write", "masked_dequant"):
+        if prefix_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the shared-prefix path")
+    fingerprint = leaf_sums(params, torch)      # phase 7 re-creates these weights
+
     # ---------------------------------------------------------- phase 4
     log("phase 4: kernel path vs plain path")
     gw = LicensedGateway(cfg, params, tiers=tiers, **GEOMETRY)
@@ -1381,7 +1686,7 @@ def main() -> None:
     agree = sum(a == b for r1, r2 in zip(float_reqs, plain_reqs)
                 for a, b in zip(r1.out_tokens, r2.out_tokens))
     total = sum(len(r.out_tokens) for r in float_reqs)
-    parts = stream_parts(float_reqs, plain_reqs, kernel_rows, plain_rows)
+    parts = stream_parts(float_reqs, plain_reqs, kernel_rows, plain_rows, cfg.vocab_size)
     del kernel_rows, plain_rows
     log(f"  greedy tokens equal between kernel and plain decode: {agree}/{total}; "
         f"first differing step per request (None: identical): "
@@ -1436,6 +1741,23 @@ def main() -> None:
         launches[name] = upd_launches[name]
 
     # ---------------------------------------------------------- phase 7
+    log(f"phase 7: Algorithm 1 (calibrate_license) on phase 3's weights, {ARCH} at "
+        f"full width and depth")
+    params = init_params(cfg, seed=SEED, device="cuda")
+    if leaf_sums(params, torch) != fingerprint:
+        fail("7: init_params(seed) did not re-create phase 3's weights")
+    ops.reset_launches()
+    calib = calibration_phase(cfg, params, np, torch)
+    calib_launches = dict(ops.LAUNCHES)
+    log(f"  launches while serving the calibrated tier: {calib_launches}")
+    for name in ("paged_attention", "paged_decode_write"):
+        if calib_launches[name] <= 0:
+            fail(f"kernel {name} was not launched serving the calibrated tier")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- phase 8
     kernels = [dict(name=name, launches=launches[name], **row)
                for name, row in rows.items()]
     for u in (upd, upd8):
@@ -1445,10 +1767,19 @@ def main() -> None:
                                 "plain_decode": plain_t,
                                 "decode_logits_max_abs_err": err,
                                 "decode_argmax_flips": flips, "stream_parts": parts},
-                    "update": {"float_full_depth": upd, "int8_depth4": upd8}}))
+                    "shared_prefix": {"runs": prefix_runs, "launches": prefix_launches},
+                    "update": {"float_full_depth": upd, "int8_depth4": upd8},
+                    "calibration": {**calib, "launches": calib_launches}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
+
+
+def leaf_sums(tree, torch):
+    """One integer per leaf: the sum of its bit patterns (a fingerprint
+    of the weights that needs no host copy)."""
+    return [int(t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+                .sum(dtype=torch.int64)) for t in _leaves(tree)]
 
 
 def _leaves(tree):

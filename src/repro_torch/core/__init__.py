@@ -1,12 +1,15 @@
-"""Core of the port: licensing math, the flat layer-name view of a
-parameter tree, and the update path's server and wire (the JAX package's
-``repro.core`` counterparts): the versioned ``WeightStore``, the sparse
-delta encode/apply, the ``LicenseServer`` / ``EdgeClient`` protocol and
-the fault-tolerant transport."""
+"""Core of the port: licensing math and Algorithm 1, the flat layer-name
+view of a parameter tree, and the update path's server and wire (the JAX
+package's ``repro.core`` counterparts): the versioned ``WeightStore``,
+the sparse delta encode/apply, the ``LicenseServer`` / ``EdgeClient``
+protocol and the fault-tolerant transport."""
 from repro_torch.core.compression import is_dynamics_param
 from repro_torch.core.delta import apply_packet, encode_delta
-from repro_torch.core.licensing import (FULL_TIER, LicenseTier, apply_license,
-                                        interval_mask, mask_weight)
+from repro_torch.core.licensing import (FULL_TIER, CalibrationStep, LicenseTier,
+                                        apply_license, calibrate_license,
+                                        interval_mask, license_stats,
+                                        magnitude_quantiles, make_static_tiers,
+                                        mask_weight)
 from repro_torch.core.protocol import EdgeClient, LicenseServer
 from repro_torch.core.pytree_io import flatten_params, unflatten, unflatten_like
 from repro_torch.core.transport import (ChaosTransport, DirectTransport, RetryPolicy,
@@ -14,7 +17,9 @@ from repro_torch.core.transport import (ChaosTransport, DirectTransport, RetryPo
 from repro_torch.core.weightstore import LayerDelta, UpdatePacket, WeightStore
 
 __all__ = ["is_dynamics_param", "apply_packet", "encode_delta", "FULL_TIER",
-           "LicenseTier", "apply_license", "interval_mask", "mask_weight",
+           "CalibrationStep", "LicenseTier", "apply_license", "calibrate_license",
+           "interval_mask", "license_stats", "magnitude_quantiles",
+           "make_static_tiers", "mask_weight",
            "EdgeClient", "LicenseServer", "flatten_params", "unflatten",
            "unflatten_like", "ChaosTransport", "DirectTransport", "RetryPolicy",
            "Transport", "LayerDelta", "UpdatePacket", "WeightStore"]

@@ -2,11 +2,12 @@
 
 Counterpart of the part of ``repro/serving/fleet.py::ModelSlot`` that a
 single licensed gateway uses: the weight versions, the (tier,
-version)-keyed view cache, the block-paged KV pool, the chunked-prefill
-scheduler, the serving stats, and the license-server state of the update
-path (transport, retry policy, sync failures and version quarantine,
-tiers learned from the server, pending tier changes, the active staged
-sync).  ``LicensedGateway`` (``gateway.py``) wraps one slot and forwards
+version)-keyed view cache, the block-paged KV pool, the shared-prefix
+radix cache over it, the chunked-prefill scheduler, the serving stats,
+and the license-server state of the update path (transport, retry
+policy, sync failures and version quarantine, tiers learned from the
+server, pending tier changes, the active staged sync).
+``LicensedGateway`` (``gateway.py``) wraps one slot and forwards
 attribute access to it, as in the JAX package.  The fleet itself
 (``FleetGateway``, tenants, the global cache budget) and the license
 lease state machine are not ported yet: ``_lease_renew`` records the
@@ -33,14 +34,11 @@ from repro_torch.core.transport import (DirectTransport, RetryPolicy, Transport,
                                         TransportTimeout)
 from repro_torch.models.model import check_supported
 from repro_torch.serving.paging import PagedCachePool, cdiv
+from repro_torch.serving.prefix import PrefixCache
 from repro_torch.serving.scheduler import GatewayRequest, Scheduler, TierViewCache
 
 # argument -> (the values the port implements, ROADMAP.md item for the rest)
 _LEFT_OUT: Dict[str, Tuple[Tuple[Any, ...], str]] = {
-    "prefix_cache": ((False,), "the prefix cache (serving/prefix.py)"),
-    # the admission budget's watermark comes with the prefix cache's
-    # reclaimable blocks, which share that budget in the JAX scheduler
-    "watermark_blocks": ((0,), "the prefix cache (serving/prefix.py)"),
     "telemetry": ((False,), "telemetry and tracing"),
     "sanitize": ((None, False), "telemetry and tracing"),
     "paged": ((True,), "the other architectures and the gateway fallbacks"),
@@ -89,6 +87,8 @@ class ModelSlot:
         block_size: int = 16,
         num_blocks: Optional[int] = None,
         max_lanes: Optional[int] = None,
+        watermark_blocks: int = 0,
+        prefix_cache: bool = True,
         decode_kernels: Optional[bool] = None,
         view_capacity: int = 8,
         version: int = 1,
@@ -148,12 +148,25 @@ class ModelSlot:
             cfg, self.max_lanes, self.capacity, int(block_size),
             int(num_blocks) if num_blocks is not None else self.max_lanes * bpl,
             device=self.device)
+        prefill_blocks = max(1, cdiv(self.max_prompt, self.pool.block_size))
+        if self.pool.num_blocks - int(watermark_blocks) < prefill_blocks:
+            raise ValueError(
+                f"watermark_blocks={watermark_blocks} leaves no room to "
+                f"admit a prefill ({prefill_blocks} blocks of "
+                f"{self.pool.num_blocks}) — the gateway would accept "
+                f"requests and never schedule them")
+        self.prefix = (PrefixCache(self.pool.allocator, self.pool.block_size)
+                       if prefix_cache else None)
         # left-aligned chunked prefill, one block per chunk (the JAX
         # gateway's default)
         self.chunk_size = min(self.pool.block_size, self.max_prompt)
         self.scheduler = Scheduler(
             self.max_lanes, self.max_batch, allocator=self.pool.allocator,
-            blocks_needed=self._blocks_needed, clock=self.clock)
+            blocks_needed=self._blocks_needed,
+            watermark_blocks=int(watermark_blocks),
+            reclaimable=(self.prefix.reclaimable
+                         if self.prefix is not None else None),
+            clock=self.clock)
 
         if transport is not None and server is None:
             server = transport.server
@@ -199,7 +212,12 @@ class ModelSlot:
             "admitted": 0, "rejected": 0, "completed": 0,
             "prefill_batches": 0, "decode_steps": 0, "tokens_generated": 0,
             "preempted": 0, "max_running": 0, "max_blocks_in_use": 0,
-            "prefill_lane_tokens": 0, "prefill_chunks": 0,
+            # prefix-cache accounting: lane-tokens actually run through the
+            # prefill step, prompt tokens served from retained blocks, and
+            # copy-on-write copies
+            "prefill_lane_tokens": 0, "prefix_tokens_reused": 0,
+            "cow_copies": 0,
+            "prefill_chunks": 0,
             # fault tolerance: wire retries across all sync/tier calls,
             # the subset whose cause was a timeout/disconnect, and
             # versions quarantined after repeated failed syncs
@@ -279,5 +297,7 @@ class ModelSlot:
 
     # ------------------------------------------------------ scheduler callbacks
     def _blocks_needed(self, req: GatewayRequest) -> int:
-        """Chunked-admission block budget: blocks covering the prompt."""
+        """Chunked-admission block budget: blocks covering the TRUE
+        prompt length — conservative, since adopted prefix blocks only
+        reduce the fresh allocation."""
         return max(1, cdiv(len(req.prompt), self.pool.block_size))

@@ -14,7 +14,13 @@ paper's one-stored-model-many-tiers claim, §3.5):
 
 Prompts prefill in left-aligned chunks (each lane at its own cursor,
 ``chunk_size`` tokens per prefill action, strictly alternating with
-decode steps) into the pool through gathered per-lane views.  Decode is
+decode steps) into the pool through gathered per-lane views.  With the
+shared-prefix radix cache (``serving/prefix.py``, ``prefix_cache=True``
+by default) finished prompts' block chains are retained per (tier,
+version), and a later prompt sharing a prefix adopts those blocks by
+reference and prefills only the rest; write-back of adopted blocks goes
+to the null block, and decode copy-on-writes a shared tail block
+(``PagedCachePool.copy_block``) before its first write into it.  Decode is
 kernel-resident: one batched step whose cache operands are the pool's
 physical block tensors; the ``paged_decode_write`` kernel writes the new
 K/V token per lane in place and ``paged_attention`` reads each live
@@ -33,13 +39,12 @@ stage newer versions in bounded steps interleaved with serving
 atomically at a step boundary; in-flight requests stay on the version
 they were admitted under.
 
-Left out of this port so far (see ROADMAP.md): the prefix cache,
-telemetry and tracing, the license lease state machine, fleets and
-tenants.
+Left out of this port so far (see ROADMAP.md): telemetry and tracing,
+the license lease state machine, fleets and tenants.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +91,14 @@ class LicensedGateway:
         ``num_blocks`` defaults to full provisioning (``max_lanes *
         ceil(capacity / block_size)``); size it smaller to oversubscribe
         and exercise preemption.
+    watermark_blocks:
+        Blocks admission keeps free (its budget is the free blocks above
+        the watermark plus the prefix cache's reclaimable ones); one
+        that leaves no room for a prefill raises ``ValueError``.
+    prefix_cache:
+        Retain finished prompts' KV blocks in a (tier, version)-scoped
+        radix cache and serve later shared prefixes from them (default
+        on; LRU-evicted under pool pressure).
     decode_kernels:
         Route the decode write and attention through the Hopper kernels.
         Default: on a CUDA device; ``True`` elsewhere raises, ``False``
@@ -177,6 +190,9 @@ class LicensedGateway:
             else:
                 self.tiers[name] = fresh
             self.views.invalidate(tier=name)
+            if self.prefix is not None:
+                # cached blocks encode the old mask's activations
+                self.prefix.drop_scope(tier=name)
             del self._pending_tiers[name]
 
     def view_for(self, tier: str, version: Optional[int] = None):
@@ -288,33 +304,99 @@ class LicensedGateway:
         return toks.cpu().numpy()
 
     def _alloc_blocks(self, n: int) -> List[int]:
-        """Allocate ``n`` blocks; the scheduler's admission budget
-        guarantees this succeeds for any admitted prefill."""
+        """Allocate ``n`` blocks, reclaiming retained prefix chains (LRU)
+        if the free list alone can't cover it.  The scheduler's admission
+        budget counts reclaimable blocks, so this succeeds for any
+        admitted prefill."""
         got = self.pool.allocator.alloc(n)
+        if got is None and self.prefix is not None:
+            self.prefix.evict(n - self.pool.allocator.num_free)
+            got = self.pool.allocator.alloc(n)
         assert got is not None, "scheduler admitted past the block budget"
         return got
 
+    def _decref_block(self, b: int) -> None:
+        """Drop one request reference, keeping the prefix cache's O(1)
+        reclaimable counter exact: when exactly one reference survives
+        and it is the tree's, the block just became evictable."""
+        if self.pool.allocator.decref(b) == 1 and self.prefix is not None:
+            self.prefix.note_release(b)
+
     def _release_blocks(self, req: GatewayRequest) -> None:
+        """Drop the request's reference on every block it holds.  Private
+        blocks return to the free list; blocks shared with the prefix
+        cache (or another request) stay alive under the remaining refs."""
         for b in req.blocks:
-            self.pool.allocator.decref(b)
+            self._decref_block(b)
         req.blocks = []
+
+    def _scatter_tables(self, tables: np.ndarray,
+                        reqs: List[GatewayRequest]) -> np.ndarray:
+        """Write-back tables with every *shared* block redirected to the
+        null block.  Shared blocks are immutable: a chunk re-writes the
+        gathered bytes of adopted blocks and a fully matched prompt
+        recomputes its last token into the shared tail — both redundant,
+        and redirecting them keeps retained chains bit-stable under
+        concurrent readers."""
+        out = tables.copy()
+        alloc = self.pool.allocator
+        n_cols = out.shape[1]              # chunked prefill trims columns
+        for i, r in enumerate(reqs):
+            for j, b in enumerate(r.blocks[:n_cols]):
+                if alloc.refcount(b) > 1:
+                    out[i, j] = self.pool.null_block
+        return out
 
     # ------------------------------------------------------ chunked prefill
     def _run_chunked_prefill(self, act: ScheduledAction) -> None:
         """One chunked-prefill action: admit newly scheduled requests
-        (allocate their prompt blocks, take a lane), then advance every
-        member one ``chunk_size`` chunk — so a prompt no longer than one
-        chunk reaches its first token in a single step."""
+        (adopt cached prefix blocks, allocate the rest, take a lane, park
+        the cursor past the reused tokens), then advance every member
+        one ``chunk_size`` chunk — so a prompt no longer than one chunk
+        reaches its first token in a single step."""
         if act.requests[0].state is not RequestState.PREFILLING:
             self._admit_chunked(act)
         self._run_prefill_chunk(act)
 
     def _admit_chunked(self, act: ScheduledAction) -> None:
+        """Prefix-match every prompt on its true token ids (left
+        alignment gives every prompt absolute positions from 0, so
+        prompts of different lengths share a prefix's blocks), then
+        allocate the uncached remainder.  Matching runs for the whole
+        batch BEFORE any allocation: matching increfs the chains, so this
+        batch's own allocation pressure can never evict a block another
+        lane is about to adopt."""
+        scope = (act.tier, act.version)
+        reqs = act.requests
+        matches: List[Tuple[List[int], int]] = []
+        for r in reqs:
+            if self.prefix is not None:
+                blocks, ntok = self.prefix.match(scope, r.prompt)
+            else:
+                blocks, ntok = [], 0
+            # always recompute >= 1 token: the first sampled token needs
+            # the last prompt position's logits
+            capped = min(ntok, len(r.prompt) - 1)
+            if capped == 0 and blocks:
+                # the cap zeroed a real match (1-token prompt): the
+                # chain is unusable — release the match's references
+                for b in blocks:
+                    self._decref_block(b)
+                blocks = []
+            matches.append((blocks, capped))
         bs = self.pool.block_size
-        for r in act.requests:
+        for r, (blocks, capped) in zip(reqs, matches):
             self.scheduler.start(r)
-            r.blocks = self._alloc_blocks(cdiv(len(r.prompt), bs))
-            r.cursor = 0
+            # a partial match adopts only FULL blocks (a partial tail
+            # matches only when it covers the whole prompt), so the
+            # uncached suffix starts on a block boundary and its chunks
+            # never write a shared block
+            fresh = self._alloc_blocks(
+                max(0, cdiv(len(r.prompt), bs) - len(blocks)))
+            r.blocks = list(blocks) + fresh
+            r.cursor = capped
+            r.prefix_tokens = capped
+            self.stats["prefix_tokens_reused"] += capped
         self._note_block_use()
         self.stats["prefill_batches"] += 1
         self.stats["max_running"] = max(self.stats["max_running"],
@@ -329,9 +411,11 @@ class LicensedGateway:
         INCLUDING the junk, so the attend-cache slot clamp never folds a
         junk row onto a real one; junk lands in the lane's own later
         rows (overwritten before anything attends them) or the null
+        block.  Write-back redirects shared (adopted) blocks to the null
         block.  Lane count and table width are rounded up to powers of
         two, as in the JAX package.  A lane whose cursor reaches the
-        prompt end emits its first token and enters decode."""
+        prompt end donates its true-token chain to the prefix cache,
+        emits its first token and enters decode."""
         view = self.views.get(act.tier, act.version)
         reqs = act.requests
         w = self.chunk_size
@@ -361,10 +445,11 @@ class LicensedGateway:
         rows = logits[torch.arange(b, device=self.device), self._to_device(lasts)]
         outs = self._sample(rows, reqs)
         caches = self.pool.override_counters(caches, fills)
-        self.pool.scatter(lane_ids, tables, caches)
+        self.pool.scatter(lane_ids, self._scatter_tables(tables, reqs), caches)
         self.stats["prefill_lane_tokens"] += w * len(reqs)
         self.stats["prefill_chunks"] += 1
         now = self.clock()
+        scope = (act.tier, act.version)
         for i, r in enumerate(reqs):
             r.cursor += int(valid[i])
             if r.cursor < len(r.prompt):
@@ -372,17 +457,30 @@ class LicensedGateway:
             r.state = RequestState.RUNNING
             r.pos = len(r.prompt)
             r.first_token_t = now
+            if self.prefix is not None:
+                # donate the TRUE-token chain (full blocks + partial
+                # tail) so any later prompt sharing the prefix adopts it
+                self.prefix.insert(scope, r.prompt, r.blocks)
             self._emit(r, int(outs[i]))
 
     # ------------------------------------------------------------ decode
+    def _try_alloc_one(self) -> Optional[int]:
+        """One block from the free list, reclaiming retained prefix chains
+        if needed — never preempts.  None when the pool is truly full."""
+        got = self.pool.allocator.alloc(1)
+        if got is None and self.prefix is not None and self.prefix.evict(1):
+            got = self.pool.allocator.alloc(1)
+        return got[0] if got is not None else None
+
     def _grow_one(self, r: GatewayRequest,
                   keep: List[GatewayRequest]) -> Optional[int]:
-        """One block for ``r``: from the free list, else by preempting the
-        youngest running request.  None if ``r`` itself was preempted."""
+        """One block for ``r``: from the free list, else by prefix-cache
+        eviction, else by preempting the youngest running request.  None
+        if ``r`` itself was preempted."""
         while True:
-            got = self.pool.allocator.alloc(1)
+            got = self._try_alloc_one()
             if got is not None:
-                return got[0]
+                return got
             victim = self.scheduler.youngest_running()
             if victim is r and len(self.scheduler.running) == 1:
                 raise RuntimeError("block pool exhausted by a single request")
@@ -393,21 +491,69 @@ class LicensedGateway:
                 return None
 
     def _grow_block_tables(self, reqs: List[GatewayRequest]) -> List[GatewayRequest]:
-        """Give every request the block its next decode write needs,
-        preempting youngest-first on exhaustion; a victim inside this
+        """Give every request the block its next decode write needs, and
+        a *private* copy of it when the block is shared.
+
+        On exhaustion, first evict retained (request-free) prefix chains
+        LRU-first, then preempt youngest-first; a victim inside this
         micro-batch is dropped from it.  Terminates because the pool
-        holds at least one full request and the oldest running request
-        is never chosen while others run."""
+        holds at least one full request, every eviction or preemption
+        strictly drops references, and the oldest running request is
+        never chosen while others run.
+
+        Copy-on-write: the step writes position ``pos`` into block
+        ``pos // bs``.  If that block is shared (a prompt tail donated to
+        or adopted from the prefix cache), the request gets a fresh block
+        holding a device copy and swaps its table entry, before the step
+        writes the pool in place; the shared original stays pristine."""
         keep = list(reqs)
+        bs = self.pool.block_size
+        alloc = self.pool.allocator
+        if self.prefix is not None:
+            # reclaim the batch's whole shortfall — growth blocks plus a
+            # copy per shared write target — in ONE eviction pass; only
+            # mid-pass churn falls back to _try_alloc_one's evict(1)
+            need = 0
+            for r in keep:
+                if r.state != RequestState.RUNNING:
+                    continue
+                tail = r.pos // bs
+                need += max(0, tail + 1 - len(r.blocks))
+                if tail < len(r.blocks) and alloc.refcount(r.blocks[tail]) > 1:
+                    need += 1
+            shortfall = need - alloc.num_free
+            if shortfall > 0:
+                self.prefix.evict(shortfall)
         for r in list(keep):
             if r.state != RequestState.RUNNING:
                 continue                   # preempted earlier in this pass
-            needed = r.pos // self.pool.block_size + 1
+            needed = r.pos // bs + 1
             while len(r.blocks) < needed:
                 b = self._grow_one(r, keep)
                 if b is None:
                     break                  # r was preempted
                 r.blocks.append(b)
+            if r.state != RequestState.RUNNING:
+                continue
+            tail = needed - 1              # block receiving this step's write
+            if alloc.refcount(r.blocks[tail]) > 1:
+                # shared write target: prefer a private copy, but with no
+                # spare block (fully provisioned pool) take the tree's
+                # reference back instead — forfeiting one tail's future
+                # hits beats preempting a running request for a copy
+                b = self._try_alloc_one()
+                if b is None:
+                    if (self.prefix is not None
+                            and alloc.refcount(r.blocks[tail]) == 2
+                            and self.prefix.forget_block(r.blocks[tail])):
+                        continue           # unshared now: write in place
+                    b = self._grow_one(r, keep)
+                    if b is None:
+                        continue           # r itself was preempted
+                self.pool.copy_block(r.blocks[tail], b)
+                self._decref_block(r.blocks[tail])
+                r.blocks[tail] = b
+                self.stats["cow_copies"] += 1
         self._note_block_use()
         return keep
 
@@ -482,8 +628,11 @@ class LicensedGateway:
                              f"version {self.version}")
         if version in self._weights:
             # overwriting a live version: views built from the old
-            # weights must not survive the swap
+            # weights must not survive the swap — nor cached prefix
+            # activations
             self.views.invalidate(version=version)
+            if self.prefix is not None:
+                self.prefix.drop_scope(version=version)
         self._weights[version] = params
         self.version = version
         self._gc_versions()
@@ -498,6 +647,8 @@ class LicensedGateway:
         for v in [v for v in self._weights if v not in live]:
             del self._weights[v]
             self.views.invalidate(version=v)
+            if self.prefix is not None:
+                self.prefix.drop_scope(version=v)
         if self._pending_tiers:
             self._apply_pending_tiers()
 
@@ -529,7 +680,12 @@ class LicensedGateway:
         """Pre-register a staged version's serving params so its views can
         be prewarmed before the flip; ``_gc_versions`` keeps it alive."""
         if version in self._weights:
+            # overwriting a live version's weights: views and cached
+            # prefix activations built from the old bytes must not
+            # survive into the prewarm
             self.views.invalidate(version=version)
+            if self.prefix is not None:
+                self.prefix.drop_scope(version=version)
         self._staging_version = version
         self._weights[version] = params
 
@@ -617,6 +773,12 @@ class LicensedGateway:
                               "kernels": self.decode_kernels}
         out["chunked_prefill"] = {"enabled": True, "chunk_size": self.chunk_size,
                                   "chunks": self.stats["prefill_chunks"]}
+        out["prefix_cache"] = {"enabled": self.prefix is not None}
+        if self.prefix is not None:
+            out["prefix_cache"].update(self.prefix.stats())
+            out["prefix_cache"]["prefix_tokens_reused"] = \
+                self.stats["prefix_tokens_reused"]
+            out["prefix_cache"]["cow_copies"] = self.stats["cow_copies"]
         out["staged_update"] = ({"active": False} if self._stager is None
                                 else {"active": self._stager.active,
                                       **self._stager.stats()})

@@ -10,6 +10,8 @@ Counterpart of ``repro/serving/paging.py`` for the dense GQA model:
   *null block* that absorbs writes of padding rows — addressed through
   per-request block tables; the per-lane ``len`` counters live as
   ``(num_lanes+1, U)``, lane ``num_lanes`` being the *scratch lane*.
+  ``copy_block`` is the device half of the prefix cache's
+  copy-on-write.
 
 Prefill chunks ``gather`` each lane's logical cache through its table
 into a contiguous batch and ``scatter`` it back.  Decode does not copy:
@@ -67,6 +69,9 @@ class BlockAllocator:
     @property
     def num_held(self) -> int:
         return len(self._ref)
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """Atomically allocate ``n`` blocks; None if the pool can't cover it."""
@@ -234,6 +239,14 @@ class PagedCachePool:
         c = caches["units"]["b0"]
         assert c["k"] is self.k and c["v"] is self.v
         self.lens[self._tensor(lanes).long()] = c["len"].t().to(torch.int32)
+
+    # --------------------------------------------------- prefix-cache hooks
+    def copy_block(self, src: int, dst: int) -> None:
+        """Copy one physical block's K and V across every unit — the
+        device half of copy-on-write: a request about to write into a
+        shared block gets a private ``dst`` holding identical bytes."""
+        self.k[:, dst] = self.k[:, src]
+        self.v[:, dst] = self.v[:, src]
 
     def override_counters(self, caches: Dict[str, Any], value) -> Dict[str, Any]:
         """Pin the gathered ``len`` counters to the true logical fill

@@ -13,7 +13,8 @@ through one licensed weight view (§3.5):
 * ``Scheduler`` — admission queue plus the policy: prefill chunks and
   decode steps strictly alternate (no decode waits longer than one
   chunk), admission serves the (tier, version) group whose oldest member
-  has waited longest, within the free lanes and the free-block budget,
+  has waited longest, within the free lanes and the block budget (free
+  blocks above the watermark plus the prefix cache's reclaimable ones),
   and decode round-robins over the running groups.
 """
 from __future__ import annotations
@@ -55,6 +56,8 @@ class GatewayRequest:
     lane: Optional[int] = None               # cache-pool lane while running
     blocks: List[int] = field(default_factory=list)  # paged-pool block table
     cursor: int = 0                          # prompt tokens already prefilled
+    prefix_tokens: int = 0                   # prompt tokens served from the
+                                             # prefix cache (skipped at prefill)
     pos: int = 0                             # next decode position
     start_seq: int = -1                      # admission order (preemption age)
     preemptions: int = 0
@@ -150,8 +153,10 @@ class Scheduler:
       runnable;
     * admission serves the waiting (tier, version) group whose oldest
       member arrived first, then every same-key request in queue order,
-      up to the free lanes, ``max_batch`` and the free-block budget
-      (``blocks_needed`` per request);
+      up to the free lanes, ``max_batch`` and the block budget
+      (``blocks_needed`` per request): the free blocks above
+      ``watermark_blocks`` plus the prefix cache's ``reclaimable`` ones,
+      which allocation evicts on demand;
     * decode round-robins over the running groups, rotating within a
       group larger than ``max_batch``;
     * :meth:`preempt` returns a running request to the queue head (it
@@ -160,12 +165,16 @@ class Scheduler:
 
     def __init__(self, num_lanes: int, max_batch: int, *, allocator: Any,
                  blocks_needed: Callable[[GatewayRequest], int],
+                 watermark_blocks: int = 0,
+                 reclaimable: Optional[Callable[[], int]] = None,
                  clock: Callable[[], float] = time.perf_counter):
         self.num_lanes = int(num_lanes)
         self.max_batch = int(max_batch)
         self.clock = clock
         self.allocator = allocator
         self.blocks_needed = blocks_needed
+        self.watermark_blocks = int(watermark_blocks)
+        self.reclaimable = reclaimable
         self.waiting: Deque[GatewayRequest] = deque()
         self.running: List[GatewayRequest] = []
         self._free_lanes: List[int] = list(range(num_lanes))
@@ -210,6 +219,7 @@ class Scheduler:
         req.lane = None
         req.pos = 0
         req.cursor = 0
+        req.prefix_tokens = 0
         req.out_tokens.clear()
         req.first_token_t = None
         req.preemptions += 1
@@ -303,7 +313,9 @@ class Scheduler:
             if r.group_key not in oldest or cand < oldest[r.group_key]:
                 oldest[r.group_key] = cand
         key = min(oldest, key=lambda k: oldest[k])
-        budget = self.allocator.num_free
+        budget = self.allocator.num_free - self.watermark_blocks
+        if self.reclaimable is not None:
+            budget += self.reclaimable()
         batch: List[GatewayRequest] = []
         remaining: Deque[GatewayRequest] = deque()
         for r in self.waiting:               # one pass: select + requeue

@@ -389,6 +389,8 @@ class UpdateStager:
                 and gw._staging_version == self.to_version:
             gw._weights.pop(self.to_version, None)
             gw.views.invalidate(version=self.to_version)
+            if gw.prefix is not None:
+                gw.prefix.drop_scope(version=self.to_version)
             gw._staging_version = None
         self._cursor = None
         self._staged = self._staged_q = None

@@ -2,7 +2,8 @@
 
 One mixed-tier greedy request stream goes through
 ``repro.serving.LicensedGateway(prefix_cache=False, telemetry=False)``
-and through ``repro_torch.serving.LicensedGateway`` on the same weights
+and through ``repro_torch.serving.LicensedGateway(prefix_cache=False)``
+on the same weights
 (carried across with ``params_from_jax``), in both view modes: float
 (``apply_license``) and the int8 store with materialized views (the
 fused masked-dequant).  Prompt lengths are not block multiples and the
@@ -88,7 +89,7 @@ def streams(request, weights):
                      prefix_cache=False, telemetry=False, **GEOMETRY, **mode)
     tgw = LicensedGateway(cfg, params,
                           tiers={"free": LicenseTier(name="free", masks=FREE)},
-                          device="cpu", **GEOMETRY, **mode)
+                          prefix_cache=False, device="cpu", **GEOMETRY, **mode)
     return jgw, _drain(jgw), tgw, _drain(tgw)
 
 
@@ -141,7 +142,8 @@ def _allocator_trace(alloc):
             return type(e).__name__
     got = attempt(alloc.alloc, 3)
     b0 = got[0]
-    return [got, attempt(alloc.alloc, 2), attempt(alloc.incref, b0),
+    return [got, alloc.can_alloc(1), alloc.can_alloc(2), attempt(alloc.alloc, 2),
+            attempt(alloc.incref, b0),
             attempt(alloc.free, [b0]),            # shared: refused
             attempt(alloc.decref, b0), attempt(alloc.decref, b0),
             attempt(alloc.decref, b0),            # over-release
@@ -156,14 +158,18 @@ def test_block_allocator_guards_match_jax():
 
 def test_left_out_arguments_raise(weights):
     _, _, cfg, params = weights
-    for kw, item in ((dict(prefix_cache=True), "prefix cache"),
-                     (dict(telemetry=True), "telemetry"),
+    for kw, item in ((dict(telemetry=True), "telemetry"),
                      (dict(quantized=True), "in-scan int8 dequant"),
                      (dict(lease_ttl_s=5.0), "lease")):
         with pytest.raises(NotImplementedError, match=item):
             LicensedGateway(cfg, params, device="cpu", **kw)
     with pytest.raises(ValueError, match="CUDA"):
         LicensedGateway(cfg, params, device="cpu", decode_kernels=True)
+    # as in the JAX slot: a watermark leaving no room for one prefill
+    # (max_prompt 32 over 16-token blocks: 2 of the 48 default blocks)
+    with pytest.raises(ValueError, match="watermark_blocks=47 leaves no room"):
+        LicensedGateway(cfg, params, device="cpu", watermark_blocks=47)
+    LicensedGateway(cfg, params, device="cpu", watermark_blocks=46)
     with pytest.raises(TypeError):
         LicensedGateway(cfg, params, device="cpu", no_such_option=1)
     with pytest.raises(ValueError, match="params live on cpu"):
@@ -179,17 +185,17 @@ def _reference_defaults():
 
 def test_slot_takes_every_reference_default(weights):
     """A slot built with every keyword default of the JAX slot, except
-    those whose features are queued (the prefix cache, telemetry and the
-    lease: their JAX defaults turn them on).  Each of those raises
-    ``NotImplementedError`` naming its ROADMAP.md item on its own."""
+    those whose features are queued (telemetry and the lease: their JAX
+    defaults turn them on).  Each of those raises ``NotImplementedError``
+    naming its ROADMAP.md item on its own."""
     _, _, cfg, params = weights
-    queued = {"prefix_cache", "telemetry", "lease_ttl_s", "lease_grace_s",
-              "lease_policy"}
+    queued = {"telemetry", "lease_ttl_s", "lease_grace_s", "lease_policy"}
     defaults = _reference_defaults()
     assert queued < set(defaults)
     kw = {n: v for n, v in defaults.items() if n not in queued}
     gw = LicensedGateway(cfg, params, device="cpu", **kw)
     assert gw.chunk_size == gw.pool.block_size and not gw.quantized
+    assert gw.prefix is not None             # the JAX default: cache on
     assert gw.completed.maxlen == gw.trace.maxlen == defaults["history"]
     for name in sorted(queued):
         with pytest.raises(NotImplementedError, match=re.escape(_LEFT_OUT[name][1])):
@@ -197,7 +203,7 @@ def test_slot_takes_every_reference_default(weights):
 
 
 # one value each that the JAX slot takes and the port does not implement
-_UNPORTED = {"watermark_blocks": 2, "chunk_size": 0, "decode_pallas": "off",
+_UNPORTED = {"chunk_size": 0, "decode_pallas": "off",
              "fuse_sampling": False, "record_logits": True}
 
 

@@ -77,7 +77,8 @@ class Pair:
                                           prefix_cache=False, telemetry=False,
                                           **GEOMETRY, **kw)
         self.tgw = LicensedGateway.from_server(self.cfg, self.tserver, "lm", ttemplate,
-                                               device="cpu", **GEOMETRY, **kw)
+                                               prefix_cache=False, device="cpu",
+                                               **GEOMETRY, **kw)
 
     @property
     def both(self):
