@@ -34,8 +34,18 @@ Phases (each prints its own lines; any failure exits non-zero):
    from the store and held bit for bit against the plain version, and
    ``quant_matmul`` on a real leaf of the int8 store (unit 0's
    ``ffn/w_up``) against x @ its masked-dequant.  Every gateway of the
-   script is the default one (prefix cache on) unless a phase says
-   otherwise;
+   script is the default one (prefix cache and telemetry on) unless a
+   phase says otherwise.  The float stream runs three times: with
+   ``telemetry=False``, with telemetry (the run phase 4 reads), and
+   without again; the greedy tokens must be identical, and tokens/s, ms
+   per step and telemetry's overhead are printed (not gated).  The
+   telemetry run's Chrome trace must pass ``validate_chrome_trace`` and
+   its ``metrics()`` ``validate_gateway_metrics``; the six latency
+   histograms (p50 / p99 / count) and counters read back from the
+   Prometheus page are printed.  Then 8 decode steps of the same stream
+   run under ``torch.profiler`` (CPU and CUDA): the device-busy share of
+   the window (the union of kernel, copy and set intervals), kernel
+   launches per step and the five kernels with the most device time;
 3b. the shared-prefix stream (a 48-token system prefix, own suffixes of
    1-16 tokens, exact repeats; two waves) at full width and depth, launch
    counters zeroed just before and read just after: (a) with the prefix
@@ -45,7 +55,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    and preempt; every request must finish; no decode write may target a
    shared block; after each drain the allocator holds only the tree's
    references; and the greedy tokens of (a) and (c) must equal (b)'s or
-   part at a near-tie by phase 4's rule;
+   part at a near-tie by phase 4's rule.  (a) and (c) run sanitized
+   (``sanitize=True``: shadow refcounts on every allocator call,
+   ``check_decode_writes`` before each decode write, ``check_drained`` at
+   each drain), and the shadow must equal the allocator's refcounts;
 4. one decode step's logits through the kernels vs the plain path on the
    same pool state; every lane whose argmax differs must be a near-tie
    (the plain path's gap between the two tokens below the step's max
@@ -65,7 +78,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    and staged mid-stream (``begin_sync`` then ``run``).  The in-flight
    requests must stay on v1 with phase 3's tokens, exactly one flip must
    happen, the flipped weights must equal v2 bit for bit, and a request
-   after the flip must be served on v2 through a prewarmed view;
+   after the flip must be served on v2 through a prewarmed view.  The
+   audit must hold one ``sync_begin`` and one ``version_flip``, the trace
+   one ``stager:<phase>`` span per stager step; their ``h_stager`` p50 /
+   p99 / max (host clock, no synchronize) print beside the script's
+   synchronized longest step.  The third step carrying a stage step runs
+   under ``torch.profiler`` as in phase 3;
 6. the same sync on an int8 gateway with materialized views, at full
    width and a depth of 4 units (a second full-depth boot pull would
    cost the same host time again); its v2 int8 store must equal
@@ -1064,6 +1082,167 @@ def decode_logits_check(gw, cfg, np, torch):
     return err, scale, len(reqs) - len(flips), len(reqs), tier, flips
 
 
+# ------------------------------------------------------------ telemetry
+# the series read back from the Prometheus page, against metrics()
+PROM_READBACK = {"serving_tokens_generated_total": "tokens_generated",
+                 "serving_decode_steps_total": "decode_steps",
+                 "serving_prefill_chunks_total": "prefill_chunks",
+                 "serving_requests_completed_total": "completed",
+                 "serving_prefix_tokens_reused_total": "prefix_tokens_reused"}
+
+
+def prom_values(text):
+    """Sample lines of a Prometheus page: series (with labels) -> value."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def telemetry_report(label, gw):
+    """Validate what ``gw`` recorded (the Chrome trace, the metrics()
+    schema, the Prometheus page against the counters) and print the six
+    latency histograms.  Any failure fails the run."""
+    from repro_torch.serving import validate_chrome_trace, validate_gateway_metrics
+
+    try:
+        events = validate_chrome_trace(gw.chrome_trace())
+    except ValueError as e:
+        fail(f"{label}: chrome_trace() is not a valid trace: {e}")
+    m = gw.metrics()
+    try:
+        # decode_path.kernels: the port's one key outside the JAX schema
+        validate_gateway_metrics(m, extra=("decode_path.kernels",))
+    except AssertionError as e:
+        fail(f"{label}: metrics() fails the gateway schema: {e}")
+    prom = prom_values(gw.render_prometheus())
+    read = {}
+    for series, key in PROM_READBACK.items():
+        read[series] = prom[f'{series}{{model="{gw.model}"}}']
+        if read[series] != m[key]:
+            fail(f"{label}: {series} reads {read[series]}, metrics() {key} {m[key]}")
+    hist = {k: dict(count=v["count"], p50_ms=1e3 * v["p50"], p99_ms=1e3 * v["p99"],
+                    sum_s=v["sum"]) for k, v in m["latency"].items()}
+    audit = {}
+    for e in gw.audit_events():
+        audit[e["event"]] = audit.get(e["event"], 0) + 1
+    log(f"  {label}: chrome_trace valid ({len(events)} events, {len(gw.tracer.events)} on "
+        f"the tape), metrics() passes validate_gateway_metrics; audit {audit}")
+    log(f"  {label}: histograms (host clock; count, p50 / p99 ms): " + "; ".join(
+        f"{k} {h['count']}, {h['p50_ms']:.2f} / {h['p99_ms']:.2f}" for k, h in hist.items()))
+    log(f"  {label}: read back from render_prometheus(): "
+        + ", ".join(f"{k} {v:g}" for k, v in read.items()))
+    return dict(trace_events=len(events), histograms=hist, prometheus=read, audit=audit)
+
+
+def busy_union(intervals, lo, hi):
+    """Length of the union of ``intervals`` clipped to [lo, hi]."""
+    total, cur = 0.0, None
+    for a, b in sorted((max(lo, a), min(hi, b)) for a, b in intervals if b > lo and a < hi):
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return total + (cur[1] - cur[0] if cur is not None else 0.0)
+
+
+def profile_window(label, fn, torch, steps):
+    """Run ``fn`` (``steps`` scheduler steps, then a synchronize) under
+    torch.profiler with CPU and CUDA activities.  Returns the window's
+    length, the union of its device intervals (kernels, copies, sets) as
+    a share of it, kernel launches per step and the five kernels with
+    the most device time; None when the trace holds no device events."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    out_dir = ROOT / "build" / "profiles"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{label}.json"
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke_window"):
+            fn()
+            sync()
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    win = [e for e in xs if e.get("name") == "chip_smoke_window"
+           and e.get("cat") == "user_annotation"]
+    dev = [e for e in xs if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not win or not dev:
+        log(f"  profile {label}: the trace holds no device events (window "
+            f"{len(win)}); device busy share not measured")
+        return None
+    lo = float(win[0]["ts"])
+    hi = lo + float(win[0]["dur"])
+    busy = busy_union([(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev], lo, hi)
+    kernels = [e for e in dev if e["cat"] == "kernel"]
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (t + float(e["dur"]), n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    most = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    out = dict(window_ms=(hi - lo) / 1e3, device_busy_ms=busy / 1e3,
+               busy_share=busy / (hi - lo), steps=steps,
+               kernel_launches_per_step=len(kernels) / steps,
+               copies_and_sets_per_step=(len(dev) - len(kernels)) / steps,
+               kernel_ms_per_step=sum(float(e["dur"]) for e in kernels) / 1e3 / steps,
+               top_kernels=[dict(name=n[:120], ms=t / 1e3, launches=c)
+                            for n, (t, c) in top],
+               most_launched=[dict(name=n[:120], ms=t / 1e3, launches=c)
+                              for n, (t, c) in most])
+    log(f"  profile {label} ({steps} step(s), torch.profiler CPU+CUDA, trace "
+        f"{path.relative_to(ROOT)}): window {out['window_ms']:.2f} ms, device busy "
+        f"{out['device_busy_ms']:.2f} ms = {100 * out['busy_share']:.1f}% (union of kernel, "
+        f"copy and set intervals), {out['kernel_launches_per_step']:.0f} kernel launches and "
+        f"{out['copies_and_sets_per_step']:.0f} copies/sets per step, kernel time "
+        f"{out['kernel_ms_per_step']:.2f} ms per step")
+    for title, rows in (("most device time", out["top_kernels"]),
+                        ("most launches", out["most_launched"])):
+        log(f"    the five kernels with the {title} (ms over the window, launches):")
+        for k in rows:
+            log(f"    {k['ms']:8.3f} ms  {k['launches']:5d} x  {k['name']}")
+    return out
+
+
+def decode_profile(gw, cfg, np, torch, steps=8):
+    """Bring phase 3's stream to a steady decode (every lane admitted and
+    decoding, nothing prefilling) on ``gw``, time ``steps`` scheduler
+    steps (host clock, ending in a synchronize), then profile the next
+    ``steps``.  The profiler's own host cost lengthens its window, so the
+    device time it records is also given as a share of the unprofiled
+    steps' time.  Leaves the stream mid-flight."""
+    gw.__dict__.pop("_sample", None)           # drop record_rows's per-step copy
+    submit_all(gw, cfg, np)
+    while not (len(gw.scheduler.running) == gw.max_lanes and all(
+            r.state.value == "running" for r in gw.scheduler.running)):
+        if gw.step() is None:
+            fail("profile: the stream drained before every lane decoded")
+    kinds = []
+    sync()
+    t0 = time.perf_counter()
+    kinds.extend(gw.step().kind for _ in range(steps))
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / steps
+    prof = profile_window("decode_steps", lambda: kinds.extend(
+        gw.step().kind for _ in range(steps)), torch, steps)
+    if kinds != ["decode"] * (2 * steps):
+        fail(f"profile: the windows ran {kinds}, not {2 * steps} decode steps")
+    if prof is not None:
+        prof["unprofiled_ms_per_step"] = plain_ms
+        prof["busy_share_of_unprofiled"] = prof["device_busy_ms"] / steps / plain_ms
+        log(f"  profile decode_steps: {steps} unprofiled steps before it took {plain_ms:.2f} ms "
+            f"each (host clock, synchronized); the profiled device time "
+            f"{prof['device_busy_ms'] / steps:.2f} ms a step is "
+            f"{100 * prof['busy_share_of_unprofiled']:.1f}% of that")
+    return prof
+
+
 # ------------------------------------------------------------ phase 3b
 # the shared-prefix stream: one 48-token system prefix (three full
 # blocks) and an own suffix of 1-16 tokens per request, alternating
@@ -1141,13 +1320,18 @@ def prefix_run(label, gw, stream, np, tier=None):
         fail(f"{label}: after the drain the allocator holds {held} blocks, "
              f"the prefix tree {pc}")
     steps = m["decode_steps"] + m["prefill_chunks"]
+    san = gw.sanitizer
+    if san is not None and san.shadow != dict(gw.pool.allocator._ref):
+        fail(f"{label}: the sanitizer's shadow refcounts differ from the allocator's")
     out = dict(serve_s=dt, tokens=m["tokens_generated"],
                tokens_per_s=m["tokens_generated"] / dt, steps=steps,
                ms_per_step=1e3 * dt / steps, decode_writes_checked=checked[0],
                **{k: m[k] for k in ("decode_steps", "prefill_chunks",
                                     "prefill_lane_tokens", "prefix_tokens_reused",
                                     "cow_copies", "preempted", "max_blocks_in_use")},
-               prefix_cache=pc)
+               prefix_cache=pc,
+               sanitizer=None if san is None else dict(
+                   shadow_blocks=len(san.shadow), step_shapes=san.retrace.stats()))
     log(f"  {label}: {len(reqs)} requests, {out['tokens']} tokens in {dt:.2f} s "
         f"({out['tokens_per_s']:.1f} tokens/s, {out['ms_per_step']:.1f} ms per scheduler "
         f"step over {steps}); prefill_chunks {out['prefill_chunks']}, prefill_lane_tokens "
@@ -1155,6 +1339,11 @@ def prefix_run(label, gw, stream, np, tier=None):
         f"cow_copies {out['cow_copies']}, preempted {out['preempted']}, decode writes "
         f"checked private {checked[0]}")
     log(f"  {label}: prefix_cache {json.dumps(pc)}")
+    if san is not None:
+        log(f"  {label}: sanitized (shadow refcounts on every allocator call, "
+            f"check_decode_writes before each decode, check_drained at each drain): "
+            f"clean; {len(san.shadow)} blocks held at the end, step shapes "
+            f"{san.retrace.stats()}")
     return reqs, rows, out
 
 
@@ -1185,13 +1374,14 @@ def near_ties(label, reqs, ref_reqs, rows, ref_rows, vocab):
 def prefix_phase(cfg, params, tiers, np, device="cuda"):
     """Phase 3b: the shared-prefix stream (a) with the prefix cache, (b)
     without, (c) with it on a pool of ``SMALL_POOL`` blocks, and (d) with
-    it through int8 views.  Returns the summary of each run."""
+    it through int8 views; (a) and (c) sanitized.  Returns the summary of
+    each run."""
     from repro_torch.serving import LicensedGateway
 
     stream = shared_stream(cfg, np)
     runs, got = {}, {}
-    for name, kw in (("a_prefix", {}), ("b_cold", dict(prefix_cache=False)),
-                     ("c_small_pool", dict(num_blocks=SMALL_POOL)),
+    for name, kw in (("a_prefix", dict(sanitize=True)), ("b_cold", dict(prefix_cache=False)),
+                     ("c_small_pool", dict(num_blocks=SMALL_POOL, sanitize=True)),
                      ("d_int8", dict(quantized=True, materialize_int8_views=True))):
         gw = LicensedGateway(cfg, params, tiers=tiers, device=device, **kw, **GEOMETRY)
         got[name] = prefix_run(f"3b ({name})", gw, stream, np)
@@ -1413,9 +1603,12 @@ class Timed:
 
 
 def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None,
-                 max_step_bytes=16 << 20):
+                 max_step_bytes=16 << 20, profile_stage=False):
     """Publish v1, boot a gateway from the server, serve the stream, and
-    stage v2 mid-stream; every check of phases 5/6.  Returns a summary."""
+    stage v2 mid-stream; every check of phases 5/6.  With
+    ``profile_stage`` the third scheduler step with a stage step rides
+    under torch.profiler (and is left out of the step times).  Returns a
+    summary."""
     from repro_torch.core import delta as delta_lib
     from repro_torch.core import transport as transport_lib
     from repro_torch.core.licensing import LicenseTier
@@ -1472,6 +1665,7 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
     steps = {"before": [], "during": [], "after": []}
     phases = {}
     flip_t = None
+    profiled = {}
 
     def step():
         nonlocal flip_t
@@ -1479,6 +1673,16 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
                 "before" if gw.version == 1 else "after")
         if gw.sync_active:
             phases[gw._stager.phase] = phases.get(gw._stager.phase, 0) + 1
+            if (profile_stage and not profiled and gw._stager.phase == "stage"
+                    and phases["stage"] == 3):
+                acts = []
+                profiled["profile"] = profile_window(
+                    "stage_step", lambda: acts.append(LicensedGateway.step(gw)), torch, 1)
+                span = [e for e in gw.tracer.events if e[3] == "stager:stage"][-1]
+                profiled["stager_span_ms"] = 1e3 * span[5]
+                log(f"  {label}: the profiled step's stager:stage span (host clock, no "
+                    f"synchronize) {profiled['stager_span_ms']:.2f} ms")
+                return acts[0]
         t = time.perf_counter()
         act = LicensedGateway.step(gw)
         sync()
@@ -1521,6 +1725,37 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
     bad = same_weights(gw._client.params, v2, torch)
     if bad:
         fail(f"{label}: flipped weights differ from v2 in {bad[:5]}")
+    # what the gateway recorded of the sync: one sync_begin and one
+    # version_flip, one stager:<phase> span and h_stager observation a step
+    from repro_torch.serving import validate_chrome_trace
+
+    audit = {ev: len(gw.audit_events(ev)) for ev in ("sync_begin", "version_flip", "sync_abort")}
+    if audit != {"sync_begin": 1, "version_flip": 1, "sync_abort": 0}:
+        fail(f"{label}: the audit holds {audit}, not one sync_begin and one version_flip")
+    spans = [e for e in gw.tracer.events if e[3].startswith("stager:")]
+    span_phases = {}
+    for e in spans:
+        span_phases[e[3]] = span_phases.get(e[3], 0) + 1
+    if {k[len("stager:"):]: v for k, v in span_phases.items()} != phases \
+            or gw.h_stager.count != len(spans):
+        fail(f"{label}: stager spans {span_phases} / h_stager {gw.h_stager.count} "
+             f"do not match the steps {phases}")
+    try:
+        validate_chrome_trace(gw.chrome_trace())
+    except ValueError as e:
+        fail(f"{label}: chrome_trace() is not a valid trace: {e}")
+    prof = profiled.get("profile")
+    if prof is not None and steps["during"]:
+        # the profiler lengthens its step; its device time against the
+        # median unprofiled step during the sync
+        med = 1e3 * float(np.median(steps["during"]))
+        prof["busy_share_of_median_step"] = prof["device_busy_ms"] / med
+        log(f"  {label}: the profiled stage step's device time {prof['device_busy_ms']:.2f} ms "
+            f"is {100 * prof['busy_share_of_median_step']:.1f}% of the median synchronized "
+            f"step during the sync ({med:.1f} ms)")
+    stager_h = dict(count=gw.h_stager.count, p50_ms=1e3 * gw.h_stager.p50,
+                    p99_ms=1e3 * gw.h_stager.p99, max_ms=1e3 * max(e[5] for e in spans),
+                    spans_by_phase=span_phases, audit=audit, **profiled)
     misses = gw.views.misses
     late = [gw.submit(np.arange(1, 20, dtype=np.int32), license=t, max_new_tokens=4)
             for t in ("full", "free")]
@@ -1538,6 +1773,7 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
         step_ms={k: {"n": len(v), "max": 1e3 * max(v) if v else None,
                      "median": 1e3 * float(np.median(v)) if v else None}
                  for k, v in steps.items()},
+        stager_histogram=stager_h,
         tokens=[r.out_tokens for r in reqs])
     log(f"  {label}: v2 staged in {sum(phases.values())} steps {phases}, "
         f"{st['parts_applied']} parts, {st['bytes_applied'] / 1e6:.1f} MB applied, "
@@ -1549,6 +1785,12 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
         f"(median {sm['during']['median']:.1f} ms over {sm['during']['n']}), after "
         f"{sm['after']['max']:.1f} ms; in-flight requests stayed on v1, one flip, "
         f"v2 bit-exact, post-flip requests on prewarmed v2 views")
+    log(f"  {label}: stager spans {span_phases}; h_stager (host clock around each "
+        f"stager step, no synchronize) p50 {stager_h['p50_ms']:.2f}, p99 "
+        f"{stager_h['p99_ms']:.2f} (bucket-interpolated), max {stager_h['max_ms']:.2f} ms over "
+        f"{gw.h_stager.count}, "
+        f"against the script's synchronized longest scheduler step during the sync "
+        f"{sm['during']['max']:.1f} ms; audit: one sync_begin, one version_flip")
     del gw
     gc.collect()
     return out
@@ -1613,10 +1855,45 @@ def main() -> None:
         f"vocab {cfg.padded_vocab}, {cfg.dtype_name}) in {time.perf_counter() - t0:.1f} s")
     tiers = {"free": LicenseTier(name="free", masks=FREE_TIER)}
     ops.reset_launches()
+    # the float stream three times: telemetry off, on (the default, and
+    # the run phase 4 reads), off again; each run keeps the same per-step
+    # copy of its logits rows (record_rows), so the runs differ only in
+    # what telemetry records
+    off_runs = []
+
+    def serve_off(n):
+        gw_off = LicensedGateway(cfg, params, tiers=tiers, telemetry=False, **GEOMETRY)
+        record_rows(gw_off)
+        reqs, t = serve(f"float views, telemetry off ({n})", gw_off, cfg, np, torch)
+        if len(gw_off.tracer.events) or gw_off.audit_events() or gw_off.h_decode.count:
+            fail("telemetry=False recorded events, audit records or observations")
+        off_runs.append((reqs, t))
+
+    serve_off(1)
+    gc.collect()
     gw = LicensedGateway(cfg, params, tiers=tiers, **GEOMETRY)
     kernel_rows = record_rows(gw)           # read in phase 4
     float_reqs, float_t = serve("float views", gw, cfg, np, torch)
-    del gw                      # slot <-> gateway cycle: collect its views
+    serve_off(2)
+    gc.collect()
+    if any([r.out_tokens for r in reqs] != [r.out_tokens for r in float_reqs]
+           for reqs, _ in off_runs):
+        fail("greedy tokens differ between telemetry on and off")
+    off_ms = [1e3 * t["serve_s"] / (t["decode_steps"] + t["prefill_chunks"]) for _, t in off_runs]
+    on_ms = 1e3 * float_t["serve_s"] / (float_t["decode_steps"] + float_t["prefill_chunks"])
+    overhead = dict(on_ms_per_step=on_ms, off_ms_per_step=off_ms,
+                    on_tokens_per_s=float_t["tokens"] / float_t["serve_s"],
+                    off_tokens_per_s=[t["tokens"] / t["serve_s"] for _, t in off_runs],
+                    overhead_pct=100 * (on_ms / (sum(off_ms) / 2) - 1))
+    log(f"  telemetry on against off: {on_ms:.2f} against {off_ms[0]:.2f} / {off_ms[1]:.2f} ms "
+        f"per step, {overhead['on_tokens_per_s']:.1f} against "
+        f"{overhead['off_tokens_per_s'][0]:.1f} / {overhead['off_tokens_per_s'][1]:.1f} tokens/s: "
+        f"overhead {overhead['overhead_pct']:+.2f}% of the mean off step (reported, not "
+        f"gated); greedy tokens identical across the three runs")
+    float_t["telemetry"] = telemetry_report("float views", gw)
+    float_t["telemetry"]["on_off"] = overhead
+    float_t["decode_profile"] = decode_profile(gw, cfg, np, torch)
+    del gw, off_runs            # slot <-> gateway cycle: collect its views
     gc.collect()
     gw = LicensedGateway(cfg, params, tiers=tiers, quantized=True,
                          materialize_int8_views=True, **GEOMETRY)
@@ -1717,7 +1994,7 @@ def main() -> None:
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     upd = update_phase("float gateway", cfg, {}, torch, np,
-                       ref_tokens=[r.out_tokens for r in float_reqs])
+                       ref_tokens=[r.out_tokens for r in float_reqs], profile_stage=True)
     upd["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     # the process's peak resident host memory so far (ru_maxrss is in KiB)
     upd["host_maxrss_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9

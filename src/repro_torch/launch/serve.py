@@ -7,13 +7,21 @@ the continuous-batching ``LicensedGateway`` — one stored weight set
 serving several accuracy tiers (§3.5).  ``--int8-views`` serves from one
 int8 store with each tier's view built by the fused masked-dequant.
 
+The observability layer rides along: ``--prometheus-out`` dumps the
+Prometheus text exposition, ``--trace-out`` the whole-gateway Chrome
+trace (load it in Perfetto / chrome://tracing), ``--audit-out`` the
+licensing audit stream as JSONL; ``-`` prints to stdout.
+``--no-telemetry`` records nothing.
+
 Example (on the card, full width and depth):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
-      --full-config --tiers full,free --prompt-len 32 --new-tokens 8
+      --full-config --tiers full,free --prompt-len 32 --new-tokens 8 \
+      --prometheus-out - --trace-out trace.json --audit-out audit.jsonl
 """
 from __future__ import annotations
 
 import argparse
+import sys
 
 import numpy as np
 import torch
@@ -22,6 +30,15 @@ from repro_torch.configs import get_config, list_configs, smoke_variant
 from repro_torch.core.licensing import FULL_TIER, LicenseTier
 from repro_torch.models import init_params
 from repro_torch.serving import LicensedGateway
+
+
+def _dump(dest: str, text: str, label: str) -> None:
+    if dest == "-":
+        sys.stdout.write(text if text.endswith("\n") else text + "\n")
+    else:
+        with open(dest, "w") as f:
+            f.write(text)
+        print(f"wrote {label} to {dest}")
 
 
 def main(argv=None):
@@ -39,6 +56,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU runs the plain versions "
                          "of the kernels")
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="disable tracing/metrics/audit recording")
+    ap.add_argument("--prometheus-out", default=None, metavar="PATH",
+                    help="dump Prometheus text exposition ('-' = stdout)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="dump Chrome trace_event JSON ('-' = stdout)")
+    ap.add_argument("--audit-out", default=None, metavar="PATH",
+                    help="dump licensing audit JSONL ('-' = stdout)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -53,7 +78,7 @@ def main(argv=None):
                          max_new_cap=args.new_tokens,
                          quantized=args.int8_views,
                          materialize_int8_views=args.int8_views,
-                         device=device)
+                         telemetry=not args.no_telemetry, device=device)
 
     rng = np.random.default_rng(args.seed)
     for tier in args.tiers.split(","):
@@ -67,7 +92,14 @@ def main(argv=None):
 
     m = gw.metrics()
     print(f"served {m['completed']} requests, {m['tokens_generated']} tokens "
-          f"on {device}; latency p99 {m.get('latency_p99_ms', 0.0):.1f}ms")
+          f"on {device}; latency p99 {m.get('latency_p99_ms', 0.0):.1f}ms, "
+          f"ttft p99 {m['latency']['ttft_s']['p99'] * 1e3:.1f}ms")
+    if args.prometheus_out:
+        _dump(args.prometheus_out, gw.render_prometheus(), "Prometheus text")
+    if args.trace_out:
+        _dump(args.trace_out, gw.chrome_trace(), "Chrome trace")
+    if args.audit_out:
+        _dump(args.audit_out, gw.audit.render_jsonl(), "audit JSONL")
 
 
 if __name__ == "__main__":

@@ -39,8 +39,21 @@ stage newer versions in bounded steps interleaved with serving
 atomically at a step boundary; in-flight requests stay on the version
 they were admitted under.
 
-Left out of this port so far (see ROADMAP.md): telemetry and tracing,
-the license lease state machine, fleets and tenants.
+Observability rides along, as in the JAX package (``telemetry=True``
+by default): pull-backed counters and gauges plus six latency histograms
+in a ``Telemetry`` registry (:meth:`~LicensedGateway.render_prometheus`),
+the request lifecycle, scheduler actions and stager phases on a
+``TraceRecorder`` tape (:meth:`~LicensedGateway.chrome_trace`), and the
+licensing audit stream (:meth:`~LicensedGateway.audit_events`).  Every
+record site sits behind ``self.obs``.  The step histograms read the host
+clock around ``step()``: a step's work up to its logits ends in the
+token ids' copy to the host, but the prefill chunk's pool scatter and a
+stage step's device work are only launched inside the window.
+``sanitize=True`` (or ``REPRO_SANITIZE=1``) shadows the block allocator
+and bounds the distinct step shapes.
+
+Left out of this port so far (see ROADMAP.md): the license lease state
+machine, fleets and tenant enforcement.
 """
 from __future__ import annotations
 
@@ -62,6 +75,13 @@ from repro_torch.serving.scheduler import (GatewayRequest, RequestState,
 def _pow2(n: int) -> int:
     """Smallest power of two >= n (bounds the distinct step widths)."""
     return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _sampling_key(reqs: List[GatewayRequest]) -> Tuple[bool, bool, bool]:
+    """A micro-batch's sampling variant, the sanitizer's key as in the
+    JAX package: (fused, any sampling lane, any top-k lane)."""
+    with_rng = any(r.temperature > 0 for r in reqs)
+    return (True, with_rng, with_rng and any(r.top_k for r in reqs))
 
 
 class LicensedGateway:
@@ -119,8 +139,17 @@ class LicensedGateway:
     history:
         Completed requests and scheduler actions kept for ``metrics``
         and ``trace`` (the newest ``history`` of each).
+    telemetry:
+        ``True`` (default): the slot's own ``Telemetry`` registry,
+        trace tape and audit log; ``False``: nothing recorded; or a
+        shared ``Telemetry`` to register the slot's instruments in.
+    sanitize:
+        Shadow the block allocator and bound the step shapes
+        (``analysis/sanitize.py``); default: the ``REPRO_SANITIZE``
+        environment variable.
     clock:
-        Host clock for request timestamps (injectable for tests).
+        Host clock for request timestamps, histograms, the trace and
+        the audit (injectable for tests).
     device:
         Where the pool and the views live (default ``cuda``).
     """
@@ -187,8 +216,15 @@ class LicensedGateway:
             if fresh is None:
                 self.tiers.pop(name, None)
                 self._server_tiers.discard(name)
+                if self.obs:
+                    self.audit.record("tier_revoke", model=self.model,
+                                      tier=name)
             else:
                 self.tiers[name] = fresh
+                if self.obs:
+                    self.audit.record("tier_redefine", model=self.model,
+                                      tier=name,
+                                      fingerprint=fresh.fingerprint())
             self.views.invalidate(tier=name)
             if self.prefix is not None:
                 # cached blocks encode the old mask's activations
@@ -199,21 +235,82 @@ class LicensedGateway:
         """Licensed weight view for (tier, version) — cached."""
         return self.views.get(tier, self.version if version is None else version)
 
+    # ------------------------------------------------------------ telemetry
+    def _span(self, req: GatewayRequest, name: Optional[str],
+              attrs: Optional[Dict[str, Any]] = None) -> None:
+        """Close the request's open lifecycle span and begin ``name``
+        (None = just close).  Lifecycle phases (queue -> prefill ->
+        decode) are sequential, never nested, so one slot per request
+        suffices and every B gets its E."""
+        if self.obs:
+            if req._open_span is not None:
+                self.tracer.end(req._open_span, req.rid)
+            if name is not None:
+                self.tracer.begin(name, req.rid, attrs)
+        req._open_span = name
+
+    def _note_admission(self, req: GatewayRequest) -> None:
+        """A request leaves the queue for a lane: queue-wait histogram
+        (first admission only — a restart's wait is preemption recovery),
+        the admit/restart instant, and the prefill lifecycle span."""
+        if not self.obs:
+            return
+        now = self.clock()
+        if req.preemptions == 0:
+            self.h_queue.observe(now - req.submit_t)
+            name = "admit"
+        else:
+            name = "restart"
+        self.tracer.instant(name, req.rid,
+                            {"tier": req.license, "version": req.version,
+                             "lane": req.lane})
+        self._span(req, "prefill", {"tier": req.license,
+                                    "version": req.version})
+
+    def _note_first_token(self, req: GatewayRequest, now: float) -> None:
+        """First token of a (possibly restarted) prefill: TTFT is counted
+        ONCE per request — a preemption clears ``first_token_t`` but not
+        ``_ttft_done``, so the restart's re-emission never double-counts."""
+        req.first_token_t = now
+        if not self.obs:
+            return
+        if not req._ttft_done:
+            req._ttft_done = True
+            self.h_ttft.observe(now - req.submit_t)
+        self._span(req, "decode")
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition of every registered instrument."""
+        return self.telemetry.render_prometheus()
+
+    def chrome_trace(self) -> str:
+        """This gateway's event tape as Chrome trace_event JSON."""
+        return self.tracer.chrome_trace(process_name=self.model or "gateway")
+
+    def audit_events(self, event: Optional[str] = None) -> List[Dict[str, Any]]:
+        """The licensing audit stream (optionally filtered by event)."""
+        return self.audit.events(event)
+
     # -------------------------------------------------------------- admission
     def _reject(self, req: GatewayRequest, error: str) -> GatewayRequest:
         req.state = RequestState.REJECTED
         req.error = error
         self.stats["rejected"] += 1
+        if self.obs:
+            self.tracer.instant("reject", req.rid,
+                                {"tier": req.license, "reason": error})
         return req
 
     def submit(self, prompt, *, license: str = "full", max_new_tokens: int = 16,
                temperature: float = 0.0, top_k: int = 0,
-               seed: int = 0) -> GatewayRequest:
-        """Admit one request: validate the tier, pin the weight version."""
+               seed: int = 0, tenant: Optional[str] = None) -> GatewayRequest:
+        """Admit one request: validate the tier, pin the weight version.
+        ``tenant`` is recorded for accounting (``metrics()["tenants"]``);
+        a standalone gateway never polices it."""
         req = GatewayRequest(
             prompt=np.asarray(prompt, np.int32).reshape(-1),
             max_new_tokens=min(int(max_new_tokens), self.max_new_cap),
-            license=license,
+            license=license, tenant=tenant,
             # sub-epsilon temperatures are greedy (the sampler clamps its
             # divisor at 1e-6)
             temperature=0.0 if temperature <= 1e-6 else temperature,
@@ -244,6 +341,14 @@ class LicensedGateway:
         req.version = self.version
         self.scheduler.submit(req)
         self.stats["admitted"] += 1
+        if self.obs:
+            self.tracer.instant(
+                "submit", req.rid,
+                {"tier": req.license, "version": req.version,
+                 "model": self.model, "tenant": req.tenant,
+                 "prompt_tokens": len(req.prompt),
+                 "max_new_tokens": req.max_new_tokens})
+            self._span(req, "queue")
         return req
 
     # ------------------------------------------------------------- scheduling
@@ -254,10 +359,25 @@ class LicensedGateway:
         serving instead of stalling it."""
         act = self.scheduler.next_action()
         if act is not None:
+            t0 = self.clock() if self.obs else 0.0
             if act.kind == "prefill":
                 self._run_chunked_prefill(act)
             else:
                 self._run_decode(act)
+            if self.obs:
+                # host clock: the window covers the step's work up to the
+                # token ids' copy to the host, and only the launch of
+                # what follows it (the prefill chunk's pool scatter)
+                t1 = self.clock()
+                (self.h_prefill if act.kind == "prefill"
+                 else self.h_decode).observe(t1 - t0)
+                self.tracer.complete("sched:" + act.kind, t0, t1,
+                                     attrs={"tier": act.tier,
+                                            "version": act.version,
+                                            "batch": len(act.requests)})
+                self.tracer.counter("queue_depth", len(self.scheduler.waiting))
+                self.tracer.counter("running", len(self.scheduler.running))
+                self.tracer.counter("blocks_held", self.pool.allocator.num_held)
         if drive_stager and self._stager is not None and self._stager.active:
             try:
                 self._stager.step()
@@ -266,6 +386,8 @@ class LicensedGateway:
                 # (staged weights dropped, failure counted toward
                 # quarantine); serving continues on the current version
                 pass
+        if self.sanitizer is not None and act is not None:
+            self.sanitizer.after_step(self)
         if act is None:
             return None
         # a decode whose whole batch was preempted executed nothing
@@ -283,6 +405,10 @@ class LicensedGateway:
         try:
             for _ in range(max_steps):
                 if self.step() is None and not self.sync_active:
+                    if self.sanitizer is not None:
+                        # queue and lanes are empty: anything still held
+                        # must be reachable through the prefix tree
+                        self.sanitizer.check_drained(self)
                     break
         finally:
             self._drain_sink = None
@@ -387,6 +513,9 @@ class LicensedGateway:
         bs = self.pool.block_size
         for r, (blocks, capped) in zip(reqs, matches):
             self.scheduler.start(r)
+            self._note_admission(r)
+            if self.obs and capped:
+                self.tracer.instant("prefix_hit", r.rid, {"tokens": capped})
             # a partial match adopts only FULL blocks (a partial tail
             # matches only when it covers the whole prompt), so the
             # uncached suffix starts on a block boundary and its chunks
@@ -423,6 +552,9 @@ class LicensedGateway:
         b = min(self.max_batch, _pow2(len(reqs)))
         need = max(cdiv(r.cursor + w, bs) for r in reqs)
         cols = min(self.pool.blocks_per_lane, _pow2(need))
+        if self.sanitizer is not None:
+            self.sanitizer.retrace.note("prefill_chunk", (b, cols))
+            self.sanitizer.retrace.note("prefix_prefill", _sampling_key(reqs))
         sub = np.zeros((b, w), np.int32)
         poss = np.zeros(b, np.int32)
         lasts = np.zeros(b, np.int64)
@@ -452,11 +584,15 @@ class LicensedGateway:
         scope = (act.tier, act.version)
         for i, r in enumerate(reqs):
             r.cursor += int(valid[i])
+            if self.obs:
+                self.tracer.instant("prefill_chunk", r.rid,
+                                    {"cursor": r.cursor,
+                                     "tokens": int(valid[i])})
             if r.cursor < len(r.prompt):
                 continue
             r.state = RequestState.RUNNING
             r.pos = len(r.prompt)
-            r.first_token_t = now
+            self._note_first_token(r, now)
             if self.prefix is not None:
                 # donate the TRUE-token chain (full blocks + partial
                 # tail) so any later prompt sharing the prefix adopts it
@@ -562,7 +698,15 @@ class LicensedGateway:
         # the restart re-emits these tokens; keep the counter equal to
         # tokens actually delivered
         self.stats["tokens_generated"] -= len(req.out_tokens)
+        if self.obs:
+            self._span(req, None)
+            self.tracer.instant("preempt", req.rid,
+                                {"tokens_lost": len(req.out_tokens)})
         self.scheduler.preempt(req)
+        if self.obs:
+            # back at the queue head: the lifecycle re-enters its queue
+            # phase until re-admission emits a "restart"
+            self._span(req, "queue")
         self.stats["preempted"] += 1
 
     def _note_block_use(self) -> None:
@@ -576,6 +720,9 @@ class LicensedGateway:
         act.requests = self._grow_block_tables(act.requests)
         if not act.requests:
             return                         # whole batch preempted
+        if self.sanitizer is not None:
+            # post-CoW: every table entry live, write targets private
+            self.sanitizer.check_decode_writes(act.requests, self.pool)
         view = self.views.get(act.tier, act.version)
         reqs = act.requests
         lanes = self.pool.pad_lanes([r.lane for r in reqs], self.max_batch)
@@ -585,6 +732,9 @@ class LicensedGateway:
             toks[i, 0] = r.out_tokens[-1]
             poss[i] = r.pos
         used = max(r.pos // self.pool.block_size + 1 for r in reqs)
+        if self.sanitizer is not None:
+            self.sanitizer.retrace.note("decode_width", used)
+            self.sanitizer.retrace.note("paged_decode", _sampling_key(reqs))
         tables = self.pool.pad_tables([r.blocks[:used] for r in reqs],
                                       self.max_batch, used)
         caches = self.pool.decode_cache(lanes)
@@ -594,8 +744,11 @@ class LicensedGateway:
                                           kernel=self.decode_kernels)
         outs = self._sample(logits, reqs)
         self.pool.absorb_decode(lanes, caches)
+        self.stats["resident_decode_steps"] += 1
         for i, r in enumerate(reqs):
             r.pos += 1
+            if self.obs:
+                self.tracer.instant("decode_step", r.rid, {"pos": r.pos})
             self._emit(r, int(outs[i]))
         self.stats["decode_steps"] += 1
 
@@ -603,8 +756,22 @@ class LicensedGateway:
         """Append one token and retire the request if it is finished."""
         req.out_tokens.append(tok)
         self.stats["tokens_generated"] += 1
+        if self.obs:
+            # inter-token gap: decode cadence only.  The first token has
+            # no predecessor, and a preemption clears ``_last_tok_t`` —
+            # the restart's recovery pause is not a decode gap.
+            now = self.clock()
+            if req._last_tok_t is not None:
+                self.h_gap.observe(now - req._last_tok_t)
+            req._last_tok_t = now
         if len(req.out_tokens) >= req.max_new_tokens:
             self.scheduler.finish(req)
+            if self.obs:
+                self._span(req, None)
+                self.tracer.instant("finish", req.rid,
+                                    {"tokens": len(req.out_tokens),
+                                     "preemptions": req.preemptions,
+                                     "blocks": len(req.blocks)})
             self._release_blocks(req)
             self.completed.append(req)
             if self._drain_sink is not None:
@@ -633,8 +800,12 @@ class LicensedGateway:
             self.views.invalidate(version=version)
             if self.prefix is not None:
                 self.prefix.drop_scope(version=version)
+        prev = self.version
         self._weights[version] = params
         self.version = version
+        if self.obs:
+            self.audit.record("version_install", model=self.model,
+                              from_version=prev, to_version=version)
         self._gc_versions()
         return version
 
@@ -700,8 +871,14 @@ class LicensedGateway:
         if version < self.version:
             raise ValueError(f"version {version} is older than the current "
                              f"version {self.version}")
+        prev = self.version
         self.version = version
         self._staging_version = None
+        if self.obs:
+            # the one choke point every flip funnels through (staged and
+            # blocking syncs alike): one version_flip per bump
+            self.audit.record("version_flip", model=self.model,
+                              from_version=prev, to_version=version)
         if self._server is not None:
             self._refresh_server_tiers()
         self._gc_versions()
@@ -761,27 +938,83 @@ class LicensedGateway:
         return True
 
     # ---------------------------------------------------------------- metrics
+    def _tenant_breakdown(self) -> Dict[str, Dict[str, int]]:
+        """Per-tenant usage: live requests (queued/running), tokens
+        generated, cache blocks held, completions in the history window.
+        Tenant-less requests are not listed."""
+        out: Dict[str, Dict[str, int]] = {}
+
+        def _d(t: str) -> Dict[str, int]:
+            return out.setdefault(t, {
+                "inflight": 0, "queued": 0, "completed": 0,
+                "tokens_generated": 0, "blocks_held": 0})
+
+        for r in self.scheduler.running:
+            if r.tenant is None:
+                continue
+            d = _d(r.tenant)
+            d["inflight"] += 1
+            d["blocks_held"] += len(r.blocks)
+            d["tokens_generated"] += len(r.out_tokens)
+        for r in self.scheduler.waiting:
+            if r.tenant is None:
+                continue
+            d = _d(r.tenant)
+            d["inflight"] += 1
+            d["queued"] += 1
+        for r in self.completed:
+            if r.tenant is None:
+                continue
+            d = _d(r.tenant)
+            d["completed"] += 1
+            d["tokens_generated"] += len(r.out_tokens)
+        return out
+
     def metrics(self) -> Dict[str, Any]:
-        """Counters, queue-wait ages, pool occupancy, latency percentiles
-        (host clock; the port has no telemetry histograms yet)."""
+        """Counters, queue-wait ages, pool occupancy and latency, in the
+        JAX package's schema (``telemetry.GATEWAY_METRICS_KEYS``) plus
+        ``decode_path.kernels`` (whether the decode step runs the Hopper
+        kernels).  ``lease`` holds only what the port computes: the lease
+        state machine is not ported."""
         out: Dict[str, Any] = dict(self.stats)
+        out["model"] = self.model
         out["view_cache"] = self.views.stats()
         out["oldest_wait_s"] = self.scheduler.oldest_wait_s()
         out["queue_wait_by_tier"] = self.scheduler.queue_wait_by_tier()
+        out["tenants"] = self._tenant_breakdown()
         out["cache_pool"] = {"paged": True, **self.pool.stats()}
-        out["decode_path"] = {"kernel_resident": True,
+        # "pallas": the JAX slot's value off a TPU
+        out["decode_path"] = {"kernel_resident": True, "pallas": "off",
                               "kernels": self.decode_kernels}
+        out["staged_update"] = ({"active": False} if self._stager is None
+                                else {"active": self._stager.active,
+                                      **self._stager.stats()})
         out["chunked_prefill"] = {"enabled": True, "chunk_size": self.chunk_size,
                                   "chunks": self.stats["prefill_chunks"]}
+        # suffix-width grouping is the JAX package's bucket-prefill
+        # admission; chunked mode admits per true prompt length
+        out["admission_grouping"] = {"enabled": False,
+                                     "batches_by_suffix_width": {}}
+        out["lease"] = {
+            "server_attached": self._server is not None,
+            "renew_age_s": self.clock() - self._lease_renewed_t,
+            "quarantined_versions": sorted(self.quarantined_versions),
+            "pinned_views": len(self.scheduler.pinned_tier_versions()),
+        }
         out["prefix_cache"] = {"enabled": self.prefix is not None}
         if self.prefix is not None:
             out["prefix_cache"].update(self.prefix.stats())
             out["prefix_cache"]["prefix_tokens_reused"] = \
                 self.stats["prefix_tokens_reused"]
             out["prefix_cache"]["cow_copies"] = self.stats["cow_copies"]
-        out["staged_update"] = ({"active": False} if self._stager is None
-                                else {"active": self._stager.active,
-                                      **self._stager.stats()})
+        out["latency"] = {
+            "ttft_s": self.h_ttft.summary(),
+            "inter_token_s": self.h_gap.summary(),
+            "queue_wait_s": self.h_queue.summary(),
+            "step_prefill_s": self.h_prefill.summary(),
+            "step_decode_s": self.h_decode.summary(),
+            "stager_step_s": self.h_stager.summary(),
+        }
         lats = [r.latency for r in self.completed if r.latency is not None]
         if lats:
             out["latency_p50_ms"] = float(np.percentile(lats, 50) * 1e3)

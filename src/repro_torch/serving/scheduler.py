@@ -47,6 +47,10 @@ class GatewayRequest:
     temperature: float = 0.0
     top_k: int = 0                           # 0 = no top-k truncation
     seed: int = 0
+    # the tenant the request is billed against (recorded in the trace
+    # and in ``metrics()["tenants"]``; a standalone gateway never
+    # polices it)
+    tenant: Optional[str] = None
 
     # assigned by the gateway
     rid: int = -1
@@ -65,6 +69,14 @@ class GatewayRequest:
     submit_t: float = 0.0
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
+
+    # telemetry bookkeeping (serving/telemetry.py).  ``_ttft_done``
+    # survives preemption — a restarted request re-emits its first token
+    # but its TTFT was already counted once; ``_last_tok_t`` does not
+    # (the inter-token gap across a preemption is not a decode gap).
+    _ttft_done: bool = False
+    _last_tok_t: Optional[float] = None
+    _open_span: Optional[str] = None         # current lifecycle B span
 
     @property
     def group_key(self) -> Tuple[str, Optional[int]]:
@@ -222,6 +234,7 @@ class Scheduler:
         req.prefix_tokens = 0
         req.out_tokens.clear()
         req.first_token_t = None
+        req._last_tok_t = None
         req.preemptions += 1
         req.state = RequestState.QUEUED
         self.waiting.appendleft(req)
@@ -235,6 +248,11 @@ class Scheduler:
     def pinned_versions(self) -> set:
         """Weight versions still referenced by queued or running requests."""
         return {r.version for r in self.waiting} | {r.version for r in self.running}
+
+    def pinned_tier_versions(self) -> set:
+        """(tier, version) pairs referenced by queued or running requests."""
+        return {(r.license, r.version)
+                for r in list(self.waiting) + list(self.running)}
 
     def hot_tiers(self) -> List[str]:
         """License tiers with queued or running requests, busiest first —

@@ -43,17 +43,34 @@ The wire transfer may run on a background worker thread (bounded queue,
 ``fetch_depth`` batches ahead); the apply, the reopen of a dead cursor
 (sqlite is bound to the serving thread) and the flip stay on the serving
 thread.  Wire faults retry under the gateway's ``RetryPolicy`` and
-resume from the last applied cursor position.
+resume from the last applied cursor position.  The worker/serving
+protocol carries the JAX package's lockstep hooks
+(``analysis/lockstep.py``): checkpoints where cursor state is touched,
+and ownership handoffs at the worker's start and join.
+
+With telemetry on, every step is a ``stager:<phase>`` complete event on
+the trace's stager track and one observation of ``h_stager``, and the
+audit records ``sync_begin`` and ``sync_abort`` (the slot records
+``sync_retry``/``sync_quarantine``, the gateway ``version_flip``).  The
+step's window is host clock: a stage step's device work (the layer
+clone, the in-place scatter, a requant) is only launched inside it.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Set, Tuple
 
+from repro_torch.analysis import lockstep
 from repro_torch.core.delta import apply_delta
 from repro_torch.core.pytree_io import flatten_params, unflatten_like
 from repro_torch.core.transport import (PayloadCorruption, RetryPolicy, Transport,
                                         TransportError, TransportTimeout,
                                         as_transport)
+from repro_torch.serving.tracing import STAGER_TID
+
+# the cursor-protocol fields whose ownership moves with the fetch
+# worker (see the guarded-by annotations in __init__ and
+# repro_torch.analysis.lockstep for the dynamic check)
+_WORKER_FIELDS = ("_cursor", "_pos", "_cursor_dead")
 
 
 class _ReopenRequired(Exception):
@@ -193,6 +210,10 @@ class UpdateStager:
                               if gw.quantized and gw.version == client.version
                               else None)
         self.phase = "stage"
+        if gw.obs:
+            gw.audit.record("sync_begin", model=gw.model,
+                            from_version=client.version,
+                            to_version=cursor.to_version)
         if self.background_fetch:
             self._start_fetch_worker()
         return True
@@ -220,6 +241,8 @@ class UpdateStager:
         is abandoned (its session log entry stays) and a fresh session is
         opened, seeked to the last durably-applied position."""
         gw, client = self.gw, self.gw._client
+        lockstep.checkpoint("stager.reopen",
+                            touches=("_cursor", "_wire_bytes"))
         old, self._cursor = self._cursor, None
         if old is not None:
             self._wire_bytes += old.fetched_bytes
@@ -250,6 +273,8 @@ class UpdateStager:
         worker): a dead cursor raises :class:`_ReopenRequired` instead of
         reopening, since the reopen runs the sqlite-backed delta query."""
 
+        lockstep.checkpoint("stager.fetch_parts", touches=_WORKER_FIELDS)
+
         def attempt():
             if self._cursor_dead:
                 if not allow_reopen:
@@ -271,6 +296,7 @@ class UpdateStager:
 
         parts = self.retry.run(attempt, on_retry=self._note_retry)
         # durable position: everything up to here is about to be applied
+        lockstep.checkpoint("stager.advance_pos", touches=("_pos",))
         self._pos = self._cursor.tell()
         self.gw._lease_renew()
         return parts, self._cursor.done
@@ -323,6 +349,9 @@ class UpdateStager:
         self._fetch_stop = stop
         self._fetch_thread = threading.Thread(
             target=_loop, name="update-stager-fetch", daemon=True)
+        # the handoff point: from here until the join in
+        # _stop_fetch_worker, cursor state belongs to the worker
+        lockstep.transfer_ownership(_WORKER_FIELDS, "worker")
         self._fetch_thread.start()
 
     def _stop_fetch_worker(self) -> bool:
@@ -345,6 +374,10 @@ class UpdateStager:
         leaked = self._fetch_thread.is_alive()
         if leaked:
             self.stats_["fetch_workers_leaked"] += 1
+        else:
+            # join is the visibility barrier: cursor state is the serving
+            # thread's again (a leaked worker keeps ownership)
+            lockstep.transfer_ownership(_WORKER_FIELDS, "serve")
         self._fetch_thread = None
         self._fetch_queue = None
         self._fetch_stop = None
@@ -363,6 +396,8 @@ class UpdateStager:
             return None
         phase = self.phase
         self.stats_["steps"] += 1
+        gw = self.gw
+        t0 = gw.clock() if gw.obs else 0.0
         try:
             if phase == "stage":
                 self._step_stage()
@@ -375,6 +410,11 @@ class UpdateStager:
         except BaseException:
             self.abort()
             raise
+        if gw.obs:
+            t1 = gw.clock()
+            gw.h_stager.observe(t1 - t0)
+            gw.tracer.complete("stager:" + phase, t0, t1, tid=STAGER_TID,
+                               attrs={"to_version": self.to_version})
         return phase
 
     def abort(self) -> None:
@@ -395,6 +435,9 @@ class UpdateStager:
         self._cursor = None
         self._staged = self._staged_q = None
         self._pending_layer = None
+        if gw.obs:
+            gw.audit.record("sync_abort", model=gw.model,
+                            phase=self.phase, to_version=self.to_version)
         if self.to_version is not None:
             gw._note_sync_failure(self.to_version)
         self.phase = "failed"
@@ -413,6 +456,7 @@ class UpdateStager:
                                              donate=True)
 
     def _step_stage(self) -> None:
+        lockstep.checkpoint("stager.stage")
         if self._fetch_thread is not None:
             # the wire transfer already happened (or is happening) on the
             # worker; a blocking get here is never slower than the
@@ -515,6 +559,8 @@ class UpdateStager:
     def _flip(self) -> None:
         """Atomic install: new weights + tier redefinitions in one step."""
         gw, client = self.gw, self.gw._client
+        lockstep.checkpoint("stager.flip",
+                            touches=("_cursor", "_wire_bytes"))
         gw._install_staged(self.to_version)
         client.params = self._staged
         client.version = self.to_version

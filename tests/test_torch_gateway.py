@@ -158,8 +158,7 @@ def test_block_allocator_guards_match_jax():
 
 def test_left_out_arguments_raise(weights):
     _, _, cfg, params = weights
-    for kw, item in ((dict(telemetry=True), "telemetry"),
-                     (dict(quantized=True), "in-scan int8 dequant"),
+    for kw, item in ((dict(quantized=True), "in-scan int8 dequant"),
                      (dict(lease_ttl_s=5.0), "lease")):
         with pytest.raises(NotImplementedError, match=item):
             LicensedGateway(cfg, params, device="cpu", **kw)
@@ -185,11 +184,12 @@ def _reference_defaults():
 
 def test_slot_takes_every_reference_default(weights):
     """A slot built with every keyword default of the JAX slot, except
-    those whose features are queued (telemetry and the lease: their JAX
-    defaults turn them on).  Each of those raises ``NotImplementedError``
-    naming its ROADMAP.md item on its own."""
+    those whose features are queued (the lease: its JAX defaults turn it
+    on).  Each of those raises ``NotImplementedError`` naming its
+    ROADMAP.md item on its own.  ``telemetry=True`` and ``sanitize=None``
+    are ported: the slot records, and sanitizes only on request."""
     _, _, cfg, params = weights
-    queued = {"telemetry", "lease_ttl_s", "lease_grace_s", "lease_policy"}
+    queued = {"lease_ttl_s", "lease_grace_s", "lease_policy"}
     defaults = _reference_defaults()
     assert queued < set(defaults)
     kw = {n: v for n, v in defaults.items() if n not in queued}
@@ -197,6 +197,10 @@ def test_slot_takes_every_reference_default(weights):
     assert gw.chunk_size == gw.pool.block_size and not gw.quantized
     assert gw.prefix is not None             # the JAX default: cache on
     assert gw.completed.maxlen == gw.trace.maxlen == defaults["history"]
+    assert defaults["telemetry"] is True and defaults["sanitize"] is None
+    assert gw.obs and gw.tracer.enabled and gw.audit.enabled
+    assert (gw.sanitizer is not None) == (os.environ.get("REPRO_SANITIZE", "")
+                                          not in ("", "0"))
     for name in sorted(queued):
         with pytest.raises(NotImplementedError, match=re.escape(_LEFT_OUT[name][1])):
             LicensedGateway(cfg, params, device="cpu", **{name: defaults[name]})
