@@ -27,7 +27,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 3. the serving path: ``LicensedGateway`` serving requests in two license
    tiers at the full width and depth of qwen2.5-3b (random bf16 weights
    from a seed), through float views and through int8 views built by the
-   fused masked-dequant; the launch counters are zeroed just before and
+   fused masked-dequant, each decode step a CUDA graph replay (the
+   gateway's default on the card); the launch counters are zeroed just before and
    read just after, and every kernel must have run; each view build is
    timed (host clock and CUDA events, masked_dequant launches, peak
    memory); then the whole int8 view of the free and full tiers rebuilt
@@ -45,7 +46,21 @@ Phases (each prints its own lines; any failure exits non-zero):
    Prometheus page are printed.  Then 8 decode steps of the same stream
    run under ``torch.profiler`` (CPU and CUDA): the device-busy share of
    the window (the union of kernel, copy and set intervals), kernel
-   launches per step and the five kernels with the most device time;
+   launches per step (on the device, and the host's launch calls) and
+   the five kernels with the most device time;
+3c. the compiled decode step and the in-scan int8 dequant: phase 3's
+   stream through float views and through the int8 store dequantized
+   inside every step (``quantized=True``), each served four times in
+   turns, eager (the slot's graphs taken away) and through the CUDA
+   graphs, the launch counters zeroed just before each run and read
+   just after: ``paged_attention`` and ``paged_decode_write`` once a
+   layer of every decode step, replay or capture warm-up, and on the
+   in-scan path ``masked_dequant`` once per int8 leaf of every unit of
+   every decode step and prefill chunk.  Every run's greedy tokens must
+   equal phase 3's (float), or phase 3's through materialized int8 views
+   (in-scan); ms per step, tokens/s, captures, replays and the graphs'
+   pool memory are printed, and the last two runs of each mode (graph,
+   eager) profile 8 decode steps as in phase 3;
 3b. the shared-prefix stream (a 48-token system prefix, own suffixes of
    1-16 tokens, exact repeats; two waves) at full width and depth, launch
    counters zeroed just before and read just after: (a) with the prefix
@@ -993,11 +1008,11 @@ def record_rows(gw):
     rows = {}
     sample = gw._sample
 
-    def recorded(logits, reqs):
+    def recorded(logits, reqs, greedy=None):
         kept = logits[: len(reqs)].clone()
         for i, r in enumerate(reqs):
             rows[(r.rid, len(r.out_tokens))] = kept[i]
-        return sample(logits, reqs)
+        return sample(logits, reqs, greedy)
 
     gw._sample = recorded
     return rows
@@ -1053,7 +1068,7 @@ def decode_logits_check(gw, cfg, np, torch):
         toks[i, 0], poss[i] = r.out_tokens[-1], r.pos
     used = max(r.pos // bs + 1 for r in reqs)
     tables = gw.pool.pad_tables([r.blocks[:used] for r in reqs], bsz, used)
-    view = gw.view_for(tier)
+    view, _ = gw.view_for(tier)
     out = []
     for kernel in (True, False):
         cache = gw.pool.decode_cache(lanes)
@@ -1150,6 +1165,14 @@ def busy_union(intervals, lo, hi):
     return total + (cur[1] - cur[0] if cur is not None else 0.0)
 
 
+# the port's kernels in a device trace: label -> a substring of the
+# kernel's name (csrc/paged_attention.cu, csrc/masked_dequant.cu)
+TRACE_KERNELS = {"paged_attention": "paged_attention_split_kernel",
+                 "paged_attention_combine": "paged_attention_combine_kernel",
+                 "paged_decode_write": "paged_decode_write_kernel",
+                 "masked_dequant": "masked_dequant_"}
+
+
 def profile_window(label, fn, torch, steps):
     """Run ``fn`` (``steps`` scheduler steps, then a synchronize) under
     torch.profiler with CPU and CUDA activities.  Returns the window's
@@ -1181,16 +1204,26 @@ def profile_window(label, fn, torch, steps):
     hi = lo + float(win[0]["dur"])
     busy = busy_union([(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev], lo, hi)
     kernels = [e for e in dev if e["cat"] == "kernel"]
+    # the host's launch calls (CUDA API events), CUDA graph replays among them
+    calls = [e["name"] for e in xs if e.get("cat", "").startswith("cuda_")
+             and "Launch" in e["name"] and lo <= float(e["ts"]) <= hi]
     by_name = {}
     for e in kernels:
         t, n = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (t + float(e["dur"]), n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     most = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    # what the device ran of the port's kernels, by kernel name: the only
+    # count of a CUDA graph's replays, whose launches no wrapper sees
+    port = {label: sum(n for name, (_, n) in by_name.items() if key in name)
+            for label, key in TRACE_KERNELS.items()}
     out = dict(window_ms=(hi - lo) / 1e3, device_busy_ms=busy / 1e3,
                busy_share=busy / (hi - lo), steps=steps,
                kernel_launches_per_step=len(kernels) / steps,
+               host_launch_calls_per_step=len(calls) / steps,
+               graph_launches_per_step=sum("Graph" in c for c in calls) / steps,
                copies_and_sets_per_step=(len(dev) - len(kernels)) / steps,
+               port_kernels=port,
                kernel_ms_per_step=sum(float(e["dur"]) for e in kernels) / 1e3 / steps,
                top_kernels=[dict(name=n[:120], ms=t / 1e3, launches=c)
                             for n, (t, c) in top],
@@ -1199,9 +1232,12 @@ def profile_window(label, fn, torch, steps):
     log(f"  profile {label} ({steps} step(s), torch.profiler CPU+CUDA, trace "
         f"{path.relative_to(ROOT)}): window {out['window_ms']:.2f} ms, device busy "
         f"{out['device_busy_ms']:.2f} ms = {100 * out['busy_share']:.1f}% (union of kernel, "
-        f"copy and set intervals), {out['kernel_launches_per_step']:.0f} kernel launches and "
-        f"{out['copies_and_sets_per_step']:.0f} copies/sets per step, kernel time "
-        f"{out['kernel_ms_per_step']:.2f} ms per step")
+        f"copy and set intervals), {out['kernel_launches_per_step']:.0f} kernels and "
+        f"{out['copies_and_sets_per_step']:.0f} copies/sets per step on the device from "
+        f"{out['host_launch_calls_per_step']:.1f} launch calls of the host "
+        f"({out['graph_launches_per_step']:.1f} of them CUDA graph launches), kernel time "
+        f"{out['kernel_ms_per_step']:.2f} ms per step; the port's kernels in the window: "
+        f"{port}")
     for title, rows in (("most device time", out["top_kernels"]),
                         ("most launches", out["most_launched"])):
         log(f"    the five kernels with the {title} (ms over the window, launches):")
@@ -1210,7 +1246,7 @@ def profile_window(label, fn, torch, steps):
     return out
 
 
-def decode_profile(gw, cfg, np, torch, steps=8):
+def decode_profile(gw, cfg, np, torch, steps=8, label="decode_steps"):
     """Bring phase 3's stream to a steady decode (every lane admitted and
     decoding, nothing prefilling) on ``gw``, time ``steps`` scheduler
     steps (host clock, ending in a synchronize), then profile the next
@@ -1229,18 +1265,156 @@ def decode_profile(gw, cfg, np, torch, steps=8):
     kinds.extend(gw.step().kind for _ in range(steps))
     sync()
     plain_ms = 1e3 * (time.perf_counter() - t0) / steps
-    prof = profile_window("decode_steps", lambda: kinds.extend(
+    captures = gw._graphs.captures if gw._graphs is not None else 0
+    prof = profile_window(label, lambda: kinds.extend(
         gw.step().kind for _ in range(steps)), torch, steps)
+    # a graph captured in the window ran its step once more, eagerly
+    warmups = (gw._graphs.captures if gw._graphs is not None else 0) - captures
     if kinds != ["decode"] * (2 * steps):
         fail(f"profile: the windows ran {kinds}, not {2 * steps} decode steps")
     if prof is not None:
         prof["unprofiled_ms_per_step"] = plain_ms
         prof["busy_share_of_unprofiled"] = prof["device_busy_ms"] / steps / plain_ms
-        log(f"  profile decode_steps: {steps} unprofiled steps before it took {plain_ms:.2f} ms "
+        log(f"  profile {label}: {steps} unprofiled steps before it took {plain_ms:.2f} ms "
             f"each (host clock, synchronized); the profiled device time "
             f"{prof['device_busy_ms'] / steps:.2f} ms a step is "
             f"{100 * prof['busy_share_of_unprofiled']:.1f}% of that")
+        prof["warmups_in_window"] = warmups
+        check_trace_launches(label, gw, cfg, prof, steps + warmups)
     return prof
+
+
+def check_trace_launches(label, gw, cfg, prof, runs):
+    """Fail unless the device trace of a window that ran the decode step
+    ``runs`` times (its steps, and the warm-ups of graphs captured in it)
+    shows ``paged_attention``'s split kernel and ``paged_decode_write``
+    once a layer of each, and ``masked_dequant`` once per int8 leaf of
+    every unit of each on the in-scan path (never elsewhere).  Through
+    CUDA graphs this is the only count of what the replays launched."""
+    from repro_torch.serving.quantized import qleaves
+
+    units = cfg.pattern_units
+    in_scan = gw.quantized and not gw.materialize_int8_views
+    leaves = sum(1 for _ in qleaves(gw._weights[gw.version]["units"])) if in_scan else 0
+    want = dict(paged_attention=units * runs, paged_decode_write=units * runs,
+                masked_dequant=leaves * units * runs)
+    got = {k: prof["port_kernels"][k] for k in want}
+    if got != want:
+        fail(f"profile {label}: the trace shows {got} kernels in {runs} runs of the decode "
+             f"step, which give {want}")
+    log(f"  profile {label}: the trace shows the kernels of {runs} decode steps "
+        f"({prof['steps']} steps, {runs - prof['steps']} warm-ups): {got}, "
+        f"combines {prof['port_kernels']['paged_attention_combine']}")
+
+
+# ------------------------------------------------------------ phase 3c
+# the compiled decode step (one CUDA graph per view and table width, per
+# version and width on the in-scan path) against the eager kernel path
+# (the graphs taken away through the slot's private ``_graphs``), for
+# float views and the in-scan int8 dequant, in turns: eager, graph,
+# graph, eager on phase 3's stream
+COMPILED_MODES = {"float": {}, "in_scan": dict(quantized=True)}
+COMPILED_TURNS = ("eager", "graph", "graph", "eager")
+
+
+def compiled_run(label, gw, cfg, np, torch, graphs, profile):
+    """Serve phase 3's stream on ``gw`` (its graphs taken away unless
+    ``graphs``), the launch counters zeroed just before and read just
+    after; check the wrappers' counts against what really ran eagerly:
+    ``paged_attention`` and ``paged_decode_write`` once a layer of every
+    eager decode step, or through the graphs of every capture's warm-up
+    (a capture and a replay launch through no wrapper), ``masked_dequant``
+    once per int8 leaf of every unit of those steps and of every prefill
+    chunk.  Then, with ``profile``, the 8-step profile of phase 3, whose
+    device trace must show each decode step's kernels."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.compiled import table_width
+    from repro_torch.serving.quantized import qleaves
+
+    if not graphs:
+        gw._graphs = None
+    ops.reset_launches()
+    reqs, t = serve(label, gw, cfg, np, torch)
+    launches = dict(ops.LAUNCHES)
+    st = gw.stats
+    units = cfg.pattern_units
+    leaves = sum(1 for _ in qleaves(gw._weights[gw.version]["units"])) * units
+    decodes = st["resident_decode_steps"]
+    captures = gw._graphs.captures if graphs else 0
+    replays = gw._graphs.replays if graphs else 0
+    eager = captures if graphs else decodes
+    want = dict(paged_attention=units * eager, paged_decode_write=units * eager,
+                masked_dequant=leaves * (eager + st["prefill_chunks"]))
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"{label}: launches {got}, the eager steps give {want}")
+    bpl = gw.pool.blocks_per_lane
+    # the kernel path's widths are powers of two (and blocks_per_lane)
+    widths = len({table_width(n, bpl) if gw.decode_kernels else n for n in range(1, bpl + 1)})
+    most = widths * (1 if gw.quantized and not gw.materialize_int8_views else len(gw.tiers))
+    if replays != (decodes if graphs else 0) or (graphs and not 0 < captures <= most):
+        fail(f"{label}: {replays} replays and {captures} captures (at most {most}) "
+             f"for {decodes} decode steps")
+    t.update(launches=launches, replays=replays, captures=captures,
+             resident_decode_steps=decodes)
+    if graphs:
+        t["graphs_live"] = len(gw._graphs)
+        t["graph_pool_gb"] = gw._graphs.backend.pool_bytes() / 1e9
+    log(f"  {label}: launches {got} (as the eager steps give: {units} layers x {eager} "
+        f"{'warm-ups' if graphs else 'decode steps'}"
+        + (f", {leaves} int8 leaves x {eager} + {st['prefill_chunks']} prefill chunks"
+           if leaves else "") + f"); {captures} captures, {replays} replays"
+        + (f", {t['graphs_live']} graphs live, their pool {t['graph_pool_gb']:.3f} GB"
+           if graphs else ""))
+    if profile:
+        t["decode_profile"] = decode_profile(gw, cfg, np, torch,
+                                             label=label.replace(" ", "_"))
+        if t["decode_profile"] is None:
+            fail(f"{label}: the profile holds no device trace, so the decode steps' "
+                 f"kernels cannot be counted")
+    return [r.out_tokens for r in reqs], t
+
+
+def compiled_phase(cfg, params, tiers, np, torch, want_tokens):
+    """Phase 3c: each mode served in turns, eager and through the graphs;
+    every run's greedy tokens must equal ``want_tokens[mode]`` (phase 3's
+    float stream and its int8 stream through materialized views)."""
+    from repro_torch.serving import LicensedGateway
+
+    out = {}
+    for mode, kw in COMPILED_MODES.items():
+        runs = []
+        for i, path in enumerate(COMPILED_TURNS):
+            gw = LicensedGateway(cfg, params, tiers=tiers, **GEOMETRY, **kw)
+            toks, t = compiled_run(f"3c {mode} {path} run {i + 1}", gw, cfg, np, torch,
+                                   graphs=path == "graph", profile=i >= 2)
+            if toks != want_tokens[mode]:
+                fail(f"3c {mode} {path} run {i + 1}: greedy tokens differ from phase 3's "
+                     f"{'float' if mode == 'float' else 'materialized int8'} stream")
+            runs.append(dict(path=path, **t))
+            del gw
+            gc.collect()
+            torch.cuda.empty_cache()
+        ms = {p: [1e3 * r["serve_s"] / (r["decode_steps"] + r["prefill_chunks"])
+                  for r in runs if r["path"] == p] for p in ("eager", "graph")}
+        tps = {p: [r["tokens"] / r["serve_s"] for r in runs if r["path"] == p]
+               for p in ("eager", "graph")}
+        prof = {r["path"]: r.get("decode_profile") for r in runs[2:]}
+        log(f"  3c {mode}: greedy tokens identical in all four runs and to phase 3's "
+            f"{'float' if mode == 'float' else 'materialized int8'} stream; ms per step "
+            f"eager {ms['eager']} against graph {ms['graph']}; tokens/s eager "
+            f"{tps['eager']} against graph {tps['graph']}")
+        if all(prof.values()):
+            e, g = prof["eager"], prof["graph"]
+            log(f"  3c {mode}: steady decode (8 unprofiled steps) eager "
+                f"{e['unprofiled_ms_per_step']:.2f} against graph "
+                f"{g['unprofiled_ms_per_step']:.2f} ms a step; launch calls of the host "
+                f"{e['host_launch_calls_per_step']:.1f} against "
+                f"{g['host_launch_calls_per_step']:.1f} a step; device busy "
+                f"{100 * e['busy_share_of_unprofiled']:.1f}% against "
+                f"{100 * g['busy_share_of_unprofiled']:.1f}% of the unprofiled step")
+        out[mode] = dict(runs=runs, ms_per_step=ms, tokens_per_s=tps)
+    return out
 
 
 # ------------------------------------------------------------ phase 3b
@@ -1509,7 +1683,7 @@ def calibration_phase(cfg, params, np, torch, device="cuda"):
 
     gw = LicensedGateway(cfg, params, tiers={"cal": tier}, device=device, **GEOMETRY)
     want = flatten_params(licensing.apply_license(params, tier))
-    view = flatten_params(gw.view_for("cal"))
+    view = flatten_params(gw.view_for("cal")[0])
     bad = [n for n in want if not same_bits(view[n], want[n], torch)]
     if bad or set(view) != set(want):
         fail(f"7: the gateway's view of the calibrated tier differs from "
@@ -1897,7 +2071,7 @@ def main() -> None:
     gc.collect()
     gw = LicensedGateway(cfg, params, tiers=tiers, quantized=True,
                          materialize_int8_views=True, **GEOMETRY)
-    _, int8_t = serve("int8 views", gw, cfg, np, torch)
+    int8_reqs, int8_t = serve("int8 views", gw, cfg, np, torch)
     launches = dict(ops.LAUNCHES)
     log(f"  launches on the main path: {launches}")
     for name in ("paged_attention", "paged_decode_write", "masked_dequant"):
@@ -1917,6 +2091,14 @@ def main() -> None:
     launches.update(prefill_launches)
     rows["quant_matmul"]["store_leaf_rel_err"] = store_leaf_check(*leaf, torch, ops)
     del leaf
+
+    # ---------------------------------------------------------- phase 3c
+    log(f"phase 3c: the compiled decode step and the in-scan int8 dequant, {ARCH} at "
+        f"full width and depth")
+    compiled = compiled_phase(cfg, params, tiers, np, torch, {
+        "float": [r.out_tokens for r in float_reqs],
+        "in_scan": [r.out_tokens for r in int8_reqs]})
+    del int8_reqs
 
     # ---------------------------------------------------------- phase 3b
     log(f"phase 3b: the shared-prefix stream, {ARCH} at full width and depth")
@@ -2041,7 +2223,7 @@ def main() -> None:
         u.pop("tokens")
     log(f"whole script {time.perf_counter() - t_script:.1f} s (kernel build included)")
     log(json.dumps({"gateway": {"float": float_t, "int8": int8_t,
-                                "plain_decode": plain_t,
+                                "plain_decode": plain_t, "compiled": compiled,
                                 "decode_logits_max_abs_err": err,
                                 "decode_argmax_flips": flips, "stream_parts": parts},
                     "shared_prefix": {"runs": prefix_runs, "launches": prefix_launches},

@@ -84,5 +84,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ext = load_extension()
     kernel = ext.flash_attention_sm90 if design(q.dtype, hd) == "wgmma" else ext.flash_attention
     out = kernel(q, k, v, bool(causal), int(window), int(q_offset), int(groups))
-    ops.LAUNCHES["flash_attention"] += 1
+    ops.count("flash_attention")
     return out

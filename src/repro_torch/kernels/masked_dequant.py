@@ -44,5 +44,5 @@ def masked_dequant(codes: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor,
     out = load_extension().masked_dequant(codes.contiguous(), scale.contiguous(), lo, hi,
                                           out_dtype == torch.bfloat16)
     if out.numel():
-        ops.LAUNCHES["masked_dequant"] += 1
+        ops.count("masked_dequant")
     return out

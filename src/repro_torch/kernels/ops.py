@@ -1,8 +1,11 @@
 """Public kernel entry points of the port and their launch counters.
 
 ``LAUNCHES`` counts kernel launches per kernel name: each wrapper adds
-one exactly where it launches its CUDA kernel (never on the CPU path),
-so a run can prove that its main path went through the kernels.
+one exactly where it launches its CUDA kernel (``count``; never on the
+CPU path, and never while a CUDA graph is being captured, which records
+the kernel without launching it), so a run can prove that its main path
+went through the kernels.  A graph's replays run no wrapper: what they
+launch is read from the device trace.
 ``masked_dequant`` here is the dispatcher for a list of intervals:
 unlike the JAX package's (which sends shapes under 256x256 to the
 oracle), the CUDA path has no small-shape shortcut — the kernel takes
@@ -33,6 +36,14 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0, "paged_decode_write": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count(name: str) -> None:
+    """Count one launch of kernel ``name`` on the card: its wrapper calls
+    this where it launches.  Under CUDA-graph capture nothing launches, so
+    nothing is counted."""
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
 
 
 def require_cuda(name: str, device: torch.device, tensors) -> None:

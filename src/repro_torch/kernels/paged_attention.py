@@ -85,7 +85,7 @@ def paged_attention(q: torch.Tensor, k_blocks: torch.Tensor,
                      dtype=torch.float32, device=q.device)
     out = load_extension().paged_attention(q, k_blocks, v_blocks, block_tables,
                                            context_lens, ws, cols)
-    ops.LAUNCHES["paged_attention"] += 1
+    ops.count("paged_attention")
     return out
 
 
@@ -107,5 +107,5 @@ def paged_decode_write(k_blocks: torch.Tensor, v_blocks: torch.Tensor,
         raise ValueError(f"paged_decode_write: no kernel for device {k_blocks.device}")
     load_extension().paged_decode_write(k_blocks, v_blocks, new_k, new_v,
                                         block_ids, offsets)
-    ops.LAUNCHES["paged_decode_write"] += 1
+    ops.count("paged_decode_write")
     return k_blocks, v_blocks

@@ -103,5 +103,5 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
         out = ext.quant_matmul_sm90(x, codes, scale, out_bf16)
     else:
         out = ext.quant_matmul(x, codes, scale, out_bf16)
-    ops.LAUNCHES["quant_matmul"] += 1
+    ops.count("quant_matmul")
     return out

@@ -131,12 +131,19 @@ def forward(
     *,
     cache: Optional[Dict[str, Any]] = None,
     pos=0,
+    license_intervals=None,
     attend_cache: bool = False,
     chunk_valid=None,
     paged_tables: Optional[torch.Tensor] = None,
     paged_kernel: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (logits (B, S, padded_vocab) f32, cache or None).
+
+    ``params`` may hold int8 ``{"codes", "scale"}`` leaves
+    (``serving/quantized.py``): each unit's are dequantized with the
+    ``license_intervals`` mask ((lo, hi) f32 (MAX_INTERVALS,) on the
+    device; ``None`` masks nothing) fused in, just before the unit runs,
+    so every license tier shares the one int8 store.
 
     ``cache`` leaves are updated in place and the same dict comes back.
     ``attend_cache=True`` is chunked prefill: ``tokens`` continue prompts
@@ -153,9 +160,14 @@ def forward(
     check_supported(cfg)
     if paged_tables is not None:
         assert cache is not None and not attend_cache
+    from repro_torch.serving.quantized import dequant_tree, qleaves
+
+    quantized = next(qleaves(params["units"]), None) is not None
     x = params["embed"]["tok"][tokens.long()]
     for u in range(cfg.pattern_units):
         unit_params = _unit(params["units"], u)
+        if quantized:
+            unit_params = dequant_tree(unit_params, license_intervals, cfg.dtype)
         unit_cache = None if cache is None else _unit(cache["units"], u)
         c = None if unit_cache is None else unit_cache["b0"]
         x, nc = _apply_block(unit_params["b0"], x, cfg, cache=c, pos=pos,

@@ -21,7 +21,8 @@ from repro_torch.models import model as model_lib
 
 def prefill_chunk_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                        caches: Dict[str, Any], pos: torch.Tensor,
-                       chunk_valid: Optional[torch.Tensor] = None):
+                       chunk_valid: Optional[torch.Tensor] = None,
+                       license_intervals=None):
     """Left-aligned chunked prefill: advance each lane's cursor by up to
     W tokens against its own cache.
 
@@ -29,23 +30,30 @@ def prefill_chunk_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     lane's absolute cursor ``pos`` (B,); a lane with fewer tokens left
     right-pads its row and reports its real rows in ``chunk_valid`` (B,).
     ``caches`` is a contiguous batch cache (``PagedCachePool.gather``).
+    With an int8 store as ``params`` and a tier's ``license_intervals``
+    the units are dequantized in the step (``models.model.forward``).
     Returns the per-chunk logits (B, W, V) and the (in-place updated)
     caches."""
     return model_lib.forward(params, cfg, tokens, cache=caches, pos=pos,
+                             license_intervals=license_intervals,
                              attend_cache=True, chunk_valid=chunk_valid)
 
 
 def serve_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                      cache: Dict[str, Any], tables: torch.Tensor,
-                     pos: torch.Tensor, *, kernel: bool):
+                     pos: torch.Tensor, license_intervals=None, *, kernel: bool):
     """ONE kernel-resident decode step over the paged pool.
 
     ``tokens`` (B, 1); ``cache`` from ``PagedCachePool.decode_cache``;
     ``tables`` (B, T) int32 trimmed to the micro-batch's used width;
     ``pos`` (B,) int32 absolute positions.  ``kernel=True`` writes and
-    attends through the Hopper kernels, ``False`` through the plain path.
+    attends through the Hopper kernels, ``False`` through the plain path;
+    ``license_intervals`` as in ``prefill_chunk_step``.  Nothing here
+    synchronises or copies from the host, so the step is capturable in
+    a CUDA graph (``serving/compiled.py``).
     Returns (last-token logits (B, V), cache)."""
     logits, cache = model_lib.forward(params, cfg, tokens, cache=cache, pos=pos,
+                                      license_intervals=license_intervals,
                                       paged_tables=tables, paged_kernel=kernel)
     return logits[:, -1], cache
 

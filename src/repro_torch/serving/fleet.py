@@ -3,7 +3,8 @@
 Counterpart of the part of ``repro/serving/fleet.py::ModelSlot`` that a
 single licensed gateway uses: the weight versions, the (tier,
 version)-keyed view cache, the block-paged KV pool, the shared-prefix
-radix cache over it, the chunked-prefill scheduler, the serving stats,
+radix cache over it, the chunked-prefill scheduler, the compiled decode
+steps (CUDA graphs on the card, ``serving/compiled.py``), the serving stats,
 the observability substrate (a ``Telemetry`` registry with the slot's
 instruments, a ``TraceRecorder`` event tape and an ``AuditLog``, all on
 the slot's clock), the opt-in sanitizer, and the license-server state of
@@ -38,6 +39,7 @@ from repro_torch.core.transport import (DirectTransport, RetryPolicy, Transport,
                                         TransportTimeout)
 from repro_torch.models.model import check_supported
 from repro_torch.serving.paging import PagedCachePool, cdiv
+from repro_torch.serving.compiled import DecodeGraphs, GraphSet, StoreGraphs, View
 from repro_torch.serving.prefix import PrefixCache
 from repro_torch.serving.scheduler import GatewayRequest, Scheduler, TierViewCache
 from repro_torch.serving.telemetry import GATEWAY_METRICS_KEYS, Telemetry
@@ -127,11 +129,7 @@ class ModelSlot:
         self.tracer = TraceRecorder(clock=self.clock, enabled=self.obs)
         self.audit = AuditLog(clock=self.clock, enabled=self.obs)
         self.quantized = bool(quantized or already_quantized)
-        if self.quantized and not materialize_int8_views:
-            raise NotImplementedError(
-                "quantized=True without materialize_int8_views=True dequantizes "
-                "inside every step; not ported yet, see ROADMAP.md, "
-                "'the in-scan int8 dequant'")
+        self.materialize_int8_views = bool(materialize_int8_views)
         if self.quantized and not already_quantized:
             from repro_torch.serving.quantized import quantize_serving_params
 
@@ -146,6 +144,7 @@ class ModelSlot:
         self.tiers: Dict[str, LicenseTier] = dict(tiers or {})
         self.tiers.setdefault("full", FULL_TIER)
         self.views = TierViewCache(self._materialize, capacity=view_capacity)
+        self._store_graphs = StoreGraphs()   # the in-scan path's, per version
 
         # the kernel-resident decode routes its write and attention
         # through the Hopper kernels on a CUDA device; the plain path
@@ -266,6 +265,12 @@ class ModelSlot:
             # versions quarantined after repeated failed syncs
             "sync_retries": 0, "sync_timeouts": 0, "sync_quarantines": 0,
         }
+
+        # the compiled decode step (serving/compiled.py): CUDA graphs of
+        # the kernel path on the card; the plain path and the CPU decode
+        # eagerly.  Private: the eager kernel path stays reachable by
+        # setting it to None.
+        self._graphs = DecodeGraphs(self) if self.decode_kernels else None
 
         self._register_telemetry()
         # seed the audit ledger: the tiers this slot can serve from birth
@@ -438,9 +443,13 @@ class ModelSlot:
         return tier
 
     def _materialize(self, tier_name: str, version: Optional[int]):
-        """Build the weight view served to one (tier, version): the
-        interval-masked float weights, or the fused masked-dequant of the
-        int8 store."""
+        """Build the (params, intervals) view served to one (tier,
+        version): the interval-masked float weights, the fused
+        masked-dequant of the int8 store (``materialize_int8_views``),
+        both with intervals ``None``; or the int8 store itself with the
+        tier's intervals packed on the device, dequantized inside every
+        step.  A ``compiled.View``: its decode graphs live and go with it
+        (in-scan, with the version's views)."""
         tier = self._resolve_tier(tier_name)
         if self.obs:
             self.audit.record("view_materialize", model=self.model,
@@ -448,10 +457,17 @@ class ModelSlot:
                               fingerprint=tier.fingerprint())
         base = self._weights[version]
         if not self.quantized:
-            return apply_license(base, tier)
-        from repro_torch.serving.quantized import materialize_licensed_view
+            params = apply_license(base, tier)
+            return View(params, None, GraphSet(params))
+        if self.materialize_int8_views:
+            from repro_torch.serving.quantized import materialize_licensed_view
 
-        return materialize_licensed_view(base, tier, self.cfg.dtype)
+            params = materialize_licensed_view(base, tier, self.cfg.dtype)
+            return View(params, None, GraphSet(params))
+        from repro_torch.serving.quantized import tier_intervals
+
+        return View(base, tier_intervals(tier, self.device),
+                    self._store_graphs.get(version, base))
 
     # ------------------------------------------------------ scheduler callbacks
     def _blocks_needed(self, req: GatewayRequest) -> int:

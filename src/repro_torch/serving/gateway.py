@@ -8,8 +8,12 @@ through one cached licensed view of the single stored weight set (the
 paper's one-stored-model-many-tiers claim, §3.5):
 
 * float weights: the view is ``apply_license(base, tier)``;
-* ``quantized=True, materialize_int8_views=True``: ONE int8 store, and
-  the view is its fused masked-dequant (one CUDA launch per stacked
+* ``quantized=True``: ONE int8 store; the view is the store plus the
+  tier's packed intervals, and every step dequantizes each unit's codes
+  with the intervals fused in (one ``masked_dequant`` launch per int8
+  leaf of a unit on the card), as the JAX package does by default;
+* ``quantized=True, materialize_int8_views=True``: the view is the
+  store's fused masked-dequant, built once (one CUDA launch per stacked
   leaf on the card).
 
 Prompts prefill in left-aligned chunks (each lane at its own cursor,
@@ -24,7 +28,12 @@ to the null block, and decode copy-on-writes a shared tail block
 kernel-resident: one batched step whose cache operands are the pool's
 physical block tensors; the ``paged_decode_write`` kernel writes the new
 K/V token per lane in place and ``paged_attention`` reads each live
-cache byte once through the micro-batch's trimmed block tables.  When
+cache byte once through the micro-batch's trimmed block tables.  On the
+card that step is a CUDA graph per (view, table width), or per (version,
+width) on the in-scan int8 path (``serving/compiled.py``), as the JAX
+gateway compiles one per width; the kernel path rounds the used width up
+to a power of two, so a view holds a few graphs at any context.  The
+plain path (``decode_kernels=False``) and the CPU decode eagerly.  When
 the pool runs out of blocks, the youngest running request is preempted
 back to the queue head and recomputed later (generation is deterministic
 per (seed, prompt, view), so it reproduces its tokens).
@@ -64,6 +73,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.transport import Transport, TransportError
+from repro_torch.serving.compiled import table_width
 from repro_torch.serving.engine import (lane_generator, prefill_chunk_step,
                                         sample_lane, serve_step_paged)
 from repro_torch.serving.fleet import ModelSlot
@@ -95,10 +105,11 @@ class LicensedGateway:
     tiers:
         Name -> :class:`LicenseTier`; ``"full"`` is always available.
     quantized / materialize_int8_views:
-        Serve from ONE int8 store (``params`` quantized here); each
-        (tier, version) view is built once by the fused masked-dequant
-        and cached.  ``quantized`` needs ``materialize_int8_views=True``
-        in this port.
+        Serve from ONE int8 store (``params`` quantized here).  By
+        default each step dequantizes the units with the tier's
+        intervals fused in (no view memory); with
+        ``materialize_int8_views=True`` each (tier, version) view is
+        built once by the fused masked-dequant and cached.
     already_quantized:
         ``params`` already is the int8 store (``quantize_serving_params``
         of the float weights); implies ``quantized``.
@@ -120,9 +131,10 @@ class LicensedGateway:
         radix cache and serve later shared prefixes from them (default
         on; LRU-evicted under pool pressure).
     decode_kernels:
-        Route the decode write and attention through the Hopper kernels.
-        Default: on a CUDA device; ``True`` elsewhere raises, ``False``
-        selects the plain path.
+        Route the decode write and attention through the Hopper kernels,
+        the step replayed as a CUDA graph.  Default: on a CUDA device;
+        ``True`` elsewhere raises, ``False`` selects the plain path
+        (eager).
     view_capacity:
         Licensed views kept in the (tier, version) LRU cache.
     version / model:
@@ -232,7 +244,7 @@ class LicensedGateway:
             del self._pending_tiers[name]
 
     def view_for(self, tier: str, version: Optional[int] = None):
-        """Licensed weight view for (tier, version) — cached."""
+        """Licensed (params, intervals) view for (tier, version) — cached."""
         return self.views.get(tier, self.version if version is None else version)
 
     # ------------------------------------------------------------ telemetry
@@ -417,12 +429,17 @@ class LicensedGateway:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _sample(self, logits: torch.Tensor, reqs: List[GatewayRequest]) -> np.ndarray:
+    def _sample(self, logits: torch.Tensor, reqs: List[GatewayRequest],
+                greedy: Optional[torch.Tensor] = None) -> np.ndarray:
         """Per-lane epilogue of a step, on the device: greedy lanes take
-        the argmax, sampling lanes draw from their own generator; only
-        one token id per lane comes back to the host."""
+        the argmax (``greedy``, when the compiled step computed it),
+        sampling lanes draw from their own generator; only one token id
+        per lane comes back to the host."""
         rows = logits[: len(reqs)]
-        toks = torch.argmax(rows, -1).to(torch.int32)
+        if greedy is None:
+            toks = torch.argmax(rows, -1).to(torch.int32)
+        else:
+            toks = greedy[: len(reqs)].clone()
         for i, r in enumerate(reqs):
             if r.temperature > 0:
                 gen = lane_generator(r.seed, len(r.out_tokens), self.device)
@@ -545,7 +562,7 @@ class LicensedGateway:
         two, as in the JAX package.  A lane whose cursor reaches the
         prompt end donates its true-token chain to the prefix cache,
         emits its first token and enters decode."""
-        view = self.views.get(act.tier, act.version)
+        view, li = self.views.get(act.tier, act.version)
         reqs = act.requests
         w = self.chunk_size
         bs = self.pool.block_size
@@ -573,7 +590,8 @@ class LicensedGateway:
                                       n_cols=cols)
         caches = self.pool.gather(tables)
         logits, caches = prefill_chunk_step(view, self.cfg, self._to_device(sub),
-                                            caches, self._to_device(poss))
+                                            caches, self._to_device(poss),
+                                            license_intervals=li)
         rows = logits[torch.arange(b, device=self.device), self._to_device(lasts)]
         outs = self._sample(rows, reqs)
         caches = self.pool.override_counters(caches, fills)
@@ -715,8 +733,11 @@ class LicensedGateway:
 
     def _run_decode(self, act: ScheduledAction) -> None:
         """One kernel-resident decode step: the pool's block tensors ARE
-        the cache operands; tables are trimmed to the batch's used width,
-        so attention reads O(context) bytes, once, through the table."""
+        the cache operands; tables are trimmed to the batch's used width
+        (on the kernel path rounded up to a power of two, null-padded),
+        so attention reads O(context) bytes, once, through the table.
+        With the compiled step (the card's default) it is a graph
+        replay; sampled lanes draw from its logits rows here."""
         act.requests = self._grow_block_tables(act.requests)
         if not act.requests:
             return                         # whole batch preempted
@@ -732,18 +753,25 @@ class LicensedGateway:
             toks[i, 0] = r.out_tokens[-1]
             poss[i] = r.pos
         used = max(r.pos // self.pool.block_size + 1 for r in reqs)
+        if self.decode_kernels:
+            used = table_width(used, self.pool.blocks_per_lane)
         if self.sanitizer is not None:
             self.sanitizer.retrace.note("decode_width", used)
             self.sanitizer.retrace.note("paged_decode", _sampling_key(reqs))
         tables = self.pool.pad_tables([r.blocks[:used] for r in reqs],
                                       self.max_batch, used)
-        caches = self.pool.decode_cache(lanes)
-        logits, caches = serve_step_paged(view, self.cfg, self._to_device(toks),
-                                          caches, self._to_device(tables),
-                                          self._to_device(poss),
-                                          kernel=self.decode_kernels)
-        outs = self._sample(logits, reqs)
-        self.pool.absorb_decode(lanes, caches)
+        if self._graphs is not None:
+            logits, greedy = self._graphs.step(view, toks, poss, lanes, tables)
+            outs = self._sample(logits, reqs, greedy)
+        else:
+            params, li = view
+            caches = self.pool.decode_cache(lanes)
+            logits, caches = serve_step_paged(params, self.cfg, self._to_device(toks),
+                                              caches, self._to_device(tables),
+                                              self._to_device(poss), li,
+                                              kernel=self.decode_kernels)
+            outs = self._sample(logits, reqs)
+            self.pool.absorb_decode(lanes, caches)
         self.stats["resident_decode_steps"] += 1
         for i, r in enumerate(reqs):
             r.pos += 1
@@ -794,9 +822,9 @@ class LicensedGateway:
             raise ValueError(f"version {version} is older than the current "
                              f"version {self.version}")
         if version in self._weights:
-            # overwriting a live version: views built from the old
-            # weights must not survive the swap — nor cached prefix
-            # activations
+            # overwriting a live version: views (and the decode graphs
+            # they own) built from the old weights must not survive the
+            # swap — nor cached prefix activations
             self.views.invalidate(version=version)
             if self.prefix is not None:
                 self.prefix.drop_scope(version=version)
@@ -851,9 +879,9 @@ class LicensedGateway:
         """Pre-register a staged version's serving params so its views can
         be prewarmed before the flip; ``_gc_versions`` keeps it alive."""
         if version in self._weights:
-            # overwriting a live version's weights: views and cached
-            # prefix activations built from the old bytes must not
-            # survive into the prewarm
+            # overwriting a live version's weights: views (with their
+            # decode graphs) and cached prefix activations built from the
+            # old bytes must not survive into the prewarm
             self.views.invalidate(version=version)
             if self.prefix is not None:
                 self.prefix.drop_scope(version=version)

@@ -224,21 +224,29 @@ class PagedCachePool:
         self.lens[self._tensor(lanes).long()] = c["len"].t().to(torch.int32)
 
     # ----------------------------------------------- kernel-resident decode
-    def decode_cache(self, lanes: Sequence[int]) -> Dict[str, Any]:
+    def _lane_index(self, lanes) -> torch.Tensor:
+        """Lane ids as a device index: a host sequence is copied over; a
+        device tensor (the compiled step's static lane ids) is used as
+        it is, so the gather and scatter below stay capturable."""
+        if isinstance(lanes, torch.Tensor):
+            return lanes
+        return self._tensor(lanes).long()
+
+    def decode_cache(self, lanes) -> Dict[str, Any]:
         """Cache dict for the batched kernel-resident decode step: the
         pool's block tensors by reference plus the lanes' counters
-        (U, B)."""
+        (U, B).  ``lanes``: host lane ids, or an int64 device tensor."""
         return {"units": {"b0": {
             "k": self.k, "v": self.v,
-            "len": self.lens[self._tensor(lanes).long()].t().contiguous(),
+            "len": self.lens[self._lane_index(lanes)].t().contiguous(),
         }}}
 
-    def absorb_decode(self, lanes: Sequence[int], caches: Dict[str, Any]) -> None:
+    def absorb_decode(self, lanes, caches: Dict[str, Any]) -> None:
         """Adopt a decode step's outputs: its K/V token writes already
         landed in the pool in place; store the advanced counters."""
         c = caches["units"]["b0"]
         assert c["k"] is self.k and c["v"] is self.v
-        self.lens[self._tensor(lanes).long()] = c["len"].t().to(torch.int32)
+        self.lens[self._lane_index(lanes)] = c["len"].t().to(torch.int32)
 
     # --------------------------------------------------- prefix-cache hooks
     def copy_block(self, src: int, dst: int) -> None:

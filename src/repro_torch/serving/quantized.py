@@ -2,20 +2,23 @@
 
 Counterpart of ``repro/serving/quantized.py``.  Block weights are kept
 as (codes int8, scale f32) with per-output-channel scales; a tier's view
-is built by the fused masked-dequant (``kernels/masked_dequant.py``, one
-CUDA launch per stacked leaf on the card), once per (tier, version), and
-cached by the gateway (``materialize_int8_views``).  The in-scan variant
-of the JAX package, which dequantizes inside every forward step, is not
-ported yet (ROADMAP, "the in-scan int8 dequant").
+is either built by the fused masked-dequant (``kernels/masked_dequant.py``,
+one CUDA launch per stacked leaf on the card) once per (tier, version)
+and cached by the gateway (``materialize_int8_views=True``), or — the
+default, as in the JAX package — the store itself plus the tier's packed
+intervals, each unit's codes dequantized with the intervals fused inside
+every forward step (``dequant_tree``, called by ``models.model.forward``:
+one launch per int8 leaf of a unit on the card).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.licensing import LicenseTier
-from repro_torch.kernels.ops import pack_intervals
+from repro_torch.kernels.ops import MAX_INTERVALS, pack_intervals
 
 # leaves excluded from quantization (precision- or structure-critical)
 _SKIP = ("norm", "bias", "router", "conv", "A_log", "dt_bias", "D_skip",
@@ -79,6 +82,53 @@ def requantize_layers(qparams: Any, new_flat: Dict[str, Any],
     return walk(qparams, "")
 
 
+def dequant_leaf(leaf: Any, lo: torch.Tensor, hi: torch.Tensor, dtype) -> Any:
+    """Fused dequant + license-interval mask of one int8 leaf (a unit's
+    slice inside the forward step): ``codes * scale`` in f32, zeroed where
+    ``lo[i] <= |w| < hi[i]``, cast to ``dtype``.  One
+    ``kernels.masked_dequant`` call: the kernel on the card, its plain
+    version on the CPU.  Anything else passes through."""
+    if not is_qleaf(leaf):
+        return leaf
+    from repro_torch.kernels.masked_dequant import masked_dequant
+
+    return masked_dequant(leaf["codes"], leaf["scale"], lo, hi, out_dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _no_intervals(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inert (lo, hi) for a tier that masks nothing, made once a device."""
+    z = torch.zeros(MAX_INTERVALS, dtype=torch.float32, device=device)
+    return z, z
+
+
+def dequant_tree(tree: Any, license_intervals, dtype) -> Any:
+    """Every int8 leaf of ``tree`` through :func:`dequant_leaf`.
+    ``license_intervals`` is a tier's (lo, hi) on the leaves' device
+    (:func:`tier_intervals`); ``None`` masks nothing.  On the CPU the
+    plain version is given the live slots (lo < hi) only: it loops over
+    the slots it gets, and the in-scan path runs it on every leaf of
+    every step."""
+    first = next(qleaves(tree), None)
+    if first is None:
+        return tree
+    device = first["codes"].device
+    lo, hi = _no_intervals(device) if license_intervals is None else license_intervals
+    if device.type == "cpu":
+        live = lo < hi
+        lo, hi = lo[live], hi[live]
+    return _map_qleaves(lambda leaf: dequant_leaf(leaf, lo, hi, dtype), tree)
+
+
+def qleaves(tree: Any):
+    """The int8 leaves of ``tree``, in order."""
+    if is_qleaf(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from qleaves(v)
+
+
 def _map_qleaves(fn, tree: Any) -> Any:
     if is_qleaf(tree):
         return fn(tree)
@@ -114,11 +164,15 @@ def materialize_licensed_view(qparams: Any, tier: Optional[LicenseTier],
     return _map_qleaves(dq, qparams)
 
 
-def tier_intervals(tier: Optional[LicenseTier]) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-    """Pack a tier's intervals for the fused dequant, copied as the JAX
-    package has it: the '*' intervals first, then every other pattern's,
-    merged into ONE global set (so on a tier with per-layer patterns the
-    int8 view masks more than ``apply_license`` does)."""
+def tier_intervals(tier: Optional[LicenseTier], device="cpu",
+                   ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Pack a tier's intervals for the fused dequant, on ``device``,
+    copied as the JAX package has it: the '*' intervals first, then every
+    other pattern's, merged into ONE global set (so on a tier with
+    per-layer patterns the int8 view masks more than ``apply_license``
+    does).  ``None`` for a tier that masks nothing.  One host-to-device
+    copy: the in-scan view packs once per (tier, version), never in a
+    step."""
     if tier is None or not tier.masks:
         return None
     ivs = list(tier.masks.get("*", ()))
@@ -127,4 +181,4 @@ def tier_intervals(tier: Optional[LicenseTier]) -> Optional[Tuple[torch.Tensor, 
             ivs.extend(v)
     if not ivs:
         return None
-    return pack_intervals(ivs)
+    return pack_intervals(ivs, device)

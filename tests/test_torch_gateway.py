@@ -4,9 +4,10 @@ One mixed-tier greedy request stream goes through
 ``repro.serving.LicensedGateway(prefix_cache=False, telemetry=False)``
 and through ``repro_torch.serving.LicensedGateway(prefix_cache=False)``
 on the same weights
-(carried across with ``params_from_jax``), in both view modes: float
-(``apply_license``) and the int8 store with materialized views (the
-fused masked-dequant).  Prompt lengths are not block multiples and the
+(carried across with ``params_from_jax``), in every view mode: float
+(``apply_license``), the int8 store with materialized views (the fused
+masked-dequant, built once) and the int8 store dequantized inside every
+step with the tier's intervals (``quantized=True``, the JAX default).  Prompt lengths are not block multiples and the
 pool is small enough to force preemption.  Greedy tokens must be
 IDENTICAL, and so must the scheduler's action sequence and counters —
 the two frameworks sum logits in different orders (~1e-6 apart in f32),
@@ -73,13 +74,18 @@ def _drain(gw):
     return reqs
 
 
-@pytest.fixture(scope="module", params=["float", "int8", "int8_already_quantized"])
+@pytest.fixture(scope="module",
+                params=["float", "int8", "int8_already_quantized", "int8_in_scan"])
 def streams(request, weights):
     """``int8_already_quantized``: each gateway is handed its package's
-    int8 store of the same weights (``already_quantized=True``)."""
+    int8 store of the same weights (``already_quantized=True``);
+    ``int8_in_scan``: ``quantized=True`` alone, each step dequantizing
+    the store's units with the tier's intervals."""
     jcfg, jparams, cfg, params = weights
     mode = ({} if request.param == "float"
             else dict(quantized=True, materialize_int8_views=True))
+    if request.param == "int8_in_scan":
+        mode = dict(quantized=True)
     if request.param == "int8_already_quantized":
         jparams = jax_quantize_serving_params(jparams)
         params = quantize_serving_params(params)
@@ -158,10 +164,8 @@ def test_block_allocator_guards_match_jax():
 
 def test_left_out_arguments_raise(weights):
     _, _, cfg, params = weights
-    for kw, item in ((dict(quantized=True), "in-scan int8 dequant"),
-                     (dict(lease_ttl_s=5.0), "lease")):
-        with pytest.raises(NotImplementedError, match=item):
-            LicensedGateway(cfg, params, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="lease"):
+        LicensedGateway(cfg, params, device="cpu", lease_ttl_s=5.0)
     with pytest.raises(ValueError, match="CUDA"):
         LicensedGateway(cfg, params, device="cpu", decode_kernels=True)
     # as in the JAX slot: a watermark leaving no room for one prefill

@@ -151,3 +151,43 @@ def test_paged_decode_matches_jax(weights, route):
                                    np.asarray(jcache["units"]["b0"][key])[:, 0, :null],
                                    atol=1e-5, rtol=1e-5)
     assert cache["units"]["b0"]["len"].tolist() == [[1] * b] * u
+
+
+# the free tier of the gateway tests, and a tier with two intervals
+IN_SCAN_TIERS = {"free": {"*": ((0.0, 0.01),)},
+                 "banded": {"*": ((0.0, 0.004), (0.02, 0.03))}}
+
+
+@pytest.mark.parametrize("tier", sorted(IN_SCAN_TIERS))
+def test_in_scan_int8_forward(weights, tier):
+    """``forward`` on the int8 store with a tier's ``license_intervals``
+    (each unit dequantized with the mask fused in, inside the step):
+    against the JAX ``forward`` on its own store of the same weights at
+    the float tolerance above, and bit for bit against the port's
+    ``forward`` on the tier's materialized view."""
+    from repro.core.licensing import LicenseTier as JaxLicenseTier
+    from repro.serving.quantized import quantize_serving_params as jax_quantize
+    from repro.serving.quantized import tier_intervals as jax_tier_intervals
+
+    from repro_torch.core.licensing import LicenseTier
+    from repro_torch.serving import quantized
+
+    jcfg, jparams, cfg, params = weights
+    masks = IN_SCAN_TIERS[tier]
+    toks = _tokens(6, (2, 9))
+    want, _, _ = jax_model.forward(
+        jax_quantize(jparams), jcfg, jnp.asarray(toks),
+        license_intervals=jax_tier_intervals(JaxLicenseTier(name=tier, masks=masks)))
+    store = quantized.quantize_serving_params(params)
+    lt = LicenseTier(name=tier, masks=masks)
+    got, _ = model.forward(store, cfg, torch.from_numpy(toks),
+                           license_intervals=quantized.tier_intervals(lt))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    view = quantized.materialize_licensed_view(store, lt, cfg.dtype)
+    mat, _ = model.forward(view, cfg, torch.from_numpy(toks))
+    assert torch.equal(got, mat)
+    # a tier that masks nothing: no intervals, the unmasked dequant
+    plain, _ = model.forward(store, cfg, torch.from_numpy(toks))
+    full, _ = model.forward(quantized.materialize_licensed_view(store, None, cfg.dtype),
+                            cfg, torch.from_numpy(toks))
+    assert torch.equal(plain, full) and not torch.equal(plain, got)

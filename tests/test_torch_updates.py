@@ -7,7 +7,8 @@ sync to the same v2 mid-stream.  Everything observable must agree:
 greedy tokens and pinned versions per request, the scheduler trace, the
 stager's stats (steps, parts, bytes, requantized layers, prewarmed
 views, wire counters), the view cache's counters and the client's
-downloaded bytes — in float and int8 (materialized views), with the
+downloaded bytes — in float and int8 (materialized views, and the
+in-scan dequant of the store with the tier's intervals), with the
 background fetch worker on and off.  The failure paths (an aborted
 staging, quarantine) and the atomic tier-and-version flip are replayed
 the same way.  The two frameworks sum logits in different orders
@@ -115,14 +116,16 @@ def _bits(x):
 
 
 @pytest.mark.parametrize("background_fetch", [True, False])
-@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("quantized", [False, True, "in_scan"])
 def test_midstream_staged_sync_matches_jax(tmp_path, weights, quantized,
                                            background_fetch):
     """Requests in flight across the sync stay on v1 with the JAX tokens;
     the flip lands on the same step with the hot tier prewarmed; a request
     after it is served on v2 through that view (no miss); the port's v1
-    tensors are untouched (copy-on-apply)."""
-    mode = dict(quantized=True, materialize_int8_views=True) if quantized else {}
+    tensors are untouched (copy-on-apply).  ``quantized``: materialized
+    int8 views (True) or the in-scan dequant ("in_scan")."""
+    mode = ({} if not quantized else dict(quantized=True) if quantized == "in_scan"
+            else dict(quantized=True, materialize_int8_views=True))
     pair = Pair(str(tmp_path / "lm.db"), weights, **mode)
     v1_params = {k: v.clone() for k, v in flatten_params(pair.tgw._client.params).items()}
     v1_refs = flatten_params(pair.tgw._client.params)
