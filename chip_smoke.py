@@ -98,7 +98,17 @@ Phases (each prints its own lines; any failure exits non-zero):
    one ``stager:<phase>`` span per stager step; their ``h_stager`` p50 /
    p99 / max (host clock, no synchronize) print beside the script's
    synchronized longest step.  The third step carrying a stage step runs
-   under ``torch.profiler`` as in phase 3;
+   under ``torch.profiler`` as in phase 3.  This gateway boots through
+   a kill-switch transport (every wire call times out while it is
+   down) on the host clock plus an offset the phase moves while the
+   gateway is idle, with ``lease_policy="floor"``; its lease state is
+   printed after the boot and after the flip, and after the sync the
+   lease walks healthy -> degraded -> offline -> healthy: a new tier
+   grant must be refused while degraded, a ``full`` request made offline
+   must be served as ``free`` with the tokens of a straight ``free``
+   request of the same prompt, the audit must hold the three lease
+   events, and ``degraded_seconds_total`` must be the offset span plus
+   the host time between the two ticks;
 6. the same sync on an int8 gateway with materialized views, at full
    width and a depth of 4 units (a second full-depth boot pull would
    cost the same host time again); its v2 int8 store must equal
@@ -111,6 +121,29 @@ Phases (each prints its own lines; any failure exits non-zero):
    teacher-forced 64-token prompts, the tier re-evaluated, its float view
    in a gateway held bit for bit against ``apply_license``, and the
    shared-prefix stream served in it with the prefix cache;
+7b. the fleet on phase 3's weights: a ``FleetGateway`` with two slots,
+   float views and the in-scan int8 dequant, each serving phase 3's
+   stream.  Each fleet run has its own launch window (counters zeroed
+   just before its first submission, read just after its drain): every
+   slot's decode steps must all be graph replays, and the wrappers'
+   counts must be what the slots' capture warm-ups and in-scan prefill
+   chunks give, each of ``paged_attention``, ``paged_decode_write`` and
+   ``masked_dequant`` above 0.  (a) without a budget, each slot's greedy
+   tokens must equal phase 3's float stream and phase 3c's in-scan
+   stream; then both slots are brought to a steady decode and 8 fleet
+   steps profiled, whose device trace must show each slot's decode
+   kernels (as in phase 3); the same streams then run on two isolated
+   gateways back to back, timed and instrumented as run (a) is (their
+   launches kept apart; tokens/s of both and their ratio printed, one
+   run against one).  (b) under a cache budget of 40 blocks, each slot's
+   stream in two waves, the bytes in use must stay within the budget
+   after every fleet step, retained chains of one slot must be evicted
+   for the other, every request must finish, tokens may part from (a)
+   only at near-ties (phase 4's rule), and three tenants (a rate limit,
+   an entitlement revoked while two requests queue, a zero quota) must
+   end with the expected counts and nothing in flight.  Captures,
+   graph pools, evictions, preemptions and the fleet's ``metrics()``
+   are printed;
 8. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
@@ -953,14 +986,17 @@ PROMPT_LENS = [23, 64, 37, 50, 9, 61, 17, 44, 30, 58, 12, 40]
 GEOMETRY = dict(max_batch=8, max_prompt=64, max_new_cap=32)
 
 
-def submit_all(gw, cfg, np):
+def stream_jobs(cfg, np):
+    """(prompt, tier, max_new_tokens) of the serving stream, from ``SEED``."""
     rng = np.random.default_rng(SEED)
-    reqs = []
-    for i, n in enumerate(PROMPT_LENS):
-        prompt = rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
-        reqs.append(gw.submit(prompt, license="free" if i % 2 else "full",
-                              max_new_tokens=16 + (i % 3) * 8))
-    return reqs
+    return [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32),
+             "free" if i % 2 else "full", 16 + (i % 3) * 8)
+            for i, n in enumerate(PROMPT_LENS)]
+
+
+def submit_all(gw, cfg, np):
+    return [gw.submit(p, license=tier, max_new_tokens=new)
+            for p, tier, new in stream_jobs(cfg, np)]
 
 
 def serve(label, gw, cfg, np, torch):
@@ -1171,14 +1207,22 @@ TRACE_KERNELS = {"paged_attention": "paged_attention_split_kernel",
                  "paged_attention_combine": "paged_attention_combine_kernel",
                  "paged_decode_write": "paged_decode_write_kernel",
                  "masked_dequant": "masked_dequant_"}
+# marker kernels a profile launches before its window.  Late in the
+# script a trace can lack the first device records of its session (phase
+# 7b's first graph replay lacked its first kernels, PERF.md section 6);
+# the last marker's record, which must be in the trace, shows the window
+# clear of that loss
+PROFILE_LEAD_IN = 1024
 
 
 def profile_window(label, fn, torch, steps):
     """Run ``fn`` (``steps`` scheduler steps, then a synchronize) under
     torch.profiler with CPU and CUDA activities.  Returns the window's
     length, the union of its device intervals (kernels, copies, sets) as
-    a share of it, kernel launches per step and the five kernels with
-    the most device time; None when the trace holds no device events."""
+    a share of it, kernel launches per step, the five kernels with the
+    most device time and the port's kernels among those the window's
+    CUDA calls launched; None when the trace holds no device events.
+    Fails when the trace lost the last of the lead-in's marker kernels."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     out_dir = ROOT / "build" / "profiles"
@@ -1186,6 +1230,11 @@ def profile_window(label, fn, torch, steps):
     path = out_dir / f"{label}.json"
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke_lead_in"):
+            mark = torch.zeros(1, device="cuda")
+            for _ in range(PROFILE_LEAD_IN):
+                mark.add_(1)
+            sync()
         with record_function("chip_smoke_window"):
             fn()
             sync()
@@ -1202,8 +1251,32 @@ def profile_window(label, fn, torch, steps):
         return None
     lo = float(win[0]["ts"])
     hi = lo + float(win[0]["dur"])
-    busy = busy_union([(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev], lo, hi)
-    kernels = [e for e in dev if e["cat"] == "kernel"]
+    lead = [e for e in xs if e.get("name") == "chip_smoke_lead_in"
+            and e.get("cat") == "user_annotation"]
+
+    def calls_in(a, b):
+        return [e for e in xs if e.get("cat", "").startswith("cuda_")
+                and a <= float(e["ts"]) <= b]
+
+    def launched(calls):
+        """The device records of ``calls`` (a graph's kernels carry its
+        launch's correlation id)."""
+        ids = {e.get("args", {}).get("correlation") for e in calls}
+        return [e for e in dev if e.get("args", {}).get("correlation") in ids]
+
+    marks = sorted((e for e in calls_in(float(lead[0]["ts"]), float(lead[0]["ts"])
+                                        + float(lead[0]["dur"])) if "Launch" in e["name"]),
+                   key=lambda e: float(e["ts"])) if lead else []
+    if not marks or not launched(marks[-1:]):
+        fail(f"profile {label}: the trace lost the last of the lead-in's "
+             f"{PROFILE_LEAD_IN} marker kernels, so it may have cut the window's start")
+    lost = len(marks) - len(launched(marks))
+    # the window's own records: one the trace holds from before it is not
+    # the window's
+    mine = launched(calls_in(lo, hi))
+    busy = busy_union([(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in mine],
+                      lo, hi)
+    kernels = [e for e in mine if e["cat"] == "kernel"]
     # the host's launch calls (CUDA API events), CUDA graph replays among them
     calls = [e["name"] for e in xs if e.get("cat", "").startswith("cuda_")
              and "Launch" in e["name"] and lo <= float(e["ts"]) <= hi]
@@ -1222,8 +1295,9 @@ def profile_window(label, fn, torch, steps):
                kernel_launches_per_step=len(kernels) / steps,
                host_launch_calls_per_step=len(calls) / steps,
                graph_launches_per_step=sum("Graph" in c for c in calls) / steps,
-               copies_and_sets_per_step=(len(dev) - len(kernels)) / steps,
+               copies_and_sets_per_step=(len(mine) - len(kernels)) / steps,
                port_kernels=port,
+               records_not_from_window=len(dev) - len(mine), lead_in_lost=lost,
                kernel_ms_per_step=sum(float(e["dur"]) for e in kernels) / 1e3 / steps,
                top_kernels=[dict(name=n[:120], ms=t / 1e3, launches=c)
                             for n, (t, c) in top],
@@ -1236,8 +1310,9 @@ def profile_window(label, fn, torch, steps):
         f"{out['copies_and_sets_per_step']:.0f} copies/sets per step on the device from "
         f"{out['host_launch_calls_per_step']:.1f} launch calls of the host "
         f"({out['graph_launches_per_step']:.1f} of them CUDA graph launches), kernel time "
-        f"{out['kernel_ms_per_step']:.2f} ms per step; the port's kernels in the window: "
-        f"{port}")
+        f"{out['kernel_ms_per_step']:.2f} ms per step; the port's kernels launched from the "
+        f"window: {port} ({out['records_not_from_window']} device records in the trace "
+        f"were not; of the lead-in's {len(marks)} marker kernels the trace lost {lost})")
     for title, rows in (("most device time", out["top_kernels"]),
                         ("most launches", out["most_launched"])):
         log(f"    the five kernels with the {title} (ms over the window, launches):")
@@ -1280,30 +1355,35 @@ def decode_profile(gw, cfg, np, torch, steps=8, label="decode_steps"):
             f"{prof['device_busy_ms'] / steps:.2f} ms a step is "
             f"{100 * prof['busy_share_of_unprofiled']:.1f}% of that")
         prof["warmups_in_window"] = warmups
-        check_trace_launches(label, gw, cfg, prof, steps + warmups)
+        check_trace_launches(label, cfg, prof, [(gw, steps + warmups)])
     return prof
 
 
-def check_trace_launches(label, gw, cfg, prof, runs):
-    """Fail unless the device trace of a window that ran the decode step
-    ``runs`` times (its steps, and the warm-ups of graphs captured in it)
-    shows ``paged_attention``'s split kernel and ``paged_decode_write``
-    once a layer of each, and ``masked_dequant`` once per int8 leaf of
-    every unit of each on the in-scan path (never elsewhere).  Through
-    CUDA graphs this is the only count of what the replays launched."""
+def check_trace_launches(label, cfg, prof, runs):
+    """Fail unless the device trace of a window in which each gateway of
+    ``runs`` (gateway, count) ran the decode step ``count`` times (its
+    steps, and the warm-ups of graphs captured in it) shows
+    ``paged_attention``'s split kernel and ``paged_decode_write`` once a
+    layer of each, and ``masked_dequant`` once per int8 leaf of every
+    unit of each on the in-scan path (never elsewhere).  Through CUDA
+    graphs this is the only count of what the replays launched."""
     from repro_torch.serving.quantized import qleaves
 
     units = cfg.pattern_units
-    in_scan = gw.quantized and not gw.materialize_int8_views
-    leaves = sum(1 for _ in qleaves(gw._weights[gw.version]["units"])) if in_scan else 0
-    want = dict(paged_attention=units * runs, paged_decode_write=units * runs,
-                masked_dequant=leaves * units * runs)
+    want = dict(paged_attention=0, paged_decode_write=0, masked_dequant=0)
+    for gw, n in runs:
+        in_scan = gw.quantized and not gw.materialize_int8_views
+        leaves = sum(1 for _ in qleaves(gw._weights[gw.version]["units"])) if in_scan else 0
+        want["paged_attention"] += units * n
+        want["paged_decode_write"] += units * n
+        want["masked_dequant"] += leaves * units * n
+    total = sum(n for _, n in runs)
     got = {k: prof["port_kernels"][k] for k in want}
     if got != want:
-        fail(f"profile {label}: the trace shows {got} kernels in {runs} runs of the decode "
+        fail(f"profile {label}: the trace shows {got} kernels in {total} runs of the decode "
              f"step, which give {want}")
-    log(f"  profile {label}: the trace shows the kernels of {runs} decode steps "
-        f"({prof['steps']} steps, {runs - prof['steps']} warm-ups): {got}, "
+    log(f"  profile {label}: the trace shows the kernels of {total} decode steps "
+        f"({prof['steps']} steps, {total - prof['steps']} warm-ups): {got}, "
         f"combines {prof['port_kernels']['paged_attention_combine']}")
 
 
@@ -1521,26 +1601,26 @@ def prefix_run(label, gw, stream, np, tier=None):
     return reqs, rows, out
 
 
-def near_ties(label, reqs, ref_reqs, rows, ref_rows, vocab):
-    """Greedy tokens of ``reqs`` against the cold run's: identical, or
-    each request's first parting a near-tie by phase 4's rule (the cold
-    run's gap between the two tokens below the lane's max |logit diff|,
-    and that diff within 0.05 x max(|logit|, 1) of the cold row)."""
+def near_ties(label, reqs, ref_reqs, rows, ref_rows, vocab, ref="the cold run"):
+    """Greedy tokens of ``reqs`` against ``ref``'s (``ref_reqs``):
+    identical, or each request's first parting a near-tie by phase 4's
+    rule (the reference's gap between the two tokens below the lane's max
+    |logit diff|, and that diff within 0.05 x max(|logit|, 1) of the
+    reference row)."""
     parts = stream_parts(reqs, ref_reqs, rows, ref_rows, vocab)
     split = [p for p in parts if p["step"] is not None]
     for p in split:
         p["tol"] = 0.05 * max(p["plain_max_abs"], 1.0)
-        log(f"  {label}: request {p['request']} parts from the cold run at step "
-            f"{p['step']}: token {p['kernel_token']} vs {p['plain_token']}; cold gap "
+        log(f"  {label}: request {p['request']} parts from {ref} at step "
+            f"{p['step']}: token {p['kernel_token']} vs {p['plain_token']}; reference gap "
             f"{p['plain_gap']:.4f}, lane max |logit diff| {p['lane_max_abs_diff']:.4f} "
             f"(tol {p['tol']:.4f})")
     wide = [p["request"] for p in split
             if not (p["plain_gap"] < p["lane_max_abs_diff"] <= p["tol"])]
     if wide:
-        fail(f"{label}: requests {wide} part from the cold run at a step that is not "
-             f"a near-tie")
+        fail(f"{label}: requests {wide} part from {ref} at a step that is not a near-tie")
     same = sum(p["step"] is None for p in parts)
-    log(f"  {label}: greedy tokens identical to the cold run on {same}/{len(parts)} "
+    log(f"  {label}: greedy tokens identical to {ref}'s on {same}/{len(parts)} "
         f"requests, every parting a near-tie")
     return parts
 
@@ -1700,6 +1780,402 @@ def calibration_phase(cfg, params, np, torch, device="cuda"):
     return out
 
 
+# ------------------------------------------------------------ phase 7b
+# the fleet: two licensed models behind one FleetGateway on phase 3's
+# weights, each a slot with GEOMETRY serving phase 3's stream: float views
+# (tiers full and free) and the int8 store dequantized inside every step;
+# (a) without a budget, (b) under a budget of FLEET_BUDGET_BLOCKS blocks
+# (the two pools hold 96), the stream in two waves a slot so the first
+# wave's retained prompt chains are there to reclaim, with three tenants
+FLEET_SLOTS = {"qwen-float": {}, "qwen-int8": dict(quantized=True)}
+FLEET_BUDGET_BLOCKS = 40
+FLEET_WAVE = 6                          # requests a slot in the first wave
+# the tenants of run (b): the stream under "open" (both streams' 24
+# requests are its burst, so one more is rate-limited), "narrow" on the
+# int8 slot's free tier alone, revoked while two of its requests queue,
+# and "broke" with no quota
+FLEET_TENANTS = {"open": dict(entitlements=("*:*",), rate=1e-3, burst=24.0),
+                 "narrow": dict(entitlements=("qwen-int8:free",), max_concurrent=4),
+                 "broke": dict(max_concurrent=0)}
+PORT_EXTRA = ("decode_path.kernels",)   # the port's key beside the JAX schema
+
+
+def fleet_build(cfg, params, tiers, device, **kw):
+    """A FleetGateway with the two slots, each slot's views built first
+    (as phase 3 does), so the timed runs hold no view build."""
+    from repro_torch.serving import FleetGateway
+
+    fleet = FleetGateway(**kw)
+    for name, mode in FLEET_SLOTS.items():
+        fleet.add_model(name, cfg, params, tiers=tiers, device=device, **mode, **GEOMETRY)
+    for gw in fleet.gateways.values():
+        for tier in ("full", "free"):
+            gw.view_for(tier)
+    return fleet
+
+
+def cross_evictions(fleet):
+    """Count retained blocks that ``_ensure_headroom`` evicted from each
+    slot while another slot asked for room: wrap the fleet's hook (to
+    know who asks) and each slot's ``PrefixCache.evict``."""
+    asking, got = [], {name: 0 for name in fleet.gateways}
+    ensure = fleet._ensure_headroom
+
+    def ensure_headroom(gw, n):
+        asking.append(gw.model)
+        try:
+            return ensure(gw, n)
+        finally:
+            asking.pop()
+
+    fleet._ensure_headroom = ensure_headroom
+    for name, gw in fleet.gateways.items():
+        evict = gw.prefix.evict
+
+        def counted(n, evict=evict, name=name):
+            freed = evict(n)
+            if asking and asking[-1] != name:
+                got[name] += freed
+            return freed
+        gw.prefix.evict = counted
+    return got
+
+
+class FleetTenants:
+    """Run (b)'s tenant script.  Before the first wave: narrow's
+    ``full`` request (not entitled), broke's request (no quota) and
+    narrow's first two requests, the int8 slot's oldest (so no
+    preemption, which requeues the youngest, takes them back to the
+    queue).  Once both are past the queue: narrow's next two (queued), a
+    fifth (over its quota of 4), then the revocation.  After the second
+    wave's submissions: open's 25th request (rate-limited)."""
+
+    def __init__(self, fleet, cfg, np):
+        self.fleet = fleet
+        rng = np.random.default_rng(SEED + 7)
+        self.prompts = [rng.integers(0, cfg.vocab_size, 20 + 5 * i, dtype=np.int32)
+                        for i in range(5)]
+        self.rejected = {}
+        self.narrow = []
+        self.revoked = False
+
+    def _submit(self, model, tenant, tier, prompt):
+        return self.fleet.submit(model, prompt, tenant=tenant, license=tier, max_new_tokens=16)
+
+    def before_wave(self, wave):
+        if wave == 0:
+            self.rejected["narrow full"] = self._submit("qwen-int8", "narrow", "full",
+                                                        self.prompts[0])
+            self.rejected["broke"] = self._submit("qwen-float", "broke", "free",
+                                                  self.prompts[0])
+            self.narrow = [self._submit("qwen-int8", "narrow", "free", self.prompts[i])
+                           for i in range(2)]
+
+    def after_submit(self, wave):
+        if wave == 1:
+            self.rejected["open rate"] = self._submit("qwen-float", "open", "full",
+                                                      self.prompts[0])
+
+    def after_step(self):
+        if self.revoked or any(r.state.value == "queued" for r in self.narrow[:2]):
+            return
+        self.narrow += [self._submit("qwen-int8", "narrow", "free", self.prompts[i])
+                        for i in (2, 3)]
+        self.rejected["narrow quota"] = self._submit("qwen-int8", "narrow", "free",
+                                                     self.prompts[4])
+        self.states_at_revoke = [r.state.value for r in self.narrow]
+        self.fleet.tenants.revoke("narrow", "qwen-int8", "free")
+        self.revoked = True
+
+    def check(self, label):
+        want = {"narrow full": "not entitled", "broke": "quota", "open rate": "rate-limited",
+                "narrow quota": "quota"}
+        for key, text in want.items():
+            r = self.rejected[key]
+            if r.state.value != "rejected" or text not in (r.error or ""):
+                fail(f"{label}: {key} request {r.state.value} ({r.error}), expected a "
+                     f"rejection for {text!r}")
+        if not self.revoked or self.states_at_revoke[2:] != ["queued", "queued"] \
+                or "queued" in self.states_at_revoke[:2]:
+            fail(f"{label}: narrow's requests at the revocation "
+                 f"{getattr(self, 'states_at_revoke', None)}: expected two past the queue, "
+                 f"two queued")
+        got = [(r.state.value, r.preemptions, r.error) for r in self.narrow]
+        if [g[:2] for g in got] != [("done", 0), ("done", 0), ("rejected", 0),
+                                     ("rejected", 0)] or \
+                not all("revoked while queued" in (e or "") for _, _, e in got[2:]):
+            fail(f"{label}: narrow's requests ended {got}: the two running must drain, "
+                 f"the two queued be rejected at batch formation")
+        stats = self.fleet.tenants.stats()
+        tokens = sum(len(r.out_tokens) for r in self.narrow)
+        want = {"open": (25, 24, 24, 1), "narrow": (6, 4, 2, 4), "broke": (1, 0, 0, 1)}
+        for name, (sub, adm, done, rej) in want.items():
+            s = stats[name]
+            if (s["submitted"], s["admitted"], s["completed"], s["quota_rejections"],
+                    s["inflight"]) != (sub, adm, done, rej, 0):
+                fail(f"{label}: tenant {name} {s}, expected submitted {sub}, admitted "
+                     f"{adm}, completed {done}, quota_rejections {rej}, inflight 0")
+        if stats["narrow"]["tokens_generated"] != tokens:
+            fail(f"{label}: narrow's tokens {stats['narrow']['tokens_generated']} != {tokens}")
+        return stats
+
+
+def fleet_launch_check(label, fleet, cfg, launches):
+    """The wrappers' counts of one fleet run (``launches``) against what
+    its slots ran eagerly.  Every decode step of a slot must have been a
+    graph replay, so ``paged_attention`` and ``paged_decode_write``
+    launch once a layer of each capture's warm-up, and ``masked_dequant``
+    once per int8 leaf of every unit of the in-scan slot's warm-ups and
+    prefill chunks (as phase 3c counts them); each of the three must
+    have launched."""
+    from repro_torch.serving.quantized import qleaves
+
+    units = cfg.pattern_units
+    want = dict(paged_attention=0, paged_decode_write=0, masked_dequant=0)
+    for name, gw in fleet.gateways.items():
+        g = gw._graphs
+        decodes = gw.stats["resident_decode_steps"]
+        if g is None or not 0 < g.replays == decodes:
+            fail(f"{label}: {name} ran {decodes} decode steps through "
+                 f"{None if g is None else g.replays} graph replays")
+        leaves = sum(1 for _ in qleaves(gw._weights[gw.version]["units"])) * units
+        want["paged_attention"] += units * g.captures
+        want["paged_decode_write"] += units * g.captures
+        want["masked_dequant"] += leaves * (g.captures + gw.stats["prefill_chunks"])
+    got = {k: launches[k] for k in want}
+    if got != want or not all(got.values()):
+        fail(f"{label}: launches {got}, the slots' warm-ups and prefill chunks give {want}; "
+             f"each of the three must launch")
+    log(f"  {label}: launches {got}, as the slots' warm-ups and in-scan prefill chunks "
+        f"give; every decode step a graph replay")
+
+
+def fleet_run(label, fleet, cfg, np, *, waves, budget=None, tenants=None):
+    """Serve phase 3's stream on every slot of ``fleet`` in ``waves``
+    (index ranges of the stream), each wave submitted slot by slot and
+    drained; with ``budget``, the bytes in use must stay within it after
+    every step.  The launch counters are zeroed just before the first
+    submission and read just after the last drain (fleet_launch_check);
+    only the stepping is timed, each wave from after its submissions to
+    a synchronize.  Returns each slot's requests, their logits rows and
+    a summary."""
+    from repro_torch.kernels import ops
+
+    jobs = stream_jobs(cfg, np)
+    rows = {name: record_rows(gw) for name, gw in fleet.gateways.items()}
+    reqs = {name: [] for name in fleet.gateways}
+    steps, most, dt = 0, 0, 0.0
+    tenant = "open" if tenants is not None else None
+    ops.reset_launches()
+    for w, (lo, hi) in enumerate(waves):
+        if tenants is not None:
+            tenants.before_wave(w)
+        for prompt, tier, new in jobs[lo:hi]:
+            for name in fleet.gateways:
+                reqs[name].append(fleet.submit(name, prompt, license=tier,
+                                               max_new_tokens=new, tenant=tenant))
+        if tenants is not None:
+            tenants.after_submit(w)
+        t0 = time.perf_counter()
+        while True:
+            act = fleet.step()
+            steps += 1
+            used = fleet.used_cache_bytes()
+            most = max(most, used)
+            if budget is not None and used > budget:
+                fail(f"{label}: {used} cache bytes in use after step {steps}, over the "
+                     f"budget of {budget}")
+            if tenants is not None:
+                tenants.after_step()
+            if act is None:
+                break
+        sync()
+        dt += time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    bad = {name: [r.rid for r in rs if r.state.value != "done"
+                  or len(r.out_tokens) != r.max_new_tokens] for name, rs in reqs.items()}
+    if any(bad.values()):
+        fail(f"{label}: requests {bad} did not finish")
+    m = fleet.metrics()
+    tokens = m["fleet"]["tokens_generated"]
+    out = dict(serve_s=dt, steps=steps, tokens=tokens, tokens_per_s=tokens / dt,
+               ms_per_step=1e3 * dt / steps, most_cache_bytes=most, fleet=m["fleet"],
+               launches=launches, slots={})
+    for name, gw in fleet.gateways.items():
+        mm = m["models"][name]
+        out["slots"][name] = dict(
+            tokens=mm["tokens_generated"], decode_steps=mm["decode_steps"],
+            prefill_chunks=mm["prefill_chunks"], preempted=mm["preempted"],
+            evicted_blocks=mm["prefix_cache"]["evicted_blocks"],
+            max_blocks_in_use=mm["max_blocks_in_use"],
+            captures=gw._graphs.captures if gw._graphs is not None else None,
+            replays=gw._graphs.replays if gw._graphs is not None else None,
+            graph_pool_gb=(gw._graphs.backend.pool_bytes() / 1e9
+                           if gw._graphs is not None else None))
+    log(f"  {label}: {sum(len(r) for r in reqs.values())} requests, {tokens} tokens in "
+        f"{dt:.2f} s ({out['tokens_per_s']:.1f} tokens/s, {out['ms_per_step']:.1f} ms per "
+        f"fleet step over {steps}); most cache bytes in use {most}")
+    for name, sl in out["slots"].items():
+        log(f"  {label}: {name}: {sl}")
+    fleet_launch_check(label, fleet, cfg, launches)
+    return reqs, rows, out
+
+
+def fleet_profile(label, fleet, cfg, np, torch, steps=8):
+    """Bring phase 3's stream on every slot of ``fleet`` to a steady
+    decode (every lane of every slot decoding, nothing prefilling), time
+    ``steps`` fleet steps (host clock, ending in a synchronize), then
+    profile the next ``steps``: the device trace must show the kernels
+    of each slot's decode steps in the window and of the graphs captured
+    in it.  Leaves the streams mid-flight."""
+    gws = fleet.gateways
+    for gw in gws.values():
+        gw.__dict__.pop("_sample", None)       # drop record_rows's per-step copy
+    for prompt, tier, new in stream_jobs(cfg, np):
+        for name in gws:
+            fleet.submit(name, prompt, license=tier, max_new_tokens=new)
+    while not all(len(gw.scheduler.running) == gw.max_lanes and all(
+            r.state.value == "running" for r in gw.scheduler.running) for gw in gws.values()):
+        if fleet.step() is None:
+            fail(f"profile {label}: the streams drained before every lane decoded")
+    acts = []
+    sync()
+    t0 = time.perf_counter()
+    acts.extend(fleet.step() for _ in range(steps))
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / steps
+    captures = {name: gw._graphs.captures for name, gw in gws.items()}
+    prof = profile_window(label, lambda: acts.extend(fleet.step() for _ in range(steps)),
+                          torch, steps)
+    kinds = [None if a is None else (a.model, a.kind) for a in acts]
+    if any(k is None or k[1] != "decode" for k in kinds):
+        fail(f"profile {label}: the windows ran {kinds}, not {2 * steps} decode steps")
+    if prof is None:
+        fail(f"profile {label}: the profile holds no device trace, so the slots' decode "
+             f"steps' kernels cannot be counted")
+    by_slot = {name: sum(a.model == name for a in acts[steps:]) for name in gws}
+    warmups = {name: gw._graphs.captures - captures[name] for name, gw in gws.items()}
+    check_trace_launches(label, cfg, prof, [(gw, by_slot[name] + warmups[name])
+                                            for name, gw in gws.items()])
+    prof.update(unprofiled_ms_per_step=plain_ms, decode_steps_by_slot=by_slot,
+                warmups_in_window=warmups,
+                busy_share_of_unprofiled=prof["device_busy_ms"] / steps / plain_ms)
+    log(f"  profile {label}: {steps} unprofiled fleet steps before it took {plain_ms:.2f} ms "
+        f"each (host clock, synchronized); the window's decode steps by slot {by_slot}; "
+        f"the profiled device time {prof['device_busy_ms'] / steps:.2f} ms a step is "
+        f"{100 * prof['busy_share_of_unprofiled']:.1f}% of that")
+    return prof
+
+
+def fleet_phase(cfg, params, tiers, np, torch, want_tokens, device="cuda"):
+    """Phase 7b: the fleet's runs (a) and (b) and the isolated pair;
+    ``want_tokens`` are phase 3's float stream and phase 3c's in-scan
+    stream.  Returns a summary."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (LicensedGateway, TenantRegistry,
+                                     validate_chrome_trace, validate_fleet_metrics)
+
+    want = dict(zip(FLEET_SLOTS, (want_tokens["float"], want_tokens["in_scan"])))
+    out = {}
+    fleet = fleet_build(cfg, params, tiers, device)
+    got_a = fleet_run("7b (a) no budget", fleet, cfg, np, waves=[(0, len(PROMPT_LENS))])
+    for name, reqs in got_a[0].items():
+        if [r.out_tokens for r in reqs] != want[name]:
+            fail(f"7b (a): {name}'s greedy tokens differ from its isolated stream's "
+                 f"(phase 3 / 3c)")
+    log("  7b (a): each slot's greedy tokens equal phase 3's float stream and phase 3c's "
+        "in-scan stream")
+    out["a_no_budget"] = got_a[2]
+    # a steady decode of both slots under the profiler: the device trace
+    # counts what the slots' graph replays ran
+    out["a_no_budget"]["decode_profile"] = fleet_profile("7b_fleet_decode", fleet, cfg, np,
+                                                         torch)
+    block_bytes = fleet.gateways["qwen-float"].pool.block_bytes
+    pool_blocks = sum(g.pool.num_blocks for g in fleet.gateways.values())
+    del fleet
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the same two streams on two isolated gateways, back to back, timed
+    # as run (a) is: views built first, logits rows recorded, from after
+    # the submissions to a synchronize
+    iso = {"serve_s": 0.0, "tokens": 0, "steps": 0}
+    ops.reset_launches()
+    for name, mode in FLEET_SLOTS.items():
+        gw = LicensedGateway(cfg, params, tiers=tiers, model=name, device=device,
+                             **mode, **GEOMETRY)
+        for tier in ("full", "free"):
+            gw.view_for(tier)
+        rows = record_rows(gw)
+        reqs = submit_all(gw, cfg, np)
+        t0 = time.perf_counter()
+        gw.run()
+        sync()
+        iso["serve_s"] += time.perf_counter() - t0
+        if [r.out_tokens for r in reqs] != want[name]:
+            fail(f"7b isolated {name}: greedy tokens differ from phase 3 / 3c")
+        iso["tokens"] += gw.stats["tokens_generated"]
+        iso["steps"] += gw.stats["decode_steps"] + gw.stats["prefill_chunks"]
+        del gw, reqs, rows
+        gc.collect()
+    iso["launches"] = dict(ops.LAUNCHES)
+    iso["tokens_per_s"] = iso["tokens"] / iso["serve_s"]
+    iso["ms_per_step"] = 1e3 * iso["serve_s"] / iso["steps"]
+    a = out["a_no_budget"]
+    out["isolated_pair"] = iso
+    out["throughput_ratio"] = a["tokens_per_s"] / iso["tokens_per_s"]
+    log(f"  7b: fleet (a) {a['tokens_per_s']:.1f} tokens/s, {a['ms_per_step']:.1f} ms per "
+        f"step; the two isolated gateways back to back {iso['tokens_per_s']:.1f} tokens/s, "
+        f"{iso['ms_per_step']:.1f} ms per step; ratio {out['throughput_ratio']:.3f}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # run (b): the byte budget, two waves a slot, the tenants
+    budget = FLEET_BUDGET_BLOCKS * block_bytes
+    registry = TenantRegistry(clock=time.perf_counter)
+    fleet = fleet_build(cfg, params, tiers, device, cache_budget_bytes=budget,
+                        tenants=registry)
+    for name, kw in FLEET_TENANTS.items():
+        registry.register(name, **kw)
+    cross = cross_evictions(fleet)
+    tenants = FleetTenants(fleet, cfg, np)
+    reqs_b, rows_b, b = fleet_run(
+        f"7b (b) budget {FLEET_BUDGET_BLOCKS} x {block_bytes} bytes", fleet, cfg, np,
+        waves=[(0, FLEET_WAVE), (FLEET_WAVE, len(PROMPT_LENS))], budget=budget,
+        tenants=tenants)
+    b.update(budget_bytes=budget, block_bytes=block_bytes, pool_blocks=pool_blocks,
+             cross_slot_evicted_blocks=cross)
+    if not sum(cross.values()) > 0:
+        fail(f"7b (b): no retained chain of one slot was evicted for the other: {cross}")
+    b["tenants"] = tenants.check("7b (b)")
+    m = fleet.metrics()
+    try:
+        validate_fleet_metrics(m, extra=PORT_EXTRA)
+        validate_chrome_trace(fleet.chrome_trace())
+    except (AssertionError, ValueError) as e:
+        fail(f"7b (b): fleet metrics() or chrome_trace() off schema: {e}")
+    if m["fleet"]["quota_rejections"] != 6:
+        fail(f"7b (b): fleet quota_rejections {m['fleet']['quota_rejections']}, expected 6")
+    b["audit"] = {ev: len(fleet.audit_events(ev))
+                  for ev in ("tenant_register", "quota_reject", "tenant_reject")}
+    log(f"  7b (b): budget {budget} bytes ({FLEET_BUDGET_BLOCKS} of the pools' "
+        f"{pool_blocks} blocks), never exceeded; blocks evicted for the other slot "
+        f"{cross}; tenants {json.dumps(b['tenants'])}; audit {b['audit']}")
+    log(f"  7b (b): fleet metrics {json.dumps(m['fleet'])}")
+    b["parts"] = {}
+    for name in FLEET_SLOTS:
+        b["parts"][name] = near_ties(f"7b (b) {name}", reqs_b[name], got_a[0][name],
+                                     rows_b[name], got_a[1][name], cfg.vocab_size,
+                                     ref="run (a)")
+    out["b_budget"] = b
+    del fleet, got_a, reqs_b, rows_b, tenants
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------ phase 5 / 6
 def tree_map(fn, tree):
     if isinstance(tree, dict):
@@ -1776,13 +2252,123 @@ class Timed:
         self._undo = []
 
 
+# the lease walk of phase 5: its gateway boots through a kill-switch
+# transport on a clock the phase moves (the host clock plus an offset,
+# advanced only while the gateway is idle), with the floor policy
+PRO_TIER = {"*": ((0.0, 0.02),)}
+LEASE_PROMPT = 40
+
+
+class OffsetClock:
+    """The host clock plus ``offset`` seconds."""
+
+    def __init__(self):
+        self.offset = 0.0
+
+    def __call__(self):
+        return time.perf_counter() + self.offset
+
+
+def kill_switch(server):
+    """The port's ``DirectTransport`` to ``server`` with a kill switch:
+    every call times out while ``down``."""
+    from repro_torch.core.transport import DirectTransport, TransportTimeout
+
+    class KillSwitch(DirectTransport):
+        down = False
+
+        def _call(self, op, thunk):
+            if self.down:
+                raise TransportTimeout(f"{op}: server unreachable")
+            return super()._call(op, thunk)
+
+    return KillSwitch(server)
+
+
+def lease_walk(label, gw, tr, clock, server, np):
+    """Walk the lease HEALTHY -> DEGRADED -> OFFLINE -> HEALTHY: the
+    server goes dark and the clock's offset moves past the ttl, then the
+    grace; a new tier grant must be refused while degraded; offline, a
+    ``full`` request is served as ``free`` with the tokens of a straight
+    ``free`` request of the same prompt; the server comes back and the
+    probe restores the lease.  ``degraded_seconds_total`` must be the
+    offset advanced between the degrade and the restore ticks plus the
+    host time between them (bracketed by the host clock)."""
+    from repro_torch.core.licensing import LicenseTier
+
+    def state():
+        return gw.metrics()["lease"]["state"]
+
+    gw.step()                                 # a probe heals an idle lapse
+    if state() != "healthy":
+        fail(f"{label}: the lease is {state()} before the walk, with the server up")
+    n0 = len(gw.audit_events())
+    tr.down = True
+    clock.offset += gw.lease_ttl_s + 1.0
+    t_deg = (clock(), None)
+    gw.step()
+    t_deg = (t_deg[0], clock())
+    if state() != "degraded":
+        fail(f"{label}: {state()} past the ttl with the server down, not degraded")
+    server.publish_tier("lm", LicenseTier(name="pro", masks=PRO_TIER))
+    prompt = np.random.default_rng(SEED + 8).integers(0, gw.cfg.vocab_size, LEASE_PROMPT,
+                                                      dtype=np.int32)
+    pro = gw.submit(prompt, license="pro", max_new_tokens=16)
+    if pro.state.value != "rejected" or "refusing new tier grant" not in (pro.error or ""):
+        fail(f"{label}: a new tier grant while degraded was {pro.state.value} "
+             f"({pro.error})")
+    clock.offset += gw.lease_grace_s
+    offset_span = gw.lease_grace_s
+    gw.step()
+    if state() != "offline":
+        fail(f"{label}: {state()} past the grace with the server down, not offline")
+    straight = gw.submit(prompt, license="free", max_new_tokens=16)
+    floored = gw.submit(prompt, license="full", max_new_tokens=16)
+    if floored.state.value == "rejected" or floored.license != "free":
+        fail(f"{label}: offline, a full request was {floored.state.value} as "
+             f"{floored.license!r} ({floored.error}), not served as free")
+    gw.run()
+    sync()
+    if not (straight.state.value == floored.state.value == "done"
+            and floored.out_tokens == straight.out_tokens):
+        fail(f"{label}: the floored request's tokens {floored.out_tokens} differ from a "
+             f"straight free request's {straight.out_tokens}")
+    tr.down = False
+    clock.offset += 2.0
+    offset_span += 2.0
+    t_res = (clock(), None)
+    gw.step()
+    t_res = (t_res[0], clock())
+    lease = gw.metrics()["lease"]
+    if lease["state"] != "healthy":
+        fail(f"{label}: {lease['state']} with the server back, not restored")
+    events = [e["event"] for e in gw.audit_events()[n0:] if e["event"].startswith("lease")]
+    if events != ["lease_degraded", "lease_offline", "lease_restored"]:
+        fail(f"{label}: lease audit events {events}")
+    degraded = lease["degraded_seconds_total"]
+    lo, hi = t_res[0] - t_deg[1], t_res[1] - t_deg[0]
+    if not lo <= degraded <= hi:
+        fail(f"{label}: degraded_seconds_total {degraded} outside [{lo}, {hi}], the "
+             f"clock between the degrade and the restore ticks")
+    host = degraded - offset_span
+    log(f"  {label}: lease walk healthy -> degraded -> offline -> healthy (audit {events}); "
+        f"the new tier 'pro' refused while degraded; offline, 'full' served as 'free' "
+        f"with a straight 'free' request's {len(floored.out_tokens)} tokens; "
+        f"degraded_seconds_total {degraded:.3f} s = the offset span {offset_span:.1f} s "
+        f"plus {host:.3f} s of host time between the ticks")
+    return dict(events=events, degraded_seconds_total=degraded, offset_span_s=offset_span,
+                host_between_ticks_s=host, floor_tokens=floored.out_tokens, lease=lease)
+
+
 def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None,
-                 max_step_bytes=16 << 20, profile_stage=False):
+                 max_step_bytes=16 << 20, profile_stage=False, lease=False):
     """Publish v1, boot a gateway from the server, serve the stream, and
     stage v2 mid-stream; every check of phases 5/6.  With
     ``profile_stage`` the third scheduler step with a stage step rides
-    under torch.profiler (and is left out of the step times).  Returns a
-    summary."""
+    under torch.profiler (and is left out of the step times).  With
+    ``lease`` the gateway boots through a kill-switch transport on an
+    offset clock with the floor policy, and walks its lease after the
+    sync.  Returns a summary."""
     from repro_torch.core import delta as delta_lib
     from repro_torch.core import transport as transport_lib
     from repro_torch.core.licensing import LicenseTier
@@ -1807,6 +2393,10 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
     out["publish_v1_s"] = time.perf_counter() - t0
 
     template = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device), v1)
+    if lease:
+        tr, clock = kill_switch(server), OffsetClock()
+        gw_kw = dict(gw_kw, transport=tr, clock=clock, lease_policy="floor",
+                     lease_floor_tier="free")
     timed = Timed()
     timed.wrap(server.store, "delta_since", "delta_query_s")
     timed.wrap(transport_lib, "packet_checksum", "checksums_s")
@@ -1832,6 +2422,7 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
         fail(f"{label}: boot pull differs from v1 in {bad[:5]}")
     log(f"  {label}: pulled weights equal v1 bit for bit "
         f"({sum(1 for _ in flat_leaves(v1))} layers)")
+    lease_states = {"after_boot": gw.metrics()["lease"]["state"]}
 
     for tier in ("full", "free"):    # views first, as in phase 3, so the
         gw.view_for(tier)           # step before the sync is a plain one
@@ -1880,6 +2471,10 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
     gw.run()
     sync()
     st = gw.metrics()["staged_update"]
+    lease_states["after_flip"] = gw.metrics()["lease"]["state"]
+    log(f"  {label}: lease {lease_states['after_boot']} after the boot, "
+        f"{lease_states['after_flip']} after the flip (ttl {gw.lease_ttl_s:.0f} s, grace "
+        f"{gw.lease_grace_s:.0f} s, policy {gw.lease_policy})")
     if flip_t is None or st["flips"] != 1 or gw.version != 2:
         fail(f"{label}: expected exactly one flip to v2, got {st['flips']} "
              f"(version {gw.version})")
@@ -1947,7 +2542,7 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
         step_ms={k: {"n": len(v), "max": 1e3 * max(v) if v else None,
                      "median": 1e3 * float(np.median(v)) if v else None}
                  for k, v in steps.items()},
-        stager_histogram=stager_h,
+        stager_histogram=stager_h, lease_states=lease_states,
         tokens=[r.out_tokens for r in reqs])
     log(f"  {label}: v2 staged in {sum(phases.values())} steps {phases}, "
         f"{st['parts_applied']} parts, {st['bytes_applied'] / 1e6:.1f} MB applied, "
@@ -1965,6 +2560,8 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
         f"{gw.h_stager.count}, "
         f"against the script's synchronized longest scheduler step during the sync "
         f"{sm['during']['max']:.1f} ms; audit: one sync_begin, one version_flip")
+    if lease:
+        out["lease_walk"] = lease_walk(label, gw, tr, clock, server, np)
     del gw
     gc.collect()
     return out
@@ -2095,9 +2692,10 @@ def main() -> None:
     # ---------------------------------------------------------- phase 3c
     log(f"phase 3c: the compiled decode step and the in-scan int8 dequant, {ARCH} at "
         f"full width and depth")
-    compiled = compiled_phase(cfg, params, tiers, np, torch, {
-        "float": [r.out_tokens for r in float_reqs],
-        "in_scan": [r.out_tokens for r in int8_reqs]})
+    # the in-scan stream must give the materialized int8 views' tokens
+    want_streams = {"float": [r.out_tokens for r in float_reqs],
+                    "in_scan": [r.out_tokens for r in int8_reqs]}
+    compiled = compiled_phase(cfg, params, tiers, np, torch, want_streams)
     del int8_reqs
 
     # ---------------------------------------------------------- phase 3b
@@ -2176,7 +2774,8 @@ def main() -> None:
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     upd = update_phase("float gateway", cfg, {}, torch, np,
-                       ref_tokens=[r.out_tokens for r in float_reqs], profile_stage=True)
+                       ref_tokens=[r.out_tokens for r in float_reqs], profile_stage=True,
+                       lease=True)
     upd["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     # the process's peak resident host memory so far (ru_maxrss is in KiB)
     upd["host_maxrss_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
@@ -2212,6 +2811,11 @@ def main() -> None:
     for name in ("paged_attention", "paged_decode_write"):
         if calib_launches[name] <= 0:
             fail(f"kernel {name} was not launched serving the calibrated tier")
+
+    # ---------------------------------------------------------- phase 7b
+    log(f"phase 7b: FleetGateway, two slots of {ARCH} at full width and depth on "
+        f"phase 3's weights")
+    fleet = fleet_phase(cfg, params, tiers, np, torch, want_streams)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2228,7 +2832,8 @@ def main() -> None:
                                 "decode_argmax_flips": flips, "stream_parts": parts},
                     "shared_prefix": {"runs": prefix_runs, "launches": prefix_launches},
                     "update": {"float_full_depth": upd, "int8_depth4": upd8},
-                    "calibration": {**calib, "launches": calib_launches}}))
+                    "calibration": {**calib, "launches": calib_launches},
+                    "fleet": fleet}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

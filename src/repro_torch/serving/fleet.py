@@ -1,21 +1,46 @@
-"""Per-model serving state of the port: ``ModelSlot``.
+"""Multi-model, multi-tenant fleet serving of the port.
 
-Counterpart of the part of ``repro/serving/fleet.py::ModelSlot`` that a
-single licensed gateway uses: the weight versions, the (tier,
-version)-keyed view cache, the block-paged KV pool, the shared-prefix
-radix cache over it, the chunked-prefill scheduler, the compiled decode
-steps (CUDA graphs on the card, ``serving/compiled.py``), the serving stats,
-the observability substrate (a ``Telemetry`` registry with the slot's
-instruments, a ``TraceRecorder`` event tape and an ``AuditLog``, all on
-the slot's clock), the opt-in sanitizer, and the license-server state of
-the update path (transport, retry policy, sync failures and version
-quarantine, tiers learned from the server, pending tier changes, the
-active staged sync).
-``LicensedGateway`` (``gateway.py``) wraps one slot and forwards
-attribute access to it, as in the JAX package.  The fleet itself
-(``FleetGateway``, tenants, the global cache budget) and the license
-lease state machine are not ported yet: ``_lease_renew`` records the
-time of the last good server exchange and nothing reads it.
+Counterpart of ``repro/serving/fleet.py``: one serving loop hosting
+several licensed models at once, each with its own licensing ladder,
+sharing device cache memory under one global budget, with per-tenant
+entitlements and quotas enforced at the door.  Three layers:
+
+* :class:`ModelSlot` — everything one served model owns: the weight
+  versions, the (tier, version)-keyed view cache, the block-paged KV
+  pool, the shared-prefix radix cache over it, the chunked-prefill
+  scheduler, the compiled decode steps (CUDA graphs on the card,
+  ``serving/compiled.py``), the serving stats, the observability
+  substrate (a ``Telemetry`` registry with the slot's instruments, a
+  ``TraceRecorder`` event tape and an ``AuditLog``, all on the slot's
+  clock), the opt-in sanitizer, and the license-server state of the
+  update path (transport, retry policy, the license lease, sync
+  failures and version quarantine, tiers learned from the server,
+  pending tier changes, the active staged sync).  ``LicensedGateway``
+  (``gateway.py``) wraps one slot and forwards attribute access to it.
+* :class:`TenantRegistry` — per-tenant (model, tier) entitlements,
+  concurrent-request quotas and token-bucket rate limits, checked at
+  ``submit`` (entitlement + concurrency + rate) and again at batch
+  formation (entitlement only: a tenant revoked while its request
+  queued must not reach a lane; a request already decoding completes).
+* :class:`FleetGateway` — N slots behind one submit/step/run loop.  Each
+  iteration runs ONE slot's micro-batch (round-robin over slots with
+  work) and advances at most ONE slot's active update stager.
+
+The license lease: grants are fresh for ``lease_ttl_s`` after the last
+good server exchange; past that the slot serves DEGRADED (granted tiers
+only, no new server grants) until ``lease_grace_s`` runs out, then
+OFFLINE applies ``lease_policy`` at admission (``reject``, or ``floor``:
+serve ``lease_floor_tier`` instead).  A rate-limited
+``production_version`` probe brings an idle slot back to HEALTHY.
+
+Global cache budget: denominated in bytes (``PagedCachePool.block_bytes``
+is each slot's exchange rate).  Admission takes ``min(local budget,
+global headroom)``; retained prefix chains anywhere in the fleet count as
+headroom, and allocation evicts them (the requesting slot's own first,
+then the others', LRU within each, always through the owning slot's
+``PrefixCache``) before giving up.  Decode growth that still finds no
+headroom preempts within its own slot, never across slots.  The budget
+reads host counters only: no device access on admission.
 
 Every constructor argument of the JAX slot is recognised.  Those whose
 features are not ported accept the values the port implements (the JAX
@@ -27,8 +52,9 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.analysis.sanitize import ServingSanitizer, sanitize_from_env
@@ -41,9 +67,11 @@ from repro_torch.models.model import check_supported
 from repro_torch.serving.paging import PagedCachePool, cdiv
 from repro_torch.serving.compiled import DecodeGraphs, GraphSet, StoreGraphs, View
 from repro_torch.serving.prefix import PrefixCache
-from repro_torch.serving.scheduler import GatewayRequest, Scheduler, TierViewCache
-from repro_torch.serving.telemetry import GATEWAY_METRICS_KEYS, Telemetry
-from repro_torch.serving.tracing import AuditLog, TraceRecorder
+from repro_torch.serving.scheduler import (GatewayRequest, RequestState, Scheduler,
+                                           TierViewCache)
+from repro_torch.serving.telemetry import (FLEET_METRICS_KEYS, GATEWAY_METRICS_KEYS,
+                                           Telemetry)
+from repro_torch.serving.tracing import AuditLog, TraceRecorder, merge_chrome_traces
 
 # argument -> (the values the port implements, ROADMAP.md item for the rest)
 _LEFT_OUT: Dict[str, Tuple[Tuple[Any, ...], str]] = {
@@ -57,10 +85,6 @@ _LEFT_OUT: Dict[str, Tuple[Tuple[Any, ...], str]] = {
     # the port samples on the device inside every step and keeps no logits
     "fuse_sampling": ((True,), "the rest of the package"),
     "record_logits": ((False,), "the rest of the package"),
-    "lease_ttl_s": ((None,), "the fleet, tenants and lease"),
-    "lease_grace_s": ((None,), "the fleet, tenants and lease"),
-    "lease_policy": ((None,), "the fleet, tenants and lease"),
-    "lease_floor_tier": ((None,), "the fleet, tenants and lease"),
 }
 
 
@@ -103,6 +127,10 @@ class ModelSlot:
         clock: Optional[Callable[[], float]] = None,
         transport: Optional[Transport] = None,
         retry_policy: Optional[RetryPolicy] = None,
+        lease_ttl_s: float = 60.0,
+        lease_grace_s: float = 300.0,
+        lease_policy: str = "reject",
+        lease_floor_tier: Optional[str] = None,
         quarantine_after: int = 3,
         history: int = 10_000,
         telemetry: Any = True,
@@ -221,7 +249,23 @@ class ModelSlot:
                                if server is not None else None)
         self.retry_policy = (retry_policy if retry_policy is not None
                              else RetryPolicy())
+        # license lease: grants are fresh for ttl after the last
+        # successful server exchange; past that the slot serves DEGRADED
+        # (pinned views only, no new server grants) until grace runs out,
+        # then OFFLINE applies ``lease_policy`` at admission
+        if lease_policy not in ("reject", "floor"):
+            raise ValueError(f"lease_policy={lease_policy!r} not in "
+                             f"('reject', 'floor')")
+        self.lease_ttl_s = float(lease_ttl_s)
+        self.lease_grace_s = float(lease_grace_s)
+        self.lease_policy = lease_policy
+        self.lease_floor_tier = lease_floor_tier
+        self._lease_state = "healthy"
         self._lease_renewed_t = self.clock()  # guarded-by: owner(__init__, _lease_renew)
+        self._lease_degraded_since: Optional[float] = None
+        self._degraded_seconds = 0.0
+        self._lease_recheck_t: Optional[float] = None
+        self._tiers_stale = False     # refresh deferred by a wire fault
         # version quarantine: consecutive failed syncs per target version
         self.quarantine_after = int(quarantine_after)
         self._sync_failures: Dict[int, int] = {}
@@ -238,7 +282,12 @@ class ModelSlot:
         self._stager = None
         self._staging_version: Optional[int] = None
 
+        # fleet wiring (None when the slot serves standalone): the
+        # wrapping gateway, the composing FleetGateway, and the finish
+        # hook the fleet uses for tenant accounting
         self.gateway: Any = None
+        self.fleet: Any = None
+        self.on_finish: Optional[Callable[[GatewayRequest], None]] = None
         self._next_rid = 0
         # bounded: a long-lived gateway must not grow host memory with
         # every request served; metrics percentiles cover this window
@@ -257,8 +306,8 @@ class ModelSlot:
             "prefill_lane_tokens": 0, "prefix_tokens_reused": 0,
             "cow_copies": 0,
             "prefill_chunks": 0,
-            # tenant enforcement lives with the fleet (not ported): a
-            # standalone gateway never rejects on quota, so this stays 0
+            # tenant enforcement: requests bounced by entitlement /
+            # concurrency / rate-limit checks (submit OR admission)
             "quota_rejections": 0,
             # fault tolerance: wire retries across all sync/tier calls,
             # the subset whose cause was a timeout/disconnect, and
@@ -287,9 +336,7 @@ class ModelSlot:
         Counters and gauges are *pull*-backed: they read the ``stats``
         dict / scheduler / pool at export time, so the serving hot path
         pays nothing for them.  Only the latency histograms are push
-        instruments.  The lease series (``serving_license_lease_state``,
-        ``serving_degraded_seconds_total``) come with the lease state
-        machine, which is not ported."""
+        instruments."""
         t, lb = self.telemetry, {"model": self.model}
         stats = self.stats
 
@@ -327,6 +374,14 @@ class ModelSlot:
              "Versions quarantined after repeated failed syncs"),
         ):
             t.counter(name, labels=lb, help=help_, fn=_stat(key))
+        _LEASE_LEVEL = {"healthy": 0, "degraded": 1, "offline": 2}
+        t.gauge("serving_license_lease_state", labels=lb,
+                help="License lease state (0 healthy, 1 degraded, 2 offline)",
+                fn=lambda: _LEASE_LEVEL[self._lease_state])
+        t.counter("serving_degraded_seconds_total", labels=lb,
+                  help="Cumulative seconds spent outside the healthy "
+                       "lease state",
+                  fn=self.degraded_seconds_total)
         t.gauge("serving_queue_depth", labels=lb,
                 help="Requests waiting for admission",
                 fn=lambda: len(self.scheduler.waiting))
@@ -368,11 +423,99 @@ class ModelSlot:
                                "(the decode-stall bound)")
         t.declare(*GATEWAY_METRICS_KEYS)
 
-    # ------------------------------------------------------- license server
+    # ------------------------------------------- license lease & fault handling
+    def degraded_seconds_total(self) -> float:
+        """Cumulative clock time outside HEALTHY, including the open span."""
+        total = self._degraded_seconds
+        if self._lease_degraded_since is not None:
+            total += self.clock() - self._lease_degraded_since
+        return total
+
     def _lease_renew(self) -> None:
-        """Record a successful server exchange (a timestamp store, safe
-        from the background fetch worker)."""
+        """Record a successful server exchange.
+
+        Timestamp-only store: safe to call from the background fetch
+        worker.  State *transitions* (and their audit/trace events)
+        happen lazily in :meth:`_lease_tick` on the serving thread."""
         self._lease_renewed_t = self.clock()
+
+    def _lease_target(self, now: float) -> str:
+        age = now - self._lease_renewed_t
+        if age <= self.lease_ttl_s:
+            return "healthy"
+        if age <= self.lease_ttl_s + self.lease_grace_s:
+            return "degraded"
+        return "offline"
+
+    def _lease_tick(self) -> None:
+        """Advance the lease state machine (serving thread only).
+
+        Purely time-driven: the target state is a function of the age of
+        the last successful exchange against ttl/grace, so a renewal from
+        the fetch worker heals the lease on the next tick.  While
+        unhealthy, a rate-limited probe (``production_version``) gives an
+        idle gateway (no sync in flight, no tier fetches) a path back to
+        HEALTHY."""
+        if self._server is None:
+            return
+        now = self.clock()
+        target = self._lease_target(now)
+        if target != "healthy":
+            # self-heal probe, at most ~4 per ttl so an unreachable
+            # server costs bounded wire attempts per serving step
+            interval = max(0.05, min(1.0, self.lease_ttl_s / 4))
+            if (self._lease_recheck_t is None
+                    or now - self._lease_recheck_t >= interval):
+                self._lease_recheck_t = now
+                try:
+                    self._transport.production_version(self.model)
+                    self._lease_renew()
+                    target = "healthy"
+                except (TransportError, KeyError):
+                    pass
+        if target == self._lease_state:
+            return
+        prev, self._lease_state = self._lease_state, target
+        if prev == "healthy":
+            self._lease_degraded_since = now
+        elif target == "healthy":
+            if self._lease_degraded_since is not None:
+                self._degraded_seconds += now - self._lease_degraded_since
+            self._lease_degraded_since = None
+        event = ("lease_restored" if target == "healthy"
+                 else "lease_" + target)
+        if self.obs:
+            self.audit.record(event, model=self.model, prev=prev,
+                              state=target,
+                              renew_age_s=round(now - self._lease_renewed_t, 3))
+            self.tracer.instant("lease:" + target,
+                                attrs={"model": self.model, "prev": prev})
+        if target == "healthy" and self._tiers_stale:
+            # a tier refresh was deferred by a wire fault mid-sync;
+            # rerun it now that the server is reachable again
+            owner = self.gateway if self.gateway is not None else self
+            refresh = getattr(owner, "_refresh_server_tiers", None)
+            if refresh is not None:
+                refresh()
+
+    def _lease_admission(self, license: str) -> Tuple[str, Optional[str]]:
+        """Admission-time lease gate: ``(serve_as_tier, error)``.
+
+        HEALTHY/DEGRADED serve every already-granted tier unchanged
+        (DEGRADED only refuses *new* server grants, in
+        :meth:`_resolve_tier`).  OFFLINE applies the configured policy:
+        ``floor`` substitutes the floor tier when it is locally known,
+        ``reject`` (or a missing floor) bounces the request."""
+        self._lease_tick()
+        if self._lease_state != "offline":
+            return license, None
+        if (self.lease_policy == "floor"
+                and self.lease_floor_tier is not None
+                and self.lease_floor_tier in self.tiers):
+            return self.lease_floor_tier, None
+        return license, (f"license lease offline (policy="
+                         f"{self.lease_policy}): cannot validate tier "
+                         f"{license!r} against an unreachable server")
 
     def _count_wire_retry(self, attempt: int, exc: BaseException,
                           delay: float, to_version: Optional[int] = None,
@@ -421,6 +564,13 @@ class ModelSlot:
         remembered, so a sync re-pulls it)."""
         tier = self.tiers.get(name)
         if tier is None and self._server is not None:
+            # an unhealthy lease refuses NEW grants: every tier served
+            # during an outage must have been validated while the server
+            # was reachable (the pinned-view guarantee)
+            if self._lease_state != "healthy":
+                raise KeyError(
+                    f"unknown license tier {name!r} (lease "
+                    f"{self._lease_state}: refusing new tier grant)")
             try:
                 tier = self.retry_policy.run(
                     lambda: self._transport.tier(self.model, name),
@@ -475,3 +625,558 @@ class ModelSlot:
         prompt length — conservative, since adopted prefix blocks only
         reduce the fresh allocation."""
         return max(1, cdiv(len(req.prompt), self.pool.block_size))
+
+
+# --------------------------------------------------------------------- tenants
+def _pattern_match(pattern: str, value: str) -> bool:
+    return pattern == "*" or pattern == value
+
+
+class _Tenant:
+    """One tenant's entitlements, limits, bucket state, and counters."""
+
+    __slots__ = ("name", "entitlements", "max_concurrent", "rate", "burst",
+                 "bucket", "last_refill", "inflight", "submitted", "admitted",
+                 "completed", "tokens_generated", "quota_rejections")
+
+    def __init__(self, name: str, entitlements: Iterable,
+                 max_concurrent: Optional[int],
+                 rate: Optional[float], burst: Optional[float]):
+        self.name = name
+        self.entitlements: set = set()
+        for ent in entitlements:
+            self.entitlements.add(_parse_entitlement(ent))
+        self.max_concurrent = (None if max_concurrent is None
+                               else int(max_concurrent))
+        self.rate = None if rate is None else float(rate)
+        self.burst = (float(burst) if burst is not None
+                      else (self.rate if self.rate is not None else 0.0))
+        if self.rate is not None and self.burst < 1.0:
+            raise ValueError(
+                f"burst={self.burst} < 1: tenant {name!r} could never "
+                f"pass the rate limit")
+        self.bucket = self.burst          # start full: a burst is allowed
+        self.last_refill: Optional[float] = None
+        self.inflight = 0
+        self.submitted = 0
+        self.admitted = 0
+        self.completed = 0
+        self.tokens_generated = 0
+        self.quota_rejections = 0
+
+
+def _parse_entitlement(ent) -> Tuple[str, str]:
+    """Accept ``(model, tier)`` tuples or ``"model:tier"`` strings;
+    ``"*"`` wildcards either side."""
+    if isinstance(ent, str):
+        model, _, tier = ent.partition(":")
+        return (model or "*", tier or "*")
+    model, tier = ent
+    return (str(model), str(tier))
+
+
+class TenantRegistry:
+    """Per-tenant licensing enforcement: entitlements, quotas, rates.
+
+    * **Entitlements** are (model, tier) patterns (``"*"`` wildcards
+      either side): which licensed variants a tenant may request at all.
+    * **Concurrency** (``max_concurrent``): live requests (queued or
+      running, fleet-wide) per tenant.  ``0`` is a valid zero-quota
+      tenant — entitled on paper, admitted never.  ``None`` = unlimited.
+    * **Rate** (``rate`` requests/s refilled into a bucket of capacity
+      ``burst``): a token bucket, charged one token per accepted submit,
+      on the injectable ``clock``.
+
+    :meth:`acquire` runs all three checks and charges on success;
+    :meth:`cancel` refunds a charge whose request the gateway then
+    bounced for non-tenant reasons; :meth:`drop_queued` settles a request
+    rejected at batch formation (the rate token stays spent);
+    :meth:`finish` settles a completed request.
+    """
+
+    def __init__(self, *, clock: Callable[[], float] = time.monotonic):
+        self._clock = clock
+        self._tenants: Dict[str, _Tenant] = {}
+        # licensing ledger (tracing.AuditLog), wired by FleetGateway so
+        # tenant definition changes land in the fleet's audit stream
+        self.audit: Any = None
+
+    # ------------------------------------------------------------- definition
+    def register(self, name: str, *, entitlements: Iterable = ("*:*",),
+                 max_concurrent: Optional[int] = None,
+                 rate: Optional[float] = None,
+                 burst: Optional[float] = None) -> None:
+        """Define (or redefine) a tenant.  Redefinition keeps live
+        inflight/usage counters, so re-provisioning a tenant mid-flight
+        cannot leak or double-count its running requests."""
+        fresh = _Tenant(name, entitlements, max_concurrent, rate, burst)
+        old = self._tenants.get(name)
+        if old is not None:
+            for k in ("inflight", "submitted", "admitted", "completed",
+                      "tokens_generated", "quota_rejections"):
+                setattr(fresh, k, getattr(old, k))
+        self._tenants[name] = fresh
+        if self.audit is not None:
+            self.audit.record(
+                "tenant_register", tenant=name,
+                entitlements=sorted(f"{m}:{t}" for m, t in fresh.entitlements),
+                max_concurrent=fresh.max_concurrent, rate=fresh.rate)
+
+    def grant(self, name: str, model: str = "*", tier: str = "*") -> None:
+        self._tenants[name].entitlements.add((model, tier))
+        if self.audit is not None:
+            self.audit.record("entitlement_grant", tenant=name, model=model,
+                              tier=tier)
+
+    def revoke(self, name: str, model: str = "*", tier: str = "*") -> None:
+        """Remove every entitlement pattern that would entitle (model,
+        tier), broader wildcard patterns included; ``"*"`` arguments
+        match any pattern component.  Queued requests of the tenant are
+        rejected at the next batch formation; decoding ones complete."""
+        t = self._tenants[name]
+        t.entitlements = {
+            (pm, pt) for (pm, pt) in t.entitlements
+            if not ((model == "*" or _pattern_match(pm, model))
+                    and (tier == "*" or _pattern_match(pt, tier)))}
+
+    def known(self, name: str) -> bool:
+        return name in self._tenants
+
+    def entitled(self, name: str, model: str, tier: str) -> bool:
+        t = self._tenants.get(name)
+        if t is None:
+            return False
+        return any(_pattern_match(pm, model) and _pattern_match(pt, tier)
+                   for (pm, pt) in t.entitlements)
+
+    # ------------------------------------------------------------ enforcement
+    def _refill(self, t: _Tenant) -> None:
+        if t.rate is None:
+            return
+        now = self._clock()
+        if t.last_refill is not None:
+            t.bucket = min(t.burst, t.bucket + (now - t.last_refill) * t.rate)
+        t.last_refill = now
+
+    def acquire(self, name: str, model: str, tier: str) -> Optional[str]:
+        """All submit-time checks; charges (inflight + one bucket token)
+        and returns None on success, else the rejection reason."""
+        t = self._tenants.get(name)
+        if t is None:
+            return f"unknown tenant {name!r}"
+        t.submitted += 1
+        if not self.entitled(name, model, tier):
+            t.quota_rejections += 1
+            return (f"tenant {name!r} is not entitled to "
+                    f"({model!r}, {tier!r})")
+        if t.max_concurrent is not None and t.inflight >= t.max_concurrent:
+            t.quota_rejections += 1
+            return (f"tenant {name!r} at its concurrent-request quota "
+                    f"({t.max_concurrent})")
+        if t.rate is not None:
+            self._refill(t)
+            if t.bucket < 1.0:
+                t.quota_rejections += 1
+                return (f"tenant {name!r} rate-limited "
+                        f"({t.rate:g} req/s, burst {t.burst:g})")
+            t.bucket -= 1.0
+        t.inflight += 1
+        t.admitted += 1
+        return None
+
+    def cancel(self, name: str) -> None:
+        """Refund an :meth:`acquire` whose request the gateway bounced
+        for non-tenant reasons: no service was rendered, so the rate
+        token comes back too."""
+        t = self._tenants[name]
+        t.inflight -= 1
+        t.admitted -= 1
+        if t.rate is not None:
+            t.bucket = min(t.burst, t.bucket + 1.0)
+
+    def drop_queued(self, name: str) -> None:
+        """Settle a request rejected at batch formation (entitlement
+        revoked while it queued): a quota rejection; the rate token
+        stays spent."""
+        t = self._tenants[name]
+        t.inflight -= 1
+        t.quota_rejections += 1
+
+    def finish(self, name: str, tokens: int) -> None:
+        t = self._tenants.get(name)
+        if t is None:                      # tenant deleted mid-flight
+            return
+        t.inflight -= 1
+        t.completed += 1
+        t.tokens_generated += int(tokens)
+
+    # ----------------------------------------------------------------- stats
+    def stats(self) -> Dict[str, Dict[str, Any]]:
+        out: Dict[str, Dict[str, Any]] = {}
+        for name, t in self._tenants.items():
+            self._refill(t)
+            out[name] = {
+                "inflight": t.inflight, "submitted": t.submitted,
+                "admitted": t.admitted, "completed": t.completed,
+                "tokens_generated": t.tokens_generated,
+                "quota_rejections": t.quota_rejections,
+                "max_concurrent": t.max_concurrent,
+                "rate": t.rate,
+                "rate_tokens_available": (None if t.rate is None
+                                          else t.bucket),
+                "entitlements": sorted(
+                    f"{m}:{ti}" for (m, ti) in t.entitlements),
+            }
+        return out
+
+
+# ----------------------------------------------------------------------- fleet
+class FleetGateway:
+    """N :class:`ModelSlot`\\ s behind one submit/step/run loop.
+
+    ``add_model`` registers a model (constructing its wrapping
+    ``LicensedGateway``); ``attach`` adopts an existing
+    gateway (e.g. one booted by ``LicensedGateway.from_server``).
+    ``submit`` routes by model name and enforces the
+    :class:`TenantRegistry`; ``step`` executes ONE micro-batch —
+    round-robin over slots with work — plus at most ONE slot's active
+    update-stager step; ``run`` drains every slot's queue.
+
+    ``cache_budget_bytes`` caps the *sum* of allocated cache-block bytes
+    across every slot (see the module docstring).  ``None`` = no global
+    cap (each slot is bounded by its own pool alone).
+    """
+
+    def __init__(self, *, cache_budget_bytes: Optional[int] = None,
+                 tenants: Optional[TenantRegistry] = None,
+                 telemetry: Any = True,
+                 clock: Optional[Callable[[], float]] = None,
+                 sanitize: Optional[bool] = None):
+        self.cache_budget_bytes = (None if cache_budget_bytes is None
+                                   else int(cache_budget_bytes))
+        self.sanitize = sanitize           # default for add_model slots
+        # one shared registry for the whole fleet: ``add_model`` passes
+        # it to every slot (distinct {"model": name} labels keep their
+        # instruments apart), ``attach`` adopts a standalone gateway's
+        self.clock = clock if clock is not None else time.perf_counter
+        if isinstance(telemetry, Telemetry):
+            self.telemetry = telemetry
+        else:
+            self.telemetry = Telemetry(clock=self.clock, enabled=bool(telemetry))
+        self.obs = self.telemetry.enabled
+        self.audit = AuditLog(clock=self.clock, enabled=self.obs)
+        self.tenants = (tenants if tenants is not None
+                        else TenantRegistry(clock=self.clock))
+        self.tenants.audit = self.audit
+        self.gateways: Dict[str, Any] = {}
+        self._rr = 0                       # slot round-robin cursor
+        self._stager_rr = 0                # stager round-robin cursor
+        self._steps = 0
+        self._t0: Optional[float] = None   # first-step timestamp (tokens/s)
+        self._register_telemetry()
+
+    # ---------------------------------------------------------- observability
+    def _register_telemetry(self) -> None:
+        """Fleet-level instruments: budget occupancy gauges plus a
+        dynamic per-tenant collector (tenants register at any time, so
+        their series are enumerated at scrape time)."""
+        t = self.telemetry
+        t.gauge("fleet_models", help="Registered model slots",
+                fn=lambda: len(self.gateways))
+        t.counter("fleet_steps_total", help="Fleet scheduler iterations",
+                  fn=lambda: self._steps)
+        t.gauge("fleet_cache_budget_bytes",
+                help="Global cache byte budget (0 = uncapped)",
+                fn=lambda: self.cache_budget_bytes or 0)
+        t.gauge("fleet_cache_used_bytes",
+                help="Cache block bytes allocated fleet-wide",
+                fn=self.used_cache_bytes)
+        t.gauge("fleet_cache_reclaimable_bytes",
+                help="Bytes held only by retained prefix chains",
+                fn=self.reclaimable_cache_bytes)
+        t.register_collector(self._tenant_collector)
+        t.declare(*FLEET_METRICS_KEYS)
+
+    def _tenant_collector(self):
+        for name, s in self.tenants.stats().items():
+            lb = {"tenant": name}
+            yield ("tenant_inflight", "gauge",
+                   "Live (queued or running) requests", lb, s["inflight"])
+            yield ("tenant_submitted_total", "counter",
+                   "Requests submitted", lb, s["submitted"])
+            yield ("tenant_completed_total", "counter",
+                   "Requests completed", lb, s["completed"])
+            yield ("tenant_tokens_generated_total", "counter",
+                   "Tokens delivered", lb, s["tokens_generated"])
+            yield ("tenant_quota_rejections_total", "counter",
+                   "Entitlement/concurrency/rate rejections", lb,
+                   s["quota_rejections"])
+
+    def render_prometheus(self) -> str:
+        """One scrape page covering every slot plus the fleet gauges."""
+        return self.telemetry.render_prometheus()
+
+    def chrome_trace(self) -> str:
+        """Whole-fleet Chrome trace: one pid per model, one timebase."""
+        return merge_chrome_traces(
+            (name, gw.tracer) for name, gw in self.gateways.items())
+
+    def audit_events(self, event: Optional[str] = None) -> List[Dict[str, Any]]:
+        """Fleet-wide licensing ledger: the fleet's own records (tenant
+        definitions, quota rejections) merged with every slot's, ordered
+        by (ts, seq)."""
+        merged = AuditLog.merge([self.audit] + [gw.audit for gw in self.gateways.values()])
+        if event is not None:
+            merged = [e for e in merged if e["event"] == event]
+        return merged
+
+    # ------------------------------------------------------------ registration
+    def add_model(self, name: str, cfg: ModelConfig, params: Any, **kw) -> Any:
+        """Construct and register one model's gateway.  ``kw`` are
+        ``LicensedGateway`` knobs (tiers, pool geometry, ``device``)."""
+        from repro_torch.serving.gateway import LicensedGateway
+
+        kw.pop("model", None)
+        kw.setdefault("telemetry", self.telemetry)
+        kw.setdefault("clock", self.clock)
+        kw.setdefault("sanitize", self.sanitize)
+        return self.attach(LicensedGateway(cfg, params, model=name, **kw))
+
+    def attach(self, gw: Any) -> Any:
+        """Adopt an existing ``LicensedGateway`` as one slot (keyed by
+        its ``model`` name) and wire the fleet hooks into its slot and
+        scheduler."""
+        name = gw.model
+        if name in self.gateways:
+            raise ValueError(f"model {name!r} already registered")
+        if gw.slot.fleet is not None:
+            raise ValueError(f"gateway {name!r} already belongs to a fleet")
+        if self.cache_budget_bytes is not None:
+            # every slot must be able to run one full-capacity request to
+            # completion even when every OTHER slot holds one too:
+            # otherwise a budget-bound fleet can admit requests that no
+            # reclaim or (within-slot) preemption can ever finish
+            need = sum(cdiv(g.capacity, g.pool.block_size) * g.pool.block_bytes
+                       for g in list(self.gateways.values()) + [gw])
+            if need > self.cache_budget_bytes:
+                raise ValueError(
+                    f"cache_budget_bytes={self.cache_budget_bytes} cannot "
+                    f"hold one full request per paged slot ({need} bytes "
+                    f"across {len(self.gateways) + 1} models)")
+        gw.slot.fleet = self
+        gw.slot.on_finish = self._on_finish
+        gw.scheduler.global_budget = lambda g=gw: self._slot_headroom(g)
+        gw.scheduler.admission_filter = lambda r, g=gw: self._admission_ok(g, r)
+        # a standalone gateway brings its own registry: fold its
+        # instruments into the fleet's scrape page (a no-op for
+        # add_model slots, which already share self.telemetry)
+        self.telemetry.adopt(gw.telemetry)
+        self.gateways[name] = gw
+        return gw
+
+    # ---------------------------------------------------------- global budget
+    def used_cache_bytes(self) -> int:
+        """Bytes of cache blocks allocated fleet-wide (running requests'
+        chains AND retained prefix chains), from host counters."""
+        return sum(g.pool.block_bytes * g.pool.allocator.num_held
+                   for g in self.gateways.values())
+
+    def reclaimable_cache_bytes(self) -> int:
+        """Bytes held only by prefix-cache retained chains: freeable on
+        demand, so they count as admission headroom."""
+        return sum(g.pool.block_bytes * g.prefix.reclaimable()
+                   for g in self.gateways.values() if g.prefix is not None)
+
+    def _slot_headroom(self, gw: Any) -> int:
+        """How many MORE of ``gw``'s blocks the fleet budget can cover,
+        counting every slot's reclaimable chains as free (the
+        ``Scheduler.global_budget`` hook)."""
+        if self.cache_budget_bytes is None:
+            return gw.pool.num_blocks
+        free = (self.cache_budget_bytes - self.used_cache_bytes()
+                + self.reclaimable_cache_bytes())
+        return max(0, int(free) // gw.pool.block_bytes)
+
+    def _ensure_headroom(self, gw: Any, n: int) -> bool:
+        """Make strict room for ``n`` of ``gw``'s blocks under the
+        budget, evicting retained prefix chains — ``gw``'s own first
+        (freeing them also helps its local allocation), then other
+        slots', LRU within each, always through the owning slot's
+        ``PrefixCache`` (a slot's graphs refill their tables before every
+        replay, so a block freed here is never read through a stale
+        table).  False when the budget still cannot cover it (every
+        remaining byte is pinned by running requests): the caller falls
+        back to within-slot preemption."""
+        if self.cache_budget_bytes is None:
+            return True
+        need = n * gw.pool.block_bytes
+
+        def free() -> int:
+            return self.cache_budget_bytes - self.used_cache_bytes()
+
+        if free() >= need:
+            return True
+        for g in [gw] + [g for g in self.gateways.values() if g is not gw]:
+            if g.prefix is None:
+                continue
+            while free() < need and g.prefix.reclaimable() > 0:
+                want = cdiv(need - free(), g.pool.block_bytes)
+                if g.prefix.evict(want) == 0:
+                    break
+        return free() >= need
+
+    # -------------------------------------------------------------- admission
+    def _admission_ok(self, gw: Any, req: GatewayRequest) -> bool:
+        """Batch-formation entitlement re-check (``admission_filter``):
+        a tenant revoked since submit must not reach a lane.  In-flight
+        requests are never revisited: a revocation drains, it never
+        cancels."""
+        if req.tenant is None:
+            return True
+        if self.tenants.entitled(req.tenant, gw.model, req.license):
+            return True
+        req.state = RequestState.REJECTED
+        req.error = (f"tenant {req.tenant!r} entitlement to "
+                     f"({gw.model!r}, {req.license!r}) revoked while queued")
+        self.tenants.drop_queued(req.tenant)
+        gw.stats["quota_rejections"] += 1
+        gw.stats["rejected"] += 1
+        if self.obs:
+            self.audit.record("tenant_reject", tenant=req.tenant,
+                              model=gw.model, tier=req.license,
+                              reason="entitlement revoked while queued")
+        return False
+
+    def _rejected(self, model: str, prompt, tenant: Optional[str], license: str,
+                  error: str) -> GatewayRequest:
+        req = GatewayRequest(prompt=np.asarray(prompt, np.int32).reshape(-1),
+                             license=license, model=model, tenant=tenant)
+        req.state = RequestState.REJECTED
+        req.error = error
+        return req
+
+    def submit(self, model: str, prompt, *, tenant: Optional[str] = None,
+               license: str = "full", **kw) -> GatewayRequest:
+        """Route one request to its model slot, enforcing the tenant's
+        entitlements, concurrency quota and rate limit first.  A
+        rejection (tenant or gateway) returns a REJECTED request with
+        ``error`` set, as single-gateway admission does."""
+        gw = self.gateways.get(model)
+        if gw is None:
+            return self._rejected(model, prompt, tenant, license,
+                                  f"unknown model {model!r}")
+        if tenant is not None:
+            reason = self.tenants.acquire(tenant, model, license)
+            if reason is not None:
+                gw.stats["quota_rejections"] += 1
+                gw.stats["rejected"] += 1
+                if self.obs:
+                    self.audit.record("quota_reject", tenant=tenant,
+                                      model=model, tier=license,
+                                      reason=reason)
+                return self._rejected(model, prompt, tenant, license, reason)
+        req = gw.submit(prompt, license=license, tenant=tenant, **kw)
+        if tenant is not None and req.state is RequestState.REJECTED:
+            # bounced after the quota charge for a non-tenant reason
+            # (bad prompt length, unknown tier, bad seed): refund
+            self.tenants.cancel(tenant)
+        return req
+
+    # -------------------------------------------------------------- execution
+    def step(self) -> Optional[Any]:
+        """ONE fleet iteration: the next slot (round-robin) with work
+        runs one micro-batch, and at most ONE slot's active update
+        stager advances one bounded step.  Returns the executed
+        ``ScheduledAction`` (its ``model`` field names the slot), or
+        None when no slot has work."""
+        if self._t0 is None:
+            self._t0 = self.clock()
+        self._steps += 1
+        order = list(self.gateways.values())
+        act = None
+        n = len(order)
+        for i in range(n):
+            gw = order[(self._rr + i) % n]
+            act = gw.step(drive_stager=False)
+            if act is not None:
+                self._rr = (self._rr + i + 1) % n
+                break
+        else:
+            self._rr = (self._rr + 1) % n if n else 0
+        syncing = [g for g in order if g.sync_active]
+        if syncing:
+            try:
+                syncing[self._stager_rr % len(syncing)].sync_step()
+            except TransportError:
+                # retries exhausted: the stager already aborted (weights
+                # dropped, failure counted toward quarantine); the slot
+                # keeps serving its current version
+                pass
+            self._stager_rr += 1
+        return act
+
+    def run(self, max_steps: int = 1_000_000) -> List[GatewayRequest]:
+        """Drain every slot's queue; returns requests completed during
+        this call (all models interleaved, in completion order).  Active
+        staged syncs keep stepping after the queues empty, so returning
+        implies any begun version flip landed."""
+        drained: List[GatewayRequest] = []
+        for gw in self.gateways.values():
+            gw._drain_sink = drained
+        try:
+            for _ in range(max_steps):
+                if self.step() is None and not any(
+                        g.sync_active for g in self.gateways.values()):
+                    break
+        finally:
+            for gw in self.gateways.values():
+                gw._drain_sink = None
+        return drained
+
+    def _on_finish(self, req: GatewayRequest) -> None:
+        if req.tenant is not None:
+            self.tenants.finish(req.tenant, len(req.out_tokens))
+
+    # ----------------------------------------------------------------- metrics
+    def metrics(self) -> Dict[str, Any]:
+        """Three sections: ``fleet`` (budget + totals), ``models`` (one
+        per slot: the single-gateway ``LicensedGateway.metrics()``
+        schema plus a fleet-computed ``tokens_per_s``) and ``tenants``
+        (registry counters + live blocks held + oldest queue wait, per
+        tenant), as ``telemetry.validate_fleet_metrics`` asserts."""
+        now = self.clock()
+        elapsed = (now - self._t0) if self._t0 is not None else 0.0
+        models: Dict[str, Any] = {}
+        for name, gw in self.gateways.items():
+            toks = gw.stats["tokens_generated"]
+            models[name] = {**gw.metrics(),
+                            "tokens_per_s": (toks / elapsed if elapsed > 0 else 0.0)}
+        tenants = self.tenants.stats()
+        for t in tenants.values():
+            t["blocks_held"] = 0
+            t["oldest_wait_s"] = 0.0
+            t["tokens_per_s"] = (t["tokens_generated"] / elapsed
+                                 if elapsed > 0 else 0.0)
+        for gw in self.gateways.values():
+            slot_now = gw.clock()          # slot timestamps, slot clock
+            for r in gw.scheduler.running:
+                if r.tenant in tenants:
+                    tenants[r.tenant]["blocks_held"] += len(r.blocks)
+            for r in gw.scheduler.waiting:
+                if r.tenant in tenants:
+                    t = tenants[r.tenant]
+                    t["oldest_wait_s"] = max(t["oldest_wait_s"],
+                                             slot_now - r.submit_t)
+        fleet = {
+            "models": len(self.gateways),
+            "steps": self._steps,
+            "cache_budget_bytes": self.cache_budget_bytes,
+            "cache_used_bytes": self.used_cache_bytes(),
+            "cache_reclaimable_bytes": self.reclaimable_cache_bytes(),
+            "tokens_generated": sum(m["tokens_generated"] for m in models.values()),
+            "completed": sum(m["completed"] for m in models.values()),
+            "quota_rejections": sum(m["quota_rejections"] for m in models.values()),
+            "oldest_wait_s": max(
+                [m["oldest_wait_s"] for m in models.values()] or [0.0]),
+        }
+        return {"fleet": fleet, "models": models, "tenants": tenants}

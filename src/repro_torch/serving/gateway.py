@@ -61,8 +61,13 @@ stage step's device work are only launched inside the window.
 ``sanitize=True`` (or ``REPRO_SANITIZE=1``) shadows the block allocator
 and bounds the distinct step shapes.
 
-Left out of this port so far (see ROADMAP.md): the license lease state
-machine, fleets and tenant enforcement.
+A server-attached gateway holds a license lease (``lease_ttl_s``,
+``lease_grace_s``, ``lease_policy``, ``lease_floor_tier``; the slot's
+state machine in ``fleet.py``): admission consults it first, every step
+ticks it, and a tier refresh deferred by a wire fault re-runs when it is
+restored.  Under a ``FleetGateway`` the slot's allocations settle the
+fleet's byte budget first and every finished request reports to the
+fleet's tenant accounting.
 """
 from __future__ import annotations
 
@@ -145,6 +150,13 @@ class LicensedGateway:
         :meth:`from_server`), the wire seam every call to it goes
         through (a ``DirectTransport`` by default), and the retry policy
         of those calls.  Unknown tiers are resolved against the server.
+    lease_ttl_s / lease_grace_s / lease_policy / lease_floor_tier:
+        The license lease of a server-attached gateway: HEALTHY for
+        ``lease_ttl_s`` after the last good server exchange, then
+        DEGRADED (granted tiers only, no new server grants) for
+        ``lease_grace_s``, then OFFLINE, where ``lease_policy="reject"``
+        bounces admissions and ``"floor"`` serves them as
+        ``lease_floor_tier`` when that tier is known.
     quarantine_after:
         Consecutive failed syncs toward one version before it is
         quarantined (no further sync attempts until cleared).
@@ -192,7 +204,9 @@ class LicensedGateway:
         but in-flight requests are never re-masked mid-generation: the
         change is deferred until the tier's requests drain, and while it
         is pending new admissions to the tier are refused.  Under a wire
-        fault the refresh defers and the current tiers keep serving."""
+        fault the refresh defers: the current tiers keep serving (the
+        DEGRADED-lease contract) and the stale flag re-runs this on the
+        next lease restore."""
         touched = False
         for name in list(self._server_tiers):
             try:
@@ -204,6 +218,7 @@ class LicensedGateway:
                 fresh = None                       # revoked server-side
                 touched = True
             except TransportError:
+                self._tiers_stale = True
                 if touched:
                     self._lease_renew()
                 self._apply_pending_tiers()
@@ -215,6 +230,7 @@ class LicensedGateway:
             self._pending_tiers[name] = fresh
         if touched:
             self._lease_renew()
+        self._tiers_stale = False
         self._apply_pending_tiers()
 
     def _tier_in_flight(self, name: str) -> bool:
@@ -316,13 +332,14 @@ class LicensedGateway:
     def submit(self, prompt, *, license: str = "full", max_new_tokens: int = 16,
                temperature: float = 0.0, top_k: int = 0,
                seed: int = 0, tenant: Optional[str] = None) -> GatewayRequest:
-        """Admit one request: validate the tier, pin the weight version.
-        ``tenant`` is recorded for accounting (``metrics()["tenants"]``);
-        a standalone gateway never polices it."""
+        """Admit one request: consult the lease, validate the tier, pin
+        the weight version.  ``tenant`` is carried for accounting
+        (``metrics()["tenants"]``); quota enforcement itself lives in
+        ``FleetGateway.submit``."""
         req = GatewayRequest(
             prompt=np.asarray(prompt, np.int32).reshape(-1),
             max_new_tokens=min(int(max_new_tokens), self.max_new_cap),
-            license=license, tenant=tenant,
+            license=license, model=self.model, tenant=tenant,
             # sub-epsilon temperatures are greedy (the sampler clamps its
             # divisor at 1e-6)
             temperature=0.0 if temperature <= 1e-6 else temperature,
@@ -332,6 +349,18 @@ class LicensedGateway:
         self._next_rid += 1
         req.submit_t = self.clock()
         try:
+            serve_as, lease_err = self._lease_admission(license)
+            if lease_err is not None:
+                raise KeyError(lease_err)
+            if serve_as != license:
+                # OFFLINE floor policy: serve the most restrictive
+                # locally-known tier instead of an unverifiable grant
+                if self.obs:
+                    self.tracer.instant("lease_floor", req.rid,
+                                        {"requested": license,
+                                         "served_as": serve_as})
+                license = serve_as
+                req.license = serve_as
             if license in self._pending_tiers:
                 # a pending revocation or redefinition refuses admissions:
                 # nothing new is served under the superseded masks, so the
@@ -368,9 +397,12 @@ class LicensedGateway:
         """Run ONE scheduler iteration (one prefill chunk or one decode
         micro-batch), plus — when a staged weight sync is active — ONE
         bounded stager step, so a version bump's work rides along with
-        serving instead of stalling it."""
+        serving instead of stalling it; then a tick of the license lease.
+        A ``FleetGateway`` passes ``drive_stager=False`` and advances at
+        most one slot's stager per fleet iteration itself."""
         act = self.scheduler.next_action()
         if act is not None:
+            act.model = self.model
             t0 = self.clock() if self.obs else 0.0
             if act.kind == "prefill":
                 self._run_chunked_prefill(act)
@@ -398,6 +430,8 @@ class LicensedGateway:
                 # (staged weights dropped, failure counted toward
                 # quarantine); serving continues on the current version
                 pass
+        if self._server is not None:
+            self._lease_tick()
         if self.sanitizer is not None and act is not None:
             self.sanitizer.after_step(self)
         if act is None:
@@ -450,7 +484,11 @@ class LicensedGateway:
         """Allocate ``n`` blocks, reclaiming retained prefix chains (LRU)
         if the free list alone can't cover it.  The scheduler's admission
         budget counts reclaimable blocks, so this succeeds for any
-        admitted prefill."""
+        admitted prefill.  Under a fleet the global byte budget is
+        settled first: admission counted fleet-wide reclaimable bytes,
+        so cross-slot eviction must be able to make strict room."""
+        if self.fleet is not None and not self.fleet._ensure_headroom(self, n):
+            raise RuntimeError("scheduler admitted past the fleet cache budget")
         got = self.pool.allocator.alloc(n)
         if got is None and self.prefix is not None:
             self.prefix.evict(n - self.pool.allocator.num_free)
@@ -620,7 +658,15 @@ class LicensedGateway:
     # ------------------------------------------------------------ decode
     def _try_alloc_one(self) -> Optional[int]:
         """One block from the free list, reclaiming retained prefix chains
-        if needed — never preempts.  None when the pool is truly full."""
+        if needed — never preempts.  None when the pool is truly full.
+        Under a fleet the global byte budget gates first: when no
+        retained chain anywhere can be reclaimed to cover one more of
+        this slot's blocks, report exhaustion, and the caller's
+        within-slot preemption frees this slot's own bytes (never
+        another model's)."""
+        if (self.fleet is not None
+                and not self.fleet._ensure_headroom(self, 1)):
+            return None
         got = self.pool.allocator.alloc(1)
         if got is None and self.prefix is not None and self.prefix.evict(1):
             got = self.pool.allocator.alloc(1)
@@ -805,6 +851,9 @@ class LicensedGateway:
             if self._drain_sink is not None:
                 self._drain_sink.append(req)
             self.stats["completed"] += 1
+            if self.on_finish is not None:
+                # fleet tenant accounting (inflight release + usage)
+                self.on_finish(req)
             self._gc_versions()
 
     # ---------------------------------------------------------- weight updates
@@ -1002,8 +1051,9 @@ class LicensedGateway:
         """Counters, queue-wait ages, pool occupancy and latency, in the
         JAX package's schema (``telemetry.GATEWAY_METRICS_KEYS``) plus
         ``decode_path.kernels`` (whether the decode step runs the Hopper
-        kernels).  ``lease`` holds only what the port computes: the lease
-        state machine is not ported."""
+        kernels).  ``oldest_wait_s``/``queue_wait_by_tier`` come from
+        this slot's OWN queue: under a fleet each slot reports its own
+        fairness ages, never another model's backlog."""
         out: Dict[str, Any] = dict(self.stats)
         out["model"] = self.model
         out["view_cache"] = self.views.stats()
@@ -1024,8 +1074,13 @@ class LicensedGateway:
         out["admission_grouping"] = {"enabled": False,
                                      "batches_by_suffix_width": {}}
         out["lease"] = {
+            "state": self._lease_state,
             "server_attached": self._server is not None,
+            "ttl_s": self.lease_ttl_s,
+            "grace_s": self.lease_grace_s,
+            "policy": self.lease_policy,
             "renew_age_s": self.clock() - self._lease_renewed_t,
+            "degraded_seconds_total": self.degraded_seconds_total(),
             "quarantined_versions": sorted(self.quarantined_versions),
             "pinned_views": len(self.scheduler.pinned_tier_versions()),
         }

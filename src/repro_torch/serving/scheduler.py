@@ -47,9 +47,11 @@ class GatewayRequest:
     temperature: float = 0.0
     top_k: int = 0                           # 0 = no top-k truncation
     seed: int = 0
-    # the tenant the request is billed against (recorded in the trace
-    # and in ``metrics()["tenants"]``; a standalone gateway never
+    # fleet serving (serving/fleet.py): the model slot the request was
+    # submitted to, and the tenant it is billed against (recorded in the
+    # trace and in ``metrics()["tenants"]``; only a ``FleetGateway``
     # polices it)
+    model: Optional[str] = None
     tenant: Optional[str] = None
 
     # assigned by the gateway
@@ -92,12 +94,15 @@ class GatewayRequest:
 
 @dataclass
 class ScheduledAction:
-    """One micro-batch decision: prefill or decode a tier-homogeneous group."""
+    """One micro-batch decision: prefill or decode a tier-homogeneous
+    group.  ``model`` is the serving slot's model name: under a
+    ``FleetGateway`` every action is keyed (model, tier, version)."""
 
     kind: str                                # "prefill" | "decode"
     tier: str
     version: Optional[int]
     requests: List[GatewayRequest]
+    model: Optional[str] = None
 
 
 class TierViewCache:
@@ -168,7 +173,8 @@ class Scheduler:
       up to the free lanes, ``max_batch`` and the block budget
       (``blocks_needed`` per request): the free blocks above
       ``watermark_blocks`` plus the prefix cache's ``reclaimable`` ones,
-      which allocation evicts on demand;
+      which allocation evicts on demand, capped by ``global_budget``
+      under a fleet;
     * decode round-robins over the running groups, rotating within a
       group larger than ``max_batch``;
     * :meth:`preempt` returns a running request to the queue head (it
@@ -187,6 +193,16 @@ class Scheduler:
         self.blocks_needed = blocks_needed
         self.watermark_blocks = int(watermark_blocks)
         self.reclaimable = reclaimable
+        # fleet hooks, wired after construction by FleetGateway
+        # (serving/fleet.py).  ``global_budget`` returns how many MORE of
+        # this slot's blocks the fleet-wide cache budget can cover
+        # (counting every slot's reclaimable chains); admission takes the
+        # min of the local and global budgets.  ``admission_filter``
+        # re-validates a QUEUED request at batch formation (tenant
+        # entitlement revoked since submit); returning False drops it
+        # from the queue — the callback itself marks it rejected.
+        self.global_budget: Optional[Callable[[], int]] = None
+        self.admission_filter: Optional[Callable[[GatewayRequest], bool]] = None
         self.waiting: Deque[GatewayRequest] = deque()
         self.running: List[GatewayRequest] = []
         self._free_lanes: List[int] = list(range(num_lanes))
@@ -320,6 +336,11 @@ class Scheduler:
         return ScheduledAction("prefill", key[0], key[1], members)
 
     def _admission_batch(self) -> Optional[ScheduledAction]:
+        if self.admission_filter is not None and self.waiting:
+            # entitlement re-check at batch formation: a tenant revoked
+            # since submit must not reach a lane.  In-flight requests are
+            # never revisited: a revocation drains, it never cancels.
+            self.waiting = deque(r for r in self.waiting if self.admission_filter(r))
         room = min(len(self._free_lanes), self.max_batch)
         if not (room and self.waiting):
             return None
@@ -334,6 +355,8 @@ class Scheduler:
         budget = self.allocator.num_free - self.watermark_blocks
         if self.reclaimable is not None:
             budget += self.reclaimable()
+        if self.global_budget is not None:
+            budget = min(budget, self.global_budget())
         batch: List[GatewayRequest] = []
         remaining: Deque[GatewayRequest] = deque()
         for r in self.waiting:               # one pass: select + requeue

@@ -428,10 +428,12 @@ def validate_gateway_metrics(metrics: Dict[str, Any],
     assert not missing, f"metrics() keys missing from schema: {missing}"
 
 
-def validate_fleet_metrics(metrics: Dict[str, Any]) -> None:
+def validate_fleet_metrics(metrics: Dict[str, Any],
+                           extra: Iterable[str] = ()) -> None:
     """Assert the fleet ``metrics()`` schema — including the unification
     guarantee: every ``models.<name>`` section passes the EXACT
-    single-gateway check (plus the documented fleet extras), so one
+    single-gateway check (plus the documented fleet extras, and
+    ``extra``: the port's ``decode_path.kernels``), so one
     dashboard/parser serves standalone and fleet deployments alike."""
     from repro_torch.analysis.metrics import (missing_metric_keys,
                                         unregistered_metric_keys)
@@ -447,6 +449,6 @@ def validate_fleet_metrics(metrics: Dict[str, Any]) -> None:
         [d for d in FLEET_METRICS_KEYS if not d.endswith(".*")])
     assert not missing, f"fleet metrics() keys missing: {missing}"
     for name, m in metrics["models"].items():
-        validate_gateway_metrics(m, extra=FLEET_MODEL_EXTRA_KEYS)
+        validate_gateway_metrics(m, extra=FLEET_MODEL_EXTRA_KEYS + tuple(extra))
         for k in FLEET_MODEL_EXTRA_KEYS:
             assert k in m, f"models[{name!r}] missing fleet extra {k!r}"

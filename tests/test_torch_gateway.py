@@ -164,8 +164,12 @@ def test_block_allocator_guards_match_jax():
 
 def test_left_out_arguments_raise(weights):
     _, _, cfg, params = weights
-    with pytest.raises(NotImplementedError, match="lease"):
-        LicensedGateway(cfg, params, device="cpu", lease_ttl_s=5.0)
+    with pytest.raises(NotImplementedError, match="the other architectures"):
+        LicensedGateway(cfg, params, device="cpu", paged=False)
+    # the lease is ported: its arguments are taken
+    gw = LicensedGateway(cfg, params, device="cpu", lease_ttl_s=5.0,
+                         lease_policy="floor", lease_floor_tier="full")
+    assert (gw.lease_ttl_s, gw.lease_policy, gw.lease_floor_tier) == (5.0, "floor", "full")
     with pytest.raises(ValueError, match="CUDA"):
         LicensedGateway(cfg, params, device="cpu", decode_kernels=True)
     # as in the JAX slot: a watermark leaving no room for one prefill
@@ -187,17 +191,16 @@ def _reference_defaults():
 
 
 def test_slot_takes_every_reference_default(weights):
-    """A slot built with every keyword default of the JAX slot, except
-    those whose features are queued (the lease: its JAX defaults turn it
-    on).  Each of those raises ``NotImplementedError`` naming its
-    ROADMAP.md item on its own.  ``telemetry=True`` and ``sanitize=None``
-    are ported: the slot records, and sanitizes only on request."""
+    """A slot built with every keyword default of the JAX slot, the
+    lease's included (60 s ttl, 300 s grace, policy ``reject``): no
+    argument of the slot is queued at its default any more.
+    ``telemetry=True`` and ``sanitize=None`` are ported: the slot
+    records, and sanitizes only on request."""
     _, _, cfg, params = weights
-    queued = {"lease_ttl_s", "lease_grace_s", "lease_policy"}
     defaults = _reference_defaults()
-    assert queued < set(defaults)
-    kw = {n: v for n, v in defaults.items() if n not in queued}
-    gw = LicensedGateway(cfg, params, device="cpu", **kw)
+    assert {"lease_ttl_s", "lease_grace_s", "lease_policy", "lease_floor_tier"} < set(defaults)
+    assert not [name for name in _LEFT_OUT if name.startswith("lease")]
+    gw = LicensedGateway(cfg, params, device="cpu", **defaults)
     assert gw.chunk_size == gw.pool.block_size and not gw.quantized
     assert gw.prefix is not None             # the JAX default: cache on
     assert gw.completed.maxlen == gw.trace.maxlen == defaults["history"]
@@ -205,9 +208,10 @@ def test_slot_takes_every_reference_default(weights):
     assert gw.obs and gw.tracer.enabled and gw.audit.enabled
     assert (gw.sanitizer is not None) == (os.environ.get("REPRO_SANITIZE", "")
                                           not in ("", "0"))
-    for name in sorted(queued):
-        with pytest.raises(NotImplementedError, match=re.escape(_LEFT_OUT[name][1])):
-            LicensedGateway(cfg, params, device="cpu", **{name: defaults[name]})
+    lease = gw.metrics()["lease"]
+    assert (lease["state"], lease["ttl_s"], lease["grace_s"], lease["policy"]) == \
+        ("healthy", 60.0, 300.0, "reject")
+    assert not lease["server_attached"] and lease["degraded_seconds_total"] == 0.0
 
 
 # one value each that the JAX slot takes and the port does not implement

@@ -13,9 +13,9 @@ Three levels:
   each on its own hand-advanced clock moved by the same fixed steps, so
   every timestamp is exact.  Tokens, span names per request, the whole
   event tape (``sched:*`` events and counter tracks included), the
-  audit stream, every histogram, the Chrome trace and the Prometheus
-  text (less the two lease series, which the port does not register
-  yet) must be identical, and ``metrics()`` must pass both packages'
+  audit stream, every histogram, the Chrome trace, the whole Prometheus
+  page (the lease series included) and the whole ``metrics()["lease"]``
+  dict must be identical, and ``metrics()`` must pass both packages'
   ``validate_gateway_metrics``.  With ``telemetry=False`` the port
   records nothing and serves the same tokens;
 * a staged sync: two gateways booted ``from_server`` on one store file
@@ -57,11 +57,11 @@ from repro_torch.serving import tracing as torch_tracing
 PACKAGES = {"jax": (jax_telemetry, jax_tracing, jax_metrics),
             "torch": (torch_telemetry, torch_tracing, torch_metrics)}
 
-# the series the JAX slot registers and the port's does not: they come
-# with the license lease state machine (ROADMAP.md queue 1 item 4)
+# the license lease's two series, registered by both slots
 LEASE_SERIES = ("serving_license_lease_state", "serving_degraded_seconds_total")
-# the lease keys of the JAX metrics() the port does not compute yet
-LEASE_STATE_KEYS = {"state", "ttl_s", "grace_s", "policy", "degraded_seconds_total"}
+# the keys of metrics()["lease"], in both packages
+LEASE_STATE_KEYS = {"state", "server_attached", "ttl_s", "grace_s", "policy", "renew_age_s",
+                    "degraded_seconds_total", "quarantined_versions", "pinned_views"}
 # the port's one metrics() key outside the JAX schema: whether the
 # decode step runs the Hopper kernels (always False on the CPU)
 PORT_EXTRA = ("decode_path.kernels",)
@@ -354,12 +354,13 @@ def test_histogram_counts(served):
 
 
 def test_prometheus_identical_but_the_lease_series(served):
+    """The whole page is identical now, the two lease series included
+    (the name is the one this test had while the lease was unported)."""
     jgw, _, tgw, _ = served
-    jlines = jgw.render_prometheus().splitlines()
-    lease = [ln for ln in jlines if any(s in ln for s in LEASE_SERIES)]
+    page = tgw.render_prometheus()
+    assert page == jgw.render_prometheus()
+    lease = [ln for ln in page.splitlines() if any(s in ln for s in LEASE_SERIES)]
     assert len(lease) == 3 * len(LEASE_SERIES)      # HELP, TYPE, one sample
-    want = [ln for ln in jlines if ln not in lease]
-    assert tgw.render_prometheus().splitlines() == want
 
 
 def test_chrome_trace_identical_and_valid(served):
@@ -378,13 +379,11 @@ def test_metrics_schema_and_values(served):
     jax_telemetry.validate_gateway_metrics(tm, extra=PORT_EXTRA)
     with pytest.raises(AssertionError, match="decode_path.kernels"):
         jax_telemetry.validate_gateway_metrics(tm)
-    assert set(jm["lease"]) - set(tm["lease"]) == LEASE_STATE_KEYS
-    assert set(tm["lease"]) < set(jm["lease"])
+    assert set(tm["lease"]) == set(jm["lease"]) == LEASE_STATE_KEYS
+    assert tm["lease"] == jm["lease"]
     assert tm["decode_path"] == {**jm["decode_path"], "kernels": False}
-    for key in set(jm) - {"lease", "decode_path"}:
+    for key in set(jm) - {"decode_path"}:
         assert tm[key] == jm[key], key
-    assert {k: tm["lease"][k] for k in tm["lease"]} == \
-        {k: jm["lease"][k] for k in tm["lease"]}
     assert tm["tenants"] == {"acme": {"inflight": 0, "queued": 0, "completed": 2,
                                       "tokens_generated": 12, "blocks_held": 0},
                              "beta": {"inflight": 0, "queued": 0, "completed": 1,
