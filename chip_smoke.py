@@ -27,8 +27,11 @@ Phases (each prints its own lines; any failure exits non-zero):
 3. the serving path: ``LicensedGateway`` serving requests in two license
    tiers at the full width and depth of qwen2.5-3b (random bf16 weights
    from a seed), through float views and through int8 views built by the
-   fused masked-dequant, each decode step a CUDA graph replay (the
-   gateway's default on the card); the launch counters are zeroed just before and
+   fused masked-dequant, each decode step and each prefill chunk a CUDA
+   graph replay or capture (the gateway's default on the card; every
+   run prints its prefill captures, replays, the chunk p50 of the
+   ``step_prefill_s`` histogram and the KV pool's bytes); the launch
+   counters are zeroed just before and
    read just after, and every kernel must have run; each view build is
    timed (host clock and CUDA events, masked_dequant launches, peak
    memory); then the whole int8 view of the free and full tiers rebuilt
@@ -48,19 +51,34 @@ Phases (each prints its own lines; any failure exits non-zero):
    the window (the union of kernel, copy and set intervals), kernel
    launches per step (on the device, and the host's launch calls) and
    the five kernels with the most device time;
-3c. the compiled decode step and the in-scan int8 dequant: phase 3's
-   stream through float views and through the int8 store dequantized
-   inside every step (``quantized=True``), each served four times in
-   turns, eager (the slot's graphs taken away) and through the CUDA
-   graphs, the launch counters zeroed just before each run and read
-   just after: ``paged_attention`` and ``paged_decode_write`` once a
-   layer of every decode step, replay or capture warm-up, and on the
-   in-scan path ``masked_dequant`` once per int8 leaf of every unit of
-   every decode step and prefill chunk.  Every run's greedy tokens must
-   equal phase 3's (float), or phase 3's through materialized int8 views
-   (in-scan); ms per step, tokens/s, captures, replays and the graphs'
-   pool memory are printed, and the last two runs of each mode (graph,
-   eager) profile 8 decode steps as in phase 3;
+3c. the compiled decode and prefill steps and the in-scan int8
+   dequant: phase 3's stream through float views and through the int8
+   store dequantized inside every step (``quantized=True``), each served
+   four times in turns, eager (the slot's decode and prefill graphs
+   taken away) and through the CUDA graphs, the launch counters zeroed
+   just before each run and read just after: ``paged_attention`` and
+   ``paged_decode_write`` once a layer of every eager decode step or
+   decode capture warm-up, and on the in-scan path ``masked_dequant``
+   once per int8 leaf of every unit of those and of every eager prefill
+   chunk or prefill capture warm-up (the warm-up is the chunk: every
+   other chunk must be a replay).  Every run's greedy tokens must equal
+   phase 3's (float), or phase 3's through materialized int8 views
+   (in-scan); ms per step, tokens/s, captures, replays, the chunk p50
+   and the graphs' pool memory are printed.  The last two runs of each
+   mode (graph, eager) profile 8 decode steps as in phase 3; then the
+   in-scan third run's gateway serves the stream again (prefix cache
+   emptied) and profiles its first 8 steps, whose device trace must
+   hold each prefill chunk's ``masked_dequant`` launches and each decode
+   step's kernels;
+3d. long prompts through the compiled chunked prefill (full tier, float
+   views): (a) 4 prompts of 1,024 tokens, 8 new tokens each, in one
+   micro-batch, two waves, served with eager prefill and through the
+   prefill graphs; greedy tokens must be identical or part at near-ties
+   (phase 4's rule), the graphs may capture at most 7 widths x 1 lane
+   bucket and nothing in the second wave; (b) 2 prompts of 4,096 tokens
+   through the graphs only, at most 9 captures.  Each prints TTFT p50,
+   the chunk p50 (every step synchronized), captures and their time,
+   replays, and the KV and graph pools' bytes;
 3b. the shared-prefix stream (a 48-token system prefix, own suffixes of
    1-16 tokens, exact repeats; two waves) at full width and depth, launch
    counters zeroed just before and read just after: (a) with the prefix
@@ -74,6 +92,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    (``sanitize=True``: shadow refcounts on every allocator call,
    ``check_decode_writes`` before each decode write, ``check_drained`` at
    each drain), and the shadow must equal the allocator's refcounts;
+   each run prints its prefill captures, replays and chunk p50;
 4. one decode step's logits through the kernels vs the plain path on the
    same pool state; every lane whose argmax differs must be a near-tie
    (the plain path's gap between the two tokens below the step's max
@@ -125,10 +144,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    float views and the in-scan int8 dequant, each serving phase 3's
    stream.  Each fleet run has its own launch window (counters zeroed
    just before its first submission, read just after its drain): every
-   slot's decode steps must all be graph replays, and the wrappers'
-   counts must be what the slots' capture warm-ups and in-scan prefill
-   chunks give, each of ``paged_attention``, ``paged_decode_write`` and
-   ``masked_dequant`` above 0.  (a) without a budget, each slot's greedy
+   slot's decode steps must all be graph replays, its prefill chunks
+   replays or captures, and the wrappers' counts must be what the slots'
+   decode and prefill capture warm-ups give, each of
+   ``paged_attention``, ``paged_decode_write`` and ``masked_dequant``
+   above 0.  (a) without a budget, each slot's greedy
    tokens must equal phase 3's float stream and phase 3c's in-scan
    stream; then both slots are brought to a steady decode and 8 fleet
    steps profiled, whose device trace must show each slot's decode
@@ -1013,11 +1033,13 @@ def serve(label, gw, cfg, np, torch):
             f"launches, peak {v['peak_gb']:.2f} GB, {v['peak_above_gb']:.2f} GB above "
             f"the weights)")
     t_views = sum(v["host_s"] for v in views.values())
+    chunk_s = time_chunks(gw)
     reqs = submit_all(gw, cfg, np)
     t0 = time.perf_counter()
     gw.run()
     sync()
     t_run = time.perf_counter() - t0
+    del gw._run_chunked_prefill
     bad = [r.rid for r in reqs if r.state.value != "done"
            or len(r.out_tokens) != r.max_new_tokens]
     if bad:
@@ -1026,14 +1048,67 @@ def serve(label, gw, cfg, np, torch):
     if not all(0 <= t < cfg.vocab_size for t in toks):
         fail(f"{label}: token ids outside the vocabulary")
     m = gw.metrics()
+    pre = prefill_report(gw, chunk_s)
     log(f"  {label}: {len(reqs)} requests, {m['tokens_generated']} tokens, "
         f"{m['decode_steps']} decode steps, {m['prefill_chunks']} prefill chunks; "
         f"views {t_views:.2f} s, serving {t_run:.2f} s "
         f"({m['tokens_generated'] / t_run:.1f} tokens/s, "
-        f"{1e3 * t_run / max(1, m['decode_steps'] + m['prefill_chunks']):.1f} ms/step)")
+        f"{1e3 * t_run / max(1, m['decode_steps'] + m['prefill_chunks']):.1f} ms/step); "
+        f"{pre['text']}")
     return reqs, dict(views_s=t_views, views=views, serve_s=t_run,
                       tokens=m["tokens_generated"], decode_steps=m["decode_steps"],
-                      prefill_chunks=m["prefill_chunks"])
+                      prefill_chunks=m["prefill_chunks"], prefill=pre["numbers"])
+
+
+def time_chunks(gw):
+    """Time each prefill chunk of ``gw`` on the host clock between two
+    synchronizes (the chunk ends in a copy to the host anyway), by kind:
+    a graph replay, a capture (its warm-up is the chunk) or an eager
+    chunk.  Returns the lists of seconds; ``del gw._run_chunked_prefill``
+    takes the timer away."""
+    out = {"replay": [], "capture": [], "eager": []}
+    run = gw._run_chunked_prefill
+
+    def timed(act):
+        pg = gw._prefill_graphs
+        n = None if pg is None else pg.captures
+        sync()
+        t0 = time.perf_counter()
+        run(act)
+        sync()
+        kind = "eager" if pg is None else "capture" if pg.captures > n else "replay"
+        out[kind].append(time.perf_counter() - t0)
+
+    gw._run_chunked_prefill = timed
+    return out
+
+
+def prefill_report(gw, chunk_s=None):
+    """The prefill chunks of ``gw`` so far: the prefill graphs' captures
+    and replays (None when it prefills eagerly), the chunk p50 of the
+    ``step_prefill_s`` histogram (host clock, bucket-interpolated; none
+    with telemetry off), with ``chunk_s`` (``time_chunks``) the exact
+    p50 of each kind, and the KV pool's bytes.  Returns the numbers and
+    a line of text."""
+    import numpy as np
+
+    pg = gw._prefill_graphs
+    h = gw.metrics()["latency"]["step_prefill_s"]
+    n = dict(prefill_captures=None if pg is None else pg.captures,
+             prefill_replays=None if pg is None else pg.replays,
+             chunk_p50_ms=1e3 * h["p50"] if h["count"] else None,
+             kv_pool_gb=gw.pool.nbytes / 1e9)
+    how = ("eager prefill" if pg is None else
+           f"prefill graphs: {pg.captures} captures, {pg.replays} replays")
+    p50 = "not recorded" if n["chunk_p50_ms"] is None else f"{n['chunk_p50_ms']:.2f} ms"
+    text = f"{how}, chunk p50 (step_prefill_s) {p50}"
+    if chunk_s is not None:
+        n["chunk_ms"] = {k: [1e3 * x for x in v] for k, v in chunk_s.items() if v}
+        n["chunk_p50_synced_ms"] = {k: float(np.median(v)) for k, v in n["chunk_ms"].items()}
+        text += ", synchronized p50 " + ", ".join(
+            f"{k} {v:.2f} ms ({len(n['chunk_ms'][k])})"
+            for k, v in n["chunk_p50_synced_ms"].items())
+    return dict(numbers=n, text=text + f", KV pool {n['kv_pool_gb']:.3f} GB")
 
 
 def record_rows(gw):
@@ -1355,97 +1430,157 @@ def decode_profile(gw, cfg, np, torch, steps=8, label="decode_steps"):
             f"{prof['device_busy_ms'] / steps:.2f} ms a step is "
             f"{100 * prof['busy_share_of_unprofiled']:.1f}% of that")
         prof["warmups_in_window"] = warmups
-        check_trace_launches(label, cfg, prof, [(gw, steps + warmups)])
+        check_trace_launches(label, cfg, prof, [(gw, steps + warmups, 0)])
+    return prof
+
+
+def prefill_profile(gw, cfg, np, torch, steps=8, label="prefill_steps"):
+    """Drain ``gw``, then submit phase 3's stream again (its graphs
+    captured by a first drain, its prefix cache emptied so the chunks
+    take the first drain's shapes) and profile its first ``steps``
+    scheduler steps:
+    prefill chunks (replays, or captures whose warm-up is the chunk) and
+    decode steps; at least one chunk must be a replay.  The device trace
+    must hold each decode step's kernels and, on the in-scan path, each
+    chunk's ``masked_dequant`` launches, which no wrapper sees in a
+    replay.  Leaves the stream mid-flight."""
+    gw.__dict__.pop("_sample", None)
+    gw.run()
+    gw.prefix.drop_scope()
+    submit_all(gw, cfg, np)
+    dg, pg, st = gw._graphs, gw._prefill_graphs, gw.stats
+    before = (st["resident_decode_steps"], dg.captures, st["prefill_chunks"], pg.captures,
+              pg.replays)
+    kinds = []
+    prof = profile_window(label, lambda: kinds.extend(
+        gw.step().kind for _ in range(steps)), torch, steps)
+    decodes, d_caps, chunks, p_caps, p_reps = (
+        a - b for a, b in zip((st["resident_decode_steps"], dg.captures, st["prefill_chunks"],
+                               pg.captures, pg.replays), before))
+    if prof is None:
+        fail(f"profile {label}: the profile holds no device trace, so the chunks' kernels "
+             f"cannot be counted")
+    if chunks != p_caps + p_reps or not p_reps:
+        fail(f"profile {label}: {chunks} prefill chunks in the window, {p_reps} replays and "
+             f"{p_caps} captures; at least one replay expected")
+    log(f"  profile {label}: the window ran {kinds}: {chunks} prefill chunks ({p_reps} "
+        f"replays, {p_caps} captures), {decodes} decode steps ({d_caps} captures)")
+    check_trace_launches(label, cfg, prof, [(gw, decodes + d_caps, chunks)])
+    prof.update(prefill_chunks=chunks, prefill_replays=p_reps, prefill_captures=p_caps,
+                decode_steps=decodes, decode_captures=d_caps)
     return prof
 
 
 def check_trace_launches(label, cfg, prof, runs):
     """Fail unless the device trace of a window in which each gateway of
-    ``runs`` (gateway, count) ran the decode step ``count`` times (its
-    steps, and the warm-ups of graphs captured in it) shows
+    ``runs`` (gateway, decodes, chunks) ran the decode step ``decodes``
+    times (its steps, and the warm-ups of graphs captured in it) and
+    ``chunks`` prefill chunks (replays, or captures' warm-ups) shows
     ``paged_attention``'s split kernel and ``paged_decode_write`` once a
-    layer of each, and ``masked_dequant`` once per int8 leaf of every
-    unit of each on the in-scan path (never elsewhere).  Through CUDA
-    graphs this is the only count of what the replays launched."""
+    layer of each decode, and ``masked_dequant`` once per int8 leaf of
+    every unit of each decode and chunk on the in-scan path (never
+    elsewhere).  Through CUDA graphs this is the only count of what the
+    replays launched."""
     from repro_torch.serving.quantized import qleaves
 
     units = cfg.pattern_units
     want = dict(paged_attention=0, paged_decode_write=0, masked_dequant=0)
-    for gw, n in runs:
+    for gw, n, chunks in runs:
         in_scan = gw.quantized and not gw.materialize_int8_views
         leaves = sum(1 for _ in qleaves(gw._weights[gw.version]["units"])) if in_scan else 0
         want["paged_attention"] += units * n
         want["paged_decode_write"] += units * n
-        want["masked_dequant"] += leaves * units * n
-    total = sum(n for _, n in runs)
+        want["masked_dequant"] += leaves * units * (n + chunks)
+    total = sum(n for _, n, _ in runs)
+    chunks = sum(c for _, _, c in runs)
     got = {k: prof["port_kernels"][k] for k in want}
     if got != want:
         fail(f"profile {label}: the trace shows {got} kernels in {total} runs of the decode "
-             f"step, which give {want}")
-    log(f"  profile {label}: the trace shows the kernels of {total} decode steps "
-        f"({prof['steps']} steps, {total - prof['steps']} warm-ups): {got}, "
-        f"combines {prof['port_kernels']['paged_attention_combine']}")
+             f"step and {chunks} prefill chunks, which give {want}")
+    log(f"  profile {label}: the trace shows the kernels of {total} runs of the decode step "
+        f"(steps and capture warm-ups) and {chunks} prefill chunks: {got}, combines "
+        f"{prof['port_kernels']['paged_attention_combine']}")
 
 
 # ------------------------------------------------------------ phase 3c
 # the compiled decode step (one CUDA graph per view and table width, per
-# version and width on the in-scan path) against the eager kernel path
-# (the graphs taken away through the slot's private ``_graphs``), for
-# float views and the in-scan int8 dequant, in turns: eager, graph,
-# graph, eager on phase 3's stream
+# version and width on the in-scan path) and the compiled prefill chunk
+# (one per view, pow2 lane count and width) against the eager kernel
+# path (both taken away through the slot's private ``_graphs`` and
+# ``_prefill_graphs``), for float views and the in-scan int8 dequant, in
+# turns: eager, graph, graph, eager on phase 3's stream
 COMPILED_MODES = {"float": {}, "in_scan": dict(quantized=True)}
 COMPILED_TURNS = ("eager", "graph", "graph", "eager")
 
 
 def compiled_run(label, gw, cfg, np, torch, graphs, profile):
-    """Serve phase 3's stream on ``gw`` (its graphs taken away unless
-    ``graphs``), the launch counters zeroed just before and read just
-    after; check the wrappers' counts against what really ran eagerly:
-    ``paged_attention`` and ``paged_decode_write`` once a layer of every
-    eager decode step, or through the graphs of every capture's warm-up
-    (a capture and a replay launch through no wrapper), ``masked_dequant``
-    once per int8 leaf of every unit of those steps and of every prefill
-    chunk.  Then, with ``profile``, the 8-step profile of phase 3, whose
-    device trace must show each decode step's kernels."""
+    """Serve phase 3's stream on ``gw`` (its decode and prefill graphs
+    taken away unless ``graphs``), the launch counters zeroed just
+    before and read just after; check the wrappers' counts against what
+    really ran eagerly: ``paged_attention`` and ``paged_decode_write``
+    once a layer of every eager decode step, or through the graphs of
+    every decode capture's warm-up (a capture and a replay launch through
+    no wrapper), ``masked_dequant`` once per int8 leaf of every unit of
+    those steps and of every eager prefill chunk, or through the graphs
+    of every prefill capture's warm-up (which is its chunk: every other
+    chunk must be a replay).  Then, with ``profile``, the 8-step decode
+    profile of phase 3, whose device trace must show each decode step's
+    kernels."""
     from repro_torch.kernels import ops
     from repro_torch.serving.compiled import table_width
     from repro_torch.serving.quantized import qleaves
 
     if not graphs:
         gw._graphs = None
+        gw._prefill_graphs = None
     ops.reset_launches()
     reqs, t = serve(label, gw, cfg, np, torch)
     launches = dict(ops.LAUNCHES)
     st = gw.stats
     units = cfg.pattern_units
     leaves = sum(1 for _ in qleaves(gw._weights[gw.version]["units"])) * units
-    decodes = st["resident_decode_steps"]
-    captures = gw._graphs.captures if graphs else 0
-    replays = gw._graphs.replays if graphs else 0
+    decodes, chunks = st["resident_decode_steps"], st["prefill_chunks"]
+    dg, pg = gw._graphs, gw._prefill_graphs
+    captures = dg.captures if graphs else 0
+    replays = dg.replays if graphs else 0
+    p_caps = pg.captures if graphs else 0
+    p_reps = pg.replays if graphs else 0
     eager = captures if graphs else decodes
+    eager_chunks = p_caps if graphs else chunks
     want = dict(paged_attention=units * eager, paged_decode_write=units * eager,
-                masked_dequant=leaves * (eager + st["prefill_chunks"]))
+                masked_dequant=leaves * (eager + eager_chunks))
     got = {k: launches[k] for k in want}
     if got != want:
-        fail(f"{label}: launches {got}, the eager steps give {want}")
+        fail(f"{label}: launches {got}, the eager steps and chunks give {want}")
     bpl = gw.pool.blocks_per_lane
     # the kernel path's widths are powers of two (and blocks_per_lane)
     widths = len({table_width(n, bpl) if gw.decode_kernels else n for n in range(1, bpl + 1)})
-    most = widths * (1 if gw.quantized and not gw.materialize_int8_views else len(gw.tiers))
+    views = 1 if gw.quantized and not gw.materialize_int8_views else len(gw.tiers)
+    most = widths * views
+    # prefill keys: pow2 lane counts up to max_batch times pow2 widths
+    lanes = len({min(gw.max_batch, 1 << (n - 1).bit_length())
+                 for n in range(1, gw.max_batch + 1)})
+    most_p = lanes * widths * views
     if replays != (decodes if graphs else 0) or (graphs and not 0 < captures <= most):
         fail(f"{label}: {replays} replays and {captures} captures (at most {most}) "
              f"for {decodes} decode steps")
+    if graphs and not (p_reps == chunks - p_caps and 0 < p_caps <= most_p):
+        fail(f"{label}: {p_reps} prefill replays and {p_caps} captures (at most {most_p}) "
+             f"for {chunks} prefill chunks")
     t.update(launches=launches, replays=replays, captures=captures,
-             resident_decode_steps=decodes)
+             resident_decode_steps=decodes, prefill_replays=p_reps, prefill_captures=p_caps)
     if graphs:
-        t["graphs_live"] = len(gw._graphs)
-        t["graph_pool_gb"] = gw._graphs.backend.pool_bytes() / 1e9
+        t["graphs_live"] = len(dg)
+        t["prefill_graphs_live"] = len(pg)
+        t["graph_pool_gb"] = dg.backend.pool_bytes() / 1e9
     log(f"  {label}: launches {got} (as the eager steps give: {units} layers x {eager} "
         f"{'warm-ups' if graphs else 'decode steps'}"
-        + (f", {leaves} int8 leaves x {eager} + {st['prefill_chunks']} prefill chunks"
-           if leaves else "") + f"); {captures} captures, {replays} replays"
-        + (f", {t['graphs_live']} graphs live, their pool {t['graph_pool_gb']:.3f} GB"
-           if graphs else ""))
+        + (f", {leaves} int8 leaves x ({eager} + {eager_chunks} "
+           f"{'prefill warm-ups' if graphs else 'prefill chunks'})" if leaves else "")
+        + f"); decode {captures} captures, {replays} replays; prefill {p_caps} captures, "
+        f"{p_reps} replays of {chunks} chunks"
+        + (f"; {t['graphs_live']} decode and {t['prefill_graphs_live']} prefill graphs live, "
+           f"their pool {t['graph_pool_gb']:.3f} GB" if graphs else ""))
     if profile:
         t["decode_profile"] = decode_profile(gw, cfg, np, torch,
                                              label=label.replace(" ", "_"))
@@ -1472,7 +1607,17 @@ def compiled_phase(cfg, params, tiers, np, torch, want_tokens):
                 fail(f"3c {mode} {path} run {i + 1}: greedy tokens differ from phase 3's "
                      f"{'float' if mode == 'float' else 'materialized int8'} stream")
             runs.append(dict(path=path, **t))
+            if mode == "in_scan" and i == 2:
+                profiled = gw       # its prefill window is profiled after run 4
             del gw
+            gc.collect()
+            torch.cuda.empty_cache()
+        if mode == "in_scan":
+            # last of the phase's profiles: a late session of a long process
+            # can lose device records, the more the sessions before it
+            runs[2]["prefill_profile"] = prefill_profile(
+                profiled, cfg, np, torch, label=f"3c_{mode}_graph_run_3_prefill")
+            del profiled
             gc.collect()
             torch.cuda.empty_cache()
         ms = {p: [1e3 * r["serve_s"] / (r["decode_steps"] + r["prefill_chunks"])
@@ -1480,10 +1625,15 @@ def compiled_phase(cfg, params, tiers, np, torch, want_tokens):
         tps = {p: [r["tokens"] / r["serve_s"] for r in runs if r["path"] == p]
                for p in ("eager", "graph")}
         prof = {r["path"]: r.get("decode_profile") for r in runs[2:]}
+        p50 = {k: [r["prefill"]["chunk_p50_synced_ms"].get(k) for r in runs]
+               for k in ("eager", "replay", "capture")}
+        p50 = {k: [v for v in vs if v is not None] for k, vs in p50.items()}
         log(f"  3c {mode}: greedy tokens identical in all four runs and to phase 3's "
             f"{'float' if mode == 'float' else 'materialized int8'} stream; ms per step "
             f"eager {ms['eager']} against graph {ms['graph']}; tokens/s eager "
-            f"{tps['eager']} against graph {tps['graph']}")
+            f"{tps['eager']} against graph {tps['graph']}; prefill chunk p50 (synchronized) "
+            f"eager {p50['eager']} against replayed {p50['replay']} and captured "
+            f"{p50['capture']} ms")
         if all(prof.values()):
             e, g = prof["eager"], prof["graph"]
             log(f"  3c {mode}: steady decode (8 unprofiled steps) eager "
@@ -1493,7 +1643,142 @@ def compiled_phase(cfg, params, tiers, np, torch, want_tokens):
                 f"{g['host_launch_calls_per_step']:.1f} a step; device busy "
                 f"{100 * e['busy_share_of_unprofiled']:.1f}% against "
                 f"{100 * g['busy_share_of_unprofiled']:.1f}% of the unprofiled step")
-        out[mode] = dict(runs=runs, ms_per_step=ms, tokens_per_s=tps)
+        out[mode] = dict(runs=runs, ms_per_step=ms, tokens_per_s=tps, chunk_p50_ms=p50)
+    return out
+
+
+# ------------------------------------------------------------ phase 3d
+# long prompts through the compiled chunked prefill, full tier, float
+# views, phase 3's weights: (a) 4 prompts of 1,024 tokens in one
+# micro-batch, served with eager prefill and through the prefill graphs,
+# two waves each (the second finds every graph captured); (b) 2 prompts
+# of 4,096 tokens through the graphs only
+LONG_A = dict(prompts=4, tokens=1024, waves=2)
+LONG_B = dict(prompts=2, tokens=4096, waves=1)
+LONG_NEW = 8
+
+
+def long_run(label, cfg, params, np, torch, *, prompts, tokens, waves, graphs, seed):
+    """Serve ``waves`` waves of ``prompts`` random prompts of ``tokens``
+    tokens (from ``seed``) on a fresh default gateway with ``max_batch``
+    = ``prompts``, its prefill graphs taken away unless ``graphs``.  Each
+    scheduler step is timed on the host clock between two synchronizes,
+    and so is every prefill capture (its warm-up, which is the chunk,
+    included).  Returns the requests, their logits rows and a summary."""
+    from repro_torch.serving import LicensedGateway
+
+    gw = LicensedGateway(cfg, params, max_batch=prompts, max_prompt=tokens,
+                         max_new_cap=LONG_NEW)
+    gw.view_for("full")
+    if not graphs:
+        gw._prefill_graphs = None
+    pg = gw._prefill_graphs
+    rows = record_rows(gw)
+    steps = {"prefill": [], "decode": []}
+    capture_s = []
+    step = gw.step
+
+    def timed_step(**kw):
+        sync()
+        t0 = time.perf_counter()
+        act = step(**kw)
+        sync()
+        if act is not None:
+            steps[act.kind].append(time.perf_counter() - t0)
+        return act
+
+    gw.step = timed_step
+    if pg is not None:
+        capture = pg._capture
+
+        def timed_capture(*a):
+            sync()
+            t0 = time.perf_counter()
+            graph = capture(*a)
+            sync()
+            capture_s.append(time.perf_counter() - t0)
+            return graph
+
+        pg._capture = timed_capture
+    rng = np.random.default_rng(seed)
+    reqs, out = [], dict(waves=[])
+    for w in range(waves):
+        wave = [gw.submit(rng.integers(0, cfg.vocab_size, tokens, dtype=np.int32),
+                          max_new_tokens=LONG_NEW) for _ in range(prompts)]
+        caps0, chunks0 = (pg.captures if pg else 0), len(steps["prefill"])
+        t0 = time.perf_counter()
+        gw.run()
+        sync()
+        dt = time.perf_counter() - t0
+        bad = [r.rid for r in wave if r.state.value != "done"
+               or len(r.out_tokens) != LONG_NEW
+               or not all(0 <= t < cfg.vocab_size for t in r.out_tokens)]
+        if bad:
+            fail(f"{label}: requests {bad} did not finish with {LONG_NEW} valid tokens")
+        ttft = [r.first_token_t - r.submit_t for r in wave]
+        chunk = steps["prefill"][chunks0:]
+        out["waves"].append(dict(
+            serve_s=dt, ttft_s=ttft, ttft_p50_s=float(np.median(ttft)),
+            chunks=len(chunk), chunk_p50_ms=1e3 * float(np.median(chunk)),
+            captures=(pg.captures if pg else 0) - caps0))
+        reqs += wave
+    m = gw.metrics()
+    pre = prefill_report(gw)
+    chunks = gw.stats["prefill_chunks"]
+    out.update(prefill=pre["numbers"], prefill_chunks=chunks,
+               ttft_hist_p50_s=m["latency"]["ttft_s"]["p50"],
+               decode_p50_ms=1e3 * float(np.median(steps["decode"])),
+               decode_captures=gw._graphs.captures,
+               graph_pool_gb=gw._graphs.backend.pool_bytes() / 1e9,
+               capture_s=capture_s)
+    if pg is not None and pg.replays != chunks - pg.captures:
+        fail(f"{label}: {pg.replays} prefill replays and {pg.captures} captures for "
+             f"{chunks} chunks")
+    for i, wv in enumerate(out["waves"]):
+        log(f"  {label} wave {i + 1}: {prompts} x {tokens} tokens, {LONG_NEW} new each, in "
+            f"{wv['serve_s']:.2f} s; TTFT p50 {wv['ttft_p50_s']:.3f} s (host clock, each step "
+            f"synchronized); {wv['chunks']} prefill chunks, p50 {wv['chunk_p50_ms']:.2f} ms "
+            f"(synchronized); {wv['captures']} prefill captures")
+    log(f"  {label}: {pre['text']}; decode step p50 {out['decode_p50_ms']:.2f} ms "
+        f"({out['decode_captures']} decode captures); graph pool "
+        f"{out['graph_pool_gb']:.3f} GB"
+        + (f"; prefill captures took {sum(capture_s):.2f} s (their warm-up chunks included; "
+           f"each {[round(c, 3) for c in capture_s]} s)" if pg is not None else ""))
+    del gw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reqs, rows, out
+
+
+def long_prompt_phase(cfg, params, np, torch):
+    """Phase 3d (see the module docstring).  (a)'s greedy tokens through
+    the graphs must equal the eager prefill's, or part at a near-tie;
+    (a) may capture at most 7 widths x 1 lane bucket, (b) 9, and (a)'s
+    second wave nothing."""
+    out = {}
+    got = {}
+    for path in ("eager", "graph"):
+        got[path] = long_run(f"3d (a) {path}", cfg, params, np, torch, **LONG_A,
+                             graphs=path == "graph", seed=SEED + 8)
+        out[f"a_{path}"] = got[path][2]
+    g = out["a_graph"]
+    if not (0 < g["prefill"]["prefill_captures"] <= 7 and g["waves"][1]["captures"] == 0):
+        fail(f"3d (a): {g['prefill']['prefill_captures']} prefill captures (at most 7), "
+             f"{g['waves'][1]['captures']} in the second wave (none)")
+    out["a_parts"] = near_ties("3d (a) graph", got["graph"][0], got["eager"][0],
+                               got["graph"][1], got["eager"][1], cfg.vocab_size,
+                               ref="eager prefill")
+    e = out["a_eager"]
+    log(f"  3d (a): TTFT p50 by wave eager {[w['ttft_p50_s'] for w in e['waves']]} against "
+        f"graph {[w['ttft_p50_s'] for w in g['waves']]} s; chunk p50 eager "
+        f"{[w['chunk_p50_ms'] for w in e['waves']]} against graph "
+        f"{[w['chunk_p50_ms'] for w in g['waves']]} ms")
+    del got
+    _, _, b = long_run("3d (b) graph", cfg, params, np, torch, **LONG_B, graphs=True,
+                       seed=SEED + 9)
+    if not 0 < b["prefill"]["prefill_captures"] <= 9:
+        fail(f"3d (b): {b['prefill']['prefill_captures']} prefill captures (at most 9)")
+    out["b_graph"] = b
     return out
 
 
@@ -1592,6 +1877,9 @@ def prefix_run(label, gw, stream, np, tier=None):
         f"{out['prefill_lane_tokens']}, prefix_tokens_reused {out['prefix_tokens_reused']}, "
         f"cow_copies {out['cow_copies']}, preempted {out['preempted']}, decode writes "
         f"checked private {checked[0]}")
+    pre = prefill_report(gw)
+    out["prefill"] = pre["numbers"]
+    log(f"  {label}: {pre['text']}")
     log(f"  {label}: prefix_cache {json.dumps(pc)}")
     if san is not None:
         log(f"  {label}: sanitized (shadow refcounts on every allocator call, "
@@ -1923,31 +2211,35 @@ class FleetTenants:
 def fleet_launch_check(label, fleet, cfg, launches):
     """The wrappers' counts of one fleet run (``launches``) against what
     its slots ran eagerly.  Every decode step of a slot must have been a
-    graph replay, so ``paged_attention`` and ``paged_decode_write``
-    launch once a layer of each capture's warm-up, and ``masked_dequant``
-    once per int8 leaf of every unit of the in-scan slot's warm-ups and
-    prefill chunks (as phase 3c counts them); each of the three must
-    have launched."""
+    graph replay, and every prefill chunk a replay or a capture (whose
+    warm-up is the chunk), so ``paged_attention`` and
+    ``paged_decode_write`` launch once a layer of each decode capture's
+    warm-up, and ``masked_dequant`` once per int8 leaf of every unit of
+    the in-scan slot's decode and prefill warm-ups (as phase 3c counts
+    them); each of the three must have launched."""
     from repro_torch.serving.quantized import qleaves
 
     units = cfg.pattern_units
     want = dict(paged_attention=0, paged_decode_write=0, masked_dequant=0)
     for name, gw in fleet.gateways.items():
-        g = gw._graphs
-        decodes = gw.stats["resident_decode_steps"]
+        g, pg = gw._graphs, gw._prefill_graphs
+        decodes, chunks = gw.stats["resident_decode_steps"], gw.stats["prefill_chunks"]
         if g is None or not 0 < g.replays == decodes:
             fail(f"{label}: {name} ran {decodes} decode steps through "
                  f"{None if g is None else g.replays} graph replays")
+        if pg is None or not (0 < pg.captures and pg.replays == chunks - pg.captures):
+            fail(f"{label}: {name} ran {chunks} prefill chunks through "
+                 f"{None if pg is None else (pg.replays, pg.captures)} replays and captures")
         leaves = sum(1 for _ in qleaves(gw._weights[gw.version]["units"])) * units
         want["paged_attention"] += units * g.captures
         want["paged_decode_write"] += units * g.captures
-        want["masked_dequant"] += leaves * (g.captures + gw.stats["prefill_chunks"])
+        want["masked_dequant"] += leaves * (g.captures + pg.captures)
     got = {k: launches[k] for k in want}
     if got != want or not all(got.values()):
-        fail(f"{label}: launches {got}, the slots' warm-ups and prefill chunks give {want}; "
+        fail(f"{label}: launches {got}, the slots' decode and prefill warm-ups give {want}; "
              f"each of the three must launch")
-    log(f"  {label}: launches {got}, as the slots' warm-ups and in-scan prefill chunks "
-        f"give; every decode step a graph replay")
+    log(f"  {label}: launches {got}, as the slots' decode and prefill warm-ups give; every "
+        f"decode step a graph replay, every prefill chunk a replay or a capture")
 
 
 def fleet_run(label, fleet, cfg, np, *, waves, budget=None, tenants=None):
@@ -2011,7 +2303,8 @@ def fleet_run(label, fleet, cfg, np, *, waves, budget=None, tenants=None):
             captures=gw._graphs.captures if gw._graphs is not None else None,
             replays=gw._graphs.replays if gw._graphs is not None else None,
             graph_pool_gb=(gw._graphs.backend.pool_bytes() / 1e9
-                           if gw._graphs is not None else None))
+                           if gw._graphs is not None else None),
+            **prefill_report(gw)["numbers"])
     log(f"  {label}: {sum(len(r) for r in reqs.values())} requests, {tokens} tokens in "
         f"{dt:.2f} s ({out['tokens_per_s']:.1f} tokens/s, {out['ms_per_step']:.1f} ms per "
         f"fleet step over {steps}); most cache bytes in use {most}")
@@ -2055,7 +2348,7 @@ def fleet_profile(label, fleet, cfg, np, torch, steps=8):
              f"steps' kernels cannot be counted")
     by_slot = {name: sum(a.model == name for a in acts[steps:]) for name in gws}
     warmups = {name: gw._graphs.captures - captures[name] for name, gw in gws.items()}
-    check_trace_launches(label, cfg, prof, [(gw, by_slot[name] + warmups[name])
+    check_trace_launches(label, cfg, prof, [(gw, by_slot[name] + warmups[name], 0)
                                             for name, gw in gws.items()])
     prof.update(unprofiled_ms_per_step=plain_ms, decode_steps_by_slot=by_slot,
                 warmups_in_window=warmups,
@@ -2698,6 +2991,11 @@ def main() -> None:
     compiled = compiled_phase(cfg, params, tiers, np, torch, want_streams)
     del int8_reqs
 
+    # ---------------------------------------------------------- phase 3d
+    log(f"phase 3d: long prompts through the compiled chunked prefill, {ARCH} at full "
+        f"width and depth")
+    long_prompts = long_prompt_phase(cfg, params, np, torch)
+
     # ---------------------------------------------------------- phase 3b
     log(f"phase 3b: the shared-prefix stream, {ARCH} at full width and depth")
     ops.reset_launches()
@@ -2828,6 +3126,7 @@ def main() -> None:
     log(f"whole script {time.perf_counter() - t_script:.1f} s (kernel build included)")
     log(json.dumps({"gateway": {"float": float_t, "int8": int8_t,
                                 "plain_decode": plain_t, "compiled": compiled,
+                                "long_prompts": long_prompts,
                                 "decode_logits_max_abs_err": err,
                                 "decode_argmax_flips": flips, "stream_parts": parts},
                     "shared_prefix": {"runs": prefix_runs, "launches": prefix_launches},

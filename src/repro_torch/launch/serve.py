@@ -1,10 +1,11 @@
 """Serving launcher of the port: licensed batched generation on one card.
 
-Random-initializes the model from ``--seed`` (the repository has no
-checkpoint), builds the tier ladder (``full`` plus ``free``, which masks
-|w| < 0.01 everywhere), and drains a batch of requests per tier through
-the continuous-batching ``LicensedGateway`` — one stored weight set
-serving several accuracy tiers (§3.5).  ``--int8-views`` serves from one
+Loads the production version from a ``WeightStore`` file (``--store``)
+or random-initializes the model from ``--seed``, builds the tier ladder
+(``full`` plus ``free``, which masks |w| < 0.01 everywhere), and
+drains a batch of requests per tier through the continuous-batching
+``LicensedGateway`` — one stored weight set serving several accuracy
+tiers (§3.5).  ``--int8-views`` serves from one
 int8 store with each tier's view built by the fused masked-dequant.
 
 The observability layer rides along: ``--prometheus-out`` dumps the
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.configs import get_config, list_configs, smoke_variant
 from repro_torch.core.licensing import FULL_TIER, LicenseTier
+from repro_torch.core.weightstore import WeightStore, to_tensor
 from repro_torch.models import init_params
 from repro_torch.serving import LicensedGateway
 
@@ -41,9 +43,16 @@ def _dump(dest: str, text: str, label: str) -> None:
         print(f"wrote {label} to {dest}")
 
 
+def _to_device(tree, device):
+    """A checked-out (nested, host) weight tree as tensors on ``device``."""
+    return {k: (_to_device(v, device) if isinstance(v, dict) else to_tensor(v, device))
+            for k, v in tree.items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list(list_configs()))
+    ap.add_argument("--store", default=None)
     ap.add_argument("--tiers", default="full,free")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -71,6 +80,10 @@ def main(argv=None):
         cfg = smoke_variant(cfg)
     device = torch.device(args.device)
     params = init_params(cfg, seed=args.seed, device=device)
+    if args.store:
+        store = WeightStore(args.store)
+        params = _to_device(store.checkout(cfg.name, template=params), device)
+        print(f"loaded production version {store.production_version(cfg.name)}")
     tiers = {"full": FULL_TIER,
              "free": LicenseTier(name="free", masks={"*": ((0.0, 0.01),)})}
     gw = LicensedGateway(cfg, params, tiers=tiers, max_batch=args.batch,

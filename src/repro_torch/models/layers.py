@@ -47,9 +47,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 # ----------------------------------------------------------------- attention
 def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    scores = torch.where(mask, scores,
-                         torch.tensor(torch.finfo(scores.dtype).min,
-                                      dtype=scores.dtype, device=scores.device))
+    # the fill is a Python scalar: a tensor made on the device would be a
+    # host copy, which a CUDA graph capture (the compiled chunk step) refuses
+    scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
     probs = torch.softmax(scores.float(), dim=-1)
     # rows with no valid key (padded decode) -> zeros
     any_valid = mask.any(-1, keepdim=True)

@@ -8,8 +8,8 @@ entitlements and quotas enforced at the door.  Three layers:
 * :class:`ModelSlot` — everything one served model owns: the weight
   versions, the (tier, version)-keyed view cache, the block-paged KV
   pool, the shared-prefix radix cache over it, the chunked-prefill
-  scheduler, the compiled decode steps (CUDA graphs on the card,
-  ``serving/compiled.py``), the serving stats, the observability
+  scheduler, the compiled decode and chunked-prefill steps (CUDA graphs
+  on the card, ``serving/compiled.py``), the serving stats, the observability
   substrate (a ``Telemetry`` registry with the slot's instruments, a
   ``TraceRecorder`` event tape and an ``AuditLog``, all on the slot's
   clock), the opt-in sanitizer, and the license-server state of the
@@ -65,7 +65,8 @@ from repro_torch.core.transport import (DirectTransport, RetryPolicy, Transport,
                                         TransportTimeout)
 from repro_torch.models.model import check_supported
 from repro_torch.serving.paging import PagedCachePool, cdiv
-from repro_torch.serving.compiled import DecodeGraphs, GraphSet, StoreGraphs, View
+from repro_torch.serving.compiled import (DecodeGraphs, GraphSet, PrefillGraphs, StoreGraphs,
+                                          View)
 from repro_torch.serving.prefix import PrefixCache
 from repro_torch.serving.scheduler import (GatewayRequest, RequestState, Scheduler,
                                            TierViewCache)
@@ -315,11 +316,13 @@ class ModelSlot:
             "sync_retries": 0, "sync_timeouts": 0, "sync_quarantines": 0,
         }
 
-        # the compiled decode step (serving/compiled.py): CUDA graphs of
-        # the kernel path on the card; the plain path and the CPU decode
-        # eagerly.  Private: the eager kernel path stays reachable by
-        # setting it to None.
+        # the compiled decode and chunked-prefill steps (serving/
+        # compiled.py): CUDA graphs of the kernel path on the card, both
+        # in one memory pool; the plain path and the CPU run eagerly.
+        # Private: the eager steps stay reachable by setting either to None.
         self._graphs = DecodeGraphs(self) if self.decode_kernels else None
+        self._prefill_graphs = (PrefillGraphs(self, backend=self._graphs.backend)
+                                if self.decode_kernels else None)
 
         self._register_telemetry()
         # seed the audit ledger: the tiers this slot can serve from birth
@@ -598,8 +601,8 @@ class ModelSlot:
         masked-dequant of the int8 store (``materialize_int8_views``),
         both with intervals ``None``; or the int8 store itself with the
         tier's intervals packed on the device, dequantized inside every
-        step.  A ``compiled.View``: its decode graphs live and go with it
-        (in-scan, with the version's views)."""
+        step.  A ``compiled.View``: its decode and prefill graphs live
+        and go with it (in-scan, with the version's views)."""
         tier = self._resolve_tier(tier_name)
         if self.obs:
             self.audit.record("view_materialize", model=self.model,

@@ -32,8 +32,10 @@ cache byte once through the micro-batch's trimmed block tables.  On the
 card that step is a CUDA graph per (view, table width), or per (version,
 width) on the in-scan int8 path (``serving/compiled.py``), as the JAX
 gateway compiles one per width; the kernel path rounds the used width up
-to a power of two, so a view holds a few graphs at any context.  The
-plain path (``decode_kernels=False``) and the CPU decode eagerly.  When
+to a power of two, so a view holds a few graphs at any context.  A
+prefill chunk there is a graph too, one per (pow2 lanes, pow2 table
+width) and view, the JAX gateway's jit key.  The plain path
+(``decode_kernels=False``) and the CPU decode and prefill eagerly.  When
 the pool runs out of blocks, the youngest running request is preempted
 back to the queue head and recomputed later (generation is deterministic
 per (seed, prompt, view), so it reproduces its tokens).
@@ -56,8 +58,9 @@ the request lifecycle, scheduler actions and stager phases on a
 licensing audit stream (:meth:`~LicensedGateway.audit_events`).  Every
 record site sits behind ``self.obs``.  The step histograms read the host
 clock around ``step()``: a step's work up to its logits ends in the
-token ids' copy to the host, but the prefill chunk's pool scatter and a
-stage step's device work are only launched inside the window.
+token ids' copy to the host (a prefill graph's pool scatter included),
+but the eager prefill chunk's scatter and a stage step's device work
+are only launched inside the window.
 ``sanitize=True`` (or ``REPRO_SANITIZE=1``) shadows the block allocator
 and bounds the distinct step shapes.
 
@@ -411,7 +414,7 @@ class LicensedGateway:
             if self.obs:
                 # host clock: the window covers the step's work up to the
                 # token ids' copy to the host, and only the launch of
-                # what follows it (the prefill chunk's pool scatter)
+                # what follows it (the eager prefill chunk's pool scatter)
                 t1 = self.clock()
                 (self.h_prefill if act.kind == "prefill"
                  else self.h_decode).observe(t1 - t0)
@@ -599,8 +602,10 @@ class LicensedGateway:
         block.  Lane count and table width are rounded up to powers of
         two, as in the JAX package.  A lane whose cursor reaches the
         prompt end donates its true-token chain to the prefix cache,
-        emits its first token and enters decode."""
-        view, li = self.views.get(act.tier, act.version)
+        emits its first token and enters decode.  With the compiled
+        step (the card's default) the chunk is a graph replay; sampled
+        lanes draw from its picked rows here."""
+        view = self.views.get(act.tier, act.version)
         reqs = act.requests
         w = self.chunk_size
         bs = self.pool.block_size
@@ -626,14 +631,21 @@ class LicensedGateway:
         lane_ids = self.pool.pad_lanes([r.lane for r in reqs], b)
         tables = self.pool.pad_tables([r.blocks[:cols] for r in reqs], b,
                                       n_cols=cols)
-        caches = self.pool.gather(tables)
-        logits, caches = prefill_chunk_step(view, self.cfg, self._to_device(sub),
-                                            caches, self._to_device(poss),
-                                            license_intervals=li)
-        rows = logits[torch.arange(b, device=self.device), self._to_device(lasts)]
-        outs = self._sample(rows, reqs)
-        caches = self.pool.override_counters(caches, fills)
-        self.pool.scatter(lane_ids, self._scatter_tables(tables, reqs), caches)
+        if self._prefill_graphs is not None:
+            rows, greedy = self._prefill_graphs.step(
+                view, sub, poss, lasts, fills, lane_ids, tables,
+                self._scatter_tables(tables, reqs))
+            outs = self._sample(rows, reqs, greedy)
+        else:
+            params, li = view
+            caches = self.pool.gather(tables)
+            logits, caches = prefill_chunk_step(params, self.cfg, self._to_device(sub),
+                                                caches, self._to_device(poss),
+                                                license_intervals=li)
+            rows = logits[torch.arange(b, device=self.device), self._to_device(lasts)]
+            outs = self._sample(rows, reqs)
+            caches = self.pool.override_counters(caches, fills)
+            self.pool.scatter(lane_ids, self._scatter_tables(tables, reqs), caches)
         self.stats["prefill_lane_tokens"] += w * len(reqs)
         self.stats["prefill_chunks"] += 1
         now = self.clock()

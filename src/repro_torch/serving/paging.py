@@ -14,7 +14,9 @@ Counterpart of ``repro/serving/paging.py`` for the dense GQA model:
   copy-on-write.
 
 Prefill chunks ``gather`` each lane's logical cache through its table
-into a contiguous batch and ``scatter`` it back.  Decode does not copy:
+into a contiguous batch and ``scatter`` it back.  Their tables, lane ids
+and fills may be device tensors (the compiled chunk step's static
+inputs), so nothing in the step copies from the host.  Decode does not copy:
 ``decode_cache`` hands the batched step the pool's block tensors by
 reference and the kernels write the one new token per lane in place.
 The JAX package has to donate those arrays into the step and adopt the
@@ -193,16 +195,30 @@ class PagedCachePool:
             out[i, : len(t)] = t
         return out
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the pool: K and V blocks and the lane counters."""
+        return sum(t.numel() * t.element_size() for t in (self.k, self.v, self.lens))
+
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32)).to(self.device)
+
+    def _index(self, a) -> torch.Tensor:
+        """An int64 device index: a host array is copied over; a device
+        tensor (a compiled step's static input) is used where it lies, so
+        the gather and scatter below stay capturable."""
+        if isinstance(a, torch.Tensor):
+            return a.long()
+        return self._tensor(a).long()
 
     # ------------------------------------------------------- gather/scatter
     def gather(self, tables) -> Dict[str, Any]:
         """Contiguous per-lane views for a prefill chunk: ``tables`` (B, T)
-        -> cache ``k``/``v`` (U, B, T*bs, KH, hd) in logical order, with
-        fresh (zero) ``len`` counters — the chunk step masks positionally
-        and the gateway pins the counters to the true fill afterwards."""
-        tab = self._tensor(tables).long()
+        (host, or int32 on the device) -> cache ``k``/``v`` (U, B, T*bs,
+        KH, hd) in logical order, with fresh (zero) ``len`` counters — the
+        chunk step masks positionally and the gateway pins the counters
+        to the true fill afterwards."""
+        tab = self._index(tables)
         b, t = tab.shape
         u, _, bs, kh, hd = self.k.shape
         return {"units": {"b0": {
@@ -211,26 +227,20 @@ class PagedCachePool:
             "len": torch.zeros((u, b), dtype=torch.int32, device=self.device),
         }}}
 
-    def scatter(self, lanes: Sequence[int], tables, caches: Dict[str, Any]) -> None:
+    def scatter(self, lanes, tables, caches: Dict[str, Any]) -> None:
         """Write chunk views back through the tables and the counters by
-        lane id.  Padding rows target the null block / scratch lane, so
-        duplicate pad indices never race a live lane."""
-        tab = self._tensor(tables).long()
+        lane id (each host, or a device tensor).  Padding rows target the
+        null block / scratch lane, so duplicate pad indices never race a
+        live lane."""
+        tab = self._index(tables)
         b, t = tab.shape
         u, _, bs, kh, hd = self.k.shape
         c = caches["units"]["b0"]
         self.k[:, tab] = c["k"].reshape(u, b, t, bs, kh, hd).to(self.k.dtype)
         self.v[:, tab] = c["v"].reshape(u, b, t, bs, kh, hd).to(self.v.dtype)
-        self.lens[self._tensor(lanes).long()] = c["len"].t().to(torch.int32)
+        self.lens[self._index(lanes)] = c["len"].t().to(torch.int32)
 
     # ----------------------------------------------- kernel-resident decode
-    def _lane_index(self, lanes) -> torch.Tensor:
-        """Lane ids as a device index: a host sequence is copied over; a
-        device tensor (the compiled step's static lane ids) is used as
-        it is, so the gather and scatter below stay capturable."""
-        if isinstance(lanes, torch.Tensor):
-            return lanes
-        return self._tensor(lanes).long()
 
     def decode_cache(self, lanes) -> Dict[str, Any]:
         """Cache dict for the batched kernel-resident decode step: the
@@ -238,7 +248,7 @@ class PagedCachePool:
         (U, B).  ``lanes``: host lane ids, or an int64 device tensor."""
         return {"units": {"b0": {
             "k": self.k, "v": self.v,
-            "len": self.lens[self._lane_index(lanes)].t().contiguous(),
+            "len": self.lens[self._index(lanes)].t().contiguous(),
         }}}
 
     def absorb_decode(self, lanes, caches: Dict[str, Any]) -> None:
@@ -246,7 +256,7 @@ class PagedCachePool:
         landed in the pool in place; store the advanced counters."""
         c = caches["units"]["b0"]
         assert c["k"] is self.k and c["v"] is self.v
-        self.lens[self._lane_index(lanes)] = c["len"].t().to(torch.int32)
+        self.lens[self._index(lanes)] = c["len"].t().to(torch.int32)
 
     # --------------------------------------------------- prefix-cache hooks
     def copy_block(self, src: int, dst: int) -> None:
@@ -258,8 +268,9 @@ class PagedCachePool:
 
     def override_counters(self, caches: Dict[str, Any], value) -> Dict[str, Any]:
         """Pin the gathered ``len`` counters to the true logical fill
-        (``value`` scalar or (B,) per lane): a chunk step only counts its
-        own W rows."""
+        (``value`` scalar or (B,) per lane, host or an int32 device
+        tensor, which is used where it lies): a chunk step only counts
+        its own W rows."""
         c = caches["units"]["b0"]
         val = torch.as_tensor(value, dtype=torch.int32, device=self.device)
         c["len"] = val.reshape(1, -1).expand_as(c["len"]).clone()

@@ -14,7 +14,7 @@ Over a two-tier shared-prefix stream with preemptions and prefix
 copy-on-writes, greedy tokens, sampled tokens and the schedule through
 the graphs must equal the eager gateway's and, for greedy tokens and
 the schedule, the JAX gateway's (float views and the in-scan int8
-dequant).  The graph keys, their drops (view eviction, tier
+dequant), with the prefill chunks eager and through their graphs too.  The graph keys, their drops (view eviction, tier
 invalidation, version GC), the launch counts (warm-ups only, no replay
 adds any), the kernel path's table widths and a capture that raises are
 checked one by one.  One ``gpu`` test serves a stream through real CUDA
@@ -40,7 +40,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models.model import params_from_jax
 from repro_torch.serving import LicensedGateway, RequestState
 from repro_torch.serving import gateway as gateway_mod
-from repro_torch.serving.compiled import DecodeGraphs, table_width
+from repro_torch.serving.compiled import DecodeGraphs, PrefillGraphs, table_width
 
 FREE = {"*": ((0.0, 0.01),)}
 # two lanes a micro-batch over three, 4-token blocks, a pool of 8 blocks:
@@ -186,6 +186,16 @@ def test_graphs_match_eager_and_jax(weights, mode):
     assert gw._graphs.captures == len(want) == gw._graphs.backend.captures
     assert gw._graphs.replays == len(seen) == gw.stats["resident_decode_steps"]
     assert eager._graphs is None
+    # the card's default, the prefill chunks through graphs on the same
+    # backend too (tests/test_torch_prefill_graphs.py checks their keys)
+    both = _gateway(cfg, params, mode, backend=Recorder())
+    both._prefill_graphs = PrefillGraphs(both.slot, backend=both._graphs.backend)
+    assert [r.out_tokens for r in _drain(both, stream)] == [r.out_tokens for r in jreqs]
+    assert list(both.trace) == list(jgw.trace)
+    for key in ("preempted", "cow_copies", "prefix_tokens_reused", "decode_steps",
+                "prefill_chunks", "prefill_lane_tokens"):
+        assert both.stats[key] == jgw.stats[key], key
+    assert both._prefill_graphs.replays > 0
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
