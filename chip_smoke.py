@@ -164,7 +164,28 @@ Phases (each prints its own lines; any failure exits non-zero):
    end with the expected counts and nothing in flight.  Captures,
    graph pools, evictions, preemptions and the fleet's ``metrics()``
    are printed;
-8. a ``kernels`` JSON line, and the result line last.
+8. the offline lifecycle (paper Fig. 3): (a) ``examples/quickstart.py``
+   step for step at the paper's size (``TABLE1_A``): ``train_mlp`` 600
+   steps (accuracy at least 0.95), ``compress_pipeline`` at 0.8,
+   ``finetune_pruned_mlp`` 200 steps (every pruned zero still 0),
+   publish, ``calibrate_license`` to 0.70, a full and a free
+   ``EdgeClient`` pull (free accuracy below paid) and a 25-weight delta
+   update (25 entries), the launch counters zeroed just before the pulls
+   and read just after (``delta_apply`` must have run; its count joins
+   the ``kernels`` line); (b) ``compress_pipeline`` on phase 3's weights
+   (seconds per pass, peak memory above the weights, every pruned leaf's
+   non-zero count recounted against its threshold, the stacked q
+   projection pruned and quantized again on the CPU and held bit for
+   bit) and ``weight_share`` on one 2048 x 11008 slice (indices below k,
+   MSE below the linear init's); (c) ``train_loop`` on phase 3's weights
+   at full depth, one 2 x 256-token batch repeated for 4 steps (ms per
+   step, tokens/s, peak memory; finite losses and grad norms, the last
+   loss below the first, the first within 1e-3 of ``lm_loss``), then 2
+   steps at 2 units checkpointed into an in-memory ``WeightStore`` at
+   step 2 (seconds and rows per commit; the history must hold "step 2":
+   a commit of the 2-unit model takes about a minute of host time, so
+   one commit, not one a step);
+9. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
 device is present or when run outside a checkout of the repository.
@@ -2860,6 +2881,301 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
     return out
 
 
+# ------------------------------------------------------------ phase 8
+# the offline lifecycle (paper Fig. 3 and the quickstart): the paper's MLP
+# trained, compressed, fine-tuned, published, calibrated and pulled; the
+# compression pipeline on phase 3's weights; LM training at full width
+QUICK = dict(n=8000, train=6000, steps=600, sparsity=0.8, finetune=200,
+             target=0.70, k_intervals=12, update=25)
+QUICK_MIN_ACC = 0.95
+SHARE = dict(k=32, iters=25)
+TRAIN = dict(seq=256, batch=2, steps=4, lr=1e-4)
+# one checkpoint: a commit of the 2-unit model (its 0.62 B embedding and
+# head parameters among 11,856 zlib pages) takes about a minute of host
+# time on the card's machine (PERF.md section 5), two would pass 90 s
+CKPT = dict(units=2, steps=2, every=2)
+LOSS_RTOL = 1e-3
+
+
+def quickstart_phase(np, torch, device="cuda"):
+    """8a: ``examples/quickstart.py`` step for step at the paper's size
+    (``TABLE1_A``): train, compress and fine-tune, publish, calibrate a
+    free tier, two licensed pulls and a 25-weight delta update.  The
+    launch counters are zeroed just before the pulls and read just
+    after."""
+    from repro_torch.configs.paper_mlp import TABLE1_A
+    from repro_torch.core import compress_pipeline, flatten_params, unflatten
+    from repro_torch.core.licensing import calibrate_license
+    from repro_torch.core.protocol import EdgeClient, LicenseServer
+    from repro_torch.core.weightstore import WeightStore
+    from repro_torch.data import classification_data
+    from repro_torch.kernels import ops
+    from repro_torch.training import finetune_pruned_mlp, mlp_accuracy, train_mlp
+
+    out = {}
+    x, y = classification_data(QUICK["n"], TABLE1_A.in_dim, TABLE1_A.num_classes, seed=0)
+    n = QUICK["train"]
+    xtr, ytr, xte, yte = x[:n], y[:n], x[n:], y[n:]
+    t0 = time.perf_counter()
+    params = train_mlp(TABLE1_A, xtr, ytr, steps=QUICK["steps"], device=device)
+    sync()
+    out["train_s"] = time.perf_counter() - t0
+    out["trained_acc"] = mlp_accuracy(params, xte, yte)
+    log(f"  [1] trained {TABLE1_A.name} ({TABLE1_A.num_params} params) {QUICK['steps']} "
+        f"steps in {out['train_s']:.2f} s: acc={out['trained_acc']:.4f}")
+    if out["trained_acc"] < QUICK_MIN_ACC:
+        fail(f"8a: trained accuracy {out['trained_acc']} below {QUICK_MIN_ACC}")
+
+    pruned, _, stats = compress_pipeline(params, sparsity=QUICK["sparsity"])
+    zeros = {k: v == 0 for k, v in flatten_params(pruned).items()}
+    t0 = time.perf_counter()
+    pruned = finetune_pruned_mlp(TABLE1_A, pruned, xtr, ytr, steps=QUICK["finetune"])
+    sync()
+    out["finetune_s"] = time.perf_counter() - t0
+    flat = flatten_params(pruned)
+    moved = [k for k, z in zeros.items() if bool((flat[k][z] != 0).any())]
+    if moved:
+        fail(f"8a: pruned zeros became non-zero in fine-tuning: {moved}")
+    out["pruned_acc"] = mlp_accuracy(pruned, xte, yte)
+    out["stats"] = vars(stats)
+    log(f"  [2] pruned {QUICK['sparsity']:.0%} + fine-tuned {QUICK['finetune']} steps "
+        f"({out['finetune_s']:.2f} s): acc={out['pruned_acc']:.4f}, every pruned zero "
+        f"still 0; storage {stats.full_bytes} B -> {stats.quantized_bytes} B ({out['stats']})")
+
+    store = WeightStore(":memory:")
+    store.register_model("prod-mlp", "paper-mlp")
+    server = LicenseServer(store)
+    v1 = server.publish("prod-mlp", pruned, tag="v1.0")
+    out["db"] = store.storage_bytes("prod-mlp")
+    log(f"  [3] published version {v1}; DB rows {out['db']['weight_rows']}, {out['db']}")
+
+    t0 = time.perf_counter()
+    tier, trace = calibrate_license(pruned, lambda p: mlp_accuracy(p, xte, yte),
+                                    target_accuracy=QUICK["target"],
+                                    k_intervals=QUICK["k_intervals"], tier_name="free")
+    out["calibrate_s"] = time.perf_counter() - t0
+    out["evaluations"] = len(trace)
+    server.publish_tier("prod-mlp", tier)
+    log(f"  [4] calibrated tier 'free': accuracy {tier.accuracy:.4f} after {len(trace)} "
+        f"Algorithm-1 evaluations ({out['calibrate_s']:.2f} s)")
+
+    empty = {k: torch.zeros_like(v) for k, v in flat.items()}
+    paid = EdgeClient("prod-mlp", dict(empty), license_name="full")
+    free = EdgeClient("prod-mlp", dict(empty), license_name="free")
+    ops.reset_launches()
+    first = [paid.request_update(server), free.request_update(server)]
+    out["paid_acc"] = mlp_accuracy(unflatten(paid.params), xte, yte)
+    out["free_acc"] = mlp_accuracy(unflatten(free.params), xte, yte)
+    log(f"  [5] paid client acc={out['paid_acc']:.4f}, free client acc="
+        f"{out['free_acc']:.4f}; packets {[(p.num_entries, p.nbytes) for p in first]}")
+    if not out["free_acc"] < out["paid_acc"]:
+        fail(f"8a: free accuracy {out['free_acc']} is not below paid {out['paid_acc']}")
+
+    newp = {k: v.clone() for k, v in flat.items()}
+    newp["layer3/kernel"].view(-1)[:QUICK["update"]] += 0.01
+    server.publish("prod-mlp", unflatten(newp), tag="v1.1")
+    packet = paid.request_update(server)
+    out["launches"] = dict(ops.LAUNCHES)
+    out["packet"] = dict(entries=packet.num_entries, nbytes=packet.nbytes,
+                         initial_bytes=paid.bytes_downloaded - packet.nbytes)
+    log(f"  [6] delta update: {packet.num_entries} weights, {packet.nbytes} B (vs "
+        f"{out['packet']['initial_bytes']} B initial download); launches of the pulls "
+        f"{out['launches']}")
+    if packet.num_entries != QUICK["update"]:
+        fail(f"8a: the delta packet holds {packet.num_entries} entries, not "
+             f"{QUICK['update']}")
+    if device == "cuda" and out["launches"]["delta_apply"] <= 0:
+        fail("8a: the pulls launched no delta_apply")
+    store.close()
+    return out
+
+
+def compression_phase(cfg, params, np, torch):
+    """8b: ``compress_pipeline`` on ``params`` (every pruned leaf recounted
+    against its threshold; one stacked leaf pruned and quantized again on
+    the CPU and held bit for bit), then ``weight_share`` on one MLP
+    slice."""
+    from repro_torch.core import compression
+    from repro_torch.core.pytree_io import flatten_params
+
+    out = {}
+    cuda = torch.cuda.is_available()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    pruned, quant, stats = compression.compress_pipeline(params, timings=timings)
+    out.update(seconds=timings, stats=vars(stats))
+    if cuda:
+        out["peak_above_weights_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f"  compress_pipeline(sparsity 0.8): prune {timings['prune']:.3f} s, quantize "
+        f"{timings['quantize']:.3f} s, stats {timings['stats']:.3f} s; peak "
+        f"{out.get('peak_above_weights_gb', float('nan')):.2f} GB above the weights; "
+        f"{out['stats']}")
+
+    flat, pflat = flatten_params(params), flatten_params(pruned)
+    for name, w in flat.items():
+        if compression.is_dynamics_param(name) or w.ndim < 2:
+            if pflat[name] is not w:
+                fail(f"8b: {name} is exempt from pruning but was replaced")
+            continue
+        thr = compression.magnitude_threshold(w, 0.8)
+        want = sum(int(((w[s].abs().float() >= thr) & (w[s] != 0)).sum())
+                   for s in compression.row_slices(w))
+        got = int(torch.count_nonzero(pflat[name]))
+        if got != want:
+            fail(f"8b: {name} keeps {got} non-zeros; its threshold {float(thr)} implies "
+                 f"{want}")
+    log(f"  every pruned leaf's non-zero count equals its threshold's recount "
+        f"({len(pflat)} leaves)")
+
+    name = "units/b0/mixer/wq"
+    t0 = time.perf_counter()
+    host = compression.magnitude_prune(flat[name].cpu(), 0.8)
+    host_q = compression.quantize_int8(host)
+    out["cpu_leaf_s"] = time.perf_counter() - t0
+    card = pflat[name].cpu()
+    differ = [part for part, same in (
+        ("mask", torch.equal(host != 0, card != 0)),
+        ("values", same_bits(host, card, torch)),
+        ("codes", torch.equal(host_q.codes, quant[name].codes.cpu())),
+        ("scales", torch.equal(host_q.scale, quant[name].scale.cpu()))) if not same]
+    if differ:
+        fail(f"8b: {name} pruned and quantized on the CPU differs from the card's in "
+             f"its {differ}")
+    log(f"  {name} {tuple(flat[name].shape)} pruned and quantized again on the CPU "
+        f"({out['cpu_leaf_s']:.2f} s): masks, values, codes and scales identical")
+    del pruned, quant, pflat, host, host_q
+    gc.collect()
+
+    w = flat["units/b0/ffn/w_up"][0]
+    sync()
+    t0 = time.perf_counter()
+    shared = compression.weight_share(w, **SHARE)
+    sync()
+    out["weight_share_s"] = time.perf_counter() - t0
+    vals = w.float().reshape(-1)
+    lo, hi = vals.min(), vals.max()
+    k = SHARE["k"]
+    init = lo + (hi - lo) * (torch.arange(k, dtype=torch.float32, device=w.device) + 0.5) / k
+    mse = float(((shared.codebook[shared.indices.reshape(-1).long()] - vals) ** 2).mean())
+    mse_init = float(((init[compression._assign(vals, init)] - vals) ** 2).mean())
+    top = int(shared.indices.max())
+    out.update(weight_share_mse=mse, linear_init_mse=mse_init, max_index=top,
+               shared_nbytes=shared.nbytes)
+    log(f"  weight_share(k={k}, iters={SHARE['iters']}) on ffn/w_up[0] "
+        f"{tuple(w.shape)}: {out['weight_share_s']:.3f} s, MSE {mse:.4g} against the "
+        f"linear init's {mse_init:.4g}, max index {top}, {shared.nbytes} B")
+    if top >= k:
+        fail(f"8b: a shared index {top} is not below k = {k}")
+    if not mse < mse_init:
+        fail(f"8b: k-means MSE {mse} is not below the linear init's {mse_init}")
+    return out
+
+
+def training_phase(cfg, params, np, torch):
+    """8c: ``train_loop`` on ``params`` at full depth (one batch repeated),
+    then a checkpointed run at ``CKPT['units']`` units into an in-memory
+    ``WeightStore``."""
+    import itertools
+    import re
+
+    from repro_torch.core.weightstore import WeightStore
+    from repro_torch.data import LMDataConfig, lm_batches
+    from repro_torch.models.model import lm_loss
+    from repro_torch.training import OptimizerConfig, train_loop
+
+    out = {}
+    device = next(iter(_leaves(params))).device
+    batch = next(lm_batches(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+                                         batch_size=TRAIN["batch"], seed=SEED)))
+    ocfg = OptimizerConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=TRAIN["steps"])
+    with torch.no_grad():
+        want = float(lm_loss(params, cfg, torch.from_numpy(batch["tokens"]).to(device),
+                             torch.from_numpy(batch["labels"]).to(device))[0])
+    cuda = device.type == "cuda"
+    base = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    lines, stamps = [], []
+
+    def log_fn(line):
+        sync()
+        stamps.append(time.perf_counter())
+        lines.append(line)
+        log(f"    {line}")
+
+    sync()
+    t0 = time.perf_counter()
+    trained, hist = train_loop(cfg, ocfg, itertools.repeat(batch), TRAIN["steps"],
+                               params=params, log_every=1, log_fn=log_fn)
+    step_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps, stamps)]
+    tokens = TRAIN["seq"] * TRAIN["batch"]
+    n_params = sum(t.numel() for t in _leaves(params))
+    gnorm = [float(re.search(r"gnorm (\S+)", line).group(1)) for line in lines]
+    out.update(loss=hist["loss"], grad_norm=gnorm, step_ms=step_ms,
+               tokens_per_s=[1e3 * tokens / ms for ms in step_ms], lm_loss=want,
+               optimizer_state_bytes=8 * n_params)
+    if cuda:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["peak_above_weights_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del trained
+    gc.collect()
+    log(f"  {TRAIN['steps']} steps of {TRAIN['batch']} x {TRAIN['seq']} tokens: ms per "
+        f"step {[round(ms, 1) for ms in step_ms]}, tokens/s "
+        f"{[round(t, 1) for t in out['tokens_per_s']]}; peak {out.get('peak_gb', 0):.1f} GB "
+        f"({out.get('peak_above_weights_gb', 0):.1f} above the weights), optimizer state "
+        f"{out['optimizer_state_bytes'] / 1e9:.2f} GB; lm_loss of the batch {want:.6f}")
+    if not all(np.isfinite(hist["loss"])) or not all(np.isfinite(gnorm)):
+        fail(f"8c: non-finite loss {hist['loss']} or grad norm {gnorm}")
+    if not hist["loss"][-1] < hist["loss"][0]:
+        fail(f"8c: the loss did not fall: {hist['loss']}")
+    if abs(hist["loss"][0] - want) > LOSS_RTOL * abs(want):
+        fail(f"8c: the first step's loss {hist['loss'][0]} differs from lm_loss {want} "
+             f"by more than {LOSS_RTOL} relative")
+
+    # the checkpointed run at reduced depth: the first units of the weights
+    cfg_c = cfg.replace(num_layers=CKPT["units"])
+    small = {k: v for k, v in params.items() if k != "units"}
+    small["units"] = {"b0": tree_map(lambda t: t[:CKPT["units"]], params["units"]["b0"])}
+    store = WeightStore(":memory:")
+    commits = []
+    commit = store.commit
+
+    def timed_commit(*a, **kw):
+        t = time.perf_counter()
+        version = commit(*a, **kw)
+        rows = [store.conn.execute(f"SELECT COUNT(*) FROM {table} WHERE version_fk=?",
+                                   (version,)).fetchone()[0]
+                for table in ("weight", "weight_chunk")]
+        commits.append(dict(version=version, s=time.perf_counter() - t, weight_rows=rows[0],
+                            chunk_pages=rows[1]))
+        return version
+
+    store.commit = timed_commit
+    t0 = time.perf_counter()
+    trained, hist = train_loop(cfg_c, ocfg, itertools.repeat(batch), CKPT["steps"],
+                               params=small, log_every=1, store=store,
+                               checkpoint_every=CKPT["every"],
+                               log_fn=lambda line: log(f"    {line}"))
+    out["checkpointed"] = dict(units=CKPT["units"], steps=CKPT["steps"],
+                               every=CKPT["every"], s=time.perf_counter() - t0,
+                               loss=hist["loss"], commits=commits,
+                               history=[h["message"] for h in store.history(cfg.name)])
+    for c in commits:
+        log(f"  checkpoint v{c['version']}: {c['s']:.2f} s, {c['weight_rows']} weight "
+            f"rows, {c['chunk_pages']} chunk pages")
+    messages = out["checkpointed"]["history"]
+    if messages != [f"step {i}" for i in range(CKPT["every"], CKPT["steps"] + 1,
+                                               CKPT["every"])]:
+        fail(f"8c: the store's history is {messages}, not one checkpoint every "
+             f"{CKPT['every']} steps")
+    log(f"  checkpointed run ({CKPT['units']} units, {CKPT['steps']} steps, every "
+        f"{CKPT['every']}): {out['checkpointed']['s']:.2f} s, history {messages}")
+    store.close()
+    return out
+
+
 def main() -> None:
     t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3114,11 +3430,30 @@ def main() -> None:
     log(f"phase 7b: FleetGateway, two slots of {ARCH} at full width and depth on "
         f"phase 3's weights")
     fleet = fleet_phase(cfg, params, tiers, np, torch, want_streams)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 8
+    log("phase 8a: the quickstart (train, compress, fine-tune, publish, calibrate, pull, "
+        "update) at the paper's size, TABLE1_A")
+    t8 = time.perf_counter()
+    lifecycle = {"quickstart": quickstart_phase(np, torch)}
+    for name in ("delta_apply", "delta_apply_inplace"):
+        launches[name] += lifecycle["quickstart"]["launches"][name]
+    log(f"phase 8b: compress_pipeline on phase 3's weights, {ARCH} at full width and depth")
+    lifecycle["compression"] = compression_phase(cfg, params, np, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 8c: train_loop on phase 3's weights, {ARCH} at full width and depth; "
+        f"then {CKPT['units']} units checkpointed")
+    lifecycle["training"] = training_phase(cfg, params, np, torch)
+    lifecycle["s"] = time.perf_counter() - t8
+    log(f"  phase 8 took {lifecycle['s']:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- summary
     kernels = [dict(name=name, launches=launches[name], **row)
                for name, row in rows.items()]
     for u in (upd, upd8):
@@ -3132,7 +3467,7 @@ def main() -> None:
                     "shared_prefix": {"runs": prefix_runs, "launches": prefix_launches},
                     "update": {"float_full_depth": upd, "int8_depth4": upd8},
                     "calibration": {**calib, "launches": calib_launches},
-                    "fleet": fleet}))
+                    "fleet": fleet, "lifecycle": lifecycle}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

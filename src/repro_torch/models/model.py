@@ -12,6 +12,13 @@ Entry points:
                                                 JAX package's weights
   init_cache(cfg, batch, capacity, device=)  -> contiguous cache dict
   forward(params, cfg, tokens, ...)          -> (logits, cache)
+  lm_loss(params, cfg, tokens, labels)       -> (loss, parts)
+
+Differentiating ``lm_loss`` with autograd is the training path's
+counterpart of ``jax.value_and_grad``: when the unit leaves require grad,
+``forward`` unbinds each stacked leaf once (one stack in the backward)
+instead of selecting ``v[u]`` per unit, whose backward would zero-fill
+a stacked-size gradient per unit.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.pytree_io import unflatten
+from repro_torch.core.pytree_io import flatten_params, unflatten
 from repro_torch.models import layers as L
 
 
@@ -86,9 +93,12 @@ def _to_tensor(arr, device) -> torch.Tensor:
 def params_from_jax(flat: Dict[str, Any], *, device) -> Dict[str, Any]:
     """Carry the JAX package's weights across: ``flat`` is
     ``repro.core.pytree_io.flatten_params(params)`` ({'units/b0/mixer/wq':
-    ndarray, ...}); the result is the port's nested dict on ``device``
-    (no default: the caller names the device)."""
-    return unflatten({name: _to_tensor(a, device) for name, a in flat.items()})
+    ndarray, ...}) or a nested dict of host arrays (``jax.device_get`` of
+    any dict tree: an MLP, an optimizer's moments); the result is the
+    port's nested dict on ``device`` (no default: the caller names the
+    device)."""
+    return unflatten({name: _to_tensor(a, device)
+                      for name, a in flatten_params(flat).items()})
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, device="cuda") -> Dict[str, Any]:
@@ -122,6 +132,17 @@ def _apply_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
 
 def _unit(tree: Dict[str, Any], u: int) -> Dict[str, Any]:
     return {k: (_unit(v, u) if isinstance(v, dict) else v[u]) for k, v in tree.items()}
+
+
+def _unbound_units(tree: Dict[str, Any]):
+    """Every unit's leaves, each stacked leaf unbound once, when autograd
+    records through them (the training path); ``None`` otherwise."""
+    flat = flatten_params(tree)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in flat.values())):
+        return None
+    parts = {name: t.unbind(0) for name, t in flat.items()}
+    return [unflatten({name: p[u] for name, p in parts.items()})
+            for u in range(len(next(iter(parts.values()))))]
 
 
 def forward(
@@ -164,8 +185,9 @@ def forward(
 
     quantized = next(qleaves(params["units"]), None) is not None
     x = params["embed"]["tok"][tokens.long()]
+    unbound = _unbound_units(params["units"])
     for u in range(cfg.pattern_units):
-        unit_params = _unit(params["units"], u)
+        unit_params = _unit(params["units"], u) if unbound is None else unbound[u]
         if quantized:
             unit_params = dequant_tree(unit_params, license_intervals, cfg.dtype)
         unit_cache = None if cache is None else _unit(cache["units"], u)
@@ -180,3 +202,23 @@ def forward(
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e9
     return logits, cache
+
+
+# --------------------------------------------------------------------- loss
+def lm_loss(
+    params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
+    labels: torch.Tensor,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal LM cross-entropy (+ MoE aux).  labels = next-token ids, with
+    -100 entries masked out.  The port's dense model has no aux loss, so
+    the aux term is 0."""
+    logits, _ = forward(params, cfg, tokens)
+    mask = labels != -100
+    safe = torch.where(mask, labels, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1)
+    loss = torch.where(mask, nll, 0.0).sum() / denom
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    total = loss + cfg.moe_aux_weight * aux
+    return total, {"lm_loss": loss, "aux_loss": aux}

@@ -31,6 +31,7 @@ from repro.models import init_params as jax_init_params
 from repro_torch.core import licensing
 from repro_torch.core.pytree_io import flatten_params
 from repro_torch.models.model import params_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", params=["float32", "bfloat16"])

@@ -41,6 +41,7 @@ from repro_torch.models.model import params_from_jax
 from repro_torch.serving import LicensedGateway, RequestState
 from repro_torch.serving import gateway as gateway_mod
 from repro_torch.serving.compiled import DecodeGraphs, PrefillGraphs, table_width
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FREE = {"*": ((0.0, 0.01),)}
 # two lanes a micro-batch over three, 4-token blocks, a pool of 8 blocks:

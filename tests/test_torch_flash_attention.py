@@ -22,6 +22,7 @@ from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from test_torch_kernels import cuda  # noqa: F401  (the card fixture)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-3, atol=2e-3)
 

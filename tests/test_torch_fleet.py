@@ -32,6 +32,7 @@ from repro_torch.core.licensing import LicenseTier
 from repro_torch.models.model import params_from_jax
 from repro_torch.serving import (FleetGateway, LicensedGateway, RequestState,
                                  TenantRegistry, validate_fleet_metrics)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FREE = {"*": ((0.0, 0.01),)}
 # small pool, prompts off block multiples (block_size 4): preemption and

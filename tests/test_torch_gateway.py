@@ -43,6 +43,7 @@ from repro_torch.models.model import params_from_jax
 from repro_torch.serving import BlockAllocator, LicensedGateway, RequestState
 from repro_torch.serving.fleet import _LEFT_OUT
 from repro_torch.serving.quantized import quantize_serving_params
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROADMAP = Path(__file__).resolve().parents[1] / "ROADMAP.md"
 

@@ -31,6 +31,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.delta_apply import delta_apply
 from repro_torch.kernels.masked_dequant import masked_dequant
 from repro_torch.kernels.paged_attention import paged_attention, paged_decode_write
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _attention_case(seed, b, h, kh, hd, bs, t, lens, dead_entries=None):

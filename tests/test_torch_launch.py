@@ -18,6 +18,7 @@ from repro.launch import serve as jax_serve
 from repro.models import init_params as jax_init_params
 
 from repro_torch.launch import serve
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARGS = ["--arch", "qwen2.5-3b", "--batch", "2", "--prompt-len", "8", "--new-tokens", "4"]
 
@@ -59,3 +60,34 @@ def test_without_store_the_port_serves_its_own_random_weights(store_path, capsys
     serve.main([*ARGS, "--device", "cpu"])
     loaded, tiers = _served(capsys.readouterr().out)
     assert loaded == [] and tiers != stored[1]
+
+
+# the JAX training launcher's lines (``repro/launch/train.py`` and the log
+# line of ``repro.training.train_loop``), as patterns
+TRAIN_LINES = [
+    r"training qwen2\.5-3b-smoke: 2L d256 vocab 512 on cpu",
+    r"step +0  loss \d+\.\d{4}  gnorm \d+\.\d{3}  lr \d\.\d\de[-+]\d\d  \(\d+\.\ds\)",
+    r"step +2  loss \d+\.\d{4}  gnorm \d+\.\d{3}  lr \d\.\d\de[-+]\d\d  \(\d+\.\ds\)",
+    r"done: loss \d+\.\d{4} -> \d+\.\d{4} \((improved|NOT improved)\)",
+    r"checkpoints: \[1, 2, 3\]",
+]
+
+
+def test_train_launcher_checkpoints_every_step(tmp_path, capsys):
+    """``--steps 3 --store PATH --checkpoint-every 1`` on the CPU prints
+    the JAX launcher's lines and leaves three checkpoints in the file."""
+    from repro_torch.core.weightstore import WeightStore
+    from repro_torch.launch import train
+
+    path = str(tmp_path / "ckpt.db")
+    train.main(["--arch", "qwen2.5-3b", "--steps", "3", "--batch", "2", "--seq", "8",
+                "--store", path, "--checkpoint-every", "1", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == len(TRAIN_LINES)
+    for line, pattern in zip(lines, TRAIN_LINES):
+        assert re.fullmatch(pattern, line), (line, pattern)
+    store = WeightStore(path)
+    assert [h["message"] for h in store.history("qwen2.5-3b-smoke")] == \
+        ["step 1", "step 2", "step 3"]
+    assert store.production_version("qwen2.5-3b-smoke") == 3
+    store.close()

@@ -32,6 +32,7 @@ from repro_torch.core.protocol import LicenseServer
 from repro_torch.core.weightstore import WeightStore
 from repro_torch.models.model import params_from_jax
 from repro_torch.serving import FleetGateway, LicensedGateway
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_PROMPT = 8
 FREE = {"*": ((0.0, 0.004),)}

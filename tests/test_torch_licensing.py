@@ -23,6 +23,7 @@ from repro_torch.core import licensing
 from repro_torch.core.pytree_io import flatten_params
 from repro_torch.models.model import params_from_jax
 from repro_torch.serving import quantized
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TIERS = {
     "free": {"*": ((0.0, 0.01),)},

@@ -23,6 +23,7 @@ from repro_torch.core.protocol import LicenseServer
 from repro_torch.core.weightstore import WeightStore
 from repro_torch.models import init_params
 from repro_torch.serving import LicensedGateway, RequestState
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODULES = {"jax": jax_lockstep, "torch": torch_lockstep}
 

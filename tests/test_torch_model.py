@@ -24,6 +24,7 @@ from repro.serving.engine import stack_lane_caches
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.models import model
 from repro_torch.serving.engine import prefill_chunk_step, serve_step_paged
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

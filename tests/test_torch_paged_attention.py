@@ -31,6 +31,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.paged_attention import (SPLIT_BLOCKS_PER_SM, SPLIT_MAX_KEYS,
                                                  SPLIT_MIN_KEYS, paged_attention,
                                                  paged_decode_write, split_plan)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 H100_SMS = 132
 NEG_INF = -1e30

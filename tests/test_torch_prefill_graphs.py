@@ -37,6 +37,7 @@ from repro_torch.serving import LicensedGateway, RequestState
 from repro_torch.serving import gateway as gateway_mod
 from repro_torch.serving.compiled import DecodeGraphs, PrefillGraphs
 from repro_torch.serving.paging import PagedCachePool
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _gateway(cfg, params, mode, backend=None, decode_graphs=True, **kw):

@@ -41,6 +41,7 @@ from repro_torch.core.licensing import LicenseTier
 from repro_torch.models.model import params_from_jax
 from repro_torch.serving import (BlockAllocator, LicensedGateway, PrefixCache,
                                  RequestState)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PACKAGES = {"jax": (JaxPrefixCache, JaxBlockAllocator),
             "torch": (PrefixCache, BlockAllocator)}

@@ -33,6 +33,7 @@ from repro_torch.core.transport import (ChaosTransport, RetryPolicy, packet_chec
                                         part_checksum)
 from repro_torch.core.weightstore import WeightStore, to_host
 from repro_torch.models.model import params_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STORE_KW = dict(row_limit=64, chunk_elems=16)
 SHAPES = {

@@ -22,6 +22,7 @@ from repro.kernels import ref as jax_ref
 
 from repro_torch.kernels import ops, ref
 from test_torch_kernels import cuda  # noqa: F401  (the card fixture)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _case(seed, lead, k, n, scale_kind="random"):

@@ -32,6 +32,7 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.models.model import params_from_jax
 from repro_torch.serving import LicensedGateway, RequestState
 from repro_torch.serving.paging import BlockAllocator
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PACKAGES = {"jax": (jax_sanitize, JaxBlockAllocator),
             "torch": (torch_sanitize, BlockAllocator)}

@@ -53,6 +53,7 @@ from repro_torch.models.model import params_from_jax
 from repro_torch.serving import LicensedGateway, RequestState
 from repro_torch.serving import telemetry as torch_telemetry
 from repro_torch.serving import tracing as torch_tracing
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PACKAGES = {"jax": (jax_telemetry, jax_tracing, jax_metrics),
             "torch": (torch_telemetry, torch_tracing, torch_metrics)}

@@ -35,6 +35,7 @@ from repro_torch.core.weightstore import WeightStore
 from repro_torch.models.model import params_from_jax
 from repro_torch.serving import LicensedGateway, RequestState
 from repro_torch.serving.quantized import quantize_serving_params
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GEOMETRY = dict(max_batch=2, max_prompt=8, max_new_cap=16)
 OLD_MASKS = ((0.0, 0.004),)

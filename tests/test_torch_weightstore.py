@@ -24,6 +24,7 @@ from repro_torch.core.transport import packet_checksum
 from repro_torch.core.weightstore import (WeightStore, bf16_to_f32, f32_to_bf16,
                                           to_host)
 from repro_torch.models.model import params_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STORE_KW = dict(row_limit=64, chunk_elems=16)
 SHAPES = {  # name -> (shape, dtype); > 64 elements is chunk mode
