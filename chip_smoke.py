@@ -185,7 +185,30 @@ Phases (each prints its own lines; any failure exits non-zero):
    step 2 (seconds and rows per commit; the history must hold "step 2":
    a commit of the 2-unit model takes about a minute of host time, so
    one commit, not one a step);
-9. a ``kernels`` JSON line, and the result line last.
+9. the dense family beyond qwen at full width (random bf16 weights from
+   the seed, the first 8 requests of phase 3's stream, decode and prefill
+   graphs on), each gateway's launch counters zeroed just before its
+   stream and read just after, every run's tokens/s, ms per step, decode
+   step p50, peak memory, captures and replays printed: (a)
+   nemotron-4-15b (squared ReLU) at full depth on float views through
+   the kernels and through the plain route (tokens equal, parting only
+   at near-ties by phase 4's rule), then from an int8 store built unit
+   by unit with the in-scan dequant (192 ``masked_dequant`` launches a
+   step); (b) minitron-8b at full depth, both routes; (c) granite-34b
+   (48 q heads on one kv head, ``paged_attention``'s instance for groups
+   above 32) at full depth from an int8 store built unit by unit on the
+   card, both routes (616 launches a step); (d) the gateway's fallbacks
+   at qwen2.5-3b on phase 3's weights: phase 3's stream with
+   ``kernel_decode=False`` (tokens equal phase 3's up to near-ties), with
+   ``chunk_size=0`` and the cache off, and with ``paged=False`` (whose
+   bucket prefill pads prompts on the left: tokens equal the paged bucket
+   run's up to near-ties), phase 3b's stream with ``chunk_size=0`` with
+   the prefix cache on and off (equal up to near-ties, hits with it on),
+   and a fleet with a contiguous slot beside a paged one (each slot's
+   tokens equal its isolated run's).  Phase 2 also runs
+   ``paged_attention`` at granite's decode shape (48/1 heads, contexts
+   9-96 and 8 x 4096) back to back, in a graph and L2-cold;
+10. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
 device is present or when run outside a checkout of the repository.
@@ -316,35 +339,43 @@ PA_SHAPE = (16, 2, 128, 16)           # q heads, kv heads, head_dim, block size
 PA_TOL = 1e-5
 PA_CASES = {"serving": [9, 23, 40, 57, 64, 75, 88, 96], "long": [4096] * 8}
 PA_COLD_COPIES = 4
+# granite-34b's decode shape (phase 9c): 48 q heads on ONE kv head (a GQA
+# group of 48, the kernel's instance for groups above 32), the same
+# contexts; the group-8 cases above stay
+PA_GRANITE = (48, 1, 128, 16)
+PA_GRANITE_CASES = {"granite_serving": PA_CASES["serving"], "granite_long": PA_CASES["long"]}
 
 
-def paged_bound(peaks, q, lens):
+def paged_bound(peaks, q, lens, shape=PA_SHAPE):
     """Bound of one ``paged_attention`` call: q, every live K/V row of its
     kv heads, the table, the lengths and the f32 output once; q.k and p.v in
     f32 over the live keys."""
-    h, kh, hd, _ = PA_SHAPE
+    h, kh, hd, bs = shape
     b, elt, live = q.shape[0], q.element_size(), int(lens.sum())
-    t_cols = -(-int(lens.max()) // PA_SHAPE[3])
+    t_cols = -(-int(lens.max()) // bs)
     nbytes = (q.numel() * elt + 2 * live * kh * hd * elt + b * t_cols * 4 + b * 4
               + q.numel() * 4)
     return bound_ms(nbytes, 4 * live * h * hd, peaks)
 
 
-def paged_plan(kernels_pa, t_cols, b, torch):
+def paged_plan(kernels_pa, t_cols, b, torch, shape=PA_SHAPE, elt=2):
     """The (splits, columns per split) the wrapper launches at this shape."""
+    h, kh, hd, bs = shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return list(kernels_pa.split_plan(t_cols, PA_SHAPE[3], b, PA_SHAPE[1], sms))
+    return list(kernels_pa.split_plan(t_cols, bs, b, kh, sms, groups=h // kh, head_dim=hd,
+                                      elt=elt))
 
 
-def paged_case(torch, kernels_pa, ref, peaks, gen, lens, cold=False):
-    """One bf16 decode step at contexts ``lens``: error against the plain
-    version, times back to back (the wrapper and the extension call alone),
-    in a CUDA graph and (``cold``) L2-cold in a graph, bound and split plan.
-    Dead table entries name the null block."""
+def paged_case(torch, kernels_pa, ref, peaks, gen, lens, cold=False, shape=PA_SHAPE):
+    """One bf16 decode step at contexts ``lens`` and ``shape`` (q heads, kv
+    heads, head_dim, block size): error against the plain version, times
+    back to back (the wrapper and the extension call alone), in a CUDA graph
+    and (``cold``) L2-cold in a graph, bound and split plan.  Dead table
+    entries name the null block."""
     from repro_torch.kernels.build import load_extension
 
     dev = torch.device("cuda")
-    h, kh, hd, bs = PA_SHAPE
+    h, kh, hd, bs = shape
     b, t_cols = len(lens), -(-max(lens) // bs)
     p = b * t_cols + 1
     tables = torch.randperm(p - 1, generator=gen)[: b * t_cols].reshape(b, t_cols)
@@ -367,13 +398,14 @@ def paged_case(torch, kernels_pa, ref, peaks, gen, lens, cold=False):
         fail(f"paged_attention at contexts {min(lens)}-{max(lens)} disagrees with its "
              f"plain version (max_abs_err {err:.3e})")
     del got, want
-    bnd, by = paged_bound(peaks, q, ctx)
-    splits, cols = paged_plan(kernels_pa, t_cols, b, torch)
+    bnd, by = paged_bound(peaks, q, ctx, shape)
+    splits, cols = paged_plan(kernels_pa, t_cols, b, torch, shape)
     ws = torch.empty((splits, b, h, hd + 2) if splits > 1 else (0,), device=dev)
     ext = load_extension()
     ms, ms_ext = host_split_ms(attend, lambda: ext.paged_attention(q, kb, vb, tables, ctx,
                                                                    ws, cols))
-    row = dict(lens=f"{min(lens)}-{max(lens)}", table_cols=t_cols, live_tokens=sum(lens),
+    row = dict(heads=f"{h}/{kh}", lens=f"{min(lens)}-{max(lens)}", table_cols=t_cols,
+               live_tokens=sum(lens),
                max_abs_err=err, ms=ms, ms_ext=ms_ext, ms_graph=time_graph_ms(attend),
                plain_ms=time_ms(lambda: ref.paged_attention(q, kb, vb, tables, ctx),
                                 iters=10, warmup=2),
@@ -429,7 +461,7 @@ def check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md):
         return kernels_pa.paged_attention(q, kb, vb, tables, lens)
 
     cases = {"phase2": dict(
-        lens="1-600", table_cols=t_cols, live_tokens=int(ctx.sum()),
+        heads=f"{h}/{kh}", lens="1-600", table_cols=t_cols, live_tokens=int(ctx.sum()),
         max_abs_err=max(errs.values()), ms=time_ms(attend), ms_graph=time_graph_ms(attend),
         plain_ms=time_ms(lambda: ref.paged_attention(q, kb, vb, tables, lens)),
         bound_ms=bnd, bound_by=by, split_plan=paged_plan(kernels_pa, t_cols, b, torch))}
@@ -437,10 +469,14 @@ def check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md):
     for name, case_lens in PA_CASES.items():
         cases[name] = paged_case(torch, kernels_pa, ref, peaks, pa_gen, case_lens,
                                  cold=name == "long")
+    for name, case_lens in PA_GRANITE_CASES.items():
+        cases[name] = paged_case(torch, kernels_pa, ref, peaks, pa_gen, case_lens,
+                                 cold=name == "granite_long", shape=PA_GRANITE)
     for name, c in cases.items():
         cold = f", L2-cold {c['ms_cold']:.4f} ms" if "ms_cold" in c else ""
         alone = f" (extension call alone {c['ms_ext']:.4f})" if "ms_ext" in c else ""
-        log(f"  paged_attention {name} bf16 [ctx {c['lens']}, {c['table_cols']} table "
+        log(f"  paged_attention {name} bf16 [{c['heads']} heads, ctx {c['lens']}, "
+            f"{c['table_cols']} table "
             f"columns, split plan {c['split_plan']}]: max_abs_err {c['max_abs_err']:.3e} "
             f"(tol {PA_TOL:g}), {c['ms']:.4f} ms back to back{alone}, {c['ms_graph']:.4f} ms in "
             f"a CUDA graph{cold}, plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} "
@@ -1070,15 +1106,19 @@ def serve(label, gw, cfg, np, torch):
         fail(f"{label}: token ids outside the vocabulary")
     m = gw.metrics()
     pre = prefill_report(gw, chunk_s)
+    # a bucket prefill (chunk_size=0) is one step a batch, not a chunk
+    prefills = m["prefill_chunks"] if gw.chunked else m["prefill_batches"]
     log(f"  {label}: {len(reqs)} requests, {m['tokens_generated']} tokens, "
-        f"{m['decode_steps']} decode steps, {m['prefill_chunks']} prefill chunks; "
+        f"{m['decode_steps']} decode steps, {prefills} prefill "
+        f"{'chunks' if gw.chunked else 'batches'}; "
         f"views {t_views:.2f} s, serving {t_run:.2f} s "
         f"({m['tokens_generated'] / t_run:.1f} tokens/s, "
-        f"{1e3 * t_run / max(1, m['decode_steps'] + m['prefill_chunks']):.1f} ms/step); "
+        f"{1e3 * t_run / max(1, m['decode_steps'] + prefills):.1f} ms/step); "
         f"{pre['text']}")
     return reqs, dict(views_s=t_views, views=views, serve_s=t_run,
                       tokens=m["tokens_generated"], decode_steps=m["decode_steps"],
-                      prefill_chunks=m["prefill_chunks"], prefill=pre["numbers"])
+                      prefill_chunks=m["prefill_chunks"], prefill_batches=m["prefill_batches"],
+                      prefill=pre["numbers"])
 
 
 def time_chunks(gw):
@@ -1879,7 +1919,7 @@ def prefix_run(label, gw, stream, np, tier=None):
             (pc["enabled"] and held != pc["cached_blocks"]):
         fail(f"{label}: after the drain the allocator holds {held} blocks, "
              f"the prefix tree {pc}")
-    steps = m["decode_steps"] + m["prefill_chunks"]
+    steps = m["decode_steps"] + (m["prefill_chunks"] if gw.chunked else m["prefill_batches"])
     san = gw.sanitizer
     if san is not None and san.shadow != dict(gw.pool.allocator._ref):
         fail(f"{label}: the sanitizer's shadow refcounts differ from the allocator's")
@@ -3176,6 +3216,402 @@ def training_phase(cfg, params, np, torch):
     return out
 
 
+# ------------------------------------------------------------ phase 9
+# the dense family beyond qwen at full width: nemotron-4-15b (squared
+# ReLU, 48 q heads over 8) and minitron-8b (squared ReLU, 32 over 8) at
+# full depth, granite-34b (SwiGLU at d_ff 24576, 48 q heads on ONE kv
+# head: 47.25 B parameters, 94.5 GB of bf16) from an int8 store built
+# unit by unit.  Random bf16 weights from SEED, phase 3's GEOMETRY, the
+# first DENSE_REQUESTS requests of phase 3's stream in tiers full and free;
+# decode and prefill graphs on (the default gateway).  Every config runs
+# at full depth: granite's 88 units of int8 codes (47.9 GB) fit beside
+# the graph pools on an 80 GB card
+DENSE_REQUESTS = 8
+# 9d: the gateway's fallbacks on phase 3's weights (qwen2.5-3b), each run
+# on phase 3's stream with the run its tokens are held to: the
+# gather/scatter decode against phase 3's own stream; the contiguous pool
+# prefills by buckets (as the JAX slot does), whose left padding changes
+# the model's input, so it is held to the paged pool's bucket prefill
+FALLBACK_RUNS = {"kernel_decode_off": (dict(kernel_decode=False), "phase 3's float stream"),
+                 "bucket_prefill": (dict(chunk_size=0, prefix_cache=False), None),
+                 "contiguous_pool": (dict(paged=False), "bucket_prefill")}
+FALLBACK_SLOTS = {"qwen-paged": {}, "qwen-contiguous": dict(paged=False)}
+
+
+def dense_jobs(cfg, np):
+    return stream_jobs(cfg, np)[:DENSE_REQUESTS]
+
+
+def int8_store_by_unit(cfg, unit_leaves, outer, torch, device="cuda"):
+    """The int8 serving store of a model, built one unit at a time:
+    ``unit_leaves(u)`` gives unit u's float block leaves (the ``b0`` dict
+    of ``init_params`` without the unit axis), ``outer`` the embedding,
+    final norm and head (kept as they are).  Each eligible leaf is
+    quantized alone (``quantized._quantize_leaf``) into preallocated
+    stacked codes and scales, the rest stacked as they come.  The scale
+    reduces over the contraction dim only, so this equals
+    ``quantize_serving_params`` of the stacked tree without its f32 copy
+    of a whole stacked leaf (19.3 GB for nemotron-4-15b's ``w_up``)."""
+    from repro_torch.serving.quantized import _eligible, _quantize_leaf
+
+    units = cfg.pattern_units
+    store = {}
+
+    def put(dst, src, name, u):
+        for k, leaf in src.items():
+            path = f"{name}/{k}"
+            if isinstance(leaf, dict):
+                put(dst.setdefault(k, {}), leaf, path, u)
+                continue
+            stacked = torch.empty((units, *leaf.shape), device="meta")
+            if _eligible(path, stacked):
+                q = _quantize_leaf(leaf)
+                if k not in dst:
+                    dst[k] = {n: torch.empty((units, *t.shape), dtype=t.dtype, device=device)
+                              for n, t in q.items()}
+                for n, t in q.items():
+                    dst[k][n][u].copy_(t)
+            else:
+                if k not in dst:
+                    dst[k] = torch.empty((units, *leaf.shape), dtype=leaf.dtype, device=device)
+                dst[k][u].copy_(leaf)
+
+    for u in range(units):
+        put(store, unit_leaves(u), "units/b0", u)
+    return {**outer, "units": {"b0": store}}
+
+
+def random_unit(cfg, u, torch, device="cuda"):
+    """Unit ``u``'s block leaves with ``init_params``' distributions, from
+    the seed (SEED, u): a one-layer model of the config's widths (its
+    vocabulary cut to 256, the embedding and head unused)."""
+    from repro_torch.models import init_params
+    from repro_torch.models.model import _unit
+
+    one = init_params(cfg.replace(num_layers=1, vocab_size=256),
+                      seed=SEED * 100_003 + 1 + u, device=device)
+    return _unit(one["units"]["b0"], 0)
+
+
+def dense_outer(cfg, torch, device="cuda"):
+    """The embedding, final norm and head of ``init_params(cfg, seed=SEED)``
+    without its units."""
+    from repro_torch.models import init_params
+
+    full = init_params(cfg.replace(num_layers=0), seed=SEED, device=device)
+    return {k: v for k, v in full.items() if k != "units"}
+
+
+def dense_run(label, cfg, params, tiers, np, torch, device="cuda", **kw):
+    """One gateway (``kw`` its arguments beside GEOMETRY) serving the first
+    DENSE_REQUESTS of phase 3's stream: both tiers' views built first (as
+    phase 3 does), then the launch counters zeroed, the stream drained and
+    the counters read.  Checks each kernel the route runs: on the kernel
+    route ``paged_attention`` and ``paged_decode_write`` launch once a unit
+    for each decode capture's warm-up (replays pass no wrapper); on an
+    in-scan store ``masked_dequant`` launches once per int8 leaf of every
+    unit of each eager step or warm-up.  Returns the requests, their
+    logits rows and a summary; the gateway is dropped."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import LicensedGateway
+    from repro_torch.serving.quantized import qleaves
+
+    torch.cuda.reset_peak_memory_stats()
+    gw = LicensedGateway(cfg, params, tiers=tiers, device=device, **kw, **GEOMETRY)
+    # the views stay the gateway's alone (this frame binds none), so they
+    # go with it: two float views of nemotron-4-15b do not fit beside a
+    # third
+    views = {tier: view_build(torch, ops, lambda: gw.view_for(tier))[1]
+             for tier in ("full", "free")}
+    rows = record_rows(gw)
+    ops.reset_launches()
+    reqs = [gw.submit(p, license=t, max_new_tokens=n) for p, t, n in dense_jobs(cfg, np)]
+    t0 = time.perf_counter()
+    gw.run()
+    sync()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    bad = [r.rid for r in reqs if r.state.value != "done"
+           or len(r.out_tokens) != r.max_new_tokens]
+    if bad:
+        fail(f"{label}: requests {bad} did not finish")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens):
+        fail(f"{label}: token ids outside the vocabulary")
+    m = gw.metrics()
+    g, pg = gw._graphs, gw._prefill_graphs
+    units = cfg.pattern_units
+    steps = m["decode_steps"] + m["prefill_chunks"]
+    h = m["latency"]["step_decode_s"]
+    out = dict(serve_s=dt, tokens=m["tokens_generated"], tokens_per_s=m["tokens_generated"] / dt,
+               ms_per_step=1e3 * dt / steps, decode_steps=m["decode_steps"],
+               prefill_chunks=m["prefill_chunks"],
+               decode_p50_ms=1e3 * h["p50"] if h["count"] else None,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               views_s=sum(v["host_s"] for v in views.values()),
+               captures=None if g is None else g.captures,
+               replays=None if g is None else g.replays,
+               prefill_captures=None if pg is None else pg.captures,
+               prefill_replays=None if pg is None else pg.replays,
+               graph_pool_gb=None if g is None else g.backend.pool_bytes() / 1e9,
+               launches=launches)
+    if gw.decode_kernels:
+        want = units * g.captures
+        if not (g.replays == m["resident_decode_steps"] > 0 and want > 0
+                and launches["paged_attention"] == launches["paged_decode_write"] == want):
+            fail(f"{label}: {m['resident_decode_steps']} decode steps, {g.replays} replays, "
+                 f"launches {launches}: the decode captures' warm-ups give {want}")
+    elif launches["paged_attention"] or launches["paged_decode_write"]:
+        fail(f"{label}: the plain route launched {launches}")
+    if gw.quantized and not gw.materialize_int8_views:
+        leaves = sum(1 for _ in qleaves(gw._weights[gw.version]["units"])) * units
+        eager = (steps if g is None
+                 else g.captures + (pg.captures if pg is not None else m["prefill_chunks"]))
+        out["masked_dequant_per_step"] = launches["masked_dequant"] / eager
+        if launches["masked_dequant"] != leaves * eager:
+            fail(f"{label}: {launches['masked_dequant']} masked_dequant launches over "
+                 f"{eager} eager steps and warm-ups, not {leaves} each")
+    how = ("eager" if g is None else
+           f"graphs: {g.captures} decode captures, {g.replays} replays, "
+           f"{pg.captures if pg else 0} prefill captures, {pg.replays if pg else 0} replays, "
+           f"pool {out['graph_pool_gb']:.3f} GB")
+    per = (f", masked_dequant {out['masked_dequant_per_step']:.0f} a step"
+           if "masked_dequant_per_step" in out else "")
+    p50 = "not recorded" if out["decode_p50_ms"] is None else f"{out['decode_p50_ms']:.2f} ms"
+    log(f"  {label}: {len(reqs)} requests, {out['tokens']} tokens in {dt:.2f} s "
+        f"({out['tokens_per_s']:.1f} tokens/s, {out['ms_per_step']:.1f} ms per step over "
+        f"{steps}, decode step p50 {p50}); {how}; launches {launches}{per}; peak "
+        f"{out['peak_gb']:.1f} GB; views {out['views_s']:.2f} s")
+    del gw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reqs, rows, out
+
+
+def dense_pair(label, cfg, params, tiers, np, torch, device="cuda", **kw):
+    """``dense_run`` on the kernel route and then on the plain route
+    (``decode_kernels=False``); the plain run's greedy tokens must equal
+    the kernel run's, parting only at near-ties by phase 4's rule."""
+    k_reqs, k_rows, kern = dense_run(f"{label}, kernel route", cfg, params, tiers, np, torch,
+                                     device, **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p_reqs, p_rows, plain = dense_run(f"{label}, plain route", cfg, params, tiers, np, torch,
+                                      device, decode_kernels=False, **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = near_ties(f"{label}, plain route", p_reqs, k_reqs, p_rows, k_rows,
+                      cfg.vocab_size, ref="the kernel route")
+    del k_rows, p_rows
+    return dict(kernel=kern, plain=plain, parts=parts)
+
+
+def dense_phase(np, torch, device="cuda", config=None):
+    """Phases 9a-9c (``config(name)`` gives each model's config, by
+    default ``get_config``); returns each sub-phase's summary and the
+    launches of all their runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import _unit
+    from repro_torch.core.licensing import LicenseTier
+
+    tiers = {"free": LicenseTier(name="free", masks=FREE_TIER)}
+    config = config or get_config
+    out, launches = {}, {}
+
+    def add(run):
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 9a: nemotron-4-15b, float (kernel and plain routes), then in-scan int8
+    t9 = time.perf_counter()
+    if device == "cuda":
+        log(f"phase 9: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before it")
+    cfg = config("nemotron-4-15b")
+    log(f"phase 9a: nemotron-4-15b at full width, {cfg.num_layers} units (d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff} "
+        f"{cfg.mlp_type}, vocab {cfg.padded_vocab}, {cfg.dtype_name})")
+    params = init_params(cfg, seed=SEED, device=device)
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  {n / 1e9:.3f} B parameters, {2 * n / 1e9:.1f} GB of bf16")
+    a = dense_pair("9a nemotron-4-15b float views", cfg, params, tiers, np, torch, device)
+    blocks = params["units"]["b0"]
+    t0 = time.perf_counter()
+    store = int8_store_by_unit(cfg, lambda u: _unit(blocks, u),
+                               {k: v for k, v in params.items() if k != "units"}, torch,
+                               device)
+    sync()
+    a["store_s"] = time.perf_counter() - t0
+    del params, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  9a: int8 store built unit by unit in {a['store_s']:.2f} s, "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(store)) / 1e9:.2f} GB")
+    _, _, a["in_scan"] = dense_run("9a nemotron-4-15b in-scan int8", cfg, store, tiers, np,
+                                   torch, device, already_quantized=True)
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    for run in (a["kernel"], a["plain"], a["in_scan"]):
+        add(run)
+    a["s"] = time.perf_counter() - t9
+    out["nemotron-4-15b"] = a
+
+    # 9b: minitron-8b, float (kernel and plain routes)
+    t9 = time.perf_counter()
+    cfg = config("minitron-8b")
+    log(f"phase 9b: minitron-8b at full width, {cfg.num_layers} units ({cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab {cfg.padded_vocab})")
+    params = init_params(cfg, seed=SEED, device=device)
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  {n / 1e9:.3f} B parameters, {2 * n / 1e9:.1f} GB of bf16")
+    b = dense_pair("9b minitron-8b float views", cfg, params, tiers, np, torch, device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for run in (b["kernel"], b["plain"]):
+        add(run)
+    b["s"] = time.perf_counter() - t9
+    out["minitron-8b"] = b
+
+    # 9c: granite-34b from an int8 store built unit by unit on the card
+    t9 = time.perf_counter()
+    cfg = config("granite-34b")
+    log(f"phase 9c: granite-34b at full width, {cfg.num_layers} units ({cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab "
+        f"{cfg.padded_vocab}), served from an int8 store built unit by unit")
+    t0 = time.perf_counter()
+    store = int8_store_by_unit(cfg, lambda u: random_unit(cfg, u, torch, device),
+                               dense_outer(cfg, torch, device), torch, device)
+    sync()
+    c = dict(store_s=time.perf_counter() - t0,
+             store_gb=sum(t.numel() * t.element_size() for t in _leaves(store)) / 1e9)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  9c: int8 store built in {c['store_s']:.2f} s, {c['store_gb']:.2f} GB")
+    c.update(dense_pair("9c granite-34b in-scan int8", cfg, store, tiers, np, torch, device,
+                        already_quantized=True))
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    for run in (c["kernel"], c["plain"]):
+        add(run)
+    c["s"] = time.perf_counter() - t9
+    out["granite-34b"] = c
+    return out, launches
+
+
+def host_rows(rows):
+    """Recorded logits rows moved to the host (kept across phases)."""
+    return {k: v.cpu() for k, v in rows.items()}
+
+
+def fallback_phase(cfg, params, tiers, np, torch, ref_reqs, ref_rows, device="cuda"):
+    """Phase 9d: the gateway's fallbacks on phase 3's weights.  Phase 3's
+    stream with ``kernel_decode=False`` (greedy tokens equal phase 3's
+    float stream, ``ref_reqs`` with its logits rows ``ref_rows`` on the
+    host, parting only at near-ties), with ``chunk_size=0`` and the prefix
+    cache off, and with ``paged=False`` (equal to the bucket prefill's up
+    to near-ties); phase 3b's shared-prefix stream with ``chunk_size=0``,
+    the prefix cache on and off (equal up to near-ties, hits > 0 with it
+    on); a two-slot fleet with one contiguous slot (each slot's tokens
+    equal to its isolated run's).  Returns each run's summary and their
+    launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import FleetGateway, LicensedGateway
+
+    out, launches = {}, {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    iso = {"qwen-paged": [r.out_tokens for r in ref_reqs]}
+    ran = {"phase 3's float stream": (ref_reqs, ref_rows)}
+    for name, (kw, ref) in FALLBACK_RUNS.items():
+        gw = LicensedGateway(cfg, params, tiers=tiers, device=device, **kw, **GEOMETRY)
+        rows = record_rows(gw)
+        ops.reset_launches()
+        reqs, t = serve(f"9d {name}", gw, cfg, np, torch)
+        add(ops.LAUNCHES)
+        t["launches"] = dict(ops.LAUNCHES)
+        m = gw.metrics()
+        t.update(cache_pool_paged=m["cache_pool"]["paged"], decode_path=m["decode_path"],
+                 chunked_prefill=m["chunked_prefill"])
+        del gw
+        ran[name] = (reqs, host_rows(rows))
+        if ref is not None:
+            t["parts"] = near_ties(f"9d {name}", reqs, ran[ref][0], ran[name][1], ran[ref][1],
+                                   cfg.vocab_size, ref=ref)
+        out[name] = t
+        if name == "contiguous_pool":
+            iso["qwen-contiguous"] = [r.out_tokens for r in reqs]
+        del rows
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ran
+
+    stream = shared_stream(cfg, np)
+    got = {}
+    for name, kw in (("bucket_prefix_on", {}), ("bucket_prefix_off", dict(prefix_cache=False))):
+        gw = LicensedGateway(cfg, params, tiers=tiers, device=device, chunk_size=0, **kw,
+                             **GEOMETRY)
+        ops.reset_launches()
+        got[name] = prefix_run(f"9d ({name})", gw, stream, np)
+        add(ops.LAUNCHES)
+        got[name][2]["launches"] = dict(ops.LAUNCHES)
+        got[name][2]["admission_grouping"] = gw.metrics()["admission_grouping"]
+        out[name] = got[name][2]
+        del gw
+        gc.collect()
+    on, off = out["bucket_prefix_on"], out["bucket_prefix_off"]
+    if not (on["prefix_tokens_reused"] > 0 and on["prefix_cache"]["hits"] > 0):
+        fail(f"9d: the bucket prefill's prefix cache had no hit: {on}")
+    on["parts"] = near_ties("9d (bucket_prefix_on)", got["bucket_prefix_on"][0],
+                            got["bucket_prefix_off"][0], got["bucket_prefix_on"][1],
+                            got["bucket_prefix_off"][1], cfg.vocab_size,
+                            ref="the cache-off run")
+    log(f"  9d: bucket prefill lane-tokens {on['prefill_lane_tokens']} with the cache against "
+        f"{off['prefill_lane_tokens']} without; prefix_tokens_reused "
+        f"{on['prefix_tokens_reused']}, suffix-width batches "
+        f"{on['admission_grouping']['batches_by_suffix_width']}")
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fleet = FleetGateway()
+    for name, kw in FALLBACK_SLOTS.items():
+        fleet.add_model(name, cfg, params, tiers=tiers, device=device, **kw, **GEOMETRY)
+        for tier in ("full", "free"):
+            fleet.gateways[name].view_for(tier)
+    ops.reset_launches()
+    reqs = {name: [fleet.submit(name, p, license=t, max_new_tokens=n)
+                   for p, t, n in stream_jobs(cfg, np)] for name in FALLBACK_SLOTS}
+    t0 = time.perf_counter()
+    steps = 0
+    while fleet.step() is not None:
+        steps += 1
+    sync()
+    dt = time.perf_counter() - t0
+    add(ops.LAUNCHES)
+    for name, rs in reqs.items():
+        if [r.out_tokens for r in rs] != iso[name]:
+            fail(f"9d fleet: {name}'s greedy tokens differ from its isolated run's")
+    m = fleet.metrics()
+    tokens = m["fleet"]["tokens_generated"]
+    out["fleet"] = dict(serve_s=dt, steps=steps, tokens=tokens, tokens_per_s=tokens / dt,
+                        ms_per_step=1e3 * dt / steps, launches=dict(ops.LAUNCHES),
+                        cache_used_bytes=m["fleet"]["cache_used_bytes"],
+                        paged={n: m["models"][n]["cache_pool"]["paged"] for n in reqs})
+    log(f"  9d fleet (a paged and a contiguous slot): {sum(len(r) for r in reqs.values())} "
+        f"requests, {tokens} tokens in {dt:.2f} s ({out['fleet']['tokens_per_s']:.1f} tokens/s, "
+        f"{out['fleet']['ms_per_step']:.1f} ms per fleet step over {steps}); each slot's greedy "
+        f"tokens equal its isolated run's (phase 3's float stream, 9d contiguous_pool)")
+    del fleet, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def main() -> None:
     t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3358,6 +3794,8 @@ def main() -> None:
                 for a, b in zip(r1.out_tokens, r2.out_tokens))
     total = sum(len(r.out_tokens) for r in float_reqs)
     parts = stream_parts(float_reqs, plain_reqs, kernel_rows, plain_rows, cfg.vocab_size)
+    # phase 3's rows go to the host: phase 9d compares the fallbacks' streams with it
+    float_rows = host_rows(kernel_rows)
     del kernel_rows, plain_rows
     log(f"  greedy tokens equal between kernel and plain decode: {agree}/{total}; "
         f"first differing step per request (None: identical): "
@@ -3453,6 +3891,29 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------------------- phase 9
+    t9 = time.perf_counter()
+    dense, dense_launches = dense_phase(np, torch)
+    log(f"phase 9d: the gateway's fallbacks (gather/scatter decode, contiguous pool, bucket "
+        f"prefill, a fleet with a contiguous slot), {ARCH} at full width and depth on phase "
+        f"3's weights")
+    params = init_params(cfg, seed=SEED, device="cuda")
+    if leaf_sums(params, torch) != fingerprint:
+        fail("9d: init_params(seed) did not re-create phase 3's weights")
+    fallbacks, fallback_launches = fallback_phase(cfg, params, tiers, np, torch, float_reqs,
+                                                  float_rows)
+    del params, float_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase9_launches = {k: dense_launches.get(k, 0) + fallback_launches.get(k, 0)
+                       for k in set(dense_launches) | set(fallback_launches)}
+    log(f"  launches on phase 9's paths: {phase9_launches}")
+    for name in ("paged_attention", "paged_decode_write", "masked_dequant"):
+        if phase9_launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on phase 9's paths")
+        launches[name] += phase9_launches[name]
+    log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+
     # ---------------------------------------------------------- summary
     kernels = [dict(name=name, launches=launches[name], **row)
                for name, row in rows.items()]
@@ -3467,7 +3928,9 @@ def main() -> None:
                     "shared_prefix": {"runs": prefix_runs, "launches": prefix_launches},
                     "update": {"float_full_depth": upd, "int8_depth4": upd8},
                     "calibration": {**calib, "launches": calib_launches},
-                    "fleet": fleet, "lifecycle": lifecycle}))
+                    "fleet": fleet, "lifecycle": lifecycle,
+                    "dense": dense, "fallbacks": fallbacks,
+                    "phase9_launches": phase9_launches}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -95,6 +95,16 @@ def interval_mask(w: torch.Tensor, intervals: Sequence[Interval]) -> torch.Tenso
 
 
 def mask_weight(w: torch.Tensor, intervals: Sequence[Interval]) -> torch.Tensor:
+    """``w`` with the weights inside ``intervals`` zeroed.  A stacked
+    leaf (ndim >= 3) is masked one slice of its leading (unit) axis at a
+    time into one output: the function is elementwise, so the result is
+    the same, and the masks in flight stay one unit's size (a (32, 6144,
+    24576) bf16 leaf would otherwise hold ~20 GB of them beside itself)."""
+    if w.ndim >= 3:
+        out = torch.empty_like(w)
+        for i in range(w.shape[0]):
+            out[i] = mask_weight(w[i], intervals)
+        return out
     return torch.where(interval_mask(w, intervals), w, torch.zeros_like(w))
 
 

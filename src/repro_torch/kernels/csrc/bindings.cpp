@@ -102,9 +102,9 @@ at::Tensor paged_attention(const at::Tensor& q, const at::Tensor& k_blocks,
                    q.scalar_type(), "/", k_blocks.scalar_type(), "/", v_blocks.scalar_type());
   TORCH_CHECK_VALUE(head_dim == 32 || head_dim == 64 || head_dim == 128 || head_dim == 256,
                     "paged_attention: head_dim ", head_dim, " not in (32, 64, 128, 256)");
-  TORCH_CHECK_VALUE(kv_heads > 0 && heads % kv_heads == 0 && heads / kv_heads <= 32,
+  TORCH_CHECK_VALUE(kv_heads > 0 && heads % kv_heads == 0 && heads / kv_heads <= 64,
                     "paged_attention: ", heads, " heads over ", kv_heads,
-                    " kv heads (groups must divide and be <= 32)");
+                    " kv heads (groups must divide and be <= 64)");
   TORCH_CHECK_TYPE(tables.scalar_type() == at::kInt && lens.scalar_type() == at::kInt,
                    "paged_attention: block_tables/context_lens must be int32");
   TORCH_CHECK_VALUE(tables.dim() == 2 && tables.size(0) == batch && lens.dim() == 1 &&

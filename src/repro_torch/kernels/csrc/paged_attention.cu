@@ -19,6 +19,12 @@
 //   [s * cols, (s + 1) * cols), cut at ceil(ctx / bs); a split that starts
 //   past it exits at once (m = -1e30, l = 0).  The wrapper plans S and cols
 //   from host-known shapes only (split_plan in paged_attention.py).
+// * GQA groups up to kMaxGroups (granite-34b's MQA puts 48 q heads on one
+//   kv head): the group bound is a template parameter, one instance for
+//   groups <= 32 and one for <= 64, so the per-thread accumulators follow
+//   the bound and a small group keeps its registers.  A split's scores
+//   take groups x cols x bs x 4 bytes of shared memory; split_plan caps
+//   cols so that the whole layout (split_smem) fits in kMaxSmem.
 // * The split's table entries go to shared memory once; its pages stream
 //   through a ring of `stages` tiles, each one page's bs rows of one kv
 //   head (K pages first, then V pages), copied as 16-byte cp.async chunks
@@ -76,7 +82,9 @@ namespace {
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
 constexpr int kThreads = 128;      // threads of a split block
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroups = 32;
+// GQA groups (q heads per kv head) an instance takes: one instance per
+// bound, so a small group (qwen2.5-3b's 8) keeps the registers of 32
+constexpr int kMaxGroups = 64;
 constexpr int kMaxHd = 256;
 constexpr int kMaxStages = 8;
 constexpr int kRingBytes = 24 * 1024;  // the ring's target size
@@ -148,7 +156,9 @@ __host__ __device__ inline SplitSmem split_smem(int groups, int hd, int elt, int
 }
 
 // grid (B, KH, S), kThreads threads.  ws (S, B, H, HD + 2): acc, m, l.
-template <typename T, int HD>
+// MAXG bounds the group: each thread keeps ceil(MAXG * chunks / kThreads)
+// accumulator chunks of kVec f32 in registers.
+template <typename T, int HD, int MAXG>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                                  const T* __restrict__ v_pool,
@@ -158,7 +168,7 @@ __global__ void __launch_bounds__(kThreads)
                                  int groups, int cols, int stages, float scale) {
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int kChunks = HD / kVec;    // chunks per row
-  constexpr int kItems = (kMaxGroups * kChunks + kThreads - 1) / kThreads;
+  constexpr int kItems = (MAXG * kChunks + kThreads - 1) / kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
   const SplitSmem L = split_smem(groups, HD, sizeof(T), bs, cols, stages);
   int* tab_s = reinterpret_cast<int*>(smem + L.tab);
@@ -398,7 +408,7 @@ int ring_stages(int tile_bytes) {
   return std::max(2, std::min(kMaxStages, kRingBytes / tile_bytes));
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int MAXG>
 void launch_attention_typed(const void* q, const void* k_pool, const void* v_pool,
                             const int32_t* tables, const int32_t* lens, float* out, float* ws,
                             int batch, int n_tab, int block_size, int kv_heads, int groups,
@@ -410,9 +420,11 @@ void launch_attention_typed(const void* q, const void* k_pool, const void* v_poo
                     cols, " columns per split needs ", L.total,
                     " bytes of shared memory, more than ", kMaxSmem);
   const int splits = paged_attention_splits(n_tab, cols);
-  if (L.total > 48 * 1024) sm90::allow_smem<paged_attention_split_kernel<T, HD>>(kMaxSmem);
+  if (L.total > 48 * 1024) {
+    sm90::allow_smem<paged_attention_split_kernel<T, HD, MAXG>>(kMaxSmem);
+  }
   const dim3 grid(batch, kv_heads, splits);
-  paged_attention_split_kernel<T, HD><<<grid, kThreads, L.total, stream>>>(
+  paged_attention_split_kernel<T, HD, MAXG><<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
       tables, lens, out, ws, n_tab, block_size, kv_heads, groups, cols, stages,
       1.0f / sqrtf(static_cast<float>(HD)));
@@ -425,24 +437,44 @@ void launch_attention_typed(const void* q, const void* k_pool, const void* v_poo
   }
 }
 
+// the instance for the group bound: <= 32, else <= kMaxGroups
+template <typename T, int HD>
+void launch_attention_groups(const void* q, const void* k_pool, const void* v_pool,
+                             const int32_t* tables, const int32_t* lens, float* out, float* ws,
+                             int batch, int n_tab, int block_size, int kv_heads, int groups,
+                             int cols, cudaStream_t stream) {
+  if (groups <= 32) {
+    launch_attention_typed<T, HD, 32>(q, k_pool, v_pool, tables, lens, out, ws, batch, n_tab,
+                                      block_size, kv_heads, groups, cols, stream);
+  } else {
+    launch_attention_typed<T, HD, kMaxGroups>(q, k_pool, v_pool, tables, lens, out, ws, batch,
+                                              n_tab, block_size, kv_heads, groups, cols,
+                                              stream);
+  }
+}
+
 template <typename T>
 void launch_attention_hd(const void* q, const void* k_pool, const void* v_pool,
                          const int32_t* tables, const int32_t* lens, float* out, float* ws,
                          int batch, int n_tab, int block_size, int kv_heads, int groups,
                          int head_dim, int cols, cudaStream_t stream) {
+  TORCH_CHECK_VALUE(groups >= 1 && groups <= kMaxGroups, "paged_attention: ", groups,
+                    " q heads per kv head, more than ", kMaxGroups);
   switch (head_dim) {
     case 32:
-      return launch_attention_typed<T, 32>(q, k_pool, v_pool, tables, lens, out, ws, batch,
-                                           n_tab, block_size, kv_heads, groups, cols, stream);
+      return launch_attention_groups<T, 32>(q, k_pool, v_pool, tables, lens, out, ws, batch,
+                                            n_tab, block_size, kv_heads, groups, cols, stream);
     case 64:
-      return launch_attention_typed<T, 64>(q, k_pool, v_pool, tables, lens, out, ws, batch,
-                                           n_tab, block_size, kv_heads, groups, cols, stream);
+      return launch_attention_groups<T, 64>(q, k_pool, v_pool, tables, lens, out, ws, batch,
+                                            n_tab, block_size, kv_heads, groups, cols, stream);
     case 128:
-      return launch_attention_typed<T, 128>(q, k_pool, v_pool, tables, lens, out, ws, batch,
-                                            n_tab, block_size, kv_heads, groups, cols, stream);
+      return launch_attention_groups<T, 128>(q, k_pool, v_pool, tables, lens, out, ws, batch,
+                                             n_tab, block_size, kv_heads, groups, cols,
+                                             stream);
     case 256:
-      return launch_attention_typed<T, 256>(q, k_pool, v_pool, tables, lens, out, ws, batch,
-                                            n_tab, block_size, kv_heads, groups, cols, stream);
+      return launch_attention_groups<T, 256>(q, k_pool, v_pool, tables, lens, out, ws, batch,
+                                             n_tab, block_size, kv_heads, groups, cols,
+                                             stream);
     default:
       TORCH_CHECK_VALUE(false, "paged_attention: head_dim not in (32, 64, 128, 256)");
   }

@@ -42,19 +42,48 @@ SPLIT_BLOCKS_PER_SM = 4   # split blocks the plan aims for on each SM
 SPLIT_MIN_KEYS = 32       # keys per split at least (where the table has them)
 SPLIT_MAX_KEYS = 512      # keys per split at most: their scores stay in shared memory
 
+# csrc/paged_attention.cu's shared-memory layout of a split block
+MAX_SMEM = 232448         # kMaxSmem: 227 KB, the most a block can have
+MAX_STAGES = 8            # kMaxStages: the stages' mbarriers are always laid out
+RING_BYTES = 24 * 1024    # kRingBytes: the K/V page ring's target size
+MAX_GROUPS = 64           # kMaxGroups: q heads per kv head the kernel takes
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def split_smem(groups: int, head_dim: int, elt: int, block_size: int, cols: int) -> int:
+    """Bytes of dynamic shared memory a split block of ``cols`` table
+    columns takes: ``split_smem(...).total`` of the CUDA source (the
+    stages' mbarriers, the split's table entries, per-head max and sum,
+    q as f32, the scores, and a ring of ``ring_stages`` padded pages)."""
+    tile = block_size * (head_dim * elt + 16)
+    stages = max(2, min(MAX_STAGES, RING_BYTES // tile))
+    off = _align16(MAX_STAGES * 8 + cols * 4)
+    off = _align16(off + 2 * groups * 4) + groups * head_dim * 4
+    off = _align16(off + groups * cols * block_size * 4)
+    return off + stages * tile
+
 
 def split_plan(n_tab: int, block_size: int, batch: int, kv_heads: int,
-               num_sms: int) -> Tuple[int, int]:
+               num_sms: int, *, groups: int = 1, head_dim: int = 128,
+               elt: int = 2) -> Tuple[int, int]:
     """(splits, cols): split s of each (lane, kv head) walks table columns
     [s * cols, (s + 1) * cols).  Enough splits that the grid of batch x
     kv_heads x splits holds at least ``SPLIT_BLOCKS_PER_SM`` blocks per SM, each
     split at least ``SPLIT_MIN_KEYS`` and at most ``SPLIT_MAX_KEYS`` keys
-    (one page where a page holds more) and no more columns than the table
-    has.  Reads shapes only, never the context lengths."""
+    (one page where a page holds more), no more columns than the table
+    has, and few enough that a split block's shared memory
+    (:func:`split_smem` for ``groups`` q heads per kv head, ``head_dim``
+    and ``elt``-byte K/V) stays within ``MAX_SMEM``.  Reads shapes only,
+    never the context lengths."""
     n_tab, bs = max(1, n_tab), max(1, block_size)
     want = -(-SPLIT_BLOCKS_PER_SM * num_sms // max(1, batch * kv_heads))
     cols = max(n_tab // want, -(-SPLIT_MIN_KEYS // bs))
     cols = max(1, min(cols, SPLIT_MAX_KEYS // bs, n_tab))
+    while cols > 1 and split_smem(groups, head_dim, elt, bs, cols) > MAX_SMEM:
+        cols -= 1
     return -(-n_tab // cols), cols
 
 
@@ -71,7 +100,8 @@ def paged_attention(q: torch.Tensor, k_blocks: torch.Tensor,
     q (B, H, hd); k/v blocks (P, bs, KH, hd) of q's dtype (f32 or bf16);
     block_tables (B, T) int32, whose entry t covers positions
     [t*bs, (t+1)*bs) and must lie in [0, P); context_lens (B,) int32
-    valid lengths (pos + 1).  GQA via H == KH * groups; scale 1/sqrt(hd).
+    valid lengths (pos + 1).  GQA via H == KH * groups, groups at most
+    ``MAX_GROUPS``; scale 1/sqrt(hd).
     """
     if q.device.type == "cpu":
         return ref.paged_attention(q, k_blocks, v_blocks, block_tables,
@@ -80,7 +110,9 @@ def paged_attention(q: torch.Tensor, k_blocks: torch.Tensor,
         raise ValueError(f"paged_attention: no kernel for device {q.device}")
     b, h, hd = _dims(q, 3)
     _, bs, kh, _ = _dims(k_blocks, 4)
-    splits, cols = split_plan(_dims(block_tables, 2)[1], bs, b, kh, ops.num_sms(q.device))
+    splits, cols = split_plan(_dims(block_tables, 2)[1], bs, b, kh, ops.num_sms(q.device),
+                              groups=h // max(1, kh), head_dim=hd,
+                              elt=k_blocks.element_size())
     ws = torch.empty((splits, b, h, hd + 2) if splits > 1 else (0,),
                      dtype=torch.float32, device=q.device)
     out = load_extension().paged_attention(q, k_blocks, v_blocks, block_tables,

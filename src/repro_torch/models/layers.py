@@ -1,9 +1,10 @@
 """Neural layers of the port for the dense GQA model: RMS norm, RoPE,
 causal attention (prefill, decode, chunked ``attend_cache``), the
-kernel-resident paged decode attention, and the SwiGLU MLP.
+kernel-resident paged decode attention, and the SwiGLU and squared-ReLU
+MLPs.
 
-Counterpart of ``repro/models/layers.py`` restricted to what qwen2.5-3b
-runs; numerics follow it step by step (f32 norms and RoPE, q scaled in
+Counterpart of ``repro/models/layers.py`` restricted to what the dense
+decoders run; numerics follow it step by step (f32 norms and RoPE, q scaled in
 its own dtype, f32 scores, ``finfo.min`` masking, probabilities cast to
 ``v.dtype`` before the value product).  Tensors keep the JAX layouts:
 activations (B, S, D), heads (B, S, H, hd), caches (B, cap, KH, hd) and
@@ -229,6 +230,13 @@ def attention_block_paged(
 
 # ---------------------------------------------------------------------- MLPs
 def mlp_block(p: Dict[str, Any], x: torch.Tensor, cfg) -> torch.Tensor:
-    g = x @ p["w_gate"]
+    """SwiGLU when the block has ``w_gate``, else the nemotron family's
+    squared ReLU, ``relu(x @ w_up) ** 2`` as ``r * r`` in the activation
+    dtype."""
     u = x @ p["w_up"]
-    return (F.silu(g) * u) @ p["w_down"]
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"]) * u
+    else:
+        r = F.relu(u)
+        h = r * r
+    return h @ p["w_down"]

@@ -1,10 +1,11 @@
-"""Decoder-only dense GQA model of the port (qwen2.5-3b family).
+"""Decoder-only dense GQA model of the port (qwen2.5-3b, granite-34b,
+minitron-8b, nemotron-4-15b).
 
 Counterpart of ``repro/models/model.py`` for ``layer_pattern ==
-("attn",)``.  Parameters keep the JAX package's nested-dict layout and
-key names, with every block weight stacked on a leading *unit* axis
-``(U, in, out)``; the JAX ``lax.scan`` over units becomes a Python loop
-over that axis.  Caches are dicts of tensors updated in place.
+("attn",)`` with a SwiGLU or squared-ReLU MLP.  Parameters keep the JAX
+package's nested-dict layout and key names, with every block weight
+stacked on a leading *unit* axis ``(U, in, out)``; the JAX ``lax.scan``
+over units becomes a Python loop over that axis.  Caches are dicts of tensors updated in place.
 
 Entry points:
   init_params(cfg, seed=, device=)           -> param dict
@@ -33,9 +34,11 @@ from repro_torch.models import layers as L
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense GQA decoder only; everything else raises."""
+    """The port runs the dense GQA decoder (SwiGLU or squared-ReLU MLP)
+    only; everything else raises."""
     dense = (cfg.layer_pattern == ("attn",) and not cfg.use_mla
-             and not cfg.num_experts and cfg.mlp_type == "swiglu"
+             and not cfg.num_experts
+             and cfg.mlp_type in ("swiglu", "squared_relu")
              and not cfg.norm_layernorm and cfg.window == 0
              and cfg.frontend == "none" and not cfg.kv_cache_int8)
     if not dense:
@@ -75,8 +78,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, 
         mixer.update(bq=zeros(u, h * hd), bk=zeros(u, kh * hd), bv=zeros(u, kh * hd))
     block = {"norm1": {"norm_scale": ones(u, d)}, "mixer": mixer,
              "norm2": {"norm_scale": ones(u, d)},
-             "ffn": {"w_gate": dense(d, ff), "w_up": dense(d, ff),
-                     "w_down": dense(ff, d)}}
+             "ffn": {}}
+    if cfg.mlp_type == "swiglu":         # squared ReLU: two matrices
+        block["ffn"]["w_gate"] = dense(d, ff)
+    block["ffn"].update(w_up=dense(d, ff), w_down=dense(ff, d))
     return {"embed": {"tok": normal((cfg.padded_vocab, d), 0.02)},
             "units": {"b0": block},
             "final_norm": {"norm_scale": ones(d)},
@@ -115,7 +120,7 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device="cuda") -> Di
 def _apply_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                  cache, pos, attend_cache, chunk_valid, paged_tables,
                  paged_kernel) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Pre-norm residual block: attention then SwiGLU MLP."""
+    """Pre-norm residual block: attention then the MLP."""
     h = L.rms_norm(x, p["norm1"]["norm_scale"])
     if paged_tables is not None:
         y, new_cache = L.attention_block_paged(

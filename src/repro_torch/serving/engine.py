@@ -1,8 +1,10 @@
-"""Serving steps of the port: chunked prefill, kernel-resident paged
-decode, and per-lane sampling.
+"""Serving steps of the port: the bucket and chunked prefill, the suffix
+prefill of a prefix-cache hit, the gather/scatter and kernel-resident
+paged decode, and per-lane sampling.
 
-Counterpart of the parts of ``repro/serving/engine.py`` the gateway's
-main path uses.  The JAX package ``vmap``\\ s a batch-1 step over lanes;
+Counterpart of the functions of ``repro/serving/engine.py`` the gateway
+calls (``ServingEngine``, ``Request`` and the host ``sample`` are not
+ported).  The JAX package ``vmap``\\ s a batch-1 step over lanes;
 here the lane axis is the model's batch dimension, with per-lane
 positions written out.  Sampling draws from a ``torch.Generator`` seeded
 per (request seed, token index), so a restarted request reproduces its
@@ -11,12 +13,44 @@ only greedy tokens are comparable across the two.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_lib
+
+
+def prefill_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict[str, Any],
+                 license_intervals=None):
+    """Fill a fresh (zero) cache from a token batch (B, S) at positions
+    0..S-1 (the bucket prefill); returns (last-token logits (B, V),
+    cache)."""
+    logits, cache = model_lib.forward(params, cfg, tokens, cache=cache, pos=0,
+                                      license_intervals=license_intervals)
+    return logits[:, -1], cache
+
+
+def prefill_suffix_step(params, cfg: ModelConfig, tokens: torch.Tensor,
+                        cache: Dict[str, Any], pos, license_intervals=None):
+    """Suffix prefill: extend a cache already holding positions ``[0,
+    pos)`` with ``tokens`` (B, W) — the uncached tail of a prompt whose
+    prefix the prefix cache restored.  ``pos`` is an int or (B,) per
+    lane.  Attention reads the resident cache, and the *full* per-step
+    logits (B, W, V) come back: the caller picks the row of each lane's
+    last real token."""
+    return model_lib.forward(params, cfg, tokens, cache=cache, pos=pos,
+                             license_intervals=license_intervals, attend_cache=True)
+
+
+def stack_lane_caches(cfg: ModelConfig, b: int, capacity: int, device="cuda"):
+    """``b`` independent lane caches, zeroed: the layout
+    :func:`prefill_chunk_step` and :func:`serve_step` take.  The JAX
+    package stacks batch-1 caches on a new leading axis for ``vmap``;
+    here the lane is the model's batch axis, so this is
+    ``init_cache(cfg, b, capacity)``."""
+    return model_lib.init_cache(cfg, b, capacity, device=device)
 
 
 def prefill_chunk_step(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -39,6 +73,17 @@ def prefill_chunk_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                              attend_cache=True, chunk_valid=chunk_valid)
 
 
+def serve_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict[str, Any],
+               pos, license_intervals=None):
+    """ONE decode step over contiguous lane caches (the gather/scatter
+    decode): ``tokens`` (B, 1), ``pos`` (B,) each lane's absolute
+    position, ``cache`` holding each lane's ``len``.  Returns
+    (last-token logits (B, V), cache)."""
+    logits, cache = model_lib.forward(params, cfg, tokens, cache=cache, pos=pos,
+                                      license_intervals=license_intervals)
+    return logits[:, -1], cache
+
+
 def serve_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                      cache: Dict[str, Any], tables: torch.Tensor,
                      pos: torch.Tensor, license_intervals=None, *, kernel: bool):
@@ -56,6 +101,19 @@ def serve_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                                       license_intervals=license_intervals,
                                       paged_tables=tables, paged_kernel=kernel)
     return logits[:, -1], cache
+
+
+def right_align(prompts: Sequence[np.ndarray], width: int, rows: int) -> np.ndarray:
+    """(rows, width) int32 token matrix; short prompts padded on the left
+    with their own first token (position-consistent, never attends
+    ahead): the bucket prefill's prompt rows."""
+    toks = np.zeros((rows, width), np.int32)
+    for i, p in enumerate(prompts):
+        if len(p) == 0:
+            raise ValueError(f"empty prompt at row {i}")
+        toks[i, width - len(p):] = p
+        toks[i, : width - len(p)] = p[0]
+    return toks
 
 
 def lane_generator(seed: int, n_out: int, device) -> torch.Generator:

@@ -68,21 +68,15 @@ from repro_torch.serving.paging import PagedCachePool, cdiv
 from repro_torch.serving.compiled import (DecodeGraphs, GraphSet, PrefillGraphs, StoreGraphs,
                                           View)
 from repro_torch.serving.prefix import PrefixCache
-from repro_torch.serving.scheduler import (GatewayRequest, RequestState, Scheduler,
-                                           TierViewCache)
+from repro_torch.serving.engine import right_align
+from repro_torch.serving.scheduler import (CachePool, GatewayRequest, RequestState,
+                                           Scheduler, TierViewCache)
 from repro_torch.serving.telemetry import (FLEET_METRICS_KEYS, GATEWAY_METRICS_KEYS,
                                            Telemetry)
 from repro_torch.serving.tracing import AuditLog, TraceRecorder, merge_chrome_traces
 
 # argument -> (the values the port implements, ROADMAP.md item for the rest)
 _LEFT_OUT: Dict[str, Tuple[Tuple[Any, ...], str]] = {
-    "paged": ((True,), "the other architectures and the gateway fallbacks"),
-    "kernel_decode": ((None, True), "the other architectures and the gateway fallbacks"),
-    # None: one block per chunk, the JAX default; 0 is bucket prefill
-    "chunk_size": ((None,), "the other architectures and the gateway fallbacks"),
-    # None: the JAX slot's choice off a TPU ("off"); the port picks its
-    # decode kernels with ``decode_kernels``
-    "decode_pallas": ((None,), "the other architectures and the gateway fallbacks"),
     # the port samples on the device inside every step and keeps no logits
     "fuse_sampling": ((True,), "the rest of the package"),
     "record_logits": ((False,), "the rest of the package"),
@@ -115,11 +109,15 @@ class ModelSlot:
         max_batch: int = 8,
         max_prompt: int = 32,
         max_new_cap: int = 64,
+        paged: bool = True,
         block_size: int = 16,
         num_blocks: Optional[int] = None,
         max_lanes: Optional[int] = None,
         watermark_blocks: int = 0,
         prefix_cache: bool = True,
+        chunk_size: Optional[int] = None,
+        kernel_decode: Optional[bool] = None,
+        decode_pallas: Optional[str] = None,
         decode_kernels: Optional[bool] = None,
         view_capacity: int = 8,
         version: int = 1,
@@ -175,6 +173,23 @@ class ModelSlot:
         self.views = TierViewCache(self._materialize, capacity=view_capacity)
         self._store_graphs = StoreGraphs()   # the in-scan path's, per version
 
+        # decode_pallas, the JAX slot's kernel switch, names the port's:
+        # "pallas" the Hopper kernels, "off" the plain path
+        if decode_pallas == "interpret":
+            raise ValueError("decode_pallas='interpret': the port has no interpret mode; "
+                             "its kernels run on a CUDA device ('pallas') and its plain "
+                             "path anywhere ('off')")
+        if decode_pallas not in (None, "off", "pallas"):
+            raise ValueError(f"decode_pallas={decode_pallas!r} not in "
+                             f"('off', 'pallas', 'interpret')")
+        if decode_pallas is not None:
+            want = decode_pallas == "pallas"
+            if decode_kernels is not None and bool(decode_kernels) != want:
+                raise ValueError(f"decode_pallas={decode_pallas!r} contradicts "
+                                 f"decode_kernels={decode_kernels!r}")
+            decode_kernels = want
+        # the JAX slot's value off a TPU when none is given
+        self.decode_pallas = "off" if decode_pallas is None else decode_pallas
         # the kernel-resident decode routes its write and attention
         # through the Hopper kernels on a CUDA device; the plain path
         # serves the CPU and anyone who asks for it explicitly
@@ -184,33 +199,62 @@ class ModelSlot:
         if decode_kernels and not on_cuda:
             raise ValueError(f"decode_kernels=True needs a CUDA device, got "
                              f"{self.device}")
-        self.decode_kernels = bool(decode_kernels)
 
-        self.max_lanes = int(max_lanes or self.max_batch)
-        bpl = cdiv(self.capacity, int(block_size))
-        self.pool = PagedCachePool(
-            cfg, self.max_lanes, self.capacity, int(block_size),
-            int(num_blocks) if num_blocks is not None else self.max_lanes * bpl,
-            device=self.device)
-        prefill_blocks = max(1, cdiv(self.max_prompt, self.pool.block_size))
-        if self.pool.num_blocks - int(watermark_blocks) < prefill_blocks:
-            raise ValueError(
-                f"watermark_blocks={watermark_blocks} leaves no room to "
-                f"admit a prefill ({prefill_blocks} blocks of "
-                f"{self.pool.num_blocks}) — the gateway would accept "
-                f"requests and never schedule them")
-        self.prefix = (PrefixCache(self.pool.allocator, self.pool.block_size)
-                       if prefix_cache else None)
-        # left-aligned chunked prefill, one block per chunk (the JAX
-        # gateway's default)
-        self.chunk_size = min(self.pool.block_size, self.max_prompt)
-        self.scheduler = Scheduler(
-            self.max_lanes, self.max_batch, allocator=self.pool.allocator,
-            blocks_needed=self._blocks_needed,
-            watermark_blocks=int(watermark_blocks),
-            reclaimable=(self.prefix.reclaimable
-                         if self.prefix is not None else None),
-            clock=self.clock)
+        self.paged = bool(paged)
+        # kernel-resident decode needs every attention cache paged (the
+        # JAX slot also excludes sliding windows, which the port refuses)
+        self.kernel_decode = (self.paged if kernel_decode is None
+                              else bool(kernel_decode) and self.paged)
+        # the kernels serve the kernel-resident step only: the
+        # gather/scatter decode is the plain path
+        self.decode_kernels = bool(decode_kernels) and self.kernel_decode
+        if self.paged:
+            self.max_lanes = int(max_lanes or self.max_batch)
+            bpl = cdiv(self.capacity, int(block_size))
+            self.pool = PagedCachePool(
+                cfg, self.max_lanes, self.capacity, int(block_size),
+                int(num_blocks) if num_blocks is not None else self.max_lanes * bpl,
+                device=self.device)
+            self._prefill_blocks = max(1, cdiv(self.max_prompt, self.pool.block_size))
+            if self.pool.num_blocks - int(watermark_blocks) < self._prefill_blocks:
+                raise ValueError(
+                    f"watermark_blocks={watermark_blocks} leaves no room to "
+                    f"admit a prefill ({self._prefill_blocks} blocks of "
+                    f"{self.pool.num_blocks}) — the gateway would accept "
+                    f"requests and never schedule them")
+            self.prefix = (PrefixCache(self.pool.allocator, self.pool.block_size)
+                           if prefix_cache else None)
+            # left-aligned chunked prefill, one block per chunk by default
+            # (the JAX gateway's); 0 is the bucket prefill
+            self.chunk_size = (self.pool.block_size if chunk_size is None
+                               else int(chunk_size))
+            if self.chunk_size > 0:
+                self.chunk_size = min(self.chunk_size, self.max_prompt)
+            self.chunked = self.chunk_size > 0
+            bucketed = self.prefix is not None and not self.chunked
+            self.scheduler = Scheduler(
+                self.max_lanes, self.max_batch, allocator=self.pool.allocator,
+                prefill_blocks=0 if self.chunked else self._prefill_blocks,
+                watermark_blocks=int(watermark_blocks),
+                reclaimable=(self.prefix.reclaimable
+                             if self.prefix is not None else None),
+                suffix_bucket=self._suffix_bucket if bucketed else None,
+                suffix_revalidate=self._suffix_bucket_fresh if bucketed else None,
+                chunked=self.chunked,
+                blocks_needed=self._blocks_needed if self.chunked else None,
+                clock=self.clock)
+            self._zero_cap = self.pool.padded_capacity
+        else:
+            if chunk_size:
+                raise ValueError("chunked prefill requires the paged pool")
+            self.chunk_size = 0
+            self.chunked = False
+            self.max_lanes = self.max_batch
+            self.pool = CachePool(cfg, self.max_batch, self.capacity, device=self.device)
+            self.scheduler = Scheduler(self.max_batch, self.max_batch, clock=self.clock)
+            self.prefix = None
+            self._zero_cap = self.capacity
+
         # opt-in runtime sanitizers: shadow block lifecycle + step-shape
         # sentinel.  Attached HERE, before any block traffic (the prefix
         # cache and the scheduler reach the allocator through the object,
@@ -223,17 +267,18 @@ class ModelSlot:
             rt = self.sanitizer.retrace
             # sampling-variant families (greedy, sampling, sampling with
             # top-k): <= 3 keys, bounded at 4 as in the JAX package
-            for fam in ("prefix_prefill", "paged_decode"):
+            for fam in ("steps", "prefix_prefill", "paged_decode"):
                 rt.bound(fam, 4)
-            self.sanitizer.attach_allocator(self.pool.allocator)
-            bpl = self.pool.blocks_per_lane
-            # chunked prefill pow2-buckets both axes:
-            # b in {1,2,..,max_batch}, cols in {1,2,..,pow2(bpl)}
-            rt.bound("prefill_chunk",
-                     (self.max_batch.bit_length() + 1) * (bpl.bit_length() + 2))
-            # decode tables are trimmed to the batch's exact used width
-            # (unbucketed by design): bounded by the lane cap
-            rt.bound("decode_width", bpl)
+            if self.paged:
+                self.sanitizer.attach_allocator(self.pool.allocator)
+                bpl = self.pool.blocks_per_lane
+                # chunked prefill pow2-buckets both axes:
+                # b in {1,2,..,max_batch}, cols in {1,2,..,pow2(bpl)}
+                rt.bound("prefill_chunk",
+                         (self.max_batch.bit_length() + 1) * (bpl.bit_length() + 2))
+                # decode tables are trimmed to the batch's exact used width
+                # (unbucketed by design): bounded by the lane cap
+                rt.bound("decode_width", bpl)
 
         if transport is not None and server is None:
             server = transport.server
@@ -315,6 +360,9 @@ class ModelSlot:
             # versions quarantined after repeated failed syncs
             "sync_retries": 0, "sync_timeouts": 0, "sync_quarantines": 0,
         }
+        # bucket prefill with the prefix cache: prefill batches served per
+        # suffix-width bucket (the grouping decision, in metrics())
+        self.bucket_batches: Dict[int, int] = {}
 
         # the compiled decode and chunked-prefill steps (serving/
         # compiled.py): CUDA graphs of the kernel path on the card, both
@@ -322,7 +370,7 @@ class ModelSlot:
         # Private: the eager steps stay reachable by setting either to None.
         self._graphs = DecodeGraphs(self) if self.decode_kernels else None
         self._prefill_graphs = (PrefillGraphs(self, backend=self._graphs.backend)
-                                if self.decode_kernels else None)
+                                if self.decode_kernels and self.chunked else None)
 
         self._register_telemetry()
         # seed the audit ledger: the tiers this slot can serve from birth
@@ -400,12 +448,13 @@ class ModelSlot:
         t.gauge("serving_view_cache_entries", labels=lb,
                 help="Materialized (tier, version) weight views",
                 fn=lambda: len(self.views))
-        t.gauge("serving_cache_blocks_held", labels=lb,
-                help="Physical cache blocks allocated",
-                fn=lambda: self.pool.allocator.num_held)
-        t.gauge("serving_cache_blocks_free", labels=lb,
-                help="Physical cache blocks on the free list",
-                fn=lambda: self.pool.allocator.num_free)
+        if self.paged:
+            t.gauge("serving_cache_blocks_held", labels=lb,
+                    help="Physical cache blocks allocated",
+                    fn=lambda: self.pool.allocator.num_held)
+            t.gauge("serving_cache_blocks_free", labels=lb,
+                    help="Physical cache blocks on the free list",
+                    fn=lambda: self.pool.allocator.num_free)
         if self.prefix is not None:
             t.gauge("serving_prefix_reclaimable_blocks", labels=lb,
                     help="Retained prefix blocks evictable on demand",
@@ -623,6 +672,28 @@ class ModelSlot:
                     self._store_graphs.get(version, base))
 
     # ------------------------------------------------------ scheduler callbacks
+    def _suffix_bucket(self, req: GatewayRequest, fresh: bool = False) -> int:
+        """Prefix-aware admission probe of the bucket prefill: the
+        uncached suffix width this request would prefill at —
+        ``max_prompt`` when cold, down to 1 for a full match (the last
+        position always recomputes).  Uses the side-effect-free
+        :meth:`PrefixCache.peek` and caches the answer on the request
+        keyed by the cache's mutation epoch.  ``fresh=True`` bypasses
+        that cache: the scheduler re-validates every selected member at
+        formation, since a cached probe is a hint, not a fact."""
+        cached = None if fresh else getattr(req, "_suffix_probe", None)
+        if cached is not None and cached[0] == self.prefix.epoch:
+            return cached[1]
+        toks = right_align([req.prompt], self.max_prompt, 1)[0]
+        matched = self.prefix.peek((req.license, req.version), toks)
+        bucket = self.max_prompt - min(matched, self.max_prompt - 1)
+        req._suffix_probe = (self.prefix.epoch, bucket)
+        return bucket
+
+    def _suffix_bucket_fresh(self, req: GatewayRequest) -> int:
+        """Cache-bypassing probe for batch-formation re-validation."""
+        return self._suffix_bucket(req, fresh=True)
+
     def _blocks_needed(self, req: GatewayRequest) -> int:
         """Chunked-admission block budget: blocks covering the TRUE
         prompt length — conservative, since adopted prefix blocks only
@@ -954,13 +1025,13 @@ class FleetGateway:
             raise ValueError(f"model {name!r} already registered")
         if gw.slot.fleet is not None:
             raise ValueError(f"gateway {name!r} already belongs to a fleet")
-        if self.cache_budget_bytes is not None:
-            # every slot must be able to run one full-capacity request to
-            # completion even when every OTHER slot holds one too:
-            # otherwise a budget-bound fleet can admit requests that no
-            # reclaim or (within-slot) preemption can ever finish
+        if self.cache_budget_bytes is not None and gw.paged:
+            # every paged slot must be able to run one full-capacity
+            # request to completion even when every OTHER slot holds one
+            # too: otherwise a budget-bound fleet can admit requests that
+            # no reclaim or (within-slot) preemption can ever finish
             need = sum(cdiv(g.capacity, g.pool.block_size) * g.pool.block_bytes
-                       for g in list(self.gateways.values()) + [gw])
+                       for g in list(self.gateways.values()) + [gw] if g.paged)
             if need > self.cache_budget_bytes:
                 raise ValueError(
                     f"cache_budget_bytes={self.cache_budget_bytes} cannot "
@@ -968,7 +1039,8 @@ class FleetGateway:
                     f"across {len(self.gateways) + 1} models)")
         gw.slot.fleet = self
         gw.slot.on_finish = self._on_finish
-        gw.scheduler.global_budget = lambda g=gw: self._slot_headroom(g)
+        if gw.paged:
+            gw.scheduler.global_budget = lambda g=gw: self._slot_headroom(g)
         gw.scheduler.admission_filter = lambda r, g=gw: self._admission_ok(g, r)
         # a standalone gateway brings its own registry: fold its
         # instruments into the fleet's scrape page (a no-op for
@@ -977,18 +1049,23 @@ class FleetGateway:
         self.gateways[name] = gw
         return gw
 
+    def _paged(self) -> List[Any]:
+        """The slots on a block-paged pool: the only ones the byte budget
+        counts (a contiguous pool is reserved whole at construction)."""
+        return [g for g in self.gateways.values() if g.paged]
+
     # ---------------------------------------------------------- global budget
     def used_cache_bytes(self) -> int:
         """Bytes of cache blocks allocated fleet-wide (running requests'
         chains AND retained prefix chains), from host counters."""
         return sum(g.pool.block_bytes * g.pool.allocator.num_held
-                   for g in self.gateways.values())
+                   for g in self._paged())
 
     def reclaimable_cache_bytes(self) -> int:
         """Bytes held only by prefix-cache retained chains: freeable on
         demand, so they count as admission headroom."""
         return sum(g.pool.block_bytes * g.prefix.reclaimable()
-                   for g in self.gateways.values() if g.prefix is not None)
+                   for g in self._paged() if g.prefix is not None)
 
     def _slot_headroom(self, gw: Any) -> int:
         """How many MORE of ``gw``'s blocks the fleet budget can cover,
@@ -1019,7 +1096,7 @@ class FleetGateway:
 
         if free() >= need:
             return True
-        for g in [gw] + [g for g in self.gateways.values() if g is not gw]:
+        for g in [gw] + [g for g in self._paged() if g is not gw]:
             if g.prefix is None:
                 continue
             while free() < need and g.prefix.reclaimable() > 0:

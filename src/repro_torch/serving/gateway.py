@@ -35,7 +35,10 @@ gateway compiles one per width; the kernel path rounds the used width up
 to a power of two, so a view holds a few graphs at any context.  A
 prefill chunk there is a graph too, one per (pow2 lanes, pow2 table
 width) and view, the JAX gateway's jit key.  The plain path
-(``decode_kernels=False``) and the CPU decode and prefill eagerly.  When
+(``decode_kernels=False``) and the CPU decode and prefill eagerly.  The
+JAX gateway's fallbacks are explicit arguments: the bucket prefill
+(``chunk_size=0``), the gather/scatter decode (``kernel_decode=False``)
+and the contiguous pool (``paged=False``); they run eagerly.  When
 the pool runs out of blocks, the youngest running request is preempted
 back to the queue head and recomputed later (generation is deterministic
 per (seed, prompt, view), so it reproduces its tokens).
@@ -82,8 +85,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.transport import Transport, TransportError
 from repro_torch.serving.compiled import table_width
-from repro_torch.serving.engine import (lane_generator, prefill_chunk_step,
-                                        sample_lane, serve_step_paged)
+from repro_torch.serving.engine import (lane_generator, prefill_chunk_step, prefill_step,
+                                        prefill_suffix_step, right_align, sample_lane,
+                                        serve_step, serve_step_paged, stack_lane_caches)
 from repro_torch.serving.fleet import ModelSlot
 from repro_torch.serving.paging import cdiv
 from repro_torch.serving.scheduler import (GatewayRequest, RequestState,
@@ -125,6 +129,11 @@ class LicensedGateway:
         Lanes per micro-batch (the decode step's batch width).
     max_prompt / max_new_cap:
         Longest admitted prompt, and the decode budget per request.
+    paged:
+        Serve from the block-paged pool (default).  ``False`` selects the
+        contiguous ``CachePool`` (one ``capacity``-token lane per
+        ``max_batch`` slot; no prefix cache, bucket prefill,
+        gather/scatter decode), as in the JAX slot.
     block_size / num_blocks / max_lanes:
         Paged-pool geometry; prompts prefill one block per chunk.
         ``num_blocks`` defaults to full provisioning (``max_lanes *
@@ -137,12 +146,30 @@ class LicensedGateway:
     prefix_cache:
         Retain finished prompts' KV blocks in a (tier, version)-scoped
         radix cache and serve later shared prefixes from them (default
-        on; LRU-evicted under pool pressure).
+        on; LRU-evicted under pool pressure).  Paged pool only.
+    chunk_size:
+        Prompt tokens a prefill action advances each lane (default: one
+        block, clamped to ``max_prompt``).  ``0`` is the bucket prefill:
+        prompts right-aligned into the ``max_prompt`` bucket with
+        repeated-first-token padding, one step per admission, with the
+        prefix cache's suffix prefill and suffix-width admission groups
+        (eager on the card).  A positive value on the contiguous pool
+        raises.
+    kernel_decode:
+        Kernel-resident paged decode (default: on the paged pool).
+        ``False`` gathers each lane's logical cache, decodes it with
+        ``serve_step`` and scatters it back, eagerly and without the
+        kernels.
     decode_kernels:
-        Route the decode write and attention through the Hopper kernels,
-        the step replayed as a CUDA graph.  Default: on a CUDA device;
-        ``True`` elsewhere raises, ``False`` selects the plain path
-        (eager).
+        Route the kernel-resident decode write and attention through the
+        Hopper kernels, the step replayed as a CUDA graph.  Default: on a
+        CUDA device; ``True`` elsewhere raises, ``False`` selects the
+        plain path (eager).
+    decode_pallas:
+        The JAX slot's name for the same switch: ``"pallas"`` is
+        ``decode_kernels=True``, ``"off"`` is ``False``, ``None`` keeps
+        ``decode_kernels``; ``"interpret"`` raises ``ValueError`` (the
+        port has no interpret mode).
     view_capacity:
         Licensed views kept in the (tier, version) LRU cache.
     version / model:
@@ -408,7 +435,10 @@ class LicensedGateway:
             act.model = self.model
             t0 = self.clock() if self.obs else 0.0
             if act.kind == "prefill":
-                self._run_chunked_prefill(act)
+                if self.chunked:
+                    self._run_chunked_prefill(act)
+                else:
+                    self._run_prefill(act)
             else:
                 self._run_decode(act)
             if self.obs:
@@ -418,13 +448,15 @@ class LicensedGateway:
                 t1 = self.clock()
                 (self.h_prefill if act.kind == "prefill"
                  else self.h_decode).observe(t1 - t0)
-                self.tracer.complete("sched:" + act.kind, t0, t1,
-                                     attrs={"tier": act.tier,
-                                            "version": act.version,
-                                            "batch": len(act.requests)})
+                attrs: Dict[str, Any] = {"tier": act.tier, "version": act.version,
+                                         "batch": len(act.requests)}
+                if act.suffix_bucket is not None:
+                    attrs["suffix_bucket"] = act.suffix_bucket
+                self.tracer.complete("sched:" + act.kind, t0, t1, attrs=attrs)
                 self.tracer.counter("queue_depth", len(self.scheduler.waiting))
                 self.tracer.counter("running", len(self.scheduler.running))
-                self.tracer.counter("blocks_held", self.pool.allocator.num_held)
+                if self.paged:
+                    self.tracer.counter("blocks_held", self.pool.allocator.num_held)
         if drive_stager and self._stager is not None and self._stager.active:
             try:
                 self._stager.step()
@@ -531,6 +563,127 @@ class LicensedGateway:
                     out[i, j] = self.pool.null_block
         return out
 
+    # ------------------------------------------------------- bucket prefill
+    def _run_prefill(self, act: ScheduledAction) -> None:
+        """One bucket prefill (``chunk_size=0``): the micro-batch's prompts
+        right-aligned into the ``max_prompt`` bucket with repeated-first-
+        token padding, ``max_batch`` rows, prefilled in one step from
+        fresh lane caches and scattered into the pool (through the lanes'
+        ``prefill_blocks`` on the paged pool).  With the prefix cache the
+        padded rows are matched first (identical rows mean identical
+        absolute positions, the condition for KV reuse under RoPE); any
+        hit runs every lane's uncached suffix instead
+        (:meth:`_run_prefix_prefill`).  Each lane emits its first token,
+        and its prompt chain goes to the prefix cache."""
+        params, li = self.views.get(act.tier, act.version)
+        reqs = act.requests
+        toks = right_align([r.prompt for r in reqs], self.max_prompt, self.max_batch)
+        # longest-cached-prefix lookup before any allocation: matching
+        # increfs the chains, so eviction under this batch's own pressure
+        # can never free a block another lane is about to adopt
+        scope = (act.tier, act.version)
+        matches: List[Tuple[List[int], int]] = []
+        if self.prefix is not None:       # paged only by construction
+            for i in range(len(reqs)):
+                blocks, ntok = self.prefix.match(scope, toks[i])
+                # always recompute >= 1 token: the first sampled token
+                # needs the last prompt position's logits
+                capped = min(ntok, self.max_prompt - 1)
+                if capped == 0 and blocks:
+                    # the cap zeroed a real match (max_prompt == 1)
+                    for b in blocks:
+                        self._decref_block(b)
+                    blocks = []
+                matches.append((blocks, capped))
+        if any(n > 0 for _, n in matches):
+            lanes = [self.scheduler.start(r) for r in reqs]
+            for r in reqs:
+                self._note_admission(r)
+            outs = self._run_prefix_prefill(act, toks, matches, lanes, params, li)
+        else:
+            if self.sanitizer is not None:
+                self.sanitizer.retrace.note("steps", _sampling_key(reqs))
+            caches = stack_lane_caches(self.cfg, self.max_batch, self._zero_cap, self.device)
+            logits, caches = prefill_step(params, self.cfg, self._to_device(toks), caches, li)
+            outs = self._sample(logits, reqs)
+            lanes = self.pool.pad_lanes([self.scheduler.start(r) for r in reqs],
+                                        self.max_batch)
+            for r in reqs:
+                self._note_admission(r)
+            if self.paged:
+                for r in reqs:
+                    r.blocks = self._alloc_blocks(self._prefill_blocks)
+                self._note_block_use()
+                tables = self.pool.pad_tables([r.blocks for r in reqs], self.max_batch)
+                self.pool.scatter(lanes, tables, caches)
+            else:
+                self.pool.scatter(lanes, caches)
+            self.stats["prefill_lane_tokens"] += self.max_prompt * len(reqs)
+        self.stats["max_running"] = max(self.stats["max_running"],
+                                        len(self.scheduler.running))
+        if self.prefix is not None:
+            # donate the prompt chains (full blocks + partial tail) so the
+            # next same-prefix request prefills only its suffix
+            for i, r in enumerate(reqs):
+                self.prefix.insert(scope, toks[i], r.blocks[: self._prefill_blocks])
+        now = self.clock()
+        for i, r in enumerate(reqs):
+            r.pos = self.max_prompt
+            self._note_first_token(r, now)
+            self._emit(r, int(outs[i]))
+        self.stats["prefill_batches"] += 1
+        if act.suffix_bucket is not None:
+            self.bucket_batches[act.suffix_bucket] = \
+                self.bucket_batches.get(act.suffix_bucket, 0) + 1
+
+    def _run_prefix_prefill(self, act: ScheduledAction, toks: np.ndarray,
+                            matches: List[Tuple[List[int], int]], lanes: List[int],
+                            params: Any, li: Any) -> np.ndarray:
+        """Bucket prefill of a micro-batch with >= 1 prefix-cache hit:
+        every lane runs only its uncached suffix, at its own offset, in
+        one step.  Lanes share the width ``W = max(suffix lens)``; a
+        shorter suffix is padded on the right (its writes land past the
+        prompt in the lane's own blocks or the null block, masked by
+        ``len`` until decode overwrites them) and each lane's last real
+        row is picked.  Adopted blocks enter the table by reference;
+        write-back redirects every shared block to the null block.
+        Returns the lanes' first tokens."""
+        reqs = act.requests
+        suffix = [self.max_prompt - n for _, n in matches]
+        w = max(suffix)
+        sub = np.zeros((self.max_batch, w), np.int32)
+        poss = np.zeros(self.max_batch, np.int32)
+        lasts = np.zeros(self.max_batch, np.int64)
+        for i, r in enumerate(reqs):
+            blocks, ntok = matches[i]
+            sub[i, : suffix[i]] = toks[i, ntok:]
+            sub[i, suffix[i]:] = toks[i, -1]       # right pad: junk region
+            poss[i] = ntok
+            lasts[i] = suffix[i] - 1
+            fresh = self._alloc_blocks(self._prefill_blocks - len(blocks))
+            r.blocks = list(blocks) + fresh
+            r.prefix_tokens = ntok
+            self.stats["prefix_tokens_reused"] += ntok
+            if self.obs and ntok:
+                self.tracer.instant("prefix_hit", r.rid, {"tokens": ntok})
+        self.stats["prefill_lane_tokens"] += w * len(reqs)
+        self._note_block_use()
+        if self.sanitizer is not None:
+            self.sanitizer.retrace.note("prefix_prefill", _sampling_key(reqs))
+        lane_ids = self.pool.pad_lanes(lanes, self.max_batch)
+        tables = self.pool.pad_tables([r.blocks for r in reqs], self.max_batch)
+        caches = self.pool.gather(tables)
+        logits, caches = prefill_suffix_step(params, self.cfg, self._to_device(sub), caches,
+                                             self._to_device(poss), li)
+        rows = logits[torch.arange(self.max_batch, device=self.device),
+                      self._to_device(lasts)]
+        outs = self._sample(rows, reqs)
+        # the step's len accounting saw only W suffix tokens; pin the
+        # counters to the true logical fill before they reach the pool
+        caches = self.pool.override_counters(caches, self.max_prompt)
+        self.pool.scatter(lane_ids, self._scatter_tables(tables, reqs), caches)
+        return outs
+
     # ------------------------------------------------------ chunked prefill
     def _run_chunked_prefill(self, act: ScheduledAction) -> None:
         """One chunked-prefill action: admit newly scheduled requests
@@ -570,7 +723,7 @@ class LicensedGateway:
             matches.append((blocks, capped))
         bs = self.pool.block_size
         for r, (blocks, capped) in zip(reqs, matches):
-            self.scheduler.start(r)
+            self.scheduler.start(r, prefilling=True)
             self._note_admission(r)
             if self.obs and capped:
                 self.tracer.instant("prefix_hit", r.rid, {"tokens": capped})
@@ -790,18 +943,22 @@ class LicensedGateway:
             self.stats["max_blocks_in_use"], self.pool.allocator.num_held)
 
     def _run_decode(self, act: ScheduledAction) -> None:
-        """One kernel-resident decode step: the pool's block tensors ARE
-        the cache operands; tables are trimmed to the batch's used width
-        (on the kernel path rounded up to a power of two, null-padded),
-        so attention reads O(context) bytes, once, through the table.
-        With the compiled step (the card's default) it is a graph
-        replay; sampled lanes draw from its logits rows here."""
-        act.requests = self._grow_block_tables(act.requests)
-        if not act.requests:
-            return                         # whole batch preempted
-        if self.sanitizer is not None:
-            # post-CoW: every table entry live, write targets private
-            self.sanitizer.check_decode_writes(act.requests, self.pool)
+        """One decode step.  Kernel-resident (the default): the pool's
+        block tensors ARE the cache operands; tables are trimmed to the
+        batch's used width (on the kernel path rounded up to a power of
+        two, null-padded), so attention reads O(context) bytes, once,
+        through the table.  With the compiled step (the card's default)
+        it is a graph replay; sampled lanes draw from its logits rows
+        here.  Otherwise (``kernel_decode=False`` or the contiguous
+        pool) each lane's logical cache is gathered, decoded by
+        ``serve_step`` and scattered back, eagerly."""
+        if self.paged:
+            act.requests = self._grow_block_tables(act.requests)
+            if not act.requests:
+                return                     # whole batch preempted
+            if self.sanitizer is not None:
+                # post-CoW: every table entry live, write targets private
+                self.sanitizer.check_decode_writes(act.requests, self.pool)
         view = self.views.get(act.tier, act.version)
         reqs = act.requests
         lanes = self.pool.pad_lanes([r.lane for r in reqs], self.max_batch)
@@ -810,27 +967,49 @@ class LicensedGateway:
         for i, r in enumerate(reqs):
             toks[i, 0] = r.out_tokens[-1]
             poss[i] = r.pos
-        used = max(r.pos // self.pool.block_size + 1 for r in reqs)
-        if self.decode_kernels:
-            used = table_width(used, self.pool.blocks_per_lane)
-        if self.sanitizer is not None:
-            self.sanitizer.retrace.note("decode_width", used)
-            self.sanitizer.retrace.note("paged_decode", _sampling_key(reqs))
-        tables = self.pool.pad_tables([r.blocks[:used] for r in reqs],
-                                      self.max_batch, used)
-        if self._graphs is not None:
-            logits, greedy = self._graphs.step(view, toks, poss, lanes, tables)
-            outs = self._sample(logits, reqs, greedy)
+        if self.kernel_decode:
+            used = max(r.pos // self.pool.block_size + 1 for r in reqs)
+            if self.decode_kernels:
+                used = table_width(used, self.pool.blocks_per_lane)
+            if self.sanitizer is not None:
+                self.sanitizer.retrace.note("decode_width", used)
+                self.sanitizer.retrace.note("paged_decode", _sampling_key(reqs))
+            tables = self.pool.pad_tables([r.blocks[:used] for r in reqs],
+                                          self.max_batch, used)
+            if self._graphs is not None:
+                logits, greedy = self._graphs.step(view, toks, poss, lanes, tables)
+                outs = self._sample(logits, reqs, greedy)
+            else:
+                params, li = view
+                caches = self.pool.decode_cache(lanes)
+                logits, caches = serve_step_paged(params, self.cfg, self._to_device(toks),
+                                                  caches, self._to_device(tables),
+                                                  self._to_device(poss), li,
+                                                  kernel=self.decode_kernels)
+                outs = self._sample(logits, reqs)
+                self.pool.absorb_decode(lanes, caches)
+            self.stats["resident_decode_steps"] += 1
         else:
+            if self.sanitizer is not None:
+                self.sanitizer.retrace.note("steps", _sampling_key(reqs))
             params, li = view
-            caches = self.pool.decode_cache(lanes)
-            logits, caches = serve_step_paged(params, self.cfg, self._to_device(toks),
-                                              caches, self._to_device(tables),
-                                              self._to_device(poss), li,
-                                              kernel=self.decode_kernels)
+            if self.paged:
+                tables = self.pool.pad_tables([r.blocks for r in reqs], self.max_batch)
+                caches = self.pool.gather(tables, lanes)
+            else:
+                caches = self.pool.gather(lanes)
+            logits, caches = serve_step(params, self.cfg, self._to_device(toks), caches,
+                                        self._to_device(poss), li)
             outs = self._sample(logits, reqs)
-            self.pool.absorb_decode(lanes, caches)
-        self.stats["resident_decode_steps"] += 1
+            if self.paged:
+                # shared (prefix-cache) blocks are read-only: redirect their
+                # redundant write-back to the null block (the write target
+                # itself is always private, copied above)
+                wb = (self._scatter_tables(tables, reqs)
+                      if self.prefix is not None else tables)
+                self.pool.scatter(lanes, wb, caches)
+            else:
+                self.pool.scatter(lanes, caches)
         for i, r in enumerate(reqs):
             r.pos += 1
             if self.obs:
@@ -858,7 +1037,10 @@ class LicensedGateway:
                                     {"tokens": len(req.out_tokens),
                                      "preemptions": req.preemptions,
                                      "blocks": len(req.blocks)})
-            self._release_blocks(req)
+            if self.paged:
+                # release references, don't free: blocks the prefix cache
+                # retains (the prompt chain) survive for future hits
+                self._release_blocks(req)
             self.completed.append(req)
             if self._drain_sink is not None:
                 self._drain_sink.append(req)
@@ -1072,19 +1254,19 @@ class LicensedGateway:
         out["oldest_wait_s"] = self.scheduler.oldest_wait_s()
         out["queue_wait_by_tier"] = self.scheduler.queue_wait_by_tier()
         out["tenants"] = self._tenant_breakdown()
-        out["cache_pool"] = {"paged": True, **self.pool.stats()}
-        # "pallas": the JAX slot's value off a TPU
-        out["decode_path"] = {"kernel_resident": True, "pallas": "off",
+        out["cache_pool"] = {"paged": self.paged, **self.pool.stats()}
+        out["decode_path"] = {"kernel_resident": self.kernel_decode,
+                              "pallas": self.decode_pallas,
                               "kernels": self.decode_kernels}
         out["staged_update"] = ({"active": False} if self._stager is None
                                 else {"active": self._stager.active,
                                       **self._stager.stats()})
-        out["chunked_prefill"] = {"enabled": True, "chunk_size": self.chunk_size,
+        out["chunked_prefill"] = {"enabled": self.chunked, "chunk_size": self.chunk_size,
                                   "chunks": self.stats["prefill_chunks"]}
-        # suffix-width grouping is the JAX package's bucket-prefill
-        # admission; chunked mode admits per true prompt length
-        out["admission_grouping"] = {"enabled": False,
-                                     "batches_by_suffix_width": {}}
+        # suffix-width grouping is the bucket prefill's admission; chunked
+        # mode admits per true prompt length
+        out["admission_grouping"] = {"enabled": self.prefix is not None and not self.chunked,
+                                     "batches_by_suffix_width": dict(self.bucket_batches)}
         out["lease"] = {
             "state": self._lease_state,
             "server_attached": self._server is not None,

@@ -13,8 +13,9 @@ Counterpart of ``repro/serving/paging.py`` for the dense GQA model:
   ``copy_block`` is the device half of the prefix cache's
   copy-on-write.
 
-Prefill chunks ``gather`` each lane's logical cache through its table
-into a contiguous batch and ``scatter`` it back.  Their tables, lane ids
+Prefill chunks (and the gather/scatter decode) ``gather`` each lane's
+logical cache through its table into a contiguous batch and ``scatter``
+it back.  Their tables, lane ids
 and fills may be device tensors (the compiled chunk step's static
 inputs), so nothing in the step copies from the host.  Decode does not copy:
 ``decode_cache`` hands the batched step the pool's block tensors by
@@ -175,6 +176,11 @@ class PagedCachePool:
         return self.num_blocks * self.block_size
 
     @property
+    def padded_capacity(self) -> int:
+        """Logical tokens a full block table covers."""
+        return self.blocks_per_lane * self.block_size
+
+    @property
     def block_bytes(self) -> int:
         """Bytes one physical block occupies across K and V."""
         return 2 * self.k[:, 0].numel() * self.k.element_size()
@@ -212,19 +218,22 @@ class PagedCachePool:
         return self._tensor(a).long()
 
     # ------------------------------------------------------- gather/scatter
-    def gather(self, tables) -> Dict[str, Any]:
-        """Contiguous per-lane views for a prefill chunk: ``tables`` (B, T)
-        (host, or int32 on the device) -> cache ``k``/``v`` (U, B, T*bs,
-        KH, hd) in logical order, with fresh (zero) ``len`` counters — the
-        chunk step masks positionally and the gateway pins the counters
-        to the true fill afterwards."""
+    def gather(self, tables, lanes=None) -> Dict[str, Any]:
+        """Contiguous per-lane views: ``tables`` (B, T) (host, or int32
+        on the device) -> cache ``k``/``v`` (U, B, T*bs, KH, hd) in
+        logical order.  Without ``lanes`` the ``len`` counters are fresh
+        zeros (a prefill chunk masks positionally and the gateway pins
+        the counters to the true fill afterwards); with ``lanes`` they
+        are those lanes' counters (the gather/scatter decode)."""
         tab = self._index(tables)
         b, t = tab.shape
         u, _, bs, kh, hd = self.k.shape
+        lens = (torch.zeros((u, b), dtype=torch.int32, device=self.device) if lanes is None
+                else self.lens[self._index(lanes)].t().contiguous())
         return {"units": {"b0": {
             "k": self.k[:, tab].reshape(u, b, t * bs, kh, hd),
             "v": self.v[:, tab].reshape(u, b, t * bs, kh, hd),
-            "len": torch.zeros((u, b), dtype=torch.int32, device=self.device),
+            "len": lens,
         }}}
 
     def scatter(self, lanes, tables, caches: Dict[str, Any]) -> None:

@@ -1,21 +1,28 @@
-"""Continuous-batching scheduler of the port: pure host bookkeeping.
+"""Continuous-batching scheduler of the port: pure host bookkeeping, and
+the contiguous cache pool.
 
-Counterpart of ``repro/serving/scheduler.py`` in the configuration the
-gateway's main path uses — left-aligned *chunked* prefill over the paged
-pool.  Every scheduler step emits one micro-batch that shares a
-**(license tier, weight version)** key, because the batch is served
-through one licensed weight view (§3.5):
+Counterpart of ``repro/serving/scheduler.py``.  Every scheduler step
+emits one micro-batch that shares a **(license tier, weight version)**
+key, because the batch is served through one licensed weight view
+(§3.5):
 
 * ``GatewayRequest`` — one generation with its pinned (tier, version),
   lane, block table and timestamps;
 * ``TierViewCache`` — LRU cache of licensed weight views keyed by
   (tier, version), so a view is built once per key, not per request;
-* ``Scheduler`` — admission queue plus the policy: prefill chunks and
-  decode steps strictly alternate (no decode waits longer than one
-  chunk), admission serves the (tier, version) group whose oldest member
-  has waited longest, within the free lanes and the block budget (free
-  blocks above the watermark plus the prefix cache's reclaimable ones),
-  and decode round-robins over the running groups.
+* ``CachePool`` — the contiguous fallback pool (``paged=False``): one
+  ``capacity``-token lane per ``max_batch`` slot plus a scratch lane;
+* ``Scheduler`` — admission queue plus the policy.  Admission serves the
+  (tier, version) group whose oldest member has waited longest, within
+  the free lanes and the block budget (free blocks above the watermark
+  plus the prefix cache's reclaimable ones, capped by the fleet's global
+  budget), and decode round-robins over the running groups.  Under
+  left-aligned *chunked* prefill (the gateway's default) prefill chunks
+  and decode steps strictly alternate, so no decode waits longer than
+  one chunk; under the bucket prefill (``chunk_size=0``) a waiting
+  prefill always goes first, each admission budgets ``prefill_blocks``
+  a request, and with the prefix cache admission groups requests by
+  their uncached suffix width (``suffix_bucket``).
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from enum import Enum
 from typing import Any, Callable, Deque, Dict, Hashable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 class RequestState(str, Enum):
@@ -102,6 +110,9 @@ class ScheduledAction:
     tier: str
     version: Optional[int]
     requests: List[GatewayRequest]
+    # bucket prefill with the prefix cache: the uncached suffix width the
+    # whole micro-batch shares (None elsewhere)
+    suffix_bucket: Optional[int] = None
     model: Optional[str] = None
 
 
@@ -162,37 +173,114 @@ class TierViewCache:
                 "entries": len(self._entries)}
 
 
-class Scheduler:
-    """Chunked-prefill continuous-batching policy with block-aware admission.
+class CachePool:
+    """Contiguous KV cache pool: ``num_lanes`` per-request cache slots of
+    ``capacity`` tokens (the ``paged=False`` fallback).
 
-    * prefill actions — continuing PREFILLING requests first, else a new
-      admission — strictly alternate with decode steps while both are
-      runnable;
+    Leaves keep the model's cache layout with the lane as its batch axis:
+    ``k``/``v`` (U, num_lanes + 1, capacity, KH, hd) and ``len`` (U,
+    num_lanes + 1).  One extra *scratch* lane (index ``num_lanes``)
+    absorbs the writes of padding lanes, so scatters with duplicate pad
+    indices can never corrupt a live request."""
+
+    def __init__(self, cfg, num_lanes: int, capacity: int, *, device="cuda"):
+        self.num_lanes = int(num_lanes)
+        self.capacity = int(capacity)
+        self.device = torch.device(device)
+        u, kh, hd = cfg.pattern_units, cfg.num_kv_heads, cfg.head_dim
+        shape = (u, self.num_lanes + 1, self.capacity, kh, hd)
+        self.k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.lens = torch.zeros((u, self.num_lanes + 1), dtype=torch.int32,
+                                device=self.device)
+
+    @property
+    def scratch(self) -> int:
+        return self.num_lanes
+
+    @property
+    def cache_tokens(self) -> int:
+        """Token capacity reserved across lanes (excludes the scratch lane)."""
+        return self.num_lanes * self.capacity
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.k, self.v, self.lens))
+
+    def stats(self) -> Dict[str, int]:
+        """Occupancy facts.  Shares only the ``cache_tokens``/``num_lanes``
+        core with ``PagedCachePool.stats``: pool-agnostic callers key off
+        ``metrics()['cache_pool']['paged']`` before reading block keys."""
+        return {"cache_tokens": self.cache_tokens,
+                "num_lanes": self.num_lanes, "capacity": self.capacity}
+
+    def pad_lanes(self, lanes: List[int], width: int) -> List[int]:
+        """Pad a lane-id list to ``width`` with the scratch lane."""
+        lanes = list(lanes)
+        assert len(lanes) <= width, (len(lanes), width)
+        return lanes + [self.scratch] * (width - len(lanes))
+
+    def _index(self, lanes) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(lanes, np.int64)).to(self.device)
+
+    def gather(self, lanes) -> Dict[str, Any]:
+        """The lanes' caches as one batch (copies)."""
+        idx = self._index(lanes)
+        return {"units": {"b0": {"k": self.k[:, idx], "v": self.v[:, idx],
+                                 "len": self.lens[:, idx]}}}
+
+    def scatter(self, lanes, caches: Dict[str, Any]) -> None:
+        """Write a batch of lane caches back by lane id."""
+        idx = self._index(lanes)
+        c = caches["units"]["b0"]
+        self.k[:, idx] = c["k"].to(self.k.dtype)
+        self.v[:, idx] = c["v"].to(self.v.dtype)
+        self.lens[:, idx] = c["len"].to(torch.int32)
+
+
+class Scheduler:
+    """Continuous-batching policy with block-aware admission.
+
     * admission serves the waiting (tier, version) group whose oldest
       member arrived first, then every same-key request in queue order,
-      up to the free lanes, ``max_batch`` and the block budget
-      (``blocks_needed`` per request): the free blocks above
-      ``watermark_blocks`` plus the prefix cache's ``reclaimable`` ones,
-      which allocation evicts on demand, capped by ``global_budget``
-      under a fleet;
+      up to the free lanes, ``max_batch`` and, with a block allocator,
+      the block budget: the free blocks above ``watermark_blocks`` plus
+      the prefix cache's ``reclaimable`` ones, which allocation evicts on
+      demand, capped by ``global_budget`` under a fleet.  The chunked
+      policy charges ``blocks_needed`` per request, the bucket prefill
+      ``prefill_blocks`` (its flat worst case) per lane;
+    * ``chunked=True``: admitted requests enter PREFILLING and advance
+      one chunk per prefill action, strictly alternating with decode
+      steps (continuing PREFILLING requests first, then admissions);
+      ``chunked=False``: a waiting admission always goes first, and with
+      ``suffix_bucket`` (the prefix cache's probe of a request's uncached
+      suffix width) a batch holds one bucket only, each member
+      re-validated by ``suffix_revalidate`` at formation;
     * decode round-robins over the running groups, rotating within a
       group larger than ``max_batch``;
     * :meth:`preempt` returns a running request to the queue head (it
       keeps its ``submit_t``, so aging re-admits it first).
     """
 
-    def __init__(self, num_lanes: int, max_batch: int, *, allocator: Any,
-                 blocks_needed: Callable[[GatewayRequest], int],
-                 watermark_blocks: int = 0,
+    def __init__(self, num_lanes: int, max_batch: int, *, allocator: Any = None,
+                 prefill_blocks: int = 0, watermark_blocks: int = 0,
                  reclaimable: Optional[Callable[[], int]] = None,
+                 suffix_bucket: Optional[Callable[[GatewayRequest], int]] = None,
+                 suffix_revalidate: Optional[Callable[[GatewayRequest], int]] = None,
+                 chunked: bool = False,
+                 blocks_needed: Optional[Callable[[GatewayRequest], int]] = None,
                  clock: Callable[[], float] = time.perf_counter):
         self.num_lanes = int(num_lanes)
         self.max_batch = int(max_batch)
         self.clock = clock
         self.allocator = allocator
-        self.blocks_needed = blocks_needed
+        self.prefill_blocks = int(prefill_blocks)
         self.watermark_blocks = int(watermark_blocks)
         self.reclaimable = reclaimable
+        self.suffix_bucket = suffix_bucket
+        self.suffix_revalidate = suffix_revalidate
+        self.chunked = bool(chunked)
+        self.blocks_needed = blocks_needed
         # fleet hooks, wired after construction by FleetGateway
         # (serving/fleet.py).  ``global_budget`` returns how many MORE of
         # this slot's blocks the fleet-wide cache budget can cover
@@ -217,11 +305,12 @@ class Scheduler:
         req.state = RequestState.QUEUED
         self.waiting.append(req)
 
-    def start(self, req: GatewayRequest) -> int:
-        """Move a request to PREFILLING, assigning it a lane."""
+    def start(self, req: GatewayRequest, *, prefilling: bool = False) -> int:
+        """Move a request to RUNNING (or PREFILLING, when its prompt will
+        chunk through over several steps), assigning it a lane."""
         lane = self._free_lanes.pop()
         req.lane = lane
-        req.state = RequestState.PREFILLING
+        req.state = RequestState.PREFILLING if prefilling else RequestState.RUNNING
         req.start_seq = self._start_seq
         self._start_seq += 1
         self.running.append(req)
@@ -295,7 +384,26 @@ class Scheduler:
         return out
 
     # ---------------------------------------------------------------- policy
+    def _budget(self) -> int:
+        """Blocks admission may take: free above the watermark, plus the
+        prefix cache's reclaimable ones, capped by the fleet's budget."""
+        budget = self.allocator.num_free - self.watermark_blocks
+        if self.reclaimable is not None:
+            budget += self.reclaimable()
+        if self.global_budget is not None:
+            budget = min(budget, self.global_budget())
+        return budget
+
+    def _prefill_room(self) -> int:
+        room = min(len(self._free_lanes), self.max_batch)
+        if self.allocator is not None and self.prefill_blocks > 0:
+            room = min(room, max(0, self._budget() // self.prefill_blocks))
+        return room
+
     def next_action(self) -> Optional[ScheduledAction]:
+        if not self.chunked:
+            act = self._admission_batch()
+            return act if act is not None else self._decode_action()
         chunking = [r for r in self.running
                     if r.state is RequestState.PREFILLING]
         decoding = [r for r in self.running
@@ -341,7 +449,7 @@ class Scheduler:
             # since submit must not reach a lane.  In-flight requests are
             # never revisited: a revocation drains, it never cancels.
             self.waiting = deque(r for r in self.waiting if self.admission_filter(r))
-        room = min(len(self._free_lanes), self.max_batch)
+        room = self._prefill_room()
         if not (room and self.waiting):
             return None
         # aging: serve the group whose oldest member arrived first;
@@ -352,16 +460,41 @@ class Scheduler:
             if r.group_key not in oldest or cand < oldest[r.group_key]:
                 oldest[r.group_key] = cand
         key = min(oldest, key=lambda k: oldest[k])
-        budget = self.allocator.num_free - self.watermark_blocks
-        if self.reclaimable is not None:
-            budget += self.reclaimable()
-        if self.global_budget is not None:
-            budget = min(budget, self.global_budget())
+        bucket: Optional[int] = None
+        anchor: Optional[GatewayRequest] = None
+        probed: Dict[int, int] = {}          # id(req) -> bucket, one probe a pass
+
+        def _bucket(r: GatewayRequest) -> int:
+            got = probed.get(id(r))
+            if got is None:
+                got = probed[id(r)] = self.suffix_bucket(r)
+            return got
+
+        if self.suffix_bucket is not None:
+            # the oldest member defines the batch's suffix width; same-key
+            # requests in another bucket wait for their own batch.  The
+            # anchor's probe is fresh when a revalidator is wired: a stale
+            # cached bucket must not define the batch.
+            anchor = self.waiting[oldest[key][1]]
+            if self.suffix_revalidate is not None:
+                bucket = probed[id(anchor)] = self.suffix_revalidate(anchor)
+            else:
+                bucket = _bucket(anchor)
+        budget: Optional[int] = None
+        if self.allocator is not None and self.blocks_needed is not None:
+            budget = self._budget()
         batch: List[GatewayRequest] = []
         remaining: Deque[GatewayRequest] = deque()
         for r in self.waiting:               # one pass: select + requeue
-            take = len(batch) < room and r.group_key == key
-            if take:
+            take = (len(batch) < room and r.group_key == key
+                    and (bucket is None or _bucket(r) == bucket))
+            if (take and bucket is not None and r is not anchor
+                    and self.suffix_revalidate is not None):
+                # the cached probe may predate an eviction that shrank
+                # this request's cached prefix
+                fresh = probed[id(r)] = self.suffix_revalidate(r)
+                take = fresh == bucket
+            if take and budget is not None:
                 need = self.blocks_needed(r)
                 take = need <= budget
                 if take:
@@ -370,7 +503,7 @@ class Scheduler:
         self.waiting = remaining
         if not batch:
             return None
-        return ScheduledAction("prefill", key[0], key[1], batch)
+        return ScheduledAction("prefill", key[0], key[1], batch, suffix_bucket=bucket)
 
     def _decode_action(self) -> Optional[ScheduledAction]:
         pool = [r for r in self.running if r.state is RequestState.RUNNING]

@@ -165,8 +165,10 @@ def test_block_allocator_guards_match_jax():
 
 def test_left_out_arguments_raise(weights):
     _, _, cfg, params = weights
-    with pytest.raises(NotImplementedError, match="the other architectures"):
-        LicensedGateway(cfg, params, device="cpu", paged=False)
+    # the fallbacks are ported: the contiguous pool is taken
+    gw = LicensedGateway(cfg, params, device="cpu", paged=False)
+    assert not gw.paged and gw.metrics()["cache_pool"]["paged"] is False
+    assert set(_LEFT_OUT) == {"fuse_sampling", "record_logits"}
     # the lease is ported: its arguments are taken
     gw = LicensedGateway(cfg, params, device="cpu", lease_ttl_s=5.0,
                          lease_policy="floor", lease_floor_tier="full")
@@ -216,8 +218,7 @@ def test_slot_takes_every_reference_default(weights):
 
 
 # one value each that the JAX slot takes and the port does not implement
-_UNPORTED = {"chunk_size": 0, "decode_pallas": "off",
-             "fuse_sampling": False, "record_logits": True}
+_UNPORTED = {"fuse_sampling": False, "record_logits": True}
 
 
 @pytest.mark.parametrize("name", sorted(_UNPORTED))

@@ -192,3 +192,127 @@ def test_in_scan_int8_forward(weights, tier):
     full, _ = model.forward(quantized.materialize_licensed_view(store, None, cfg.dtype),
                             cfg, torch.from_numpy(toks))
     assert torch.equal(plain, full) and not torch.equal(plain, got)
+
+
+# ------------------------------------------------------------ dense family
+# every dense decoder the port runs: SwiGLU (qwen2.5-3b, granite-34b's MQA)
+# and squared ReLU (minitron-8b, nemotron-4-15b), at their smoke variants
+DENSE = ("granite-34b", "minitron-8b", "nemotron-4-15b", "qwen2.5-3b")
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def dense(request):
+    jcfg = jax_smoke_variant(jax_get_config(request.param))
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = smoke_variant(get_config(request.param))
+    return jcfg, jparams, cfg, model.params_from_jax(jax_flatten_params(jparams), device="cpu")
+
+
+def test_dense_config_fields_match_jax(dense):
+    """Every field of the full config and of its smoke variant, ``source``
+    included, equals the JAX package's."""
+    import dataclasses
+
+    jcfg, _, cfg, params = dense
+    name = cfg.name[: -len("-smoke")]
+    for got, want in ((get_config(name), jax_get_config(name)), (cfg, jcfg)):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    ffn = params["units"]["b0"]["ffn"]
+    assert ("w_gate" in ffn) == (cfg.mlp_type == "swiglu")
+    assert name in __import__("repro_torch.configs", fromlist=["x"]).list_configs()
+
+
+def test_dense_one_shot_prefill(dense):
+    jcfg, jparams, cfg, params = dense
+    toks = _tokens(10, (2, 9))
+    want, _, _ = jax_model.forward(jparams, jcfg, jnp.asarray(toks))
+    got, _ = model.forward(params, cfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_dense_prefill_then_decode(dense):
+    jcfg, jparams, cfg, params = dense
+    toks, nxt, cap = _tokens(11, (2, 6)), _tokens(12, (2, 1)), 10
+    jcache = jax_model.init_cache(jcfg, 2, cap)
+    _, _, jcache = jax_model.forward(jparams, jcfg, jnp.asarray(toks), cache=jcache)
+    want, _, _ = jax_model.forward(jparams, jcfg, jnp.asarray(nxt), cache=jcache, pos=6)
+    cache = model.init_cache(cfg, 2, cap, device="cpu")
+    model.forward(params, cfg, torch.from_numpy(toks), cache=cache)
+    got, _ = model.forward(params, cfg, torch.from_numpy(nxt), cache=cache, pos=6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_dense_paged_plain_route(dense):
+    """The plain paged decode against JAX ``serve_step_paged(kernel="off")``."""
+    jcfg, jparams, cfg, params = dense
+    pool_k, pool_v, pos, tables, toks = _paged_case(jcfg, 13)
+    u, b = jcfg.pattern_units, len(pos)
+    jcache = {"units": {"b0": {"k": jnp.asarray(pool_k)[:, None],
+                               "v": jnp.asarray(pool_v)[:, None],
+                               "len": jnp.zeros((u, b), jnp.int32)}}}
+    want, _ = jax_serve_step_paged(jparams, jcfg, jnp.asarray(toks), jcache,
+                                   jnp.asarray(tables), jnp.asarray(pos), kernel="off")
+    cache = {"units": {"b0": {"k": torch.from_numpy(pool_k.copy()),
+                              "v": torch.from_numpy(pool_v.copy()),
+                              "len": torch.zeros((u, b), dtype=torch.int32)}}}
+    got, _ = serve_step_paged(params, cfg, torch.from_numpy(toks), cache,
+                              torch.from_numpy(tables), torch.from_numpy(pos), kernel=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_dense_in_scan_int8_forward(dense):
+    """The in-scan int8 forward (free tier) against JAX on its own store;
+    the store has 6 int8 leaves a unit without ``w_gate``, 7 with it."""
+    from repro.core.licensing import LicenseTier as JaxLicenseTier
+    from repro.serving.quantized import quantize_serving_params as jax_quantize
+    from repro.serving.quantized import tier_intervals as jax_tier_intervals
+
+    from repro_torch.core.licensing import LicenseTier
+    from repro_torch.serving import quantized
+
+    jcfg, jparams, cfg, params = dense
+    masks = IN_SCAN_TIERS["free"]
+    toks = _tokens(14, (2, 9))
+    want, _, _ = jax_model.forward(
+        jax_quantize(jparams), jcfg, jnp.asarray(toks),
+        license_intervals=jax_tier_intervals(JaxLicenseTier(name="free", masks=masks)))
+    store = quantized.quantize_serving_params(params)
+    assert len(list(quantized.qleaves(store["units"]))) == (
+        7 if cfg.mlp_type == "swiglu" else 6)
+    got, _ = model.forward(store, cfg, torch.from_numpy(toks),
+                           license_intervals=quantized.tier_intervals(
+                               LicenseTier(name="free", masks=masks)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_dense_lm_loss(dense):
+    jcfg, jparams, cfg, params = dense
+    toks = _tokens(15, (2, 8))
+    labels = np.concatenate([toks[:, 1:], np.full((2, 1), -100, np.int32)], axis=1)
+    jl, _ = jax_model.lm_loss(jparams, jcfg, jnp.asarray(toks), jnp.asarray(labels))
+    got, _ = model.lm_loss(params, cfg, torch.from_numpy(toks), torch.from_numpy(labels))
+    np.testing.assert_allclose(float(got), float(jl), rtol=1e-5)
+
+
+def test_int8_store_by_unit_equals_stacked_quantize(dense):
+    """chip_smoke's unit-by-unit int8 store (each unit's leaves quantized
+    alone into preallocated stacked codes and scales, never a stacked f32
+    copy) equals ``quantize_serving_params`` of the stacked tree: the
+    scale reduces over the contraction dim only."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.serving import quantized
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    _, _, cfg, params = dense
+    blocks = params["units"]["b0"]
+    outer = {k: v for k, v in params.items() if k != "units"}
+    got = chip_smoke.int8_store_by_unit(cfg, lambda u: model._unit(blocks, u), outer,
+                                        torch, device="cpu")
+    want = quantized.quantize_serving_params(params)
+    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
+    for g, w in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        assert g.dtype == w.dtype and torch.equal(g, w)

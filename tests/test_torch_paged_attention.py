@@ -4,7 +4,8 @@ card.
 
 ``split_plan`` is pure Python and is checked at the shapes chip_smoke runs
 (phase 2's ragged contexts, the serving stream, an 8 x 4096-token decode)
-and at its edges.  ``_split_emulation`` repeats the kernel's arithmetic in
+and at its edges, and its shared-memory cap (``split_smem``, the CUDA
+source's layout) at GQA groups up to 64.  ``_split_emulation`` repeats the kernel's arithmetic in
 plain PyTorch: per split of table columns, scores of the valid keys, one max
 and one sum per head, p . v without rescaling; then the splits that hold a
 live key combined in a fixed order, as the combine kernel does (contiguous
@@ -28,9 +29,10 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.paged_attention import paged_attention as jax_paged_attention
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.paged_attention import (SPLIT_BLOCKS_PER_SM, SPLIT_MAX_KEYS,
-                                                 SPLIT_MIN_KEYS, paged_attention,
-                                                 paged_decode_write, split_plan)
+from repro_torch.kernels.paged_attention import (MAX_GROUPS, MAX_SMEM, SPLIT_BLOCKS_PER_SM,
+                                                 SPLIT_MAX_KEYS, SPLIT_MIN_KEYS,
+                                                 paged_attention, paged_decode_write,
+                                                 split_plan, split_smem)
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 H100_SMS = 132
@@ -68,6 +70,47 @@ def test_split_plan_reads_shapes_only():
     assert split_plan(0, 16, 8, 2, H100_SMS) == (1, 1)
     assert split_plan(38, 16, 8, 2, 1) == (2, 32)
     assert split_plan(256, 16, 8, 2, 66) == (18, 15)
+
+
+# (groups, head_dim, K/V bytes, block_size, n_tab, batch, kv_heads): granite-34b's
+# decode (48 q heads on 1 kv head) at the serving stream's and at 4096-token
+# contexts, nemotron-4-15b's (48 over 8), and the largest layouts the kernel
+# takes (64 q heads a kv head, head_dim 256, f32), where the scores of
+# SPLIT_MAX_KEYS keys would overflow shared memory
+SMEM_CASES = {
+    "granite_serving": (48, 128, 2, 16, 6, 8, 1),
+    "granite_4096": (48, 128, 2, 16, 256, 8, 1),
+    "nemotron_4096": (6, 128, 2, 16, 256, 8, 8),
+    "groups_64_hd256_f32": (64, 256, 4, 16, 64, 64, 8),
+    "groups_48_hd256_f32": (48, 256, 4, 16, 64, 64, 8),
+    "groups_64_hd256_bf16": (64, 256, 2, 16, 64, 64, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SMEM_CASES))
+def test_split_plan_fits_shared_memory(case):
+    """The plan keeps a split block's shared memory (the CUDA source's
+    layout, ``split_smem``) within 227 KB at every group the kernel takes;
+    it cuts columns only where the layout would not fit."""
+    g, hd, elt, bs, n_tab, b, kh = SMEM_CASES[case]
+    splits, cols = split_plan(n_tab, bs, b, kh, H100_SMS, groups=g, head_dim=hd, elt=elt)
+    assert split_smem(g, hd, elt, bs, cols) <= MAX_SMEM
+    assert (splits - 1) * cols < n_tab <= splits * cols
+    free_cols = split_plan(n_tab, bs, b, kh, H100_SMS)[1]     # the plan without the layout
+    if split_smem(g, hd, elt, bs, free_cols) <= MAX_SMEM:
+        assert cols == free_cols
+    else:
+        assert cols < free_cols and split_smem(g, hd, elt, bs, cols + 1) > MAX_SMEM
+    assert g <= MAX_GROUPS
+
+
+def test_split_smem_layout():
+    """The byte layout of csrc/paged_attention.cu's ``split_smem`` at
+    granite's decode shape: 8 mbarriers, 32 table entries, 2 x 48
+    floats, q (48, 128) f32, scores (48, 512) f32, then 5 stages of 16
+    padded bf16 rows of 272 bytes."""
+    want = 64 + 128 + 384 + 48 * 128 * 4 + 48 * 512 * 4 + 5 * 16 * 272
+    assert split_smem(48, 128, 2, 16, 32) == want == 145216
 
 
 def _split_emulation(q, kb, vb, tables, lens, cols):
@@ -154,6 +197,12 @@ EMULATION_CASES = {
     # several splits, splits past the context, a pad lane against block 0
     "splits_empty_and_pad": dict(b=4, h=8, kh=2, hd=64, bs=4, t=12,
                                  lens=[1, 7, 48, 21], dead_entries=False),
+    # GQA groups of 48: granite-34b's MQA (48 over 1) and nemotron-4-15b's
+    # head count over 8 kv heads at a small head_dim
+    "groups_48_mqa": dict(b=2, h=48, kh=1, hd=32, bs=8, t=5, lens=[9, 37],
+                          dead_entries=True),
+    "heads_48_over_8": dict(b=3, h=48, kh=8, hd=32, bs=4, t=6, lens=[5, 22, 1],
+                            dead_entries=False),
 }
 
 
@@ -209,6 +258,7 @@ CARD_CASES = {
     "many_splits": (8, 16, 2, 16, 38, [1, 17, 100, 255, 311, 480, 555, 600]),
     "lane_4096": (2, 16, 2, 16, 256, [4096, 1]),
     "groups_32": (2, 64, 2, 16, 20, [300, 77]),
+    "groups_48": (8, 48, 1, 16, 24, [9, 23, 40, 57, 64, 75, 88, 380]),
 }
 
 
@@ -247,6 +297,44 @@ def test_paged_attention_kernel_head_dims(cuda, dtype, hd):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_largest_layouts(cuda, dtype):
+    """64 q heads on one kv head at head_dim 256: the plan cuts columns
+    to fit shared memory, and the kernel matches the plain version."""
+    lens = [1024, 1, 333, 700]
+    q, kb, vb, tables, ctx = _case(28, b=4, h=64, kh=1, hd=256, bs=16, t=64, lens=lens,
+                                   dead_entries=True)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, kb, vb, tables, ctx)]
+    for i in range(3):
+        args[i] = args[i].to(getattr(torch, dtype))
+    got = paged_attention(*args)
+    want = ref.paged_attention(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_paged_attention_groups_48_in_a_cuda_graph(cuda):
+    """Granite-34b's decode (48 q heads over 1 kv head, hd 128, bf16) in a
+    CUDA graph: a replay with new lengths gives the plain version's answer."""
+    q, kb, vb, tables, ctx = _case(29, b=8, h=48, kh=1, hd=128, bs=16, t=256,
+                                   lens=[4096, 1, 17, 2000, 96, 4095, 64, 3000])
+    args = [torch.from_numpy(a).to(cuda) for a in (q, kb, vb, tables, ctx)]
+    for i in range(3):
+        args[i] = args[i].bfloat16()
+    paged_attention(*args)                       # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention(*args)
+    args[4].copy_(torch.tensor([1, 4096, 700, 33, 2048, 9, 4000, 128], dtype=torch.int32))
+    graph.replay()
+    want = ref.paged_attention(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.gpu

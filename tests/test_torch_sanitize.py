@@ -238,8 +238,9 @@ def test_sanitized_gateway_step_shapes_match_jax(sanitized):
     got = tgw.sanitizer.retrace.stats()
     assert got == jgw.sanitizer.retrace.stats()
     assert set(got) == {"prefill_chunk", "prefix_prefill", "decode_width", "paged_decode"}
-    assert tgw.sanitizer.retrace._bounds == {
-        k: v for k, v in jgw.sanitizer.retrace._bounds.items() if k != "steps"}
+    # every family the JAX slot bounds, the bucket prefill's and the
+    # gather/scatter decode's ("steps") included
+    assert tgw.sanitizer.retrace._bounds == jgw.sanitizer.retrace._bounds
 
 
 def test_env_opt_in_arms_the_gateway(weights, monkeypatch):
