@@ -188,13 +188,15 @@ Phases (each prints its own lines; any failure exits non-zero):
 9. the dense family beyond qwen at full width (random bf16 weights from
    the seed, the first 8 requests of phase 3's stream, decode and prefill
    graphs on), each gateway's launch counters zeroed just before its
-   stream and read just after, every run's tokens/s, ms per step, decode
-   step p50, peak memory, captures and replays printed: (a)
+   stream and read just after, every run's tokens/s, ms per step, peak
+   memory, captures and replays printed, then the stream submitted again
+   and 8 steady decode steps timed (graph replays on the kernel route,
+   synchronized on each side): (a)
    nemotron-4-15b (squared ReLU) at full depth on float views through
    the kernels and through the plain route (tokens equal, parting only
-   at near-ties by phase 4's rule), then from an int8 store built unit
-   by unit with the in-scan dequant (192 ``masked_dequant`` launches a
-   step); (b) minitron-8b at full depth, both routes; (c) granite-34b
+   at near-ties by phase 4's rule), then from its int8 store
+   (``quantize_serving_params``, one unit at a time) with the in-scan
+   dequant (192 ``masked_dequant`` launches a step); (b) minitron-8b at full depth, both routes; (c) granite-34b
    (48 q heads on one kv head, ``paged_attention``'s instance for groups
    above 32) at full depth from an int8 store built unit by unit on the
    card, both routes (616 launches a step); (d) the gateway's fallbacks
@@ -348,14 +350,15 @@ PA_GRANITE_CASES = {"granite_serving": PA_CASES["serving"], "granite_long": PA_C
 
 def paged_bound(peaks, q, lens, shape=PA_SHAPE):
     """Bound of one ``paged_attention`` call: q, every live K/V row of its
-    kv heads, the table, the lengths and the f32 output once; q.k and p.v in
-    f32 over the live keys."""
+    kv heads, the table, the lengths and the f32 output once; q.k and p.v
+    over the live keys at the rate of the inputs' type (bf16 on the
+    tensor cores, f32 on the CUDA cores)."""
     h, kh, hd, bs = shape
     b, elt, live = q.shape[0], q.element_size(), int(lens.sum())
     t_cols = -(-int(lens.max()) // bs)
     nbytes = (q.numel() * elt + 2 * live * kh * hd * elt + b * t_cols * 4 + b * 4
               + q.numel() * 4)
-    return bound_ms(nbytes, 4 * live * h * hd, peaks)
+    return bound_ms(nbytes, 4 * live * h * hd, peaks, rate=1 if elt == 4 else 2)
 
 
 def paged_plan(kernels_pa, t_cols, b, torch, shape=PA_SHAPE, elt=2):
@@ -3227,6 +3230,8 @@ def training_phase(cfg, params, np, torch):
 # at full depth: granite's 88 units of int8 codes (47.9 GB) fit beside
 # the graph pools on an 80 GB card
 DENSE_REQUESTS = 8
+# decode steps timed in each run's steady window (``steady_decode_ms``)
+DENSE_STEADY_STEPS = 8
 # 9d: the gateway's fallbacks on phase 3's weights (qwen2.5-3b), each run
 # on phase 3's stream with the run its tokens are held to: the
 # gather/scatter decode against phase 3's own stream; the contiguous pool
@@ -3242,55 +3247,62 @@ def dense_jobs(cfg, np):
     return stream_jobs(cfg, np)[:DENSE_REQUESTS]
 
 
-def int8_store_by_unit(cfg, unit_leaves, outer, torch, device="cuda"):
-    """The int8 serving store of a model, built one unit at a time:
-    ``unit_leaves(u)`` gives unit u's float block leaves (the ``b0`` dict
-    of ``init_params`` without the unit axis), ``outer`` the embedding,
-    final norm and head (kept as they are).  Each eligible leaf is
-    quantized alone (``quantized._quantize_leaf``) into preallocated
-    stacked codes and scales, the rest stacked as they come.  The scale
-    reduces over the contraction dim only, so this equals
-    ``quantize_serving_params`` of the stacked tree without its f32 copy
-    of a whole stacked leaf (19.3 GB for nemotron-4-15b's ``w_up``)."""
-    from repro_torch.serving.quantized import _eligible, _quantize_leaf
-
-    units = cfg.pattern_units
-    store = {}
-
-    def put(dst, src, name, u):
-        for k, leaf in src.items():
-            path = f"{name}/{k}"
-            if isinstance(leaf, dict):
-                put(dst.setdefault(k, {}), leaf, path, u)
-                continue
-            stacked = torch.empty((units, *leaf.shape), device="meta")
-            if _eligible(path, stacked):
-                q = _quantize_leaf(leaf)
-                if k not in dst:
-                    dst[k] = {n: torch.empty((units, *t.shape), dtype=t.dtype, device=device)
-                              for n, t in q.items()}
-                for n, t in q.items():
-                    dst[k][n][u].copy_(t)
-            else:
-                if k not in dst:
-                    dst[k] = torch.empty((units, *leaf.shape), dtype=leaf.dtype, device=device)
-                dst[k][u].copy_(leaf)
-
-    for u in range(units):
-        put(store, unit_leaves(u), "units/b0", u)
-    return {**outer, "units": {"b0": store}}
+def steady_decode_ms(label, gw, jobs, steps=DENSE_STEADY_STEPS):
+    """Submit ``jobs`` to ``gw`` again (its graphs captured by a first
+    drain), step until no request waits or prefills, then time ``steps``
+    decode steps on the host clock with a synchronize on each side:
+    graph replays on the kernel route, eager steps on the plain one.
+    Returns the ms a step, the lanes decoding at the window's start and
+    the decode graphs captured inside it (0 expected).  Leaves the
+    stream mid-flight."""
+    gw.__dict__.pop("_sample", None)           # drop record_rows's per-step copy
+    reqs = [gw.submit(p, license=t, max_new_tokens=n) for p, t, n in jobs]
+    while any(r.state.value in ("queued", "prefilling") for r in reqs):
+        if gw.step() is None:
+            fail(f"{label}: the stream drained before every request decoded")
+    lanes = sum(r.state.value == "running" for r in reqs)
+    g = gw._graphs
+    captures = g.captures if g is not None else 0
+    sync()
+    t0 = time.perf_counter()
+    kinds = [gw.step().kind for _ in range(steps)]
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    if kinds != ["decode"] * steps:
+        fail(f"{label}: the steady window ran {kinds}, not {steps} decode steps")
+    return dict(step_ms=ms, lanes=lanes,
+                captures_in_window=(g.captures if g is not None else 0) - captures)
 
 
 def random_unit(cfg, u, torch, device="cuda"):
-    """Unit ``u``'s block leaves with ``init_params``' distributions, from
-    the seed (SEED, u): a one-layer model of the config's widths (its
-    vocabulary cut to 256, the embedding and head unused)."""
+    """Unit ``u``'s block leaves, stacked on a unit axis of one, with
+    ``init_params``' distributions, from the seed (SEED, u): a one-layer
+    model of the config's widths (its vocabulary cut to 256, the
+    embedding and head unused)."""
     from repro_torch.models import init_params
-    from repro_torch.models.model import _unit
 
     one = init_params(cfg.replace(num_layers=1, vocab_size=256),
                       seed=SEED * 100_003 + 1 + u, device=device)
-    return _unit(one["units"]["b0"], 0)
+    return one["units"]
+
+
+def store_by_unit(cfg, torch, device="cuda"):
+    """The int8 serving store of ``cfg`` with random weights, built one
+    unit at a time: each unit's bf16 leaves (``random_unit``) through
+    ``quantize_serving_params``, copied into preallocated stacked codes
+    and scales, so the whole model's bf16 never exists at once (94.5 GB
+    for granite-34b).  The scale reduces over the contraction dim only,
+    so this is the store of the stacked tree."""
+    from repro_torch.serving.quantized import quantize_serving_params
+
+    units, stack = cfg.pattern_units, None
+    for u in range(units):
+        one = quantize_serving_params({"units": random_unit(cfg, u, torch, device)})["units"]
+        if stack is None:
+            stack = tree_map(lambda t: t.new_empty((units, *t.shape[1:])), one)
+        for dst, src in zip(_leaves(stack), _leaves(one)):
+            dst[u].copy_(src[0])
+    return {**dense_outer(cfg, torch, device), "units": stack}
 
 
 def dense_outer(cfg, torch, device="cuda"):
@@ -3341,11 +3353,9 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", **kw):
     g, pg = gw._graphs, gw._prefill_graphs
     units = cfg.pattern_units
     steps = m["decode_steps"] + m["prefill_chunks"]
-    h = m["latency"]["step_decode_s"]
     out = dict(serve_s=dt, tokens=m["tokens_generated"], tokens_per_s=m["tokens_generated"] / dt,
                ms_per_step=1e3 * dt / steps, decode_steps=m["decode_steps"],
                prefill_chunks=m["prefill_chunks"],
-               decode_p50_ms=1e3 * h["p50"] if h["count"] else None,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                views_s=sum(v["host_s"] for v in views.values()),
                captures=None if g is None else g.captures,
@@ -3370,16 +3380,20 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", **kw):
         if launches["masked_dequant"] != leaves * eager:
             fail(f"{label}: {launches['masked_dequant']} masked_dequant launches over "
                  f"{eager} eager steps and warm-ups, not {leaves} each")
+    out.update(steady_decode_ms(label, gw, dense_jobs(cfg, np)))
     how = ("eager" if g is None else
            f"graphs: {g.captures} decode captures, {g.replays} replays, "
            f"{pg.captures if pg else 0} prefill captures, {pg.replays if pg else 0} replays, "
            f"pool {out['graph_pool_gb']:.3f} GB")
     per = (f", masked_dequant {out['masked_dequant_per_step']:.0f} a step"
            if "masked_dequant_per_step" in out else "")
-    p50 = "not recorded" if out["decode_p50_ms"] is None else f"{out['decode_p50_ms']:.2f} ms"
+    steady = (f"a steady decode step {out['step_ms']:.2f} ms "
+              f"({'graph replays' if g is not None else 'eager'}, {DENSE_STEADY_STEPS} steps "
+              f"of {out['lanes']} lanes, host clock, synchronized; "
+              f"{out['captures_in_window']} captures in the window; device ms not measured)")
     log(f"  {label}: {len(reqs)} requests, {out['tokens']} tokens in {dt:.2f} s "
         f"({out['tokens_per_s']:.1f} tokens/s, {out['ms_per_step']:.1f} ms per step over "
-        f"{steps}, decode step p50 {p50}); {how}; launches {launches}{per}; peak "
+        f"{steps} with the captures); {steady}; {how}; launches {launches}{per}; peak "
         f"{out['peak_gb']:.1f} GB; views {out['views_s']:.2f} s")
     del gw
     gc.collect()
@@ -3411,8 +3425,8 @@ def dense_phase(np, torch, device="cuda", config=None):
     launches of all their runs."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    from repro_torch.models.model import _unit
     from repro_torch.core.licensing import LicenseTier
+    from repro_torch.serving.quantized import quantize_serving_params
 
     tiers = {"free": LicenseTier(name="free", masks=FREE_TIER)}
     config = config or get_config
@@ -3434,17 +3448,14 @@ def dense_phase(np, torch, device="cuda", config=None):
     n = sum(t.numel() for t in _leaves(params))
     log(f"  {n / 1e9:.3f} B parameters, {2 * n / 1e9:.1f} GB of bf16")
     a = dense_pair("9a nemotron-4-15b float views", cfg, params, tiers, np, torch, device)
-    blocks = params["units"]["b0"]
     t0 = time.perf_counter()
-    store = int8_store_by_unit(cfg, lambda u: _unit(blocks, u),
-                               {k: v for k, v in params.items() if k != "units"}, torch,
-                               device)
+    store = quantize_serving_params(params)
     sync()
     a["store_s"] = time.perf_counter() - t0
-    del params, blocks
+    del params
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  9a: int8 store built unit by unit in {a['store_s']:.2f} s, "
+    log(f"  9a: int8 store built (quantize_serving_params) in {a['store_s']:.2f} s, "
         f"{sum(t.numel() * t.element_size() for t in _leaves(store)) / 1e9:.2f} GB")
     _, _, a["in_scan"] = dense_run("9a nemotron-4-15b in-scan int8", cfg, store, tiers, np,
                                    torch, device, already_quantized=True)
@@ -3480,8 +3491,7 @@ def dense_phase(np, torch, device="cuda", config=None):
         f"{cfg.num_kv_heads} heads, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab "
         f"{cfg.padded_vocab}), served from an int8 store built unit by unit")
     t0 = time.perf_counter()
-    store = int8_store_by_unit(cfg, lambda u: random_unit(cfg, u, torch, device),
-                               dense_outer(cfg, torch, device), torch, device)
+    store = store_by_unit(cfg, torch, device)
     sync()
     c = dict(store_s=time.perf_counter() - t0,
              store_gb=sum(t.numel() * t.element_size() for t in _leaves(store)) / 1e9)

@@ -93,6 +93,27 @@ def _check_left_out(kw: Dict[str, Any]) -> None:
                 f"{name}={value!r} is not ported yet; see ROADMAP.md, {item!r}")
 
 
+def _decode_kernels_arg(decode_kernels: Optional[bool],
+                        decode_pallas: Optional[str]) -> Optional[bool]:
+    """``decode_kernels`` with ``decode_pallas``, the JAX slot's name for
+    the switch, folded in: ``"pallas"`` is True (the Hopper kernels),
+    ``"off"`` False (the plain path), None keeps ``decode_kernels``."""
+    if decode_pallas == "interpret":
+        raise ValueError("decode_pallas='interpret': the port has no interpret mode; "
+                         "its kernels run on a CUDA device ('pallas') and its plain "
+                         "path anywhere ('off')")
+    if decode_pallas not in (None, "off", "pallas"):
+        raise ValueError(f"decode_pallas={decode_pallas!r} not in "
+                         f"('off', 'pallas', 'interpret')")
+    if decode_pallas is None:
+        return decode_kernels
+    want = decode_pallas == "pallas"
+    if decode_kernels is not None and bool(decode_kernels) != want:
+        raise ValueError(f"decode_pallas={decode_pallas!r} contradicts "
+                         f"decode_kernels={decode_kernels!r}")
+    return want
+
+
 class ModelSlot:
     """Per-model serving state: one config's pool + views + scheduler.
     Parameters are documented on ``LicensedGateway``."""
@@ -173,41 +194,26 @@ class ModelSlot:
         self.views = TierViewCache(self._materialize, capacity=view_capacity)
         self._store_graphs = StoreGraphs()   # the in-scan path's, per version
 
-        # decode_pallas, the JAX slot's kernel switch, names the port's:
-        # "pallas" the Hopper kernels, "off" the plain path
-        if decode_pallas == "interpret":
-            raise ValueError("decode_pallas='interpret': the port has no interpret mode; "
-                             "its kernels run on a CUDA device ('pallas') and its plain "
-                             "path anywhere ('off')")
-        if decode_pallas not in (None, "off", "pallas"):
-            raise ValueError(f"decode_pallas={decode_pallas!r} not in "
-                             f"('off', 'pallas', 'interpret')")
-        if decode_pallas is not None:
-            want = decode_pallas == "pallas"
-            if decode_kernels is not None and bool(decode_kernels) != want:
-                raise ValueError(f"decode_pallas={decode_pallas!r} contradicts "
-                                 f"decode_kernels={decode_kernels!r}")
-            decode_kernels = want
-        # the JAX slot's value off a TPU when none is given
-        self.decode_pallas = "off" if decode_pallas is None else decode_pallas
-        # the kernel-resident decode routes its write and attention
-        # through the Hopper kernels on a CUDA device; the plain path
-        # serves the CPU and anyone who asks for it explicitly
-        on_cuda = self.device.type == "cuda"
-        if decode_kernels is None:
-            decode_kernels = on_cuda
-        if decode_kernels and not on_cuda:
-            raise ValueError(f"decode_kernels=True needs a CUDA device, got "
-                             f"{self.device}")
-
+        decode_kernels = _decode_kernels_arg(decode_kernels, decode_pallas)
         self.paged = bool(paged)
         # kernel-resident decode needs every attention cache paged (the
         # JAX slot also excludes sliding windows, which the port refuses)
         self.kernel_decode = (self.paged if kernel_decode is None
                               else bool(kernel_decode) and self.paged)
-        # the kernels serve the kernel-resident step only: the
-        # gather/scatter decode is the plain path
-        self.decode_kernels = bool(decode_kernels) and self.kernel_decode
+        # the kernels serve the kernel-resident step only, on a CUDA
+        # device, where they are the default; the gather/scatter decode
+        # and the CPU take the plain path
+        on_cuda = self.device.type == "cuda"
+        if decode_kernels is None:
+            decode_kernels = on_cuda and self.kernel_decode
+        elif decode_kernels and not self.kernel_decode:
+            raise ValueError("decode_kernels=True needs the kernel-resident decode "
+                             "(paged=True, kernel_decode not False): the gather/scatter "
+                             "decode has no kernels")
+        elif decode_kernels and not on_cuda:
+            raise ValueError(f"decode_kernels=True needs a CUDA device, got "
+                             f"{self.device}")
+        self.decode_kernels = bool(decode_kernels)
         if self.paged:
             self.max_lanes = int(max_lanes or self.max_batch)
             bpl = cdiv(self.capacity, int(block_size))

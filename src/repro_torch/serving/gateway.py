@@ -163,13 +163,16 @@ class LicensedGateway:
     decode_kernels:
         Route the kernel-resident decode write and attention through the
         Hopper kernels, the step replayed as a CUDA graph.  Default: on a
-        CUDA device; ``True`` elsewhere raises, ``False`` selects the
-        plain path (eager).
+        CUDA device with the kernel-resident decode; ``True`` off a CUDA
+        device or without the kernel-resident decode raises, ``False``
+        selects the plain path (eager).
     decode_pallas:
-        The JAX slot's name for the same switch: ``"pallas"`` is
-        ``decode_kernels=True``, ``"off"`` is ``False``, ``None`` keeps
-        ``decode_kernels``; ``"interpret"`` raises ``ValueError`` (the
-        port has no interpret mode).
+        The JAX slot's name for the same switch, read once into
+        ``decode_kernels``: ``"pallas"`` is ``True``, ``"off"`` is
+        ``False``, ``None`` keeps ``decode_kernels``; ``"interpret"``
+        raises ``ValueError`` (the port has no interpret mode).
+        ``metrics()["decode_path"]["pallas"]`` reports the resolved
+        route: ``"pallas"`` when the kernels run, else ``"off"``.
     view_capacity:
         Licensed views kept in the (tier, version) LRU cache.
     version / model:
@@ -1256,7 +1259,7 @@ class LicensedGateway:
         out["tenants"] = self._tenant_breakdown()
         out["cache_pool"] = {"paged": self.paged, **self.pool.stats()}
         out["decode_path"] = {"kernel_resident": self.kernel_decode,
-                              "pallas": self.decode_pallas,
+                              "pallas": "pallas" if self.decode_kernels else "off",
                               "kernels": self.decode_kernels}
         out["staged_update"] = ({"active": False} if self._stager is None
                                 else {"active": self._stager.active,

@@ -41,7 +41,19 @@ def _eligible(name: str, leaf) -> bool:
 def _quantize_leaf(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Per-output-channel symmetric int8: the scale reduces over the
     second-to-last (contraction) dim.  ``torch.round`` rounds half to
-    even, as ``jnp.round`` does, so the codes match the JAX package's."""
+    even, as ``jnp.round`` does, so the codes match the JAX package's.
+    A unit-stacked leaf is quantized one unit at a time into
+    preallocated codes and scales: each unit's scale is its own slice's,
+    and the f32 copy is one unit's, not the whole leaf's (19.3 GB for
+    nemotron-4-15b's ``w_up``)."""
+    if w.ndim > 2:
+        codes = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty((*w.shape[:-2], 1, w.shape[-1]), dtype=torch.float32,
+                            device=w.device)
+        for u in range(w.shape[0]):
+            q = _quantize_leaf(w[u])
+            codes[u], scale[u] = q["codes"], q["scale"]
+        return {"codes": codes, "scale": scale}
     w = w.float()
     amax = w.abs().amax(dim=-2, keepdim=True)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))

@@ -351,6 +351,7 @@ def test_cuda_graphs_match_eager_kernels_on_card(weights, cuda, mode):
                              tiers={"free": LicenseTier(name="free", masks=FREE)},
                              **{**GEOMETRY, **MODES[mode]})
         assert gw.decode_kernels and gw._graphs is not None
+        assert gw.metrics()["decode_path"]["pallas"] == "pallas"
         if not graphs:
             gw._graphs = None
         ops.reset_launches()

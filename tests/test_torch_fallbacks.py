@@ -387,6 +387,12 @@ def test_fallback_argument_checks(weights):
         LicensedGateway(cfg, params, device="cpu", decode_pallas="pallas")
     with pytest.raises(ValueError, match="contradicts"):
         LicensedGateway(cfg, params, device="cpu", decode_pallas="off", decode_kernels=True)
+    # kernels asked for on a route that has none
+    for kw in (dict(paged=False), dict(kernel_decode=False)):
+        with pytest.raises(ValueError, match="kernel-resident decode"):
+            LicensedGateway(cfg, params, device="cpu", decode_kernels=True, **kw)
+        with pytest.raises(ValueError, match="kernel-resident decode"):
+            LicensedGateway(cfg, params, device="cpu", decode_pallas="pallas", **kw)
     with pytest.raises(ValueError, match="requires the paged pool"):
         LicensedGateway(cfg, params, device="cpu", paged=False, chunk_size=4)
     gw = LicensedGateway(cfg, params, device="cpu", paged=False, kernel_decode=True)

@@ -295,24 +295,52 @@ def test_dense_lm_loss(dense):
 
 
 def test_int8_store_by_unit_equals_stacked_quantize(dense):
-    """chip_smoke's unit-by-unit int8 store (each unit's leaves quantized
-    alone into preallocated stacked codes and scales, never a stacked f32
-    copy) equals ``quantize_serving_params`` of the stacked tree: the
-    scale reduces over the contraction dim only."""
-    import sys
-    from pathlib import Path
-
+    """An int8 store built unit by unit (each unit's one-unit tree through
+    ``quantize_serving_params``, the results stacked) equals
+    ``quantize_serving_params`` of the stacked tree, and both equal the
+    whole-leaf quantization of each stacked leaf in f32: the scale
+    reduces over the contraction dim only, so ``_quantize_leaf``'s loop
+    over the unit axis changes no code and no scale."""
     from repro_torch.serving import quantized
 
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import chip_smoke
-
     _, _, cfg, params = dense
-    blocks = params["units"]["b0"]
-    outer = {k: v for k, v in params.items() if k != "units"}
-    got = chip_smoke.int8_store_by_unit(cfg, lambda u: model._unit(blocks, u), outer,
-                                        torch, device="cpu")
     want = quantized.quantize_serving_params(params)
-    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
-    for g, w in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+
+    def unit_slice(tree, u):
+        if isinstance(tree, dict):
+            return {k: unit_slice(v, u) for k, v in tree.items()}
+        return tree[u:u + 1]
+
+    ones = [quantized.quantize_serving_params({"units": unit_slice(params["units"], u)})
+            for u in range(cfg.pattern_units)]
+    stacked = jax.tree_util.tree_map(lambda *ts: torch.cat(ts), *[o["units"] for o in ones])
+    assert (jax.tree_util.tree_structure(stacked)
+            == jax.tree_util.tree_structure(want["units"]))
+    for g, w in zip(jax.tree_util.tree_leaves(stacked), jax.tree_util.tree_leaves(want["units"])):
         assert g.dtype == w.dtype and torch.equal(g, w)
+    n = 0
+    for name, leaf in _named_leaves(params["units"], "units"):
+        if not quantized._eligible(name, leaf):
+            continue
+        w = leaf.float()
+        amax = w.abs().amax(dim=-2, keepdim=True)
+        scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        codes = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+        got = _at(want, name)
+        assert torch.equal(got["codes"], codes) and torch.equal(got["scale"], scale)
+        n += 1
+    assert n == (7 if cfg.mlp_type == "swiglu" else 6)
+
+
+def _named_leaves(tree, name):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{name}/{k}")
+    else:
+        yield name, tree
+
+
+def _at(tree, name):
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree
