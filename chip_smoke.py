@@ -210,7 +210,24 @@ Phases (each prints its own lines; any failure exits non-zero):
    tokens equal its isolated run's).  Phase 2 also runs
    ``paged_attention`` at granite's decode shape (48/1 heads, contexts
    9-96 and 8 x 4096) back to back, in a graph and L2-cold;
-10. a ``kernels`` JSON line, and the result line last.
+10. DeepSeek MoE and MLA at full width and depth, as phase 9 runs its
+   models (random bf16 weights, phase 9's requests and tiers, each run's
+   counters zeroed just before its stream and read just after, a steady
+   decode step, peak memory, captures, replays and the KV pool's block
+   bytes printed): (a) deepseek-moe-16b (MHA 16/16 heads, 64 experts
+   top-6 + 2 shared) on float views through the kernels (graph replays)
+   and through the plain route (eager), tokens equal up to near-ties;
+   (b) deepseek-moe-16b in-scan from an int8 store built unit by unit
+   (10 ``masked_dequant`` launches a unit a step: 280); (c)
+   deepseek-v2-lite-16b (MLA) on float views on the default route, whose
+   graphs launch no paged kernel (MLA's paged decode is plain PyTorch,
+   as the JAX package has it); (d) deepseek-v2-lite-16b in-scan (270 a
+   step).  Phase 10 must launch ``paged_attention``,
+   ``paged_decode_write`` and ``masked_dequant``.  Phase 2 also runs
+   ``paged_attention`` at deepseek-moe-16b's decode shape (16/16 heads,
+   a GQA group of 1; contexts 9-96 and 8 x 4096) back to back, in a graph
+   and L2-cold;
+11. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
 device is present or when run outside a checkout of the repository.
@@ -346,6 +363,10 @@ PA_COLD_COPIES = 4
 # contexts; the group-8 cases above stay
 PA_GRANITE = (48, 1, 128, 16)
 PA_GRANITE_CASES = {"granite_serving": PA_CASES["serving"], "granite_long": PA_CASES["long"]}
+# deepseek-moe-16b's decode shape (phase 10): MHA, 16 q heads on 16 kv heads
+# (a GQA group of 1), the same contexts
+PA_MHA = (16, 16, 128, 16)
+PA_MHA_CASES = {"mha_serving": PA_CASES["serving"], "mha_long": PA_CASES["long"]}
 
 
 def paged_bound(peaks, q, lens, shape=PA_SHAPE):
@@ -475,6 +496,9 @@ def check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md):
     for name, case_lens in PA_GRANITE_CASES.items():
         cases[name] = paged_case(torch, kernels_pa, ref, peaks, pa_gen, case_lens,
                                  cold=name == "granite_long", shape=PA_GRANITE)
+    for name, case_lens in PA_MHA_CASES.items():
+        cases[name] = paged_case(torch, kernels_pa, ref, peaks, pa_gen, case_lens,
+                                 cold=True, shape=PA_MHA)
     for name, c in cases.items():
         cold = f", L2-cold {c['ms_cold']:.4f} ms" if "ms_cold" in c else ""
         alone = f" (extension call alone {c['ms_ext']:.4f})" if "ms_ext" in c else ""
@@ -1221,9 +1245,11 @@ def stream_parts(kernel_reqs, plain_reqs, kernel_rows, plain_rows, vocab):
     return parts
 
 
-def decode_logits_check(gw, cfg, np, torch):
-    """Bring a stream to mid-decode, then run one decode step through the
-    kernels and through the plain path on two copies of the same pool."""
+def mid_decode(gw, cfg, np, torch):
+    """Bring phase 3's stream to mid-decode on ``gw`` and return ``step(
+    kernel)``, which runs the next decode step of one tier's running
+    requests eagerly through the kernels (``kernel=True``) or the plain
+    path on a copy of the pool's blocks, and the number of real lanes."""
     from repro_torch.serving.engine import serve_step_paged
 
     submit_all(gw, cfg, np)
@@ -1244,16 +1270,25 @@ def decode_logits_check(gw, cfg, np, torch):
     used = max(r.pos // bs + 1 for r in reqs)
     tables = gw.pool.pad_tables([r.blocks[:used] for r in reqs], bsz, used)
     view, _ = gw.view_for(tier)
-    out = []
-    for kernel in (True, False):
+
+    def step(kernel):
         cache = gw.pool.decode_cache(lanes)
-        cache["units"]["b0"]["k"] = gw.pool.k.clone()
-        cache["units"]["b0"]["v"] = gw.pool.v.clone()
+        cache["units"]["b0"].update({k: t.clone() for k, t in gw.pool.leaves.items()})
         logits, _ = serve_step_paged(
             view, cfg, torch.from_numpy(toks).to(dev), cache,
             torch.from_numpy(tables).to(dev), torch.from_numpy(poss).to(dev),
             kernel=kernel)
-        out.append(logits[: len(reqs), : cfg.vocab_size].float())
+        return logits[: len(reqs), : cfg.vocab_size].float()
+
+    return step, len(reqs), tier
+
+
+def decode_logits_check(gw, cfg, np, torch):
+    """Bring a stream to mid-decode, then run one decode step through the
+    kernels and through the plain path on two copies of the same pool."""
+    step, n, tier = mid_decode(gw, cfg, np, torch)
+    out = [step(kernel) for kernel in (True, False)]
+    reqs = range(n)
     if not (torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()):
         fail("decode logits are not finite")
     diff = (out[0] - out[1]).abs()
@@ -1270,6 +1305,80 @@ def decode_logits_check(gw, cfg, np, torch):
                                   out[1][i, plain_tok] - out[1][i, kernel_tok]).item(),
                               lane_max_abs_diff=diff[i].max().item()))
     return err, scale, len(reqs) - len(flips), len(reqs), tier, flips
+
+
+def pinned_routes(torch, record, pinned=None):
+    """Replace ``models.moe.route`` for one eager step: append each call's
+    (probs, top_e) to ``record`` and, with ``pinned`` (an earlier step's
+    record), take that call's expert picks instead of its own, weighted
+    by this step's own router probabilities.  Returns the original."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def recorded(p, x, cfg):
+        probs, top_p, top_e = route(p, x, cfg)
+        if pinned is not None:
+            top_e = pinned[len(record)][1]
+            top_p = probs.gather(-1, top_e)
+            if cfg.moe_renormalize:
+                top_p = top_p / top_p.sum(-1, keepdim=True)
+        record.append((probs, top_e))
+        return probs, top_p, top_e
+
+    moe.route = recorded
+    return route
+
+
+def moe_route_check(label, gw, cfg, np, torch):
+    """One decode step of an MoE model mid-stream, both routes eager on
+    copies of the same pool.  A router turns the routes' rounding into
+    discrete expert swaps, so the kernel route runs twice: on its own
+    picks, and pinned to the plain route's picks with its own router
+    probabilities.  Pinned, every lane's logits must lie within phase 4's
+    tolerance (0.05 x max(|logit|, 1)) of the plain route's, as must, on
+    its own picks, every lane whose picks equal the plain route's in every
+    layer; argmax flips must be near-ties (the plain gap below the lane's
+    |logit diff|).  Returns the numbers."""
+    from repro_torch.models import moe
+
+    step, n, tier = mid_decode(gw, cfg, np, torch)
+    rec = {"kernel": [], "plain": [], "pinned": []}
+    out = {}
+    for name, kernel in (("plain", False), ("kernel", True), ("pinned", True)):
+        route = pinned_routes(torch, rec[name], rec["plain"] if name == "pinned" else None)
+        try:
+            out[name] = step(kernel)
+        finally:
+            moe.route = route
+    units = cfg.pattern_units
+    if not all(len(r) == units for r in rec.values()):
+        fail(f"{label}: {[len(r) for r in rec.values()]} router calls, not {units} each")
+    # layers a lane's expert set differs between the routes
+    swaps = [sum(set(k[1][i].reshape(-1).tolist()) != set(p[1][i].reshape(-1).tolist())
+                 for k, p in zip(rec["kernel"], rec["plain"])) for i in range(n)]
+    ref = out["plain"]
+    tol = 0.05 * max(ref.abs().max().item(), 1.0)
+    diff = {name: (out[name] - ref).abs().amax(-1).tolist() for name in ("kernel", "pinned")}
+    res = dict(lanes=n, tier=tier, tol=tol, swapped_layers=swaps,
+               lane_max_abs_diff=diff["kernel"], pinned_lane_max_abs_diff=diff["pinned"],
+               router_max_abs_diff=max((k[0][:n] - p[0][:n]).abs().max().item()
+                                       for k, p in zip(rec["kernel"], rec["plain"])))
+    log(f"  {label}: one decode step of {n} lanes (tier {tier}), eager: layers whose "
+        f"expert picks differ between the routes per lane {swaps} of {units}; max |router "
+        f"prob diff| {res['router_max_abs_diff']:.2e}; lane max |logit diff| own picks "
+        f"{[round(d, 4) for d in diff['kernel']]}, pinned to the plain route's "
+        f"{[round(d, 4) for d in diff['pinned']]} (tol {tol:.4f})")
+    bad = [i for i in range(n) if diff["pinned"][i] > tol
+           or (swaps[i] == 0 and diff["kernel"][i] > tol)]
+    if bad:
+        fail(f"{label}: lanes {bad} differ beyond {tol:.4f} with the same expert picks")
+    for name in ("kernel", "pinned"):
+        for i in range(n):
+            kt, pt = int(out[name][i].argmax()), int(ref[i].argmax())
+            if kt != pt and not (ref[i, pt] - ref[i, kt]).item() < diff[name][i]:
+                fail(f"{label}: lane {i} argmax {kt} ({name}) vs {pt} is not a near-tie")
+    return res
 
 
 # ------------------------------------------------------------ telemetry
@@ -1953,12 +2062,16 @@ def prefix_run(label, gw, stream, np, tier=None):
     return reqs, rows, out
 
 
-def near_ties(label, reqs, ref_reqs, rows, ref_rows, vocab, ref="the cold run"):
+def near_ties(label, reqs, ref_reqs, rows, ref_rows, vocab, ref="the cold run",
+              capped=True):
     """Greedy tokens of ``reqs`` against ``ref``'s (``ref_reqs``):
     identical, or each request's first parting a near-tie by phase 4's
     rule (the reference's gap between the two tokens below the lane's max
     |logit diff|, and that diff within 0.05 x max(|logit|, 1) of the
-    reference row)."""
+    reference row).  ``capped=False`` drops the cap on the diff: a MoE
+    model's routes swap experts where their routers nearly tie, a jump no
+    rounding tolerance bounds (``moe_route_check`` holds the cap with the
+    picks pinned)."""
     parts = stream_parts(reqs, ref_reqs, rows, ref_rows, vocab)
     split = [p for p in parts if p["step"] is not None]
     for p in split:
@@ -1968,7 +2081,8 @@ def near_ties(label, reqs, ref_reqs, rows, ref_rows, vocab, ref="the cold run"):
             f"{p['plain_gap']:.4f}, lane max |logit diff| {p['lane_max_abs_diff']:.4f} "
             f"(tol {p['tol']:.4f})")
     wide = [p["request"] for p in split
-            if not (p["plain_gap"] < p["lane_max_abs_diff"] <= p["tol"])]
+            if not (p["plain_gap"] < p["lane_max_abs_diff"]
+                    and (p["lane_max_abs_diff"] <= p["tol"] or not capped))]
     if wide:
         fail(f"{label}: requests {wide} part from {ref} at a step that is not a near-tie")
     same = sum(p["step"] is None for p in parts)
@@ -3364,9 +3478,11 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", **kw):
                prefill_replays=None if pg is None else pg.replays,
                graph_pool_gb=None if g is None else g.backend.pool_bytes() / 1e9,
                launches=launches)
+    out["block_bytes"] = gw.pool.block_bytes
     if gw.decode_kernels:
-        want = units * g.captures
-        if not (g.replays == m["resident_decode_steps"] > 0 and want > 0
+        # MLA's paged decode has no kernel route: its graphs run no paged kernel
+        want = 0 if cfg.use_mla else units * g.captures
+        if not (g.replays == m["resident_decode_steps"] > 0 and g.captures > 0
                 and launches["paged_attention"] == launches["paged_decode_write"] == want):
             fail(f"{label}: {m['resident_decode_steps']} decode steps, {g.replays} replays, "
                  f"launches {launches}: the decode captures' warm-ups give {want}")
@@ -3394,7 +3510,8 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", **kw):
     log(f"  {label}: {len(reqs)} requests, {out['tokens']} tokens in {dt:.2f} s "
         f"({out['tokens_per_s']:.1f} tokens/s, {out['ms_per_step']:.1f} ms per step over "
         f"{steps} with the captures); {steady}; {how}; launches {launches}{per}; peak "
-        f"{out['peak_gb']:.1f} GB; views {out['views_s']:.2f} s")
+        f"{out['peak_gb']:.1f} GB; views {out['views_s']:.2f} s; KV pool "
+        f"{out['block_bytes']} bytes a block of {gw.pool.block_size} tokens")
     del gw
     gc.collect()
     torch.cuda.empty_cache()
@@ -3404,7 +3521,11 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", **kw):
 def dense_pair(label, cfg, params, tiers, np, torch, device="cuda", **kw):
     """``dense_run`` on the kernel route and then on the plain route
     (``decode_kernels=False``); the plain run's greedy tokens must equal
-    the kernel run's, parting only at near-ties by phase 4's rule."""
+    the kernel run's, parting only at near-ties by phase 4's rule (on a
+    MoE model without its cap, and ``moe_route_check`` on a third
+    gateway)."""
+    from repro_torch.serving import LicensedGateway
+
     k_reqs, k_rows, kern = dense_run(f"{label}, kernel route", cfg, params, tiers, np, torch,
                                      device, **kw)
     gc.collect()
@@ -3414,9 +3535,16 @@ def dense_pair(label, cfg, params, tiers, np, torch, device="cuda", **kw):
     gc.collect()
     torch.cuda.empty_cache()
     parts = near_ties(f"{label}, plain route", p_reqs, k_reqs, p_rows, k_rows,
-                      cfg.vocab_size, ref="the kernel route")
+                      cfg.vocab_size, ref="the kernel route", capped=not cfg.num_experts)
     del k_rows, p_rows
-    return dict(kernel=kern, plain=plain, parts=parts)
+    out = dict(kernel=kern, plain=plain, parts=parts)
+    if cfg.num_experts:
+        gw = LicensedGateway(cfg, params, tiers=tiers, device=device, **kw, **GEOMETRY)
+        out["route_check"] = moe_route_check(f"{label}, routes", gw, cfg, np, torch)
+        del gw
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def dense_phase(np, torch, device="cuda", config=None):
@@ -3507,6 +3635,108 @@ def dense_phase(np, torch, device="cuda", config=None):
         add(run)
     c["s"] = time.perf_counter() - t9
     out["granite-34b"] = c
+    return out, launches
+
+
+# ------------------------------------------------------------ phase 10
+# DeepSeek MoE and MLA through the licensed gateway at full width and
+# depth: deepseek-moe-16b (MHA 16/16 heads at hd 128, 64 routed experts
+# top-6 + 2 shared, 28 units, 16.88 B parameters) and deepseek-v2-lite-16b
+# (MLA with a 512 + 64 compressed cache, the same MoE, 27 units), random
+# bf16 weights from SEED, phase 9's requests and tiers.  In-scan, each unit
+# dequantizes 10 int8 leaves a step: 4 attention, 3 expert stacks (one
+# launch each, (64, 2048, 1408) codes) and 3 shared
+MOE_LEAVES_PER_UNIT = 10
+
+
+def moe_phase(np, torch, device="cuda", config=None):
+    """Phase 10: (a) deepseek-moe-16b on float views, kernel route (graph
+    replays) against the plain route (eager), tokens equal up to
+    near-ties; (b) deepseek-moe-16b in-scan from an int8 store built unit
+    by unit; (c) deepseek-v2-lite-16b on float views on the default route
+    (graphs; MLA's paged block has no kernel route); (d) deepseek-v2-lite-
+    16b in-scan from an int8 store built unit by unit.  Returns each run's
+    summary and the launches of all the runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.licensing import LicenseTier
+    from repro_torch.models import init_params
+
+    tiers = {"free": LicenseTier(name="free", masks=FREE_TIER)}
+    config = config or get_config
+    out, launches = {}, {}
+
+    def add(run):
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    def in_scan(label, cfg):
+        t0 = time.perf_counter()
+        store = store_by_unit(cfg, torch, device)
+        sync()
+        res = dict(store_s=time.perf_counter() - t0,
+                   store_gb=sum(t.numel() * t.element_size() for t in _leaves(store)) / 1e9)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  {label}: int8 store built unit by unit in {res['store_s']:.2f} s, "
+            f"{res['store_gb']:.2f} GB")
+        _, _, run = dense_run(f"{label} in-scan int8", cfg, store, tiers, np, torch, device,
+                              already_quantized=True)
+        del store
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = MOE_LEAVES_PER_UNIT * cfg.pattern_units
+        if run["masked_dequant_per_step"] != want:
+            fail(f"{label}: {run['masked_dequant_per_step']} masked_dequant launches a step "
+                 f"in-scan, not {want}")
+        add(run)
+        res["run"] = run
+        return res
+
+    def params_of(cfg):
+        params = init_params(cfg, seed=SEED, device=device)
+        n = sum(t.numel() for t in _leaves(params))
+        log(f"  {n / 1e9:.3f} B parameters, {2 * n / 1e9:.1f} GB of bf16 (the router f32)")
+        return params
+
+    if device == "cuda":
+        log(f"phase 10: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before it")
+    t10 = time.perf_counter()
+    cfg = config("deepseek-moe-16b")
+    log(f"phase 10a: deepseek-moe-16b at full width, {cfg.num_layers} units (d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} experts "
+        f"top-{cfg.experts_per_token} of d_ff {cfg.moe_d_ff} + {cfg.num_shared_experts} "
+        f"shared, vocab {cfg.padded_vocab}, {cfg.dtype_name})")
+    params = params_of(cfg)
+    a = dense_pair("10a deepseek-moe-16b float views", cfg, params, tiers, np, torch, device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(a["kernel"])
+    add(a["plain"])
+    log("phase 10b: deepseek-moe-16b in-scan from an int8 store built unit by unit")
+    a["in_scan"] = in_scan("10b deepseek-moe-16b", cfg)
+    a["s"] = time.perf_counter() - t10
+    out["deepseek-moe-16b"] = a
+
+    t10 = time.perf_counter()
+    cfg = config("deepseek-v2-lite-16b")
+    log(f"phase 10c: deepseek-v2-lite-16b at full width, {cfg.num_layers} units (MLA "
+        f"kv_lora_rank {cfg.kv_lora_rank}, qk_nope {cfg.qk_nope_dim} + rope "
+        f"{cfg.rope_head_dim}, v {cfg.v_head_dim}, {cfg.num_heads} heads; "
+        f"{cfg.num_experts} experts top-{cfg.experts_per_token} + "
+        f"{cfg.num_shared_experts} shared), float views on the default route")
+    params = params_of(cfg)
+    _, _, run = dense_run("10c deepseek-v2-lite-16b float views", cfg, params, tiers, np,
+                          torch, device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(run)
+    c = dict(float=run)
+    log("phase 10d: deepseek-v2-lite-16b in-scan from an int8 store built unit by unit")
+    c["in_scan"] = in_scan("10d deepseek-v2-lite-16b", cfg)
+    c["s"] = time.perf_counter() - t10
+    out["deepseek-v2-lite-16b"] = c
     return out, launches
 
 
@@ -3924,6 +4154,16 @@ def main() -> None:
         launches[name] += phase9_launches[name]
     log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
 
+    # ---------------------------------------------------------- phase 10
+    t10 = time.perf_counter()
+    moe, phase10_launches = moe_phase(np, torch)
+    log(f"  launches on phase 10's paths: {phase10_launches}")
+    for name in ("paged_attention", "paged_decode_write", "masked_dequant"):
+        if phase10_launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on phase 10's paths")
+        launches[name] += phase10_launches[name]
+    log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+
     # ---------------------------------------------------------- summary
     kernels = [dict(name=name, launches=launches[name], **row)
                for name, row in rows.items()]
@@ -3940,7 +4180,8 @@ def main() -> None:
                     "calibration": {**calib, "launches": calib_launches},
                     "fleet": fleet, "lifecycle": lifecycle,
                     "dense": dense, "fallbacks": fallbacks,
-                    "phase9_launches": phase9_launches}))
+                    "phase9_launches": phase9_launches,
+                    "moe_mla": moe, "phase10_launches": phase10_launches}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""Model code of the port: the dense GQA decoder (qwen2.5-3b, granite-34b,
-minitron-8b, nemotron-4-15b)."""
+"""Model code of the port: the dense GQA decoders (qwen2.5-3b, granite-34b,
+minitron-8b, nemotron-4-15b) and the DeepSeek MoE / MLA decoders
+(deepseek-moe-16b, deepseek-v2-lite-16b)."""
 from repro_torch.models.model import (forward, init_cache, init_params, lm_loss,
                                       params_from_jax)
 

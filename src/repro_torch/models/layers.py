@@ -1,7 +1,7 @@
-"""Neural layers of the port for the dense GQA model: RMS norm, RoPE,
-causal attention (prefill, decode, chunked ``attend_cache``), the
-kernel-resident paged decode attention, and the SwiGLU and squared-ReLU
-MLPs.
+"""Neural layers of the port: RMS norm, RoPE, GQA causal attention
+(prefill, decode, chunked ``attend_cache``), the kernel-resident paged
+decode attention, DeepSeek-V2's multi-head latent attention (MLA,
+contiguous and paged), and the SwiGLU and squared-ReLU MLPs.
 
 Counterpart of ``repro/models/layers.py`` restricted to what the dense
 decoders run; numerics follow it step by step (f32 norms and RoPE, q scaled in
@@ -226,6 +226,125 @@ def attention_block_paged(
     new_cache = {"k": kc, "v": vc, "len": cache["len"] + 1}
     y = out.reshape(b, 1, h * hd) @ p["wo"]
     return y, new_cache
+
+
+# ------------------------------------------------------------ MLA attention
+def _mla_qkv(p: Dict[str, Any], x: torch.Tensor, cfg, positions: torch.Tensor):
+    """Shared MLA projection front end (query, compressed KV, rotary key)
+    of the contiguous and paged paths: q_nope (B, S, H, nope), q_rope
+    (B, S, H, rope_d), c_kv (B, S, r) RMS-normed, k_rope (B, S, 1,
+    rope_d); ``positions`` broadcastable to (B, S)."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rope_d, r = cfg.qk_nope_dim, cfg.rope_head_dim, cfg.kv_lora_rank
+    q = (x @ p["wq"]).reshape(b, s, h, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = x @ p["w_dkv"]                                      # (B, S, r + rope_d)
+    c_kv = rms_norm(dkv[..., :r], p["ckv_norm"])
+    k_rope = dkv[..., r:][:, :, None, :]                      # (B, S, 1, rope_d)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_kv(p: Dict[str, Any], c_kv: torch.Tensor, k_rope: torch.Tensor, cfg):
+    """Decompress (B, S, r) latents and (B, S, 1, rope_d) rotary keys into
+    per-head keys (B, S, H, nope + rope_d) and values (B, S, H, vd)."""
+    b, sk, _ = c_kv.shape
+    h, nope, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    ukv = (c_kv @ p["w_ukv"]).reshape(b, sk, h, nope + vd)
+    k_nope, v = ukv[..., :nope], ukv[..., nope:]
+    k = torch.cat([k_nope, k_rope.expand(b, sk, h, k_rope.shape[-1])], dim=-1)
+    return k, v
+
+
+def mla_block(
+    p: Dict[str, Any], x: torch.Tensor, cfg, *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    pos=0, attend_cache: bool = False, chunk_valid=None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Multi-head Latent Attention (DeepSeek-V2).  The cache holds the
+    compressed ``ckv`` (B, cap, r) and the shared rotary key ``k_rope``
+    (B, cap, rope_d) + ``len`` (B,); every step decompresses what it
+    attends over with ``w_ukv``.
+
+    Modes as :func:`attention_block`'s: prefill, decode with the cache's
+    ``len`` and chunked prefill (``attend_cache``), whose writes past the
+    last slot clamp onto it.  With a cache, queries attend over the whole
+    updated cache (causal masking bounds them).  The softmax scale is
+    1/sqrt(nope + rope_d), q's head dim, as in the JAX package."""
+    b, s, _ = x.shape
+    h, vd = cfg.num_heads, cfg.v_head_dim
+    pos_t = torch.as_tensor(pos, device=x.device).reshape(-1, 1)
+    positions = (pos_t + torch.arange(s, device=x.device)).expand(b, s)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
+
+    if cache is not None:
+        cap = cache["ckv"].shape[1]
+        slot = positions.clamp(0, cap - 1) if attend_cache else positions % cap
+        rows = torch.arange(b, device=x.device)[:, None].expand(b, s)
+        c_all, kr_all = cache["ckv"], cache["k_rope"]
+        c_all[rows, slot] = c_kv.to(c_all.dtype)
+        kr_all[rows, slot] = k_rope[:, :, 0].to(kr_all.dtype)
+        cv_n = s if chunk_valid is None else torch.as_tensor(chunk_valid,
+                                                              device=x.device)
+        new_len = torch.clamp(cache["len"] + cv_n, max=cap).to(cache["len"].dtype)
+        new_cache = {"ckv": c_all, "k_rope": kr_all, "len": new_len}
+        kv_src, kr_src = c_all, kr_all[:, :, None, :]
+        kv_len = None if attend_cache else new_len
+    else:
+        new_cache = None
+        kv_src, kr_src, kv_len = c_kv, k_rope, None
+
+    k, v = _mla_kv(p, kv_src, kr_src, cfg)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    out = attention_core(qfull, k, v, q_offset=pos,
+                         kv_len=kv_len if s == 1 else None)
+    y = out.reshape(b, s, h * vd) @ p["wo"]
+    return y, new_cache
+
+
+def mla_block_paged(
+    p: Dict[str, Any], x: torch.Tensor, cfg, *,
+    cache: Dict[str, torch.Tensor], tables: torch.Tensor, pos: torch.Tensor,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """MLA decode against paged compressed-KV blocks, the contract of
+    :func:`attention_block_paged`: ``cache`` holds this layer's block
+    pools ``ckv`` (P+1, bs, r) and ``k_rope`` (P+1, bs, rope_d) and the
+    lanes' ``len``; the token's latent and rotary key are written in
+    place through ``(tables[b, pos // bs], pos % bs)``, each lane's chain
+    is gathered once and decompressed, and :func:`paged_decode_attend`
+    attends over it.  The JAX package runs this without a Pallas kernel,
+    so there is no kernel route: plain PyTorch on every device."""
+    b, s, _ = x.shape
+    assert s == 1, s
+    h, vd = cfg.num_heads, cfg.v_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, pos[:, None])
+    ckv_blocks, kr_blocks = cache["ckv"], cache["k_rope"]
+    bs = ckv_blocks.shape[1]
+    blk = torch.gather(tables, 1, (pos // bs)[:, None].long())[:, 0].long()
+    off = (pos % bs).long()
+    ckv_blocks[blk, off] = c_kv[:, 0].to(ckv_blocks.dtype)
+    kr_blocks[blk, off] = k_rope[:, 0, 0].to(kr_blocks.dtype)
+    k, v = _mla_kv(p, gather_paged(ckv_blocks, tables),
+                   gather_paged(kr_blocks, tables)[:, :, None, :], cfg)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    out = paged_decode_attend(qfull[:, 0], k, v, pos + 1)
+    new_cache = {"ckv": ckv_blocks, "k_rope": kr_blocks, "len": cache["len"] + 1}
+    y = out.reshape(b, 1, h * vd) @ p["wo"]
+    return y, new_cache
+
+
+def init_mla_cache(cfg, batch, capacity: int, dtype, device) -> Dict[str, torch.Tensor]:
+    """Zeroed MLA cache; ``batch`` is an int or a tuple of leading axes
+    (the model's (units, batch))."""
+    lead = tuple(batch) if isinstance(batch, tuple) else (batch,)
+    return {
+        "ckv": torch.zeros((*lead, capacity, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((*lead, capacity, cfg.rope_head_dim), dtype=dtype,
+                              device=device),
+        "len": torch.zeros(lead, dtype=torch.int32, device=device),
+    }
 
 
 # ---------------------------------------------------------------------- MLPs

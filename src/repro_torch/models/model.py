@@ -1,10 +1,13 @@
-"""Decoder-only dense GQA model of the port (qwen2.5-3b, granite-34b,
-minitron-8b, nemotron-4-15b).
+"""Decoder-only model of the port: the dense GQA decoders (qwen2.5-3b,
+granite-34b, minitron-8b, nemotron-4-15b) and the DeepSeek MoE models
+(deepseek-moe-16b with GQA attention, deepseek-v2-lite-16b with MLA).
 
 Counterpart of ``repro/models/model.py`` for ``layer_pattern ==
-("attn",)`` with a SwiGLU or squared-ReLU MLP.  Parameters keep the JAX
+("attn",)``: attention (GQA or MLA) then a SwiGLU or squared-ReLU MLP or
+the MoE block.  Parameters keep the JAX
 package's nested-dict layout and key names, with every block weight
-stacked on a leading *unit* axis ``(U, in, out)``; the JAX ``lax.scan``
+stacked on a leading *unit* axis ``(U, in, out)`` (an expert stack
+``(U, E, in, out)``); the JAX ``lax.scan``
 over units becomes a Python loop over that axis.  Caches are dicts of tensors updated in place.
 
 Entry points:
@@ -31,37 +34,36 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree_io import flatten_params, unflatten
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_block
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense GQA decoder (SwiGLU or squared-ReLU MLP)
-    only; everything else raises."""
-    dense = (cfg.layer_pattern == ("attn",) and not cfg.use_mla
-             and not cfg.num_experts
-             and cfg.mlp_type in ("swiglu", "squared_relu")
-             and not cfg.norm_layernorm and cfg.window == 0
-             and cfg.frontend == "none" and not cfg.kv_cache_int8)
-    if not dense:
+    """The port runs decoders of attention blocks only (GQA or MLA, then a
+    SwiGLU or squared-ReLU MLP or the MoE block); everything else
+    raises."""
+    ported = (cfg.layer_pattern == ("attn",)
+              and cfg.mlp_type in ("swiglu", "squared_relu")
+              and not cfg.norm_layernorm and cfg.window == 0
+              and cfg.frontend == "none" and not cfg.kv_cache_int8)
+    if not ported:
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA models are ported; see ROADMAP.md, "
-            f"'the other architectures'")
+            f"{cfg.name}: only attention decoders (GQA or MLA, dense MLP or MoE) are "
+            f"ported; see ROADMAP.md, 'the other architectures'")
 
 
 # ------------------------------------------------------------------- params
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random weights with the JAX package's distributions (normal /
-    sqrt(fan_in) matrices, 0.02-scaled embedding and head, zero biases,
-    unit norms), drawn from a ``torch.Generator`` seeded with ``seed`` —
-    the values differ from ``jax.random``'s."""
+    sqrt(fan_in) matrices, 0.02-scaled embedding, head and float32
+    router, zero biases, unit norms), drawn from a ``torch.Generator``
+    seeded with ``seed`` — the values differ from ``jax.random``'s."""
     check_supported(cfg)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    dt, u = cfg.dtype, cfg.pattern_units
-    d, h, kh, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                        cfg.head_dim, cfg.d_ff)
+    dt, u, d = cfg.dtype, cfg.pattern_units, cfg.d_model
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=dt):
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-        return (w * scale).to(dt)
+        return (w * scale).to(dtype)
 
     def dense(fan_in, fan_out):
         return normal((u, fan_in, fan_out), fan_in ** -0.5)
@@ -72,16 +74,36 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    mixer = {"wq": dense(d, h * hd), "wk": dense(d, kh * hd),
-             "wv": dense(d, kh * hd), "wo": dense(h * hd, d)}
-    if cfg.attn_bias:
-        mixer.update(bq=zeros(u, h * hd), bk=zeros(u, kh * hd), bv=zeros(u, kh * hd))
+    def mlp(ff):
+        p = {"w_gate": dense(d, ff)} if cfg.mlp_type == "swiglu" else {}
+        p.update(w_up=dense(d, ff), w_down=dense(ff, d))   # squared ReLU: two
+        return p
+
+    h = cfg.num_heads
+    if cfg.use_mla:
+        nope, rope_d, vd, r = (cfg.qk_nope_dim, cfg.rope_head_dim, cfg.v_head_dim,
+                               cfg.kv_lora_rank)
+        mixer = {"wq": dense(d, h * (nope + rope_d)), "w_dkv": dense(d, r + rope_d),
+                 "w_ukv": dense(r, h * (nope + vd)), "wo": dense(h * vd, d),
+                 "ckv_norm": ones(u, r)}
+    else:
+        kh, hd = cfg.num_kv_heads, cfg.head_dim
+        mixer = {"wq": dense(d, h * hd), "wk": dense(d, kh * hd),
+                 "wv": dense(d, kh * hd), "wo": dense(h * hd, d)}
+        if cfg.attn_bias:
+            mixer.update(bq=zeros(u, h * hd), bk=zeros(u, kh * hd), bv=zeros(u, kh * hd))
+    if cfg.num_experts:
+        e, ff = cfg.num_experts, cfg.moe_d_ff
+        ffn = {"router": normal((u, d, e), 0.02, torch.float32),
+               "experts": {"w_gate": normal((u, e, d, ff), d ** -0.5),
+                           "w_up": normal((u, e, d, ff), d ** -0.5),
+                           "w_down": normal((u, e, ff, d), ff ** -0.5)}}
+        if cfg.num_shared_experts:
+            ffn["shared"] = mlp(ff * cfg.num_shared_experts)
+    else:
+        ffn = mlp(cfg.d_ff)
     block = {"norm1": {"norm_scale": ones(u, d)}, "mixer": mixer,
-             "norm2": {"norm_scale": ones(u, d)},
-             "ffn": {}}
-    if cfg.mlp_type == "swiglu":         # squared ReLU: two matrices
-        block["ffn"]["w_gate"] = dense(d, ff)
-    block["ffn"].update(w_up=dense(d, ff), w_down=dense(ff, d))
+             "norm2": {"norm_scale": ones(u, d)}, "ffn": ffn}
     return {"embed": {"tok": normal((cfg.padded_vocab, d), 0.02)},
             "units": {"b0": block},
             "final_norm": {"norm_scale": ones(d)},
@@ -107,32 +129,51 @@ def params_from_jax(flat: Dict[str, Any], *, device) -> Dict[str, Any]:
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, device="cuda") -> Dict[str, Any]:
+    """Zeroed contiguous caches, each leaf stacked on the unit axis: GQA
+    ``k``/``v`` (U, B, cap, KH, hd), MLA ``ckv`` (U, B, cap, r) and
+    ``k_rope`` (U, B, cap, rope_d), and ``len`` (U, B) int32."""
     check_supported(cfg)
-    u, kh, hd = cfg.pattern_units, cfg.num_kv_heads, cfg.head_dim
-    return {"units": {"b0": {
-        "k": torch.zeros((u, batch, capacity, kh, hd), dtype=cfg.dtype, device=device),
-        "v": torch.zeros((u, batch, capacity, kh, hd), dtype=cfg.dtype, device=device),
-        "len": torch.zeros((u, batch), dtype=torch.int32, device=device),
-    }}}
+    u, dt = cfg.pattern_units, cfg.dtype
+    if cfg.use_mla:
+        c = L.init_mla_cache(cfg, (u, batch), capacity, dt, device)
+    else:
+        shape = (u, batch, capacity, cfg.num_kv_heads, cfg.head_dim)
+        c = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device),
+             "len": torch.zeros((u, batch), dtype=torch.int32, device=device)}
+    return {"units": {"b0": c}}
 
 
 # ------------------------------------------------------------------ forward
 def _apply_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                  cache, pos, attend_cache, chunk_valid, paged_tables,
-                 paged_kernel) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Pre-norm residual block: attention then the MLP."""
+                 paged_kernel) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, Any]]]:
+    """Pre-norm residual block: attention (paged MLA, paged GQA, MLA or
+    GQA, the JAX package's dispatch order; paged MLA has no kernel route
+    and ignores ``paged_kernel``), then the MoE block or the MLP.
+    Returns (x, aux loss, cache)."""
     h = L.rms_norm(x, p["norm1"]["norm_scale"])
-    if paged_tables is not None:
+    if paged_tables is not None and cfg.use_mla:
+        y, new_cache = L.mla_block_paged(p["mixer"], h, cfg, cache=cache,
+                                         tables=paged_tables, pos=pos)
+    elif paged_tables is not None:
         y, new_cache = L.attention_block_paged(
             p["mixer"], h, cfg, cache=cache, tables=paged_tables, pos=pos,
             use_kernel=paged_kernel)
+    elif cfg.use_mla:
+        y, new_cache = L.mla_block(p["mixer"], h, cfg, cache=cache, pos=pos,
+                                   attend_cache=attend_cache, chunk_valid=chunk_valid)
     else:
         y, new_cache = L.attention_block(
             p["mixer"], h, cfg, cache=cache, pos=pos,
             attend_cache=attend_cache, chunk_valid=chunk_valid)
     x = x + y.to(x.dtype)
     h2 = L.rms_norm(x, p["norm2"]["norm_scale"])
-    return x + L.mlp_block(p["ffn"], h2, cfg).to(x.dtype), new_cache
+    if cfg.num_experts:
+        y2, aux = moe_block(p["ffn"], h2, cfg)
+    else:
+        y2, aux = L.mlp_block(p["ffn"], h2, cfg), None
+    return x + y2.to(x.dtype), aux, new_cache
 
 
 def _unit(tree: Dict[str, Any], u: int) -> Dict[str, Any]:
@@ -150,7 +191,15 @@ def _unbound_units(tree: Dict[str, Any]):
             for u in range(len(next(iter(parts.values()))))]
 
 
-def forward(
+def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, **kw,
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Returns (logits (B, S, padded_vocab) f32, cache or None); the
+    arguments are :func:`forward_aux`'s."""
+    logits, _, cache = forward_aux(params, cfg, tokens, **kw)
+    return logits, cache
+
+
+def forward_aux(
     params: Dict[str, Any],
     cfg: ModelConfig,
     tokens: torch.Tensor,                 # (B, S) int
@@ -162,8 +211,9 @@ def forward(
     chunk_valid=None,
     paged_tables: Optional[torch.Tensor] = None,
     paged_kernel: bool = False,
-) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Returns (logits (B, S, padded_vocab) f32, cache or None).
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Dict[str, Any]]]:
+    """Returns (logits (B, S, padded_vocab) f32, the MoE aux loss summed
+    over units (an f32 scalar; ``None`` without experts), cache or None).
 
     ``params`` may hold int8 ``{"codes", "scale"}`` leaves
     (``serving/quantized.py``): each unit's are dequantized with the
@@ -178,10 +228,10 @@ def forward(
 
     ``paged_tables`` (B, T) int32 selects kernel-resident paged decode:
     ``cache`` is ``PagedCachePool.decode_cache`` (the pool's physical
-    block tensors (U, P+1, bs, KH, hd) plus per-lane ``len`` (U, B)),
+    block tensors (U, P+1, bs, ...) plus per-lane ``len`` (U, B)),
     ``pos`` is (B,) int32 and ``tokens`` (B, 1).  ``paged_kernel`` routes
     the write and the attention through the Hopper kernels; ``False`` is
-    the plain path with the same semantics.
+    the plain path with the same semantics (MLA has the plain path only).
     """
     check_supported(cfg)
     if paged_tables is not None:
@@ -191,22 +241,25 @@ def forward(
     quantized = next(qleaves(params["units"]), None) is not None
     x = params["embed"]["tok"][tokens.long()]
     unbound = _unbound_units(params["units"])
+    aux = None
     for u in range(cfg.pattern_units):
         unit_params = _unit(params["units"], u) if unbound is None else unbound[u]
         if quantized:
             unit_params = dequant_tree(unit_params, license_intervals, cfg.dtype)
         unit_cache = None if cache is None else _unit(cache["units"], u)
         c = None if unit_cache is None else unit_cache["b0"]
-        x, nc = _apply_block(unit_params["b0"], x, cfg, cache=c, pos=pos,
-                             attend_cache=attend_cache, chunk_valid=chunk_valid,
-                             paged_tables=paged_tables, paged_kernel=paged_kernel)
+        x, a, nc = _apply_block(unit_params["b0"], x, cfg, cache=c, pos=pos,
+                                attend_cache=attend_cache, chunk_valid=chunk_valid,
+                                paged_tables=paged_tables, paged_kernel=paged_kernel)
+        if a is not None:
+            aux = a if aux is None else aux + a
         if nc is not None:
-            c["len"].copy_(nc["len"])     # k/v were written in place
+            c["len"].copy_(nc["len"])     # the other leaves were written in place
     x = L.rms_norm(x, params["final_norm"]["norm_scale"])
     logits = (x @ params["lm_head"]).float()
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e9
-    return logits, cache
+    return logits, aux, cache
 
 
 # --------------------------------------------------------------------- loss
@@ -214,16 +267,17 @@ def lm_loss(
     params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     labels: torch.Tensor,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Causal LM cross-entropy (+ MoE aux).  labels = next-token ids, with
-    -100 entries masked out.  The port's dense model has no aux loss, so
-    the aux term is 0."""
-    logits, _ = forward(params, cfg, tokens)
+    """Causal LM cross-entropy + ``moe_aux_weight`` times the MoE aux
+    loss (0 without experts).  labels = next-token ids, with -100 entries
+    masked out."""
+    logits, aux, _ = forward_aux(params, cfg, tokens)
     mask = labels != -100
     safe = torch.where(mask, labels, 0).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     denom = torch.clamp(mask.sum(), min=1)
     loss = torch.where(mask, nll, 0.0).sum() / denom
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     total = loss + cfg.moe_aux_weight * aux
     return total, {"lm_loss": loss, "aux_loss": aux}

@@ -1,17 +1,21 @@
 """Block-paged KV cache pool under the licensed gateway.
 
-Counterpart of ``repro/serving/paging.py`` for the dense GQA model:
+Counterpart of ``repro/serving/paging.py`` for the port's attention
+decoders:
 
 * :class:`BlockAllocator` — host-side free list of physical block ids
   with per-block reference counts and the double-alloc / double-free /
   incref-on-freed guards (a verbatim copy: it is pure Python).
-* :class:`PagedCachePool` — the device store.  K and V live as physical
-  blocks ``(U, P+1, bs, KH, hd)`` — unit axis first, block ``P`` is the
-  *null block* that absorbs writes of padding rows — addressed through
-  per-request block tables; the per-lane ``len`` counters live as
-  ``(num_lanes+1, U)``, lane ``num_lanes`` being the *scratch lane*.
-  ``copy_block`` is the device half of the prefix cache's
-  copy-on-write.
+* :class:`PagedCachePool` — the device store.  The pool's leaves come
+  from the model's cache (``models.model.init_cache``), as in the JAX
+  pool: every per-token leaf (GQA ``k``/``v`` (U, cap, KH, hd) a lane,
+  MLA ``ckv``/``k_rope`` (U, cap, r | rope_d)) lives as physical blocks
+  ``(U, P+1, bs, ...)`` — the block axis in place of the capacity axis,
+  unit axis first, block ``P`` the *null block* that absorbs writes of
+  padding rows — addressed through per-request block tables; the
+  per-lane ``len`` counters live as ``(num_lanes+1, U)``, lane
+  ``num_lanes`` being the *scratch lane*.  ``copy_block`` is the device
+  half of the prefix cache's copy-on-write.
 
 Prefill chunks (and the gather/scatter decode) ``gather`` each lane's
 logical cache through its table into a contiguous batch and ``scatter``
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import init_cache
 
 
 def cdiv(a: int, b: int) -> int:
@@ -153,12 +158,34 @@ class PagedCachePool:
                 f"({self.blocks_per_lane} blocks of {self.block_size})")
         self.allocator = BlockAllocator(self.num_blocks)
         self.device = torch.device(device)
-        u, kh, hd = cfg.pattern_units, cfg.num_kv_heads, cfg.head_dim
-        shape = (u, self.num_blocks + 1, self.block_size, kh, hd)
-        self.k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        # classify the cache's leaves by probing init_cache (on the meta
+        # device: no memory) at two capacities, as the JAX pool does: a
+        # leaf whose capacity axis (2, after units and batch) grows by the
+        # probe's difference is per-token and paged; anything else must be
+        # the integer ``len`` counter, the one per-lane state the gateway
+        # can reconstruct (so a prefix chain can seed a new request)
+        one = init_cache(cfg, 1, self.block_size, device="meta")["units"]["b0"]
+        two = init_cache(cfg, 1, 2 * self.block_size, device="meta")["units"]["b0"]
+        u = cfg.pattern_units
+        self.leaves: Dict[str, torch.Tensor] = {}
+        for name, t in one.items():
+            if t.ndim > 2 and two[name].shape[2] == 2 * t.shape[2]:
+                self.leaves[name] = torch.zeros(
+                    (u, self.num_blocks + 1, self.block_size, *t.shape[3:]),
+                    dtype=t.dtype, device=self.device)
+            elif name != "len" or t.dtype.is_floating_point:
+                raise ValueError(f"{cfg.name}: cache leaf {name!r} {tuple(t.shape)} is "
+                                 f"neither per-token nor the integer len counter")
+        self.prefix_cacheable = True
         self.lens = torch.zeros((self.num_lanes + 1, u), dtype=torch.int32,
                                 device=self.device)
+
+    def __getattr__(self, name: str) -> torch.Tensor:
+        """A paged leaf by its cache name: ``pool.k``, ``pool.ckv``, ..."""
+        leaves = self.__dict__.get("leaves", {})
+        if name in leaves:
+            return leaves[name]
+        raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
 
     # ------------------------------------------------------------- indices
     @property
@@ -182,8 +209,11 @@ class PagedCachePool:
 
     @property
     def block_bytes(self) -> int:
-        """Bytes one physical block occupies across K and V."""
-        return 2 * self.k[:, 0].numel() * self.k.element_size()
+        """Bytes one physical block occupies across every paged leaf (K
+        and V, or MLA's latents and rotary keys) of every unit: the
+        exchange rate a fleet-wide cache budget converts between
+        different models' blocks with."""
+        return sum(t[:, 0].numel() * t.element_size() for t in self.leaves.values())
 
     def pad_lanes(self, lanes: Sequence[int], width: int) -> List[int]:
         return pad_lane_ids(lanes, width, self.scratch)
@@ -203,8 +233,8 @@ class PagedCachePool:
 
     @property
     def nbytes(self) -> int:
-        """Device bytes of the pool: K and V blocks and the lane counters."""
-        return sum(t.numel() * t.element_size() for t in (self.k, self.v, self.lens))
+        """Device bytes of the pool: the paged leaves and the lane counters."""
+        return sum(t.numel() * t.element_size() for t in (*self.leaves.values(), self.lens))
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32)).to(self.device)
@@ -220,21 +250,19 @@ class PagedCachePool:
     # ------------------------------------------------------- gather/scatter
     def gather(self, tables, lanes=None) -> Dict[str, Any]:
         """Contiguous per-lane views: ``tables`` (B, T) (host, or int32
-        on the device) -> cache ``k``/``v`` (U, B, T*bs, KH, hd) in
-        logical order.  Without ``lanes`` the ``len`` counters are fresh
+        on the device) -> each paged leaf (U, B, T*bs, ...) in logical
+        order.  Without ``lanes`` the ``len`` counters are fresh
         zeros (a prefill chunk masks positionally and the gateway pins
         the counters to the true fill afterwards); with ``lanes`` they
         are those lanes' counters (the gather/scatter decode)."""
         tab = self._index(tables)
         b, t = tab.shape
-        u, _, bs, kh, hd = self.k.shape
-        lens = (torch.zeros((u, b), dtype=torch.int32, device=self.device) if lanes is None
-                else self.lens[self._index(lanes)].t().contiguous())
-        return {"units": {"b0": {
-            "k": self.k[:, tab].reshape(u, b, t * bs, kh, hd),
-            "v": self.v[:, tab].reshape(u, b, t * bs, kh, hd),
-            "len": lens,
-        }}}
+        u = self.lens.shape[1]
+        out = {name: x[:, tab].reshape(u, b, t * self.block_size, *x.shape[3:])
+               for name, x in self.leaves.items()}
+        out["len"] = (torch.zeros((u, b), dtype=torch.int32, device=self.device)
+                      if lanes is None else self.lens[self._index(lanes)].t().contiguous())
+        return {"units": {"b0": out}}
 
     def scatter(self, lanes, tables, caches: Dict[str, Any]) -> None:
         """Write chunk views back through the tables and the counters by
@@ -243,10 +271,10 @@ class PagedCachePool:
         live lane."""
         tab = self._index(tables)
         b, t = tab.shape
-        u, _, bs, kh, hd = self.k.shape
         c = caches["units"]["b0"]
-        self.k[:, tab] = c["k"].reshape(u, b, t, bs, kh, hd).to(self.k.dtype)
-        self.v[:, tab] = c["v"].reshape(u, b, t, bs, kh, hd).to(self.v.dtype)
+        for name, x in self.leaves.items():
+            x[:, tab] = c[name].reshape(x.shape[0], b, t, self.block_size,
+                                        *x.shape[3:]).to(x.dtype)
         self.lens[self._index(lanes)] = c["len"].t().to(torch.int32)
 
     # ----------------------------------------------- kernel-resident decode
@@ -256,24 +284,22 @@ class PagedCachePool:
         pool's block tensors by reference plus the lanes' counters
         (U, B).  ``lanes``: host lane ids, or an int64 device tensor."""
         return {"units": {"b0": {
-            "k": self.k, "v": self.v,
-            "len": self.lens[self._index(lanes)].t().contiguous(),
-        }}}
+            **self.leaves, "len": self.lens[self._index(lanes)].t().contiguous()}}}
 
     def absorb_decode(self, lanes, caches: Dict[str, Any]) -> None:
-        """Adopt a decode step's outputs: its K/V token writes already
+        """Adopt a decode step's outputs: its token writes already
         landed in the pool in place; store the advanced counters."""
         c = caches["units"]["b0"]
-        assert c["k"] is self.k and c["v"] is self.v
+        assert all(c[name] is x for name, x in self.leaves.items())
         self.lens[self._index(lanes)] = c["len"].t().to(torch.int32)
 
     # --------------------------------------------------- prefix-cache hooks
     def copy_block(self, src: int, dst: int) -> None:
-        """Copy one physical block's K and V across every unit — the
-        device half of copy-on-write: a request about to write into a
+        """Copy one physical block of every paged leaf across every unit —
+        the device half of copy-on-write: a request about to write into a
         shared block gets a private ``dst`` holding identical bytes."""
-        self.k[:, dst] = self.k[:, src]
-        self.v[:, dst] = self.v[:, src]
+        for x in self.leaves.values():
+            x[:, dst] = x[:, src]
 
     def override_counters(self, caches: Dict[str, Any], value) -> Dict[str, Any]:
         """Pin the gathered ``len`` counters to the true logical fill

@@ -35,6 +35,8 @@ from typing import Any, Callable, Deque, Dict, Hashable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.model import init_cache
+
 
 class RequestState(str, Enum):
     QUEUED = "queued"          # admitted, waiting for a free lane
@@ -177,9 +179,10 @@ class CachePool:
     """Contiguous KV cache pool: ``num_lanes`` per-request cache slots of
     ``capacity`` tokens (the ``paged=False`` fallback).
 
-    Leaves keep the model's cache layout with the lane as its batch axis:
-    ``k``/``v`` (U, num_lanes + 1, capacity, KH, hd) and ``len`` (U,
-    num_lanes + 1).  One extra *scratch* lane (index ``num_lanes``)
+    Leaves are the model's own cache (``init_cache``) with the lane as its
+    batch axis: GQA ``k``/``v`` (U, num_lanes + 1, capacity, KH, hd) or
+    MLA ``ckv``/``k_rope`` (U, num_lanes + 1, capacity, ...), and ``len``
+    (U, num_lanes + 1).  One extra *scratch* lane (index ``num_lanes``)
     absorbs the writes of padding lanes, so scatters with duplicate pad
     indices can never corrupt a live request."""
 
@@ -187,12 +190,8 @@ class CachePool:
         self.num_lanes = int(num_lanes)
         self.capacity = int(capacity)
         self.device = torch.device(device)
-        u, kh, hd = cfg.pattern_units, cfg.num_kv_heads, cfg.head_dim
-        shape = (u, self.num_lanes + 1, self.capacity, kh, hd)
-        self.k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
-        self.lens = torch.zeros((u, self.num_lanes + 1), dtype=torch.int32,
-                                device=self.device)
+        self.leaves: Dict[str, torch.Tensor] = init_cache(
+            cfg, self.num_lanes + 1, self.capacity, device=self.device)["units"]["b0"]
 
     @property
     def scratch(self) -> int:
@@ -205,7 +204,7 @@ class CachePool:
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.k, self.v, self.lens))
+        return sum(t.numel() * t.element_size() for t in self.leaves.values())
 
     def stats(self) -> Dict[str, int]:
         """Occupancy facts.  Shares only the ``cache_tokens``/``num_lanes``
@@ -226,16 +225,14 @@ class CachePool:
     def gather(self, lanes) -> Dict[str, Any]:
         """The lanes' caches as one batch (copies)."""
         idx = self._index(lanes)
-        return {"units": {"b0": {"k": self.k[:, idx], "v": self.v[:, idx],
-                                 "len": self.lens[:, idx]}}}
+        return {"units": {"b0": {name: t[:, idx] for name, t in self.leaves.items()}}}
 
     def scatter(self, lanes, caches: Dict[str, Any]) -> None:
         """Write a batch of lane caches back by lane id."""
         idx = self._index(lanes)
         c = caches["units"]["b0"]
-        self.k[:, idx] = c["k"].to(self.k.dtype)
-        self.v[:, idx] = c["v"].to(self.v.dtype)
-        self.lens[:, idx] = c["len"].to(torch.int32)
+        for name, t in self.leaves.items():
+            t[:, idx] = c[name].to(t.dtype)
 
 
 class Scheduler:

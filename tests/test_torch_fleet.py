@@ -12,7 +12,10 @@ model-tagged actions in the same order, identical tenant stats,
 audit events, Prometheus page and Chrome trace.  The port's fleet must
 also equal isolated port gateways fed each slot's stream, and the
 ``TenantRegistry`` unit cases run through both registries with identical
-results.
+results.  A heterogeneous fleet (a qwen2.5-3b slot beside a
+deepseek-v2-lite-16b slot, MLA's compressed cache a third of a qwen
+block's bytes) under one byte budget must give the JAX fleet's tokens,
+per-slot ``block_bytes`` and cross-slot evictions.
 """
 import jax
 import numpy as np
@@ -311,6 +314,91 @@ def test_budget_must_hold_one_request_per_slot(weights):
             _fleet(pkg, weights, Clock(), slots=("float",), budget=1)
         errors[pkg] = str(e.value)
     assert errors["torch"] == errors["jax"]
+
+
+# ------------------------------------------------------ heterogeneous fleet
+MIXED = "deepseek-v2-lite-16b"
+
+
+@pytest.fixture(scope="module")
+def mixed_weights(weights):
+    """The qwen2.5-3b "float" slot's weights and a deepseek-v2-lite-16b
+    smoke model (MLA's compressed cache, MoE) from seed 1, in both
+    packages."""
+    jcfg, cfg, params = weights
+    jmla = jax_smoke_variant(jax_get_config(MIXED))
+    jparams = jax_init_params(jax.random.PRNGKey(1), jmla)
+    return {"qwen": (jcfg, cfg, *params["float"]),
+            "mla": (jmla, smoke_variant(get_config(MIXED)), jparams,
+                    params_from_jax(jax_flatten_params(jparams), device="cpu"))}
+
+
+def _mixed(pkg, mixed_weights):
+    """Both slots under one global budget of 4 qwen blocks and 12 MLA
+    blocks (a qwen block is 8,192 bytes, an MLA block 2,560): two waves
+    of new prompts, each slot asking for room the other one's retained
+    chains hold.  Returns the fleet, the requests and the evictions as
+    (slot asking, slot evicted, blocks)."""
+    clock = Clock()
+    p = PACKAGES[pkg]
+
+    def build(budget):
+        fleet = p["fleet"](clock=clock, tenants=p["registry"](clock=clock),
+                           cache_budget_bytes=budget)
+        for name, (jcfg, cfg, jparams, params) in mixed_weights.items():
+            fleet.add_model(name, jcfg if pkg == "jax" else cfg,
+                            jparams if pkg == "jax" else params,
+                            tiers={"free": p["tier"](name="free", masks=FREE)},
+                            **GEOMETRY, **p["slot_kw"])
+        return fleet
+
+    probe = build(None).gateways
+    budget = 4 * probe["qwen"].pool.block_bytes + 12 * probe["mla"].pool.block_bytes
+    fleet = build(budget)
+    evicted, asking = [], []
+    ensure = fleet._ensure_headroom
+
+    def ensure_headroom(gw, n):
+        asking.append(gw.model)
+        try:
+            return ensure(gw, n)
+        finally:
+            asking.pop()
+    fleet._ensure_headroom = ensure_headroom
+    for name, gw in fleet.gateways.items():
+        evict = gw.prefix.evict
+
+        def counted(n, evict=evict, name=name):
+            got = evict(n)
+            evicted.append((asking[-1] if asking else name, name, got))
+            return got
+        gw.prefix.evict = counted
+    reqs = []
+    for wave in range(2):
+        for i in range(6):
+            reqs.append(fleet.submit(("qwen", "mla")[i % 2], _prompt(10 * wave + i, 5 + i),
+                                     max_new_tokens=4, license=("full", "free")[i // 2 % 2]))
+            clock.now += SUBMIT_DT
+        _steps(fleet, clock, budget=budget)
+    return fleet, reqs, evicted
+
+
+def test_heterogeneous_fleet_matches_jax(mixed_weights):
+    """A qwen2.5-3b slot and a deepseek-v2-lite-16b slot under one budget:
+    each slot's ``block_bytes`` (the budget's exchange rate: K and V of 2
+    units against MLA's latent and rotary key) equals the JAX pool's, and
+    the tokens, the cross-slot evictions (both ways) and the prefix
+    counters equal the JAX fleet's."""
+    got = {pkg: _mixed(pkg, mixed_weights) for pkg in PACKAGES}
+    (jf, jreqs, jev), (tf, treqs, tev) = got["jax"], got["torch"]
+    assert all(r.state == RequestState.DONE for r in treqs)
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    for name, gw in tf.gateways.items():
+        assert gw.pool.block_bytes == jf.gateways[name].pool.block_bytes
+        assert gw.metrics()["prefix_cache"] == jf.gateways[name].metrics()["prefix_cache"]
+    assert tf.gateways["qwen"].pool.block_bytes != tf.gateways["mla"].pool.block_bytes
+    assert tev == jev
+    assert {(a, o) for a, o, n in tev if a != o and n} == {("qwen", "mla"), ("mla", "qwen")}
 
 
 # ------------------------------------------------------- tenant enforcement

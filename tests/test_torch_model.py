@@ -1,4 +1,5 @@
-"""The port's dense GQA model against ``repro.models.model.forward``.
+"""The port's model (the dense GQA decoders and the DeepSeek MoE / MLA
+ones) against ``repro.models.model.forward``.
 
 Weights are the JAX package's ``init_params(PRNGKey(0), smoke qwen2.5-3b)``
 carried across with ``params_from_jax``; inputs come from numpy seeds.
@@ -344,3 +345,175 @@ def _at(tree, name):
     for k in name.split("/"):
         tree = tree[k]
     return tree
+
+
+# --------------------------------------------------------- DeepSeek MoE/MLA
+# deepseek-moe-16b (MHA attention, MoE) and deepseek-v2-lite-16b (MLA,
+# MoE) at their smoke variants: 4 experts, top-2, one shared expert
+DEEPSEEK = ("deepseek-moe-16b", "deepseek-v2-lite-16b")
+
+
+@pytest.fixture(scope="module", params=DEEPSEEK)
+def deepseek(request):
+    jcfg = jax_smoke_variant(jax_get_config(request.param))
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = smoke_variant(get_config(request.param))
+    return jcfg, jparams, cfg, model.params_from_jax(jax_flatten_params(jparams), device="cpu")
+
+
+def test_deepseek_config_fields_match_jax(deepseek):
+    """Every field of the full config and its smoke variant, ``source``
+    included; ``check_supported`` takes both, and still refuses the
+    architectures that are not ported."""
+    import dataclasses
+
+    jcfg, _, cfg, _ = deepseek
+    name = cfg.name[: -len("-smoke")]
+    for got, want in ((get_config(name), jax_get_config(name)), (cfg, jcfg)):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        model.check_supported(got)
+    for other in ("mamba2-130m", "recurrentgemma-2b", "musicgen-large", "internvl2-26b"):
+        with pytest.raises(NotImplementedError, match="the other architectures"):
+            model.check_supported(_port_config(other))
+    with pytest.raises(NotImplementedError, match="the other architectures"):
+        model.check_supported(get_config(name).replace(kv_cache_int8=True))
+
+
+def _port_config(name):
+    """The JAX package's config ``name`` as the port's dataclass (the port
+    registers only what it runs)."""
+    import dataclasses
+
+    from repro_torch.configs import ModelConfig
+
+    return ModelConfig(**dataclasses.asdict(jax_get_config(name)))
+
+
+def test_deepseek_one_shot_prefill(deepseek):
+    jcfg, jparams, cfg, params = deepseek
+    toks = _tokens(20, (2, 9))
+    want, jaux, _ = jax_model.forward(jparams, jcfg, jnp.asarray(toks))
+    got, aux, _ = model.forward_aux(params, cfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+
+
+def test_deepseek_prefill_then_decode(deepseek):
+    jcfg, jparams, cfg, params = deepseek
+    toks, nxt, cap = _tokens(21, (2, 6)), _tokens(22, (2, 1)), 10
+    jcache = jax_model.init_cache(jcfg, 2, cap)
+    _, _, jcache = jax_model.forward(jparams, jcfg, jnp.asarray(toks), cache=jcache)
+    want, _, jcache = jax_model.forward(jparams, jcfg, jnp.asarray(nxt), cache=jcache, pos=6)
+    cache = model.init_cache(cfg, 2, cap, device="cpu")
+    model.forward(params, cfg, torch.from_numpy(toks), cache=cache)
+    got, cache = model.forward(params, cfg, torch.from_numpy(nxt), cache=cache, pos=6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    got_c, want_c = cache["units"]["b0"], jcache["units"]["b0"]
+    assert set(got_c) == set(want_c)
+    for key in got_c:
+        np.testing.assert_allclose(got_c[key].numpy(), np.asarray(want_c[key]),
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_deepseek_paged_decode(deepseek, route):
+    """A decode step against a random pool of the config's paged leaves,
+    3 live lanes and a pad lane: the plain route against JAX
+    ``serve_step_paged(kernel="off")``, the kernel route against
+    ``kernel="interpret"`` (the Pallas kernels for deepseek-moe-16b's
+    attention, whose wrappers take the plain versions on the CPU; MLA has
+    no kernel route in either package)."""
+    jcfg, jparams, cfg, params = deepseek
+    r = np.random.default_rng(23)
+    u, bs, p = cfg.pattern_units, 4, 12
+    pos = np.asarray([5, 13, 2, 0], np.int32)
+    tables = np.full((4, 4), p, np.int32)
+    perm = r.permutation(p)
+    tables[0, :2], tables[1, :4], tables[2, :1] = perm[:2], perm[2:6], perm[6:7]
+    toks = r.integers(0, 500, (4, 1)).astype(np.int32)
+    lane = model.init_cache(cfg, 1, bs, device="meta")["units"]["b0"]
+    leaves = {k: r.standard_normal((u, p + 1, bs, *t.shape[3:])).astype(np.float32)
+              for k, t in lane.items() if k != "len"}
+    jcache = {"units": {"b0": {**{k: jnp.asarray(v)[:, None] for k, v in leaves.items()},
+                               "len": jnp.zeros((u, 4), jnp.int32)}}}
+    want, jcache = jax_serve_step_paged(
+        jparams, jcfg, jnp.asarray(toks), jcache, jnp.asarray(tables), jnp.asarray(pos),
+        kernel="off" if route == "plain" else "interpret")
+    cache = {"units": {"b0": {**{k: torch.from_numpy(v.copy()) for k, v in leaves.items()},
+                              "len": torch.zeros((u, 4), dtype=torch.int32)}}}
+    got, cache = serve_step_paged(params, cfg, torch.from_numpy(toks), cache,
+                                  torch.from_numpy(tables), torch.from_numpy(pos),
+                                  kernel=route == "kernel")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for key in leaves:           # the written tokens (null block excluded)
+        np.testing.assert_allclose(cache["units"]["b0"][key][:, :p].numpy(),
+                                   np.asarray(jcache["units"]["b0"][key])[:, 0, :p],
+                                   atol=1e-5, rtol=1e-5)
+    assert cache["units"]["b0"]["len"].tolist() == [[1] * 4] * u
+
+
+@pytest.mark.parametrize("tier", sorted(IN_SCAN_TIERS))
+def test_deepseek_in_scan_int8_forward(deepseek, tier):
+    """The in-scan int8 forward in two tiers against JAX on its own store:
+    10 int8 leaves a unit (4 attention, 3 expert stacks quantized per
+    (unit, expert, output channel), 3 shared), the router and
+    ``ckv_norm`` left float, and bit for bit the port's forward on the
+    tier's materialized view, whose expert stacks dequantize as one
+    (U·E, d, ff) leaf."""
+    from repro.core.licensing import LicenseTier as JaxLicenseTier
+    from repro.serving.quantized import quantize_serving_params as jax_quantize
+    from repro.serving.quantized import tier_intervals as jax_tier_intervals
+
+    from repro_torch.core.licensing import LicenseTier
+    from repro_torch.serving import quantized
+
+    jcfg, jparams, cfg, params = deepseek
+    masks = IN_SCAN_TIERS[tier]
+    toks = _tokens(24, (2, 9))
+    want, _, _ = jax_model.forward(
+        jax_quantize(jparams), jcfg, jnp.asarray(toks),
+        license_intervals=jax_tier_intervals(JaxLicenseTier(name=tier, masks=masks)))
+    store = quantized.quantize_serving_params(params)
+    units = store["units"]["b0"]
+    assert len(list(quantized.qleaves(units))) == 10
+    assert units["ffn"]["router"].dtype == torch.float32
+    assert tuple(units["ffn"]["experts"]["w_up"]["scale"].shape) == (
+        cfg.pattern_units, cfg.num_experts, 1, cfg.moe_d_ff)
+    lt = LicenseTier(name=tier, masks=masks)
+    got, _ = model.forward(store, cfg, torch.from_numpy(toks),
+                           license_intervals=quantized.tier_intervals(lt))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    view = quantized.materialize_licensed_view(store, lt, cfg.dtype)
+    mat, _ = model.forward(view, cfg, torch.from_numpy(toks))
+    assert torch.equal(got, mat)
+
+
+def test_deepseek_lm_loss_includes_the_moe_aux(deepseek):
+    """``lm_loss`` is the JAX package's: cross-entropy plus
+    ``moe_aux_weight`` times the aux loss summed over units, and so are
+    its gradients through the router, the dispatch and the experts (the
+    training path's tolerance, rtol 1e-4 and atol 1e-6)."""
+    from repro.core.pytree_io import flatten_params as jax_flatten
+
+    from repro_torch.core.pytree_io import flatten_params
+    from repro_torch.training.train_lib import _value_and_grad
+
+    jcfg, jparams, cfg, params = deepseek
+    toks = _tokens(25, (2, 8))
+    labels = np.concatenate([toks[:, 1:], np.full((2, 1), -100, np.int32)], axis=1)
+
+    def jax_loss(p):
+        return jax_model.lm_loss(p, jcfg, jnp.asarray(toks), jnp.asarray(labels))
+
+    (jl, jparts), jgrads = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(jparams)
+    (got, parts), grads = _value_and_grad(
+        lambda p: model.lm_loss(p, cfg, torch.from_numpy(toks), torch.from_numpy(labels)),
+        params)
+    np.testing.assert_allclose(float(got), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(float(parts["aux_loss"]), float(jparts["aux_loss"]), rtol=1e-5)
+    assert float(parts["aux_loss"]) > 0
+    want, grads = jax_flatten(jgrads), flatten_params(grads)
+    assert list(grads) == list(want)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[name]), rtol=1e-4, atol=1e-6,
+                                   err_msg=name)

@@ -49,6 +49,9 @@ PLANS = {
     "one_lane": ((256, 16, 1, 2), (128, 2)),
     "pages_past_max_keys": ((8, 1024, 2, 2), (8, 1)),
     "tiny_pages": ((64, 4, 8, 2), (8, 8)),
+    # deepseek-moe-16b's decode: MHA, 16 kv heads a lane (GQA group 1)
+    "mha_serving": ((6, 16, 8, 16), (3, 2)),
+    "mha_long": ((256, 16, 8, 16), (8, 32)),
 }
 
 
@@ -203,6 +206,10 @@ EMULATION_CASES = {
                           dead_entries=True),
     "heads_48_over_8": dict(b=3, h=48, kh=8, hd=32, bs=4, t=6, lens=[5, 22, 1],
                             dead_entries=False),
+    # GQA group 1: deepseek-moe-16b's MHA decode, 16 q heads on 16 kv heads
+    # at hd 128
+    "mha_group_1": dict(b=3, h=16, kh=16, hd=128, bs=16, t=4, lens=[9, 40, 64],
+                        dead_entries=True),
 }
 
 
@@ -259,6 +266,7 @@ CARD_CASES = {
     "lane_4096": (2, 16, 2, 16, 256, [4096, 1]),
     "groups_32": (2, 64, 2, 16, 20, [300, 77]),
     "groups_48": (8, 48, 1, 16, 24, [9, 23, 40, 57, 64, 75, 88, 380]),
+    "mha_group_1": (8, 16, 16, 16, 6, [9, 23, 40, 57, 64, 75, 88, 96]),
 }
 
 
