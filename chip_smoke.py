@@ -227,7 +227,32 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``paged_attention`` at deepseek-moe-16b's decode shape (16/16 heads,
    a GQA group of 1; contexts 9-96 and 8 x 4096) back to back, in a graph
    and L2-cold;
-11. a ``kernels`` JSON line, and the result line last.
+11. the recurrent family at full width and depth, as phase 9 runs its
+   models (random bf16 weights, phase 9's requests and tiers, each run's
+   counters zeroed just before its stream and read just after, a steady
+   decode step and peak memory printed): (a) recurrentgemma-2b (8 units
+   of (rec, rec, attn) + 2 tail RG-LRU layers, MQA under a 2,048-token
+   window) on float views with ``kernel_decode=True`` asked for: the
+   gateway must choose the paged pool, the bucket prefill (chunk_size 0),
+   no prefix cache and the gather/scatter decode, and launch no paged
+   kernel; (b) the same from an int8 store built unit by unit, in-scan
+   (200 ``masked_dequant`` launches a step: 23 leaves a unit, 8 a tail
+   block) and on materialized int8 views, and ``masked_dequant`` on the
+   store's rank-2 tail leaf ``tail/t0/mixer/w_r`` bit for bit against the
+   plain version, timed (its row joins the ``kernels`` line's cases);
+   (c) recurrentgemma-2b past its window: two prompts of 2,500 and 3,000
+   tokens in a 3,072-token bucket, 16 new tokens each, on the contiguous
+   pool (nothing to page at that capacity) whose rings wrap; (d)
+   mamba2-130m (24 Mamba-2 layers) on the contiguous pool, float, in f32
+   and in-scan (48 launches a step); in (a), (c) and (d) the first 4
+   greedy tokens of every request are held against a cacheless
+   ``forward`` over the sequence so far (the bucket's left padding
+   included), parting only at near-ties by phase 4's rule, and in f32
+   every row within 1e-3 x max(|logit|, 1) of it; (e) a fleet of qwen2.5-3b,
+   mamba2-130m and recurrentgemma-2b: every request served, qwen's
+   ``paged_attention`` launched, the recurrent slots' tokens equal their
+   isolated runs' up to near-ties;
+12. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
 device is present or when run outside a checkout of the repository.
@@ -1273,7 +1298,9 @@ def mid_decode(gw, cfg, np, torch):
 
     def step(kernel):
         cache = gw.pool.decode_cache(lanes)
-        cache["units"]["b0"].update({k: t.clone() for k, t in gw.pool.leaves.items()})
+        for path, t in gw.pool.leaves.items():
+            unit, block, name = path.split("/")
+            cache[unit][block][name] = t.clone()
         logits, _ = serve_step_paged(
             view, cfg, torch.from_numpy(toks).to(dev), cache,
             torch.from_numpy(tables).to(dev), torch.from_numpy(poss).to(dev),
@@ -3390,12 +3417,12 @@ def steady_decode_ms(label, gw, jobs, steps=DENSE_STEADY_STEPS):
 
 def random_unit(cfg, u, torch, device="cuda"):
     """Unit ``u``'s block leaves, stacked on a unit axis of one, with
-    ``init_params``' distributions, from the seed (SEED, u): a one-layer
+    ``init_params``' distributions, from the seed (SEED, u): a one-unit
     model of the config's widths (its vocabulary cut to 256, the
     embedding and head unused)."""
     from repro_torch.models import init_params
 
-    one = init_params(cfg.replace(num_layers=1, vocab_size=256),
+    one = init_params(cfg.replace(num_layers=len(cfg.layer_pattern), vocab_size=256),
                       seed=SEED * 100_003 + 1 + u, device=device)
     return one["units"]
 
@@ -3405,8 +3432,11 @@ def store_by_unit(cfg, torch, device="cuda"):
     unit at a time: each unit's bf16 leaves (``random_unit``) through
     ``quantize_serving_params``, copied into preallocated stacked codes
     and scales, so the whole model's bf16 never exists at once (94.5 GB
-    for granite-34b).  The scale reduces over the contraction dim only,
-    so this is the store of the stacked tree."""
+    for granite-34b); then the tail blocks (recurrentgemma-2b's two,
+    rank-2 leaves), drawn as a model of the tail's layers alone.  The
+    scale reduces over the contraction dim only, so this is the store of
+    the stacked tree."""
+    from repro_torch.models import init_params
     from repro_torch.serving.quantized import quantize_serving_params
 
     units, stack = cfg.pattern_units, None
@@ -3416,7 +3446,12 @@ def store_by_unit(cfg, torch, device="cuda"):
             stack = tree_map(lambda t: t.new_empty((units, *t.shape[1:])), one)
         for dst, src in zip(_leaves(stack), _leaves(one)):
             dst[u].copy_(src[0])
-    return {**dense_outer(cfg, torch, device), "units": stack}
+    store = {**dense_outer(cfg, torch, device), "units": stack}
+    if cfg.tail_pattern:
+        tail = init_params(cfg.replace(num_layers=len(cfg.tail_pattern), vocab_size=256),
+                           seed=SEED * 100_003 + 1 + units, device=device)["tail"]
+        store["tail"] = quantize_serving_params({"tail": tail})["tail"]
+    return store
 
 
 def dense_outer(cfg, torch, device="cuda"):
@@ -3428,30 +3463,38 @@ def dense_outer(cfg, torch, device="cuda"):
     return {k: v for k, v in full.items() if k != "units"}
 
 
-def dense_run(label, cfg, params, tiers, np, torch, device="cuda", **kw):
-    """One gateway (``kw`` its arguments beside GEOMETRY) serving the first
-    DENSE_REQUESTS of phase 3's stream: both tiers' views built first (as
+def dense_run(label, cfg, params, tiers, np, torch, device="cuda", route=None, check=None,
+              geometry=GEOMETRY, jobs=None, **kw):
+    """One gateway (``kw`` its arguments beside ``geometry``) serving
+    ``jobs`` ((prompt, tier, new tokens); by default the first
+    DENSE_REQUESTS of phase 3's stream): both tiers' views built first (as
     phase 3 does), then the launch counters zeroed, the stream drained and
     the counters read.  Checks each kernel the route runs: on the kernel
     route ``paged_attention`` and ``paged_decode_write`` launch once a unit
     for each decode capture's warm-up (replays pass no wrapper); on an
     in-scan store ``masked_dequant`` launches once per int8 leaf of every
-    unit of each eager step or warm-up.  Returns the requests, their
-    logits rows and a summary; the gateway is dropped."""
+    unit and tail block of each eager step or warm-up.  ``route`` maps
+    gateway attributes to the values the gateway must have chosen;
+    ``check(gw, reqs, rows)`` runs after the drain.  Returns the
+    requests, their logits rows and a summary; the gateway is dropped."""
     from repro_torch.kernels import ops
     from repro_torch.serving import LicensedGateway
     from repro_torch.serving.quantized import qleaves
 
+    jobs = dense_jobs(cfg, np) if jobs is None else jobs
     torch.cuda.reset_peak_memory_stats()
-    gw = LicensedGateway(cfg, params, tiers=tiers, device=device, **kw, **GEOMETRY)
+    gw = LicensedGateway(cfg, params, tiers=tiers, device=device, **kw, **geometry)
     # the views stay the gateway's alone (this frame binds none), so they
     # go with it: two float views of nemotron-4-15b do not fit beside a
     # third
     views = {tier: view_build(torch, ops, lambda: gw.view_for(tier))[1]
              for tier in ("full", "free")}
+    got_route = {k: getattr(gw, k) for k in (route or {})}
+    if got_route != (route or {}):
+        fail(f"{label}: the gateway chose {got_route}, not {route}")
     rows = record_rows(gw)
     ops.reset_launches()
-    reqs = [gw.submit(p, license=t, max_new_tokens=n) for p, t, n in dense_jobs(cfg, np)]
+    reqs = [gw.submit(p, license=t, max_new_tokens=n) for p, t, n in jobs]
     t0 = time.perf_counter()
     gw.run()
     sync()
@@ -3466,7 +3509,10 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", **kw):
     m = gw.metrics()
     g, pg = gw._graphs, gw._prefill_graphs
     units = cfg.pattern_units
-    steps = m["decode_steps"] + m["prefill_chunks"]
+    # the forward steps: decode steps and prefill chunks, or the bucket
+    # prefills where there are no chunks (``prefill_batches`` counts the
+    # chunked path's admissions, which run no forward)
+    steps = m["decode_steps"] + (m["prefill_chunks"] if gw.chunked else m["prefill_batches"])
     out = dict(serve_s=dt, tokens=m["tokens_generated"], tokens_per_s=m["tokens_generated"] / dt,
                ms_per_step=1e3 * dt / steps, decode_steps=m["decode_steps"],
                prefill_chunks=m["prefill_chunks"],
@@ -3478,7 +3524,7 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", **kw):
                prefill_replays=None if pg is None else pg.replays,
                graph_pool_gb=None if g is None else g.backend.pool_bytes() / 1e9,
                launches=launches)
-    out["block_bytes"] = gw.pool.block_bytes
+    out["block_bytes"] = gw.pool.block_bytes if gw.paged else None
     if gw.decode_kernels:
         # MLA's paged decode has no kernel route: its graphs run no paged kernel
         want = 0 if cfg.use_mla else units * g.captures
@@ -3489,14 +3535,20 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", **kw):
     elif launches["paged_attention"] or launches["paged_decode_write"]:
         fail(f"{label}: the plain route launched {launches}")
     if gw.quantized and not gw.materialize_int8_views:
-        leaves = sum(1 for _ in qleaves(gw._weights[gw.version]["units"])) * units
+        store = gw._weights[gw.version]
+        leaves = (sum(1 for _ in qleaves(store["units"])) * units
+                  + sum(1 for _ in qleaves(store.get("tail", {}))))
         eager = (steps if g is None
                  else g.captures + (pg.captures if pg is not None else m["prefill_chunks"]))
         out["masked_dequant_per_step"] = launches["masked_dequant"] / eager
         if launches["masked_dequant"] != leaves * eager:
             fail(f"{label}: {launches['masked_dequant']} masked_dequant launches over "
                  f"{eager} eager steps and warm-ups, not {leaves} each")
-    out.update(steady_decode_ms(label, gw, dense_jobs(cfg, np)))
+    if route:
+        out["route"] = got_route
+    if check is not None:
+        out["check"] = check(gw, reqs, rows)
+    out.update(steady_decode_ms(label, gw, jobs))
     how = ("eager" if g is None else
            f"graphs: {g.captures} decode captures, {g.replays} replays, "
            f"{pg.captures if pg else 0} prefill captures, {pg.replays if pg else 0} replays, "
@@ -3510,8 +3562,9 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", **kw):
     log(f"  {label}: {len(reqs)} requests, {out['tokens']} tokens in {dt:.2f} s "
         f"({out['tokens_per_s']:.1f} tokens/s, {out['ms_per_step']:.1f} ms per step over "
         f"{steps} with the captures); {steady}; {how}; launches {launches}{per}; peak "
-        f"{out['peak_gb']:.1f} GB; views {out['views_s']:.2f} s; KV pool "
-        f"{out['block_bytes']} bytes a block of {gw.pool.block_size} tokens")
+        f"{out['peak_gb']:.1f} GB; views {out['views_s']:.2f} s; "
+        + (f"KV pool {out['block_bytes']} bytes a block of {gw.pool.block_size} tokens"
+           if gw.paged else f"contiguous pool {gw.pool.nbytes / 1e9:.3f} GB"))
     del gw
     gc.collect()
     torch.cuda.empty_cache()
@@ -3852,6 +3905,312 @@ def fallback_phase(cfg, params, tiers, np, torch, ref_reqs, ref_rows, device="cu
     return out, launches
 
 
+# ------------------------------------------------------------ phase 11
+# the recurrent family through the licensed gateway at full width and
+# depth: recurrentgemma-2b (8 units of (rec, rec, attn) + 2 tail rec
+# layers, d_model 2560, MQA 10/1 heads of 256 under a 2,048-token window,
+# SwiGLU d_ff 7680, vocab 256000) and mamba2-130m (24 Mamba-2 layers,
+# d_model 768, 24 SSD heads of 64, state 128), random bf16 weights from
+# SEED, phase 9's requests and tiers.  In-scan, recurrentgemma dequantizes
+# 23 int8 leaves a unit and 8 a tail block a step, mamba2 2 a unit
+RECURRENT_DEQUANTS = {"recurrentgemma-2b": 8 * 23 + 2 * 8, "mamba2-130m": 24 * 2}
+# (c): past the window, on the contiguous pool (a 3,088-token capacity
+# caps every attention cache at the window: nothing to page)
+WINDOW_GEOMETRY = dict(max_batch=2, max_prompt=3072, max_new_cap=16)
+WINDOW_PROMPTS = (2500, 3000)
+# decode steps held against a cacheless forward over the sequence so far
+FORWARD_CHECK_STEPS = 4
+# (d): mamba2-130m served in f32 as well, every checked row (agreeing
+# tokens included) within this share of max(|logit|, 1) of the cacheless
+# f32 forward: the witness that the bf16 runs' distance from theirs is
+# rounding, not the cached path
+F32_WITNESS_CAP = 1e-3
+RECURRENT_ROUTES = {
+    "recurrentgemma-2b": dict(paged=True, chunk_size=0, prefix=None, kernel_decode=False,
+                              decode_kernels=False),
+    "mamba2-130m": dict(paged=False, chunk_size=0, prefix=None, kernel_decode=False,
+                        decode_kernels=False),
+}
+TRIO = ("qwen2.5-3b", "mamba2-130m", "recurrentgemma-2b")
+
+
+def forward_check(label, gw, cfg, reqs, rows, np, torch, steps=FORWARD_CHECK_STEPS,
+                  cap=None):
+    """The first ``steps`` greedy tokens of each request against a
+    cacheless ``forward`` over its sequence so far: its prompt as the
+    bucket prefill saw it (right-aligned into ``max_prompt`` with
+    first-token padding: the padding enters the recurrent state, so the
+    reference must see it too) followed by the tokens the gateway emitted,
+    through the request's own view.  One forward a request gives every
+    step's reference row (causal).  A token may differ from the
+    reference's argmax only at a near-tie by phase 4's rule: the
+    reference's gap between the two below the lane's max |logit diff|
+    against the gateway's own row, that diff within 0.05 x max(|logit|,
+    1) of the reference row.  With ``cap`` every row, agreeing tokens'
+    included, must lie within ``cap`` x max(|logit|, 1) of the reference
+    row.  Returns the largest diff, the largest diff over max(|logit|,
+    1) and the partings."""
+    from repro_torch.models.model import forward
+    from repro_torch.serving.engine import right_align
+
+    worst, rel, parts = 0.0, 0.0, []
+    for r in reqs:
+        params, li = gw.view_for(r.license, r.version)
+        row = right_align([r.prompt], gw.max_prompt, 1)[0]
+        seq = np.concatenate([row, np.asarray(r.out_tokens[: steps - 1], np.int32)])
+        with torch.no_grad():
+            logits, _ = forward(params, cfg, torch.from_numpy(seq[None]).to(gw.device),
+                                license_intervals=li)
+        want = logits[0, gw.max_prompt - 1: gw.max_prompt - 1 + steps, : cfg.vocab_size]
+        for t in range(steps):
+            ref, got = want[t].float(), rows[(r.rid, t)][: cfg.vocab_size].float()
+            diff = (ref - got).abs().max().item()
+            scale = max(ref.abs().max().item(), 1.0)
+            worst, rel = max(worst, diff), max(rel, diff / scale)
+            if cap is not None and diff > cap * scale:
+                fail(f"{label}: request {r.rid} step {t} lies {diff:.3e} from the cacheless "
+                     f"forward, past {cap} x max(|logit|, 1) = {cap * scale:.3e}")
+            tok, ref_tok = r.out_tokens[t], int(ref.argmax())
+            if tok != ref_tok:
+                gap = (ref[ref_tok] - ref[tok]).item()
+                tol = 0.05 * scale
+                parts.append(dict(request=r.rid, step=t, token=tok, reference_token=ref_tok,
+                                  reference_gap=gap, lane_max_abs_diff=diff, tol=tol))
+                if not gap < diff <= tol:
+                    fail(f"{label}: request {r.rid} step {t} emits {tok}, the cacheless "
+                         f"forward {ref_tok} with a gap of {gap:.4f} against a max |logit "
+                         f"diff| of {diff:.4f} (tol {tol:.4f}): not a near-tie")
+        del logits, want
+    log(f"  {label}: the first {steps} tokens of {len(reqs)} requests against a cacheless "
+        f"forward over the sequence so far: max |logit diff| {worst:.4f}, "
+        f"{rel:.3e} of max(|logit|, 1)" + ("" if cap is None else f" (cap {cap})")
+        + f", {len(parts)} near-tie partings")
+    return dict(max_abs_diff=worst, max_rel_diff=rel, cap=cap, parts=parts, steps=steps,
+                requests=len(reqs))
+
+
+def window_run(label, cfg, params, tiers, np, torch, device="cuda"):
+    """Phase 11c: ``dense_run`` of recurrentgemma-2b past its window on
+    the contiguous pool (``NoPagedLeavesError`` at this capacity): two
+    prompts of WINDOW_PROMPTS tokens in one bucket prefill (more than the
+    ring's slots: each ring keeps the last 2,048 positions) and 16 new
+    tokens each, so every decode read wraps the ring; the ring must hold
+    the window's slots, and ``forward_check`` holds the first steps."""
+    rng = np.random.default_rng(SEED + 11)
+    jobs = [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), t,
+             WINDOW_GEOMETRY["max_new_cap"]) for n, t in zip(WINDOW_PROMPTS, ("full", "free"))]
+
+    def check(gw, reqs, rows):
+        ring = gw.pool.leaves["units/b2/k"].shape[2]
+        if ring != cfg.window:
+            fail(f"{label}: a ring of {ring} slots, not the window's {cfg.window}")
+        return dict(ring_slots=ring, **forward_check(label, gw, cfg, reqs, rows, np, torch))
+
+    _, _, out = dense_run(label, cfg, params, tiers, np, torch, device,
+                          route=RECURRENT_ROUTES["mamba2-130m"], check=check,
+                          geometry=WINDOW_GEOMETRY, jobs=jobs)
+    return out
+
+
+def rank2_dequant_case(peaks, store, torch, ops):
+    """``masked_dequant`` on a rank-2 tail leaf of the int8 store
+    (``tail/t0/mixer/w_r``, 2560 x 2560, scale (1, 2560)) in the free
+    tier's intervals, bf16 out: bit-exact against the plain version, its
+    time back to back and in a CUDA graph, the plain version's and the
+    bound."""
+    from repro_torch.kernels import masked_dequant as kernels_md
+    from repro_torch.kernels import ref
+
+    leaf = store["tail"]["t0"]["mixer"]["w_r"]
+    codes, scale = leaf["codes"], leaf["scale"]
+    lo, hi = ops.pack_intervals(MD_INTERVALS, codes.device)
+    live = sum(1 for a, b in MD_INTERVALS if a < b)
+
+    def call():
+        return kernels_md.masked_dequant(codes, scale, lo, hi, out_dtype=torch.bfloat16)
+
+    n0 = ops.LAUNCHES["masked_dequant"]
+    got, want = call(), ref.masked_dequant(codes, scale, lo, hi, torch.bfloat16)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not md_exact(got, want) or ops.LAUNCHES["masked_dequant"] != n0 + 1:
+        fail(f"masked_dequant on the rank-2 leaf {tuple(codes.shape)} disagrees with its "
+             f"plain version (max_abs_err {err:.3e}) or did not launch once")
+    bnd, by = md_bound(peaks, codes.numel(), codes.shape[-1], live)
+    case = dict(shape=f"{tuple(codes.shape)} int8, scale {tuple(scale.shape)}, bf16 out",
+                max_abs_err=err, masked=float((got == 0).float().mean()),
+                ms=time_ms(call), ms_graph=time_graph_ms(call),
+                plain_ms=time_ms(lambda: ref.masked_dequant(codes, scale, lo, hi,
+                                                            torch.bfloat16), iters=10),
+                bound_ms=bnd, bound_by=by)
+    log(f"  masked_dequant tail/t0/mixer/w_r [{case['shape']}]: bit-exact, masked "
+        f"{case['masked']:.3f}, {case['ms']:.4f} ms back to back, {case['ms_graph']:.4f} ms in "
+        f"a CUDA graph, plain {case['plain_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']})")
+    return case
+
+
+def recurrent_phase(peaks, np, torch, device="cuda", config=None):
+    """Phase 11 (see the module docstring): (a) recurrentgemma-2b on
+    float views, ``kernel_decode=True`` asked for and turned off; (b)
+    recurrentgemma-2b in-scan from an int8 store built unit by unit, then
+    on materialized int8 views of the same store, and ``masked_dequant``
+    on a rank-2 tail leaf; (c) recurrentgemma-2b past its window; (d)
+    mamba2-130m on the contiguous pool, float, f32 and in-scan; (e) the trio
+    fleet.  Returns each run's summary, the rank-2 case and the launches
+    of all the runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.licensing import LicenseTier
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import FleetGateway
+
+    tiers = {"free": LicenseTier(name="free", masks=FREE_TIER)}
+    config = config or get_config
+    out, launches = {}, {}
+
+    def add(run):
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    def params_of(cfg):
+        params = init_params(cfg, seed=SEED, device=device)
+        n = sum(t.numel() for t in _leaves(params))
+        log(f"  {n / 1e9:.3f} B parameters, {2 * n / 1e9:.2f} GB of bf16 (the SSM and RG-LRU "
+            f"dynamics f32)")
+        return params
+
+    def check(label, cfg, cap=None):
+        return lambda gw, reqs, rows: forward_check(label, gw, cfg, reqs, rows, np, torch,
+                                                    cap=cap)
+
+    def in_scan(label, cfg, route, store):
+        # dense_run holds the launches to the store's int8 leaves; at full
+        # size they must also be the count predicted above
+        _, _, run = dense_run(f"{label} in-scan int8", cfg, store, tiers, np, torch, device,
+                              route=route, already_quantized=True)
+        want = RECURRENT_DEQUANTS.get(cfg.name)
+        if want is not None and run["masked_dequant_per_step"] != want:
+            fail(f"{label}: {run['masked_dequant_per_step']} masked_dequant launches a step "
+                 f"in-scan, not {want}")
+        add(run)
+        return run
+
+    t11 = time.perf_counter()
+    if device == "cuda":
+        log(f"phase 11: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before it")
+    cfg = config("recurrentgemma-2b")
+    rg = RECURRENT_ROUTES["recurrentgemma-2b"]
+    log(f"phase 11a: recurrentgemma-2b at full width, {cfg.num_layers} layers ({cfg.pattern_units} "
+        f"units of {cfg.layer_pattern} + tail {cfg.tail_pattern}; d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, window {cfg.window}, "
+        f"lru_width {cfg.lru_width}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}), float views, "
+        f"kernel_decode=True asked for")
+    params = params_of(cfg)
+    rg_reqs, rg_rows, a = dense_run("11a recurrentgemma-2b float views", cfg, params, tiers,
+                                    np, torch, device, route=rg, kernel_decode=True,
+                                    check=check("11a recurrentgemma-2b float views", cfg))
+    add(a)
+    log("phase 11c: recurrentgemma-2b past its window (contiguous pool, the ring wraps)")
+    c = window_run("11c recurrentgemma-2b past the window", cfg, params, tiers, np, torch,
+                   device)
+    add(c)
+    fleet_params = {"recurrentgemma-2b": params}
+    del params
+    log("phase 11b: recurrentgemma-2b in-scan from an int8 store built unit by unit, then on "
+        "materialized int8 views of it")
+    t0 = time.perf_counter()
+    store = store_by_unit(cfg, torch, device)
+    sync()
+    b = dict(store_s=time.perf_counter() - t0,
+             store_gb=sum(t.numel() * t.element_size() for t in _leaves(store)) / 1e9)
+    log(f"  11b: int8 store built in {b['store_s']:.2f} s, {b['store_gb']:.2f} GB")
+    b["rank2"] = rank2_dequant_case(peaks, store, torch, ops) if device == "cuda" else None
+    b["in_scan"] = in_scan("11b recurrentgemma-2b", cfg, rg, store)
+    _, _, b["int8_views"] = dense_run("11b recurrentgemma-2b materialized int8 views", cfg,
+                                      store, tiers, np, torch, device, route=rg,
+                                      already_quantized=True, materialize_int8_views=True)
+    add(b["int8_views"])
+    del store
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["recurrentgemma-2b"] = dict(float=a, int8=b, window=c)
+
+    cfg = config("mamba2-130m")
+    log(f"phase 11d: mamba2-130m at full width, {cfg.num_layers} layers (d_model "
+        f"{cfg.d_model}, {cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} SSD heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv {cfg.ssm_conv}, vocab "
+        f"{cfg.padded_vocab}), contiguous pool, float and in-scan")
+    params = params_of(cfg)
+    mb = RECURRENT_ROUTES["mamba2-130m"]
+    mb_reqs, mb_rows, d = dense_run("11d mamba2-130m float views", cfg, params, tiers, np,
+                                    torch, device, route=mb,
+                                    check=check("11d mamba2-130m float views", cfg))
+    add(d)
+    fleet_params["mamba2-130m"] = params
+    del params
+    cfg32 = cfg.replace(dtype_name="float32")
+    _, _, d32 = dense_run("11d mamba2-130m f32 witness", cfg32,
+                          init_params(cfg32, seed=SEED, device=device), tiers, np, torch,
+                          device, route=mb,
+                          check=check("11d mamba2-130m f32 witness", cfg32, F32_WITNESS_CAP))
+    add(d32)
+    out["mamba2-130m"] = dict(float=d, f32=d32,
+                              in_scan=in_scan("11d mamba2-130m", cfg, mb,
+                                              store_by_unit(cfg, torch, device)))
+
+    log(f"phase 11e: FleetGateway of {', '.join(TRIO)} at full width, float views")
+    qcfg = config(ARCH)
+    fleet_params[ARCH] = init_params(qcfg, seed=SEED, device=device)
+    fleet = FleetGateway()
+    fleet_rows = {}
+    for name in TRIO:
+        gw = fleet.add_model(name, config(name), fleet_params[name], tiers=tiers,
+                             device=device, **GEOMETRY)
+        for tier in ("full", "free"):
+            gw.view_for(tier)
+        fleet_rows[name] = record_rows(gw)
+    del fleet_params
+    ops.reset_launches()
+    reqs = {name: [fleet.submit(name, p, license=t, max_new_tokens=n)
+                   for p, t, n in dense_jobs(config(name), np)] for name in TRIO}
+    t0 = time.perf_counter()
+    steps = 0
+    while fleet.step() is not None:
+        steps += 1
+    sync()
+    dt = time.perf_counter() - t0
+    e = dict(serve_s=dt, fleet_steps=steps, launches=dict(ops.LAUNCHES))
+    add(e)
+    for name, rs in reqs.items():
+        bad = [r.rid for r in rs if r.state.value != "done"
+               or len(r.out_tokens) != r.max_new_tokens]
+        if bad:
+            fail(f"11e: {name}'s requests {bad} did not finish")
+    if e["launches"]["paged_attention"] <= 0:
+        fail(f"11e: qwen2.5-3b's slot launched no paged_attention: {e['launches']}")
+    e["parts"] = {
+        name: near_ties(f"11e {name} in the fleet", reqs[name], ref_reqs, fleet_rows[name],
+                        ref_rows, config(name).vocab_size, ref="its isolated run")
+        for name, ref_reqs, ref_rows in (("recurrentgemma-2b", rg_reqs, rg_rows),
+                                         ("mamba2-130m", mb_reqs, mb_rows))}
+    e["tokens"] = {name: sum(len(r.out_tokens) for r in rs) for name, rs in reqs.items()}
+    e["routes"] = {name: dict(paged=gw.paged, kernel_decode=gw.kernel_decode,
+                              chunk_size=gw.chunk_size, prefix=gw.prefix is not None)
+                   for name, gw in fleet.gateways.items()}
+    log(f"  11e: {sum(e['tokens'].values())} tokens ({e['tokens']}) in {dt:.2f} s over "
+        f"{steps} fleet steps; routes {e['routes']}; launches {e['launches']}")
+    del fleet, fleet_rows, rg_rows, mb_rows
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["trio_fleet"] = e
+    out["s"] = time.perf_counter() - t11
+    log(f"  phase 11 took {out['s']:.1f} s")
+    return out, launches
+
+
 def main() -> None:
     t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4164,6 +4523,16 @@ def main() -> None:
         launches[name] += phase10_launches[name]
     log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
 
+    # ---------------------------------------------------------- phase 11
+    recurrent, phase11_launches = recurrent_phase(peaks, np, torch)
+    log(f"  launches on phase 11's paths: {phase11_launches}")
+    if phase11_launches.get("masked_dequant", 0) <= 0:
+        fail("kernel masked_dequant was not launched on phase 11's paths")
+    for name, n in phase11_launches.items():
+        launches[name] += n
+    rows["masked_dequant"]["cases"]["tail/t0/mixer/w_r (rank 2)"] = \
+        recurrent["recurrentgemma-2b"]["int8"]["rank2"]
+
     # ---------------------------------------------------------- summary
     kernels = [dict(name=name, launches=launches[name], **row)
                for name, row in rows.items()]
@@ -4181,7 +4550,8 @@ def main() -> None:
                     "fleet": fleet, "lifecycle": lifecycle,
                     "dense": dense, "fallbacks": fallbacks,
                     "phase9_launches": phase9_launches,
-                    "moe_mla": moe, "phase10_launches": phase10_launches}))
+                    "moe_mla": moe, "phase10_launches": phase10_launches,
+                    "recurrent": recurrent, "phase11_launches": phase11_launches}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

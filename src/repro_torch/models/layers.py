@@ -1,9 +1,10 @@
 """Neural layers of the port: RMS norm, RoPE, GQA causal attention
-(prefill, decode, chunked ``attend_cache``), the kernel-resident paged
+(prefill, decode, chunked ``attend_cache``; linear or, with a sliding
+window, a ring cache), the kernel-resident paged
 decode attention, DeepSeek-V2's multi-head latent attention (MLA,
 contiguous and paged), and the SwiGLU and squared-ReLU MLPs.
 
-Counterpart of ``repro/models/layers.py`` restricted to what the dense
+Counterpart of ``repro/models/layers.py`` restricted to what the ported
 decoders run; numerics follow it step by step (f32 norms and RoPE, q scaled in
 its own dtype, f32 scores, ``finfo.min`` masking, probabilities cast to
 ``v.dtype`` before the value product).  Tensors keep the JAX layouts:
@@ -69,21 +70,32 @@ def attention_core(
     v: torch.Tensor,              # (B, Sk, KH, hd)
     *,
     q_offset,                     # int or (B,): absolute position of q[:, 0]
+    window: int = 0,              # 0 = full causal; > 0 = sliding window
     kv_len: Optional[torch.Tensor] = None,  # (B,) valid cache length (decode)
+    k_positions: Optional[torch.Tensor] = None,  # (Sk,) or (B, Sk) key positions
 ) -> torch.Tensor:
-    """Causal attention with key slot ``i`` holding absolute position ``i``
-    (linear cache / fresh prefill).  The JAX package scans query chunks
-    of ``q_chunk`` rows to bound memory at 32k tokens; each row's softmax
-    is independent, so one pass over all rows computes the same values."""
+    """Causal (optionally windowed) attention.  Key slot ``i`` holds
+    absolute position ``i`` (linear cache / fresh prefill) unless
+    ``k_positions`` gives each slot's position (the ring's chunked
+    prefill), where a negative position is an empty slot, masked.
+    ``kv_len`` bounds the valid slots by index.  The JAX package scans
+    query chunks of ``q_chunk`` rows to bound memory at 32k tokens; each
+    row's softmax is independent, so one pass over all rows computes the
+    same values."""
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     groups = h // kh
     qg = _scale_q(q, 1.0 / math.sqrt(hd)).reshape(b, sq, kh, groups, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
     k_pos = torch.arange(sk, device=q.device)
+    kp = (k_pos if k_positions is None else k_positions).reshape(-1, 1, sk)  # (B|1, 1, Sk)
     q_off = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1)   # (B|1, 1)
-    q_pos = q_off + torch.arange(sq, device=q.device)                    # (B|1, Sq)
-    mask = k_pos[None, None, :] <= q_pos[:, :, None]                     # (B|1, Sq, Sk)
+    q_pos = (q_off + torch.arange(sq, device=q.device))[:, :, None]     # (B|1, Sq, 1)
+    mask = kp <= q_pos                                                   # (B|1, Sq, Sk)
+    if k_positions is not None:
+        mask = mask & (kp >= 0)
+    if window:
+        mask = mask & (kp > q_pos - window)
     if kv_len is not None:
         mask = mask & (k_pos[None, None, :] < kv_len.reshape(-1, 1, 1))
     probs = _masked_softmax(scores, mask[:, None, None])
@@ -109,18 +121,27 @@ def _attn_qkv(p: Dict[str, Any], x: torch.Tensor, cfg, positions: torch.Tensor):
 def attention_block(
     p: Dict[str, Any], x: torch.Tensor, cfg, *,
     cache: Optional[Dict[str, torch.Tensor]] = None,
-    pos=0, attend_cache: bool = False, chunk_valid=None,
+    pos=0, window: int = 0, attend_cache: bool = False, chunk_valid=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """GQA attention over a linear cache ``k``/``v`` (B, cap, KH, hd) +
-    ``len`` (B,).
+    """GQA attention over a cache ``k``/``v`` (B, cap, KH, hd) + ``len``
+    (B,): linear with ``window == 0``, a ring of ``cap`` slots (position
+    ``t`` in slot ``t mod cap``) with a sliding window.
 
     Modes as in the JAX package: prefill (no cache, or a cache filled
     from empty), decode (S == 1) and, with ``attend_cache=True``, chunked
     prefill: S tokens starting at absolute ``pos`` (an int, or (B,) per
-    lane) attend over the updated cache.  Chunk writes beyond the last
-    slot clamp onto it instead of wrapping, so a lane's right-padding
-    rows ("junk", past ``chunk_valid`` real rows) never overwrite live
-    prefix slots; they are causally invisible to every real query.
+    lane) attend over the updated cache.  On a linear cache chunk writes
+    beyond the last slot clamp onto it instead of wrapping, so a lane's
+    right-padding rows ("junk", past ``chunk_valid`` real rows) never
+    overwrite live prefix slots; they are causally invisible to every
+    real query.  On a ring the chunk's own writes may evict positions its
+    earliest queries still need, so it attends over a snapshot of the
+    ring taken before the writes joined with its own K/V, each slot at
+    the absolute position it held (negative: empty), and pad rows write
+    back the snapshot's content of their slot.  A prefill of more tokens
+    than the ring has slots writes only the last ``cap`` (the rest would
+    be evicted by them; duplicate slots in one indexed write have no
+    defined winner on CUDA).
     """
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
@@ -129,26 +150,51 @@ def attention_block(
     q, k, v = _attn_qkv(p, x, cfg, positions)
 
     if cache is None:
-        out = attention_core(q, k, v, q_offset=pos)
+        out = attention_core(q, k, v, q_offset=pos, window=window)
         new_cache = None
     else:
         cap = cache["k"].shape[1]
-        if attend_cache:
+        ck, cv = cache["k"], cache["v"]
+        ring = bool(window) and attend_cache
+        rows = torch.arange(b, device=x.device)[:, None].expand(b, s)
+        if ring:
+            assert s <= cap, (s, cap)  # one chunk may not lap the ring
+            slot = positions % cap
+            old_k, old_v = ck.clone(), cv.clone()
+            # the position in slot i before this chunk: the largest
+            # t < pos with t mod cap == i (negative = empty)
+            last = positions[:, :1] - 1
+            old_pos = last - (last - torch.arange(cap, device=x.device)) % cap   # (B, cap)
+        elif attend_cache:
             slot = positions.clamp(0, cap - 1)
         else:
             slot = positions % cap
-        rows = torch.arange(b, device=x.device)[:, None].expand(b, s)
-        ck, cv = cache["k"], cache["v"]
-        ck[rows, slot] = k.to(ck.dtype)
-        cv[rows, slot] = v.to(cv.dtype)
+        k_w, v_w = k, v
+        if ring and chunk_valid is not None:
+            keep = (torch.arange(s, device=x.device)[None, :]
+                    < torch.as_tensor(chunk_valid, device=x.device).reshape(-1, 1))
+            sel = keep[..., None, None]                            # (B|1, s, 1, 1)
+            k_w = torch.where(sel, k, old_k[rows, slot])
+            v_w = torch.where(sel, v, old_v[rows, slot])
+        if s > cap:                        # the last cap positions, distinct slots
+            k_w, v_w = k_w[:, -cap:], v_w[:, -cap:]
+            rows, slot = rows[:, -cap:], slot[:, -cap:]
+        ck[rows, slot] = k_w.to(ck.dtype)
+        cv[rows, slot] = v_w.to(cv.dtype)
         cv_n = s if chunk_valid is None else torch.as_tensor(chunk_valid,
                                                               device=x.device)
         new_len = torch.clamp(cache["len"] + cv_n, max=cap).to(cache["len"].dtype)
-        if s == 1 or attend_cache:
+        if ring:
+            out = attention_core(q, torch.cat([old_k, k], 1), torch.cat([old_v, v], 1),
+                                 q_offset=pos, window=window,
+                                 k_positions=torch.cat([old_pos, positions], 1))
+        elif s == 1 or attend_cache:
+            # RoPE is applied at each key's absolute position, so the order
+            # of a ring's slots does not matter to the scores
             out = attention_core(q, ck, cv, q_offset=pos,
                                  kv_len=None if attend_cache else new_len)
         else:
-            out = attention_core(q, k, v, q_offset=pos)
+            out = attention_core(q, k, v, q_offset=pos, window=window)
         new_cache = {"k": ck, "v": cv, "len": new_len}
     y = out.reshape(b, s, h * hd) @ p["wo"]
     return y, new_cache

@@ -1,14 +1,22 @@
-"""Decoder-only model of the port: the dense GQA decoders (qwen2.5-3b,
-granite-34b, minitron-8b, nemotron-4-15b) and the DeepSeek MoE models
-(deepseek-moe-16b with GQA attention, deepseek-v2-lite-16b with MLA).
+"""Decoder-only model of the port over the ported block kinds: the dense
+GQA decoders (qwen2.5-3b, granite-34b, minitron-8b, nemotron-4-15b), the
+DeepSeek MoE models (deepseek-moe-16b with GQA attention,
+deepseek-v2-lite-16b with MLA) and the recurrent family (mamba2-130m:
+Mamba-2 SSD blocks; recurrentgemma-2b: RG-LRU blocks and sliding-window
+attention, 2:1).
 
-Counterpart of ``repro/models/model.py`` for ``layer_pattern ==
-("attn",)``: attention (GQA or MLA) then a SwiGLU or squared-ReLU MLP or
-the MoE block.  Parameters keep the JAX
-package's nested-dict layout and key names, with every block weight
-stacked on a leading *unit* axis ``(U, in, out)`` (an expert stack
-``(U, E, in, out)``); the JAX ``lax.scan``
-over units becomes a Python loop over that axis.  Caches are dicts of tensors updated in place.
+Counterpart of ``repro/models/model.py``.  Layers are grouped into
+*pattern units*, one cycle of ``cfg.layer_pattern`` (``b0``, ``b1``, ...
+by the pattern's kinds: ``attn`` is attention (GQA or MLA) then a SwiGLU
+or squared-ReLU MLP or the MoE block; ``ssm`` the Mamba-2 block alone;
+``rec`` the RG-LRU block then the MLP), and the ``num_layers %
+len(pattern)`` layers left over are the *tail* blocks ``tail/t0``, ...
+Parameters keep the JAX package's nested-dict layout and key names,
+every unit block weight stacked on a leading *unit* axis ``(U, in, out)``
+(an expert stack ``(U, E, in, out)``), tail weights without it; the JAX
+``lax.scan`` over units becomes a Python loop over that axis.  Caches are
+dicts of tensors updated in place: a unit leaf (U, B, ...), a tail leaf
+(B, ...).
 
 Entry points:
   init_params(cfg, seed=, device=)           -> param dict
@@ -34,80 +42,109 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree_io import flatten_params, unflatten
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 from repro_torch.models.moe import moe_block
+
+_KINDS = ("attn", "ssm", "rec")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs decoders of attention blocks only (GQA or MLA, then a
-    SwiGLU or squared-ReLU MLP or the MoE block); everything else
-    raises."""
-    ported = (cfg.layer_pattern == ("attn",)
+    """The port runs decoders of attention blocks (GQA or MLA, then a
+    SwiGLU or squared-ReLU MLP or the MoE block), Mamba-2 blocks and
+    RG-LRU blocks, in any pattern, with RMS norms; a sliding window on
+    GQA attention only (MLA refuses windows, as the JAX package does).
+    Everything else raises."""
+    ported = (bool(cfg.layer_pattern) and all(k in _KINDS for k in cfg.layer_pattern)
               and cfg.mlp_type in ("swiglu", "squared_relu")
-              and not cfg.norm_layernorm and cfg.window == 0
+              and not cfg.norm_layernorm and not (cfg.use_mla and cfg.window)
               and cfg.frontend == "none" and not cfg.kv_cache_int8)
     if not ported:
         raise NotImplementedError(
-            f"{cfg.name}: only attention decoders (GQA or MLA, dense MLP or MoE) are "
-            f"ported; see ROADMAP.md, 'the other architectures'")
+            f"{cfg.name}: only attention decoders (GQA or MLA, dense MLP or MoE) and the "
+            f"recurrent family (Mamba-2, RG-LRU) are ported; see ROADMAP.md, 'the other "
+            f"architectures'")
 
 
 # ------------------------------------------------------------------- params
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random weights with the JAX package's distributions (normal /
     sqrt(fan_in) matrices, 0.02-scaled embedding, head and float32
-    router, zero biases, unit norms), drawn from a ``torch.Generator``
-    seeded with ``seed`` — the values differ from ``jax.random``'s."""
+    router, zero biases, unit norms; the SSM and RG-LRU leaves as
+    ``ssm.init_ssm`` and ``rglru.init_rglru`` say), drawn from a
+    ``torch.Generator`` seeded with ``seed`` — the values differ from
+    ``jax.random``'s."""
     check_supported(cfg)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    dt, u, d = cfg.dtype, cfg.pattern_units, cfg.d_model
+    dt, d = cfg.dtype, cfg.d_model
 
     def normal(shape, scale, dtype=dt):
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
         return (w * scale).to(dtype)
 
+    units = {f"b{j}": _init_block(cfg, kind, (cfg.pattern_units,), normal, device)
+             for j, kind in enumerate(cfg.layer_pattern)}
+    params = {"embed": {"tok": normal((cfg.padded_vocab, d), 0.02)},
+              "units": units,
+              "final_norm": {"norm_scale": torch.ones(d, dtype=dt, device=device)},
+              "lm_head": normal((d, cfg.padded_vocab), 0.02)}
+    if cfg.tail_pattern:
+        params["tail"] = {f"t{j}": _init_block(cfg, kind, (), normal, device)
+                          for j, kind in enumerate(cfg.tail_pattern)}
+    return params
+
+
+def _init_block(cfg: ModelConfig, kind: str, lead, normal, device) -> Dict[str, Any]:
+    """One block's weights with the leading axes ``lead``: (U,) for a
+    unit stack, () for a tail block."""
+    dt, d = cfg.dtype, cfg.d_model
+
     def dense(fan_in, fan_out):
-        return normal((u, fan_in, fan_out), fan_in ** -0.5)
+        return normal((*lead, fan_in, fan_out), fan_in ** -0.5)
 
     def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=device)
+        return torch.ones((*lead, *shape), dtype=dt, device=device)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=device)
+        return torch.zeros((*lead, *shape), dtype=dt, device=device)
 
     def mlp(ff):
         p = {"w_gate": dense(d, ff)} if cfg.mlp_type == "swiglu" else {}
         p.update(w_up=dense(d, ff), w_down=dense(ff, d))   # squared ReLU: two
         return p
 
+    if kind == "ssm":
+        return {"norm1": {"norm_scale": ones(d)},
+                "mixer": S.init_ssm(cfg, lead, normal, device)}
+    if kind == "rec":
+        mixer = R.init_rglru(cfg, lead, normal, device)
+        return {"norm1": {"norm_scale": ones(d)}, "mixer": mixer,
+                "norm2": {"norm_scale": ones(d)}, "ffn": mlp(cfg.d_ff)}
     h = cfg.num_heads
     if cfg.use_mla:
         nope, rope_d, vd, r = (cfg.qk_nope_dim, cfg.rope_head_dim, cfg.v_head_dim,
                                cfg.kv_lora_rank)
         mixer = {"wq": dense(d, h * (nope + rope_d)), "w_dkv": dense(d, r + rope_d),
                  "w_ukv": dense(r, h * (nope + vd)), "wo": dense(h * vd, d),
-                 "ckv_norm": ones(u, r)}
+                 "ckv_norm": ones(r)}
     else:
         kh, hd = cfg.num_kv_heads, cfg.head_dim
         mixer = {"wq": dense(d, h * hd), "wk": dense(d, kh * hd),
                  "wv": dense(d, kh * hd), "wo": dense(h * hd, d)}
         if cfg.attn_bias:
-            mixer.update(bq=zeros(u, h * hd), bk=zeros(u, kh * hd), bv=zeros(u, kh * hd))
+            mixer.update(bq=zeros(h * hd), bk=zeros(kh * hd), bv=zeros(kh * hd))
     if cfg.num_experts:
         e, ff = cfg.num_experts, cfg.moe_d_ff
-        ffn = {"router": normal((u, d, e), 0.02, torch.float32),
-               "experts": {"w_gate": normal((u, e, d, ff), d ** -0.5),
-                           "w_up": normal((u, e, d, ff), d ** -0.5),
-                           "w_down": normal((u, e, ff, d), ff ** -0.5)}}
+        ffn = {"router": normal((*lead, d, e), 0.02, torch.float32),
+               "experts": {"w_gate": normal((*lead, e, d, ff), d ** -0.5),
+                           "w_up": normal((*lead, e, d, ff), d ** -0.5),
+                           "w_down": normal((*lead, e, ff, d), ff ** -0.5)}}
         if cfg.num_shared_experts:
             ffn["shared"] = mlp(ff * cfg.num_shared_experts)
     else:
         ffn = mlp(cfg.d_ff)
-    block = {"norm1": {"norm_scale": ones(u, d)}, "mixer": mixer,
-             "norm2": {"norm_scale": ones(u, d)}, "ffn": ffn}
-    return {"embed": {"tok": normal((cfg.padded_vocab, d), 0.02)},
-            "units": {"b0": block},
-            "final_norm": {"norm_scale": ones(d)},
-            "lm_head": normal((d, cfg.padded_vocab), 0.02)}
+    return {"norm1": {"norm_scale": ones(d)}, "mixer": mixer,
+            "norm2": {"norm_scale": ones(d)}, "ffn": ffn}
 
 
 def _to_tensor(arr, device) -> torch.Tensor:
@@ -129,30 +166,61 @@ def params_from_jax(flat: Dict[str, Any], *, device) -> Dict[str, Any]:
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, device="cuda") -> Dict[str, Any]:
-    """Zeroed contiguous caches, each leaf stacked on the unit axis: GQA
-    ``k``/``v`` (U, B, cap, KH, hd), MLA ``ckv`` (U, B, cap, r) and
-    ``k_rope`` (U, B, cap, rope_d), and ``len`` (U, B) int32."""
+    """Zeroed contiguous caches: ``units`` holds each pattern block's,
+    every leaf stacked on the unit axis, ``tail`` each tail block's.  GQA
+    ``k``/``v`` (U, B, cap, KH, hd) with ``cap = min(capacity, window)``
+    under a sliding window (a ring), MLA ``ckv`` (U, B, cap, r) and
+    ``k_rope`` (U, B, cap, rope_d), each with ``len`` (U, B) int32;
+    Mamba-2 ``conv`` and f32 ``state`` (U, B, H, N, P); RG-LRU ``conv``
+    and f32 ``state`` (U, B, W).  A tail leaf has no unit axis."""
     check_supported(cfg)
-    u, dt = cfg.pattern_units, cfg.dtype
+    units = {f"b{j}": _init_block_cache(cfg, kind, (cfg.pattern_units, batch), capacity,
+                                        device)
+             for j, kind in enumerate(cfg.layer_pattern)}
+    cache: Dict[str, Any] = {"units": units}
+    if cfg.tail_pattern:
+        cache["tail"] = {f"t{j}": _init_block_cache(cfg, kind, (batch,), capacity, device)
+                         for j, kind in enumerate(cfg.tail_pattern)}
+    return cache
+
+
+def _init_block_cache(cfg: ModelConfig, kind: str, lead, capacity: int, device):
+    dt = cfg.dtype
+    if kind == "ssm":
+        return S.init_ssm_cache(cfg, lead, dt, device)
+    if kind == "rec":
+        return R.init_rglru_cache(cfg, lead, dt, device)
+    cap = min(capacity, cfg.window) if cfg.window else capacity
     if cfg.use_mla:
-        c = L.init_mla_cache(cfg, (u, batch), capacity, dt, device)
-    else:
-        shape = (u, batch, capacity, cfg.num_kv_heads, cfg.head_dim)
-        c = {"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device),
-             "len": torch.zeros((u, batch), dtype=torch.int32, device=device)}
-    return {"units": {"b0": c}}
+        return L.init_mla_cache(cfg, lead, cap, dt, device)
+    shape = (*lead, cap, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "len": torch.zeros(lead, dtype=torch.int32, device=device)}
 
 
 # ------------------------------------------------------------------ forward
-def _apply_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
+def _apply_block(p: Dict[str, Any], kind: str, x: torch.Tensor, cfg: ModelConfig, *,
                  cache, pos, attend_cache, chunk_valid, paged_tables,
                  paged_kernel) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, Any]]]:
-    """Pre-norm residual block: attention (paged MLA, paged GQA, MLA or
-    GQA, the JAX package's dispatch order; paged MLA has no kernel route
-    and ignores ``paged_kernel``), then the MoE block or the MLP.
-    Returns (x, aux loss, cache)."""
+    """Pre-norm residual block.  ``attn``: attention (paged MLA, paged
+    GQA, MLA or GQA, the JAX package's dispatch order; paged MLA has no
+    kernel route and ignores ``paged_kernel``), then the MoE block or the
+    MLP; ``ssm``: the Mamba-2 block alone; ``rec``: the RG-LRU block then
+    the MLP.  The recurrent blocks take their lane state as it comes
+    (position-free, one row a lane), paged decode or not, and read no
+    ``attend_cache``: the gateway never routes models with recurrent
+    state through chunked or suffix prefill.  Returns (x, aux loss or
+    ``None``, the block's new cache)."""
     h = L.rms_norm(x, p["norm1"]["norm_scale"])
+    if kind == "ssm":
+        y, new_cache = S.ssm_block(p["mixer"], h, cfg, cache=cache)
+        return x + y, None, new_cache
+    if kind == "rec":
+        y, new_cache = R.rglru_block(p["mixer"], h, cfg, cache=cache)
+        x = x + y
+        h2 = L.rms_norm(x, p["norm2"]["norm_scale"])
+        return x + L.mlp_block(p["ffn"], h2, cfg), None, new_cache
     if paged_tables is not None and cfg.use_mla:
         y, new_cache = L.mla_block_paged(p["mixer"], h, cfg, cache=cache,
                                          tables=paged_tables, pos=pos)
@@ -165,7 +233,7 @@ def _apply_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                                    attend_cache=attend_cache, chunk_valid=chunk_valid)
     else:
         y, new_cache = L.attention_block(
-            p["mixer"], h, cfg, cache=cache, pos=pos,
+            p["mixer"], h, cfg, cache=cache, pos=pos, window=cfg.window,
             attend_cache=attend_cache, chunk_valid=chunk_valid)
     x = x + y.to(x.dtype)
     h2 = L.rms_norm(x, p["norm2"]["norm_scale"])
@@ -216,10 +284,11 @@ def forward_aux(
     over units (an f32 scalar; ``None`` without experts), cache or None).
 
     ``params`` may hold int8 ``{"codes", "scale"}`` leaves
-    (``serving/quantized.py``): each unit's are dequantized with the
-    ``license_intervals`` mask ((lo, hi) f32 (MAX_INTERVALS,) on the
-    device; ``None`` masks nothing) fused in, just before the unit runs,
-    so every license tier shares the one int8 store.
+    (``serving/quantized.py``): each unit's, and each tail block's, are
+    dequantized with the ``license_intervals`` mask ((lo, hi) f32
+    (MAX_INTERVALS,) on the device; ``None`` masks nothing) fused in,
+    just before they run, so every license tier shares the one int8
+    store.
 
     ``cache`` leaves are updated in place and the same dict comes back.
     ``attend_cache=True`` is chunked prefill: ``tokens`` continue prompts
@@ -228,10 +297,11 @@ def forward_aux(
 
     ``paged_tables`` (B, T) int32 selects kernel-resident paged decode:
     ``cache`` is ``PagedCachePool.decode_cache`` (the pool's physical
-    block tensors (U, P+1, bs, ...) plus per-lane ``len`` (U, B)),
-    ``pos`` is (B,) int32 and ``tokens`` (B, 1).  ``paged_kernel`` routes
-    the write and the attention through the Hopper kernels; ``False`` is
-    the plain path with the same semantics (MLA has the plain path only).
+    block tensors (U, P+1, bs, ...) plus per-lane ``len`` (U, B) and any
+    recurrent lane state), ``pos`` is (B,) int32 and ``tokens`` (B, 1).
+    ``paged_kernel`` routes the write and the attention through the
+    Hopper kernels; ``False`` is the plain path with the same semantics
+    (MLA has the plain path only).
     """
     check_supported(cfg)
     if paged_tables is not None:
@@ -242,19 +312,31 @@ def forward_aux(
     x = params["embed"]["tok"][tokens.long()]
     unbound = _unbound_units(params["units"])
     aux = None
+
+    def run(p, kind, c):
+        nonlocal x, aux
+        x, a, nc = _apply_block(p, kind, x, cfg, cache=c, pos=pos, attend_cache=attend_cache,
+                                chunk_valid=chunk_valid, paged_tables=paged_tables,
+                                paged_kernel=paged_kernel)
+        if a is not None:
+            aux = a if aux is None else aux + a
+        # attention writes K/V in place; every other new leaf is copied in
+        for name, t in (nc or {}).items():
+            if t is not c[name]:
+                c[name].copy_(t)
+
     for u in range(cfg.pattern_units):
         unit_params = _unit(params["units"], u) if unbound is None else unbound[u]
         if quantized:
             unit_params = dequant_tree(unit_params, license_intervals, cfg.dtype)
         unit_cache = None if cache is None else _unit(cache["units"], u)
-        c = None if unit_cache is None else unit_cache["b0"]
-        x, a, nc = _apply_block(unit_params["b0"], x, cfg, cache=c, pos=pos,
-                                attend_cache=attend_cache, chunk_valid=chunk_valid,
-                                paged_tables=paged_tables, paged_kernel=paged_kernel)
-        if a is not None:
-            aux = a if aux is None else aux + a
-        if nc is not None:
-            c["len"].copy_(nc["len"])     # the other leaves were written in place
+        for j, kind in enumerate(cfg.layer_pattern):
+            run(unit_params[f"b{j}"], kind, None if unit_cache is None else unit_cache[f"b{j}"])
+    for j, kind in enumerate(cfg.tail_pattern):
+        tp = params["tail"][f"t{j}"]
+        if quantized:
+            tp = dequant_tree(tp, license_intervals, cfg.dtype)
+        run(tp, kind, None if cache is None else cache["tail"][f"t{j}"])
     x = L.rms_norm(x, params["final_norm"]["norm_scale"])
     logits = (x @ params["lm_head"]).float()
     if cfg.padded_vocab != cfg.vocab_size:

@@ -27,13 +27,13 @@ input copies and one replay instead of ~80 launches a layer.
   pair for every graph: the logits (B, V) f32 and their greedy argmax
   (B,) int32, which the gateway consumes (argmax to the host, sampled
   lanes drawn eagerly from the logits rows) before the next replay.  The
-  pool's ``k``, ``v`` and ``lens`` are written in place and keep their
+  pool's paged leaves and lane state are written in place and keep their
   storage, so nothing of the pool is copied (the JAX package's donation).
 * **Capture.**  One eager warm-up on a side stream, then capture into the
   slot's one memory pool.  The warm-up really runs the step: its K/V
-  writes are the ones the replay repeats, and the lane counters it
-  advanced are put back before the replay.  A failed capture or replay
-  raises; nothing falls back to the eager step.
+  writes are the ones the replay repeats, and the lane state it advanced
+  (counters, and any recurrent state) is put back before the replay.  A
+  failed capture or replay raises; nothing falls back to the eager step.
 * **Launch counts.**  ``ops.LAUNCHES`` counts what the kernel wrappers
   launch: a warm-up's kernels, never a capture's (``ops.count``) and
   never a replay's, which runs no Python.  What a replay runs is read
@@ -73,6 +73,17 @@ def table_width(used: int, cap: int) -> int:
     (``blocks_per_lane``).  The padding columns name the null block, and
     attention reads a lane's columns only up to its length."""
     return min(int(cap), 1 << (int(used) - 1).bit_length())
+
+
+def _snapshot(pool: Any) -> Dict[str, torch.Tensor]:
+    """A copy of the pool's lane state (counters, recurrent state)."""
+    return {path: t.clone() for path, t in pool.state.items()}
+
+
+def _restore(pool: Any, snapshot: Dict[str, torch.Tensor]) -> None:
+    """Put :func:`_snapshot`'s copy back, in place."""
+    for path, t in snapshot.items():
+        pool.state[path].copy_(t)
 
 
 class GraphSet(dict):
@@ -259,12 +270,12 @@ class DecodeGraphs(_StepGraphs):
             self.logits.copy_(logits)
             self.greedy.copy_(torch.argmax(logits, -1))
 
-        lens = pool.lens.clone()
+        state = _snapshot(pool)
         try:
             self.backend.warmup(step)
             graph = self.backend.capture(step)
         finally:
-            pool.lens.copy_(lens)
+            _restore(pool, state)
         self.captures += 1
         return graph
 
@@ -342,15 +353,15 @@ class PrefillGraphs(_StepGraphs):
             caches = pool.override_counters(caches, self.fills.dev[:b])
             pool.scatter(self.lanes.dev[:b], scatter.dev[:b], caches)
 
-        # the warm-up is this chunk: its K/V writes and counters stand
+        # the warm-up is this chunk: its K/V writes and lane state stand
         # (a replay would write the same again); a failed capture puts the
-        # lanes' counters back
-        lens = pool.lens.clone()
+        # lanes' state back
+        state = _snapshot(pool)
         try:
             self.backend.warmup(chunk)
             graph = self.backend.capture(chunk)
         except BaseException:
-            pool.lens.copy_(lens)
+            _restore(pool, state)
             raise
         self.captures += 1
         return graph

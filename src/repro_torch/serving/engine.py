@@ -45,11 +45,13 @@ def prefill_suffix_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def stack_lane_caches(cfg: ModelConfig, b: int, capacity: int, device="cuda"):
-    """``b`` independent lane caches, zeroed: the layout
-    :func:`prefill_chunk_step` and :func:`serve_step` take.  The JAX
-    package stacks batch-1 caches on a new leading axis for ``vmap``;
-    here the lane is the model's batch axis, so this is
-    ``init_cache(cfg, b, capacity)``."""
+    """``b`` independent lane caches, zeroed (every leaf's pristine value,
+    recurrent state included, so a bucket prefill starts each lane from
+    the initial state): the layout :func:`prefill_chunk_step` and
+    :func:`serve_step` take.  The JAX package stacks batch-1 caches on a
+    new leading axis for ``vmap``; here the lane is the model's batch
+    axis (after the unit axis, first on a tail block's leaves), so this
+    is ``init_cache(cfg, b, capacity)``."""
     return model_lib.init_cache(cfg, b, capacity, device=device)
 
 

@@ -64,7 +64,7 @@ from repro_torch.core.transport import (DirectTransport, RetryPolicy, Transport,
                                         TransportDisconnect, TransportError,
                                         TransportTimeout)
 from repro_torch.models.model import check_supported
-from repro_torch.serving.paging import PagedCachePool, cdiv
+from repro_torch.serving.paging import NoPagedLeavesError, PagedCachePool, cdiv
 from repro_torch.serving.compiled import (DecodeGraphs, GraphSet, PrefillGraphs, StoreGraphs,
                                           View)
 from repro_torch.serving.prefix import PrefixCache
@@ -196,10 +196,25 @@ class ModelSlot:
 
         decode_kernels = _decode_kernels_arg(decode_kernels, decode_pallas)
         self.paged = bool(paged)
-        # kernel-resident decode needs every attention cache paged (the
-        # JAX slot also excludes sliding windows, which the port refuses)
-        self.kernel_decode = (self.paged if kernel_decode is None
-                              else bool(kernel_decode) and self.paged)
+        if self.paged:
+            self.max_lanes = int(max_lanes or self.max_batch)
+            bpl = cdiv(self.capacity, int(block_size))
+            try:
+                self.pool = PagedCachePool(
+                    cfg, self.max_lanes, self.capacity, int(block_size),
+                    int(num_blocks) if num_blocks is not None else self.max_lanes * bpl,
+                    device=self.device)
+            except NoPagedLeavesError:
+                # nothing per-token to page (attention-free, or a sliding
+                # window below the capacity caps every attention cache):
+                # the lane state is constant-size, so the contiguous pool
+                self.paged = False
+        # kernel-resident decode needs every attention cache paged and
+        # addressable by block: a sliding window's ring is not, so window
+        # models keep the gather/scatter decode (asked for or not)
+        supported = self.paged and cfg.window == 0
+        self.kernel_decode = (supported if kernel_decode is None
+                              else bool(kernel_decode) and supported)
         # the kernels serve the kernel-resident step only, on a CUDA
         # device, where they are the default; the gather/scatter decode
         # and the CPU take the plain path
@@ -208,19 +223,13 @@ class ModelSlot:
             decode_kernels = on_cuda and self.kernel_decode
         elif decode_kernels and not self.kernel_decode:
             raise ValueError("decode_kernels=True needs the kernel-resident decode "
-                             "(paged=True, kernel_decode not False): the gather/scatter "
-                             "decode has no kernels")
+                             "(paged=True, kernel_decode not False, no sliding window): "
+                             "the gather/scatter decode has no kernels")
         elif decode_kernels and not on_cuda:
             raise ValueError(f"decode_kernels=True needs a CUDA device, got "
                              f"{self.device}")
         self.decode_kernels = bool(decode_kernels)
         if self.paged:
-            self.max_lanes = int(max_lanes or self.max_batch)
-            bpl = cdiv(self.capacity, int(block_size))
-            self.pool = PagedCachePool(
-                cfg, self.max_lanes, self.capacity, int(block_size),
-                int(num_blocks) if num_blocks is not None else self.max_lanes * bpl,
-                device=self.device)
             self._prefill_blocks = max(1, cdiv(self.max_prompt, self.pool.block_size))
             if self.pool.num_blocks - int(watermark_blocks) < self._prefill_blocks:
                 raise ValueError(
@@ -228,12 +237,24 @@ class ModelSlot:
                     f"admit a prefill ({self._prefill_blocks} blocks of "
                     f"{self.pool.num_blocks}) — the gateway would accept "
                     f"requests and never schedule them")
+            # prefix reuse and chunked prefill both need every per-lane
+            # leaf to be a reconstructible position counter: recurrent or
+            # ring lane state opts the model out of both
+            chunk_ok = self.pool.prefix_cacheable
             self.prefix = (PrefixCache(self.pool.allocator, self.pool.block_size)
-                           if prefix_cache else None)
+                           if prefix_cache and chunk_ok else None)
             # left-aligned chunked prefill, one block per chunk by default
             # (the JAX gateway's); 0 is the bucket prefill
-            self.chunk_size = (self.pool.block_size if chunk_size is None
-                               else int(chunk_size))
+            if chunk_size is None:
+                self.chunk_size = self.pool.block_size if chunk_ok else 0
+            else:
+                self.chunk_size = int(chunk_size)
+                if self.chunk_size > 0 and not chunk_ok:
+                    raise ValueError(
+                        "chunked prefill needs reconstructible per-lane "
+                        "cache state (the prefix_cache condition); this "
+                        "model keeps ring/SSM lane state — pass "
+                        "chunk_size=0 or leave it None")
             if self.chunk_size > 0:
                 self.chunk_size = min(self.chunk_size, self.max_prompt)
             self.chunked = self.chunk_size > 0

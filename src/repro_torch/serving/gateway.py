@@ -38,7 +38,12 @@ width) and view, the JAX gateway's jit key.  The plain path
 (``decode_kernels=False``) and the CPU decode and prefill eagerly.  The
 JAX gateway's fallbacks are explicit arguments: the bucket prefill
 (``chunk_size=0``), the gather/scatter decode (``kernel_decode=False``)
-and the contiguous pool (``paged=False``); they run eagerly.  When
+and the contiguous pool (``paged=False``); they run eagerly.  The
+recurrent models take them by themselves, as in the JAX slot:
+mamba2-130m has no per-token cache leaf (the contiguous pool), and
+recurrentgemma-2b's RG-LRU and ring lane state rules out the prefix
+cache, chunked prefill and, with its window, the kernel-resident decode
+(a window past the pool's capacity leaves nothing to page).  When
 the pool runs out of blocks, the youngest running request is preempted
 back to the queue head and recomputed later (generation is deterministic
 per (seed, prompt, view), so it reproduces its tokens).

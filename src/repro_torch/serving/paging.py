@@ -1,21 +1,25 @@
 """Block-paged KV cache pool under the licensed gateway.
 
-Counterpart of ``repro/serving/paging.py`` for the port's attention
-decoders:
+Counterpart of ``repro/serving/paging.py``:
 
 * :class:`BlockAllocator` — host-side free list of physical block ids
   with per-block reference counts and the double-alloc / double-free /
   incref-on-freed guards (a verbatim copy: it is pure Python).
 * :class:`PagedCachePool` — the device store.  The pool's leaves come
-  from the model's cache (``models.model.init_cache``), as in the JAX
-  pool: every per-token leaf (GQA ``k``/``v`` (U, cap, KH, hd) a lane,
-  MLA ``ckv``/``k_rope`` (U, cap, r | rope_d)) lives as physical blocks
-  ``(U, P+1, bs, ...)`` — the block axis in place of the capacity axis,
-  unit axis first, block ``P`` the *null block* that absorbs writes of
-  padding rows — addressed through per-request block tables; the
-  per-lane ``len`` counters live as ``(num_lanes+1, U)``, lane
-  ``num_lanes`` being the *scratch lane*.  ``copy_block`` is the device
-  half of the prefix cache's copy-on-write.
+  from the model's cache (``models.model.init_cache``), classified as
+  the JAX pool does by probes: every per-token leaf (GQA ``k``/``v``
+  (U, cap, KH, hd) a lane, MLA ``ckv``/``k_rope`` (U, cap, r | rope_d))
+  lives as physical blocks ``(U, P+1, bs, ...)`` — the block axis in
+  place of the capacity axis, unit axis first, block ``P`` the *null
+  block* that absorbs writes of padding rows — addressed through
+  per-request block tables; every other leaf is constant-size per-lane
+  state (the ``len`` counters, Mamba-2 and RG-LRU conv and state,
+  sliding-window rings capped below the pool's capacity), stored
+  lane-first ``(num_lanes+1, ...)``, lane ``num_lanes`` being the
+  *scratch lane*.  A model with no per-token leaf raises
+  :class:`NoPagedLeavesError` (the gateway then takes the contiguous
+  pool); one with float lane state is not ``prefix_cacheable``.
+  ``copy_block`` is the device half of the prefix cache's copy-on-write.
 
 Prefill chunks (and the gather/scatter decode) ``gather`` each lane's
 logical cache through its table into a contiguous batch and ``scatter``
@@ -26,7 +30,7 @@ inputs), so nothing in the step copies from the host.  Decode does not copy:
 reference and the kernels write the one new token per lane in place.
 The JAX package has to donate those arrays into the step and adopt the
 returned ones (``absorb_decode``); here the write already landed, so
-``absorb_decode`` only stores the lane counters.
+``absorb_decode`` only stores the lane state.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pytree_io import flatten_params, unflatten
 from repro_torch.models.model import init_cache
 
 
@@ -48,6 +53,28 @@ def pad_lane_ids(lanes: Sequence[int], width: int, scratch: int) -> List[int]:
     lanes = list(lanes)
     assert len(lanes) <= width, (len(lanes), width)
     return lanes + [scratch] * (width - len(lanes))
+
+
+def batch_axes(cfg: ModelConfig, capacity: int) -> Dict[str, int]:
+    """Each cache leaf's batch axis, by path ('units/b0/k': 1,
+    'tail/t0/state': 0): the one axis that differs between
+    ``init_cache`` at batch 1 and at batch 2 (probed on the meta device:
+    no memory)."""
+    one = flatten_params(init_cache(cfg, 1, capacity, device="meta"))
+    two = flatten_params(init_cache(cfg, 2, capacity, device="meta"))
+    out = {}
+    for name, t in one.items():
+        diff = [i for i, (a, b) in enumerate(zip(t.shape, two[name].shape)) if a != b]
+        assert len(diff) == 1, f"cache leaf {name} without a unique batch axis"
+        out[name] = diff[0]
+    return out
+
+
+class NoPagedLeavesError(ValueError):
+    """The model's cache holds no per-token leaf to page (attention-free,
+    or every attention window is below the pool's capacity).  The
+    gateway catches exactly this to fall back to the contiguous pool;
+    other geometry errors stay plain ``ValueError``."""
 
 
 class BlockAllocator:
@@ -134,12 +161,17 @@ class BlockAllocator:
 
 
 class PagedCachePool:
-    """Block-paged KV store behind per-request block tables.
+    """Block-paged cache store behind per-request block tables.
 
-    ``num_lanes`` per-lane counter slots, ``capacity`` logical tokens per
+    ``num_lanes`` per-lane state slots, ``capacity`` logical tokens per
     request, ``block_size`` tokens per block and ``num_blocks`` physical
     blocks shared by every lane and license tier (at least one full
     request's worth, the preemption policy's termination guarantee).
+
+    ``leaves`` maps each paged leaf's path (``units/b0/k``, ...) to its
+    block tensor, ``state`` each other leaf's path to its lane-first
+    tensor; ``pool.k``, ``pool.ckv``, ... name a paged leaf by its last
+    path part where that is unique.
     """
 
     def __init__(self, cfg: ModelConfig, num_lanes: int, capacity: int,
@@ -159,32 +191,46 @@ class PagedCachePool:
         self.allocator = BlockAllocator(self.num_blocks)
         self.device = torch.device(device)
         # classify the cache's leaves by probing init_cache (on the meta
-        # device: no memory) at two capacities, as the JAX pool does: a
-        # leaf whose capacity axis (2, after units and batch) grows by the
-        # probe's difference is per-token and paged; anything else must be
-        # the integer ``len`` counter, the one per-lane state the gateway
-        # can reconstruct (so a prefix chain can seed a new request)
-        one = init_cache(cfg, 1, self.block_size, device="meta")["units"]["b0"]
-        two = init_cache(cfg, 1, 2 * self.block_size, device="meta")["units"]["b0"]
-        u = cfg.pattern_units
+        # device) at the padded capacity and one block more, as the JAX
+        # pool does: a leaf that grows by exactly one block along the axis
+        # after its batch axis is per-token and paged; anything else is
+        # per-lane state (a window ring capped below the capacity
+        # included, even when the probe's extra block crosses the window)
+        cap = self.padded_capacity
+        template = flatten_params(init_cache(cfg, 1, cap, device="meta"))
+        grown = flatten_params(init_cache(cfg, 1, cap + self.block_size, device="meta"))
+        self._axis = batch_axes(cfg, cap)
         self.leaves: Dict[str, torch.Tensor] = {}
-        for name, t in one.items():
-            if t.ndim > 2 and two[name].shape[2] == 2 * t.shape[2]:
-                self.leaves[name] = torch.zeros(
-                    (u, self.num_blocks + 1, self.block_size, *t.shape[3:]),
+        self.state: Dict[str, torch.Tensor] = {}
+        self._template: Dict[str, torch.Tensor] = template
+        for path, t in template.items():
+            ax = self._axis[path]
+            diff = [i for i, (a, b) in enumerate(zip(t.shape, grown[path].shape)) if a != b]
+            if diff == [ax + 1] and grown[path].shape[ax + 1] - t.shape[ax + 1] == self.block_size:
+                self.leaves[path] = torch.zeros(
+                    (*t.shape[:ax], self.num_blocks + 1, self.block_size, *t.shape[ax + 2:]),
                     dtype=t.dtype, device=self.device)
-            elif name != "len" or t.dtype.is_floating_point:
-                raise ValueError(f"{cfg.name}: cache leaf {name!r} {tuple(t.shape)} is "
-                                 f"neither per-token nor the integer len counter")
-        self.prefix_cacheable = True
-        self.lens = torch.zeros((self.num_lanes + 1, u), dtype=torch.int32,
-                                device=self.device)
+            else:
+                shape = t.shape[:ax] + t.shape[ax + 1:]
+                self.state[path] = torch.zeros((self.num_lanes + 1, *shape), dtype=t.dtype,
+                                               device=self.device)
+        if not self.leaves:
+            raise NoPagedLeavesError(
+                f"{cfg.name}: no per-token cache leaves to page; use the contiguous "
+                f"CachePool instead")
+        # a prefix chain (blocks only) can seed a new request iff every
+        # per-lane leaf is a counter the gateway can reconstruct; float
+        # state (SSM, RG-LRU, window rings) would need a snapshot at the
+        # prefix boundary, so such models serve without prefix reuse
+        self.prefix_cacheable = all(not t.dtype.is_floating_point
+                                    for t in self.state.values())
 
     def __getattr__(self, name: str) -> torch.Tensor:
         """A paged leaf by its cache name: ``pool.k``, ``pool.ckv``, ..."""
-        leaves = self.__dict__.get("leaves", {})
-        if name in leaves:
-            return leaves[name]
+        found = [t for path, t in self.__dict__.get("leaves", {}).items()
+                 if path.rsplit("/", 1)[-1] == name]
+        if len(found) == 1:
+            return found[0]
         raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
 
     # ------------------------------------------------------------- indices
@@ -213,7 +259,8 @@ class PagedCachePool:
         and V, or MLA's latents and rotary keys) of every unit: the
         exchange rate a fleet-wide cache budget converts between
         different models' blocks with."""
-        return sum(t[:, 0].numel() * t.element_size() for t in self.leaves.values())
+        return sum(t.numel() * t.element_size() // (self.num_blocks + 1)
+                   for t in self.leaves.values())
 
     def pad_lanes(self, lanes: Sequence[int], width: int) -> List[int]:
         return pad_lane_ids(lanes, width, self.scratch)
@@ -233,8 +280,9 @@ class PagedCachePool:
 
     @property
     def nbytes(self) -> int:
-        """Device bytes of the pool: the paged leaves and the lane counters."""
-        return sum(t.numel() * t.element_size() for t in (*self.leaves.values(), self.lens))
+        """Device bytes of the pool: the paged leaves and the lane state."""
+        return sum(t.numel() * t.element_size()
+                   for t in (*self.leaves.values(), *self.state.values()))
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32)).to(self.device)
@@ -248,68 +296,96 @@ class PagedCachePool:
         return self._tensor(a).long()
 
     # ------------------------------------------------------- gather/scatter
+    def _lane_rows(self, path: str, lanes) -> torch.Tensor:
+        """Per-lane leaf ``path`` of ``lanes`` in the model's layout (the
+        lane at the leaf's batch axis)."""
+        return self.state[path][self._index(lanes)].movedim(0, self._axis[path])
+
     def gather(self, tables, lanes=None) -> Dict[str, Any]:
         """Contiguous per-lane views: ``tables`` (B, T) (host, or int32
         on the device) -> each paged leaf (U, B, T*bs, ...) in logical
-        order.  Without ``lanes`` the ``len`` counters are fresh
-        zeros (a prefill chunk masks positionally and the gateway pins
-        the counters to the true fill afterwards); with ``lanes`` they
-        are those lanes' counters (the gather/scatter decode)."""
+        order.  Without ``lanes`` the per-lane leaves are fresh zeros,
+        the ``init_cache`` value (a prefill chunk masks positionally and
+        the gateway pins the counters to the true fill afterwards); with
+        ``lanes`` they are those lanes' state (the gather/scatter decode)."""
         tab = self._index(tables)
         b, t = tab.shape
-        u = self.lens.shape[1]
-        out = {name: x[:, tab].reshape(u, b, t * self.block_size, *x.shape[3:])
-               for name, x in self.leaves.items()}
-        out["len"] = (torch.zeros((u, b), dtype=torch.int32, device=self.device)
-                      if lanes is None else self.lens[self._index(lanes)].t().contiguous())
-        return {"units": {"b0": out}}
+        out = {}
+        for path, like in self._template.items():
+            ax = self._axis[path]
+            if path in self.leaves:
+                g = self.leaves[path][(slice(None),) * ax + (tab,)]
+                out[path] = g.reshape(*g.shape[:ax], b, t * self.block_size,
+                                      *g.shape[ax + 3:])
+            elif lanes is None:
+                out[path] = torch.zeros((*like.shape[:ax], b, *like.shape[ax + 1:]),
+                                        dtype=like.dtype, device=self.device)
+            else:
+                out[path] = self._lane_rows(path, lanes).contiguous()
+        return unflatten(out)
 
     def scatter(self, lanes, tables, caches: Dict[str, Any]) -> None:
-        """Write chunk views back through the tables and the counters by
-        lane id (each host, or a device tensor).  Padding rows target the
-        null block / scratch lane, so duplicate pad indices never race a
-        live lane."""
+        """Write chunk views back: paged leaves through the tables, the
+        per-lane leaves by lane id (each host, or a device tensor).
+        Padding rows target the null block / scratch lane, so duplicate
+        pad indices never race a live lane."""
         tab = self._index(tables)
         b, t = tab.shape
-        c = caches["units"]["b0"]
-        for name, x in self.leaves.items():
-            x[:, tab] = c[name].reshape(x.shape[0], b, t, self.block_size,
-                                        *x.shape[3:]).to(x.dtype)
-        self.lens[self._index(lanes)] = c["len"].t().to(torch.int32)
+        lane_idx = self._index(lanes)
+        for path, c in flatten_params(caches).items():
+            ax = self._axis[path]
+            if path in self.leaves:
+                x = self.leaves[path]
+                x[(slice(None),) * ax + (tab,)] = c.reshape(
+                    *c.shape[:ax], b, t, self.block_size, *c.shape[ax + 2:]).to(x.dtype)
+            else:
+                x = self.state[path]
+                x[lane_idx] = c.movedim(ax, 0).to(x.dtype)
 
     # ----------------------------------------------- kernel-resident decode
 
     def decode_cache(self, lanes) -> Dict[str, Any]:
         """Cache dict for the batched kernel-resident decode step: the
-        pool's block tensors by reference plus the lanes' counters
-        (U, B).  ``lanes``: host lane ids, or an int64 device tensor."""
-        return {"units": {"b0": {
-            **self.leaves, "len": self.lens[self._index(lanes)].t().contiguous()}}}
+        pool's block tensors by reference plus the lanes' per-lane leaves
+        (``len`` (U, B), any recurrent state), gathered.  ``lanes``: host
+        lane ids, or an int64 device tensor."""
+        return unflatten({path: (self.leaves[path] if path in self.leaves
+                                 else self._lane_rows(path, lanes).contiguous())
+                          for path in self._template})
 
     def absorb_decode(self, lanes, caches: Dict[str, Any]) -> None:
         """Adopt a decode step's outputs: its token writes already
-        landed in the pool in place; store the advanced counters."""
-        c = caches["units"]["b0"]
-        assert all(c[name] is x for name, x in self.leaves.items())
-        self.lens[self._index(lanes)] = c["len"].t().to(torch.int32)
+        landed in the pool in place; store the lanes' advanced state."""
+        lane_idx = self._index(lanes)
+        for path, c in flatten_params(caches).items():
+            if path in self.leaves:
+                assert c is self.leaves[path]
+            else:
+                x = self.state[path]
+                x[lane_idx] = c.movedim(self._axis[path], 0).to(x.dtype)
 
     # --------------------------------------------------- prefix-cache hooks
     def copy_block(self, src: int, dst: int) -> None:
         """Copy one physical block of every paged leaf across every unit —
         the device half of copy-on-write: a request about to write into a
         shared block gets a private ``dst`` holding identical bytes."""
-        for x in self.leaves.values():
-            x[:, dst] = x[:, src]
+        for path, x in self.leaves.items():
+            lead = (slice(None),) * self._axis[path]
+            x[lead + (dst,)] = x[lead + (src,)]
 
     def override_counters(self, caches: Dict[str, Any], value) -> Dict[str, Any]:
-        """Pin the gathered ``len`` counters to the true logical fill
-        (``value`` scalar or (B,) per lane, host or an int32 device
-        tensor, which is used where it lies): a chunk step only counts
-        its own W rows."""
-        c = caches["units"]["b0"]
+        """Pin the gathered integer per-lane leaves (the ``len`` counters)
+        to the true logical fill (``value`` scalar or (B,) per lane, host
+        or an int32 device tensor, which is used where it lies): a chunk
+        step only counts its own W rows."""
         val = torch.as_tensor(value, dtype=torch.int32, device=self.device)
-        c["len"] = val.reshape(1, -1).expand_as(c["len"]).clone()
-        return caches
+        flat = flatten_params(caches)
+        for path, c in flat.items():
+            if path not in self.leaves and not c.dtype.is_floating_point:
+                ax = self._axis[path]
+                v = val.reshape([-1 if i == ax else 1 for i in range(c.ndim)]) if val.ndim else val
+                flat[path] = v.expand_as(c).to(c.dtype).clone()
+        return unflatten(flat)
 
     def stats(self) -> Dict[str, int]:
         st = self.allocator.stats()

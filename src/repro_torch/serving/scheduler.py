@@ -35,7 +35,9 @@ from typing import Any, Callable, Deque, Dict, Hashable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.pytree_io import flatten_params, unflatten
 from repro_torch.models.model import init_cache
+from repro_torch.serving.paging import batch_axes
 
 
 class RequestState(str, Enum):
@@ -176,22 +178,28 @@ class TierViewCache:
 
 
 class CachePool:
-    """Contiguous KV cache pool: ``num_lanes`` per-request cache slots of
-    ``capacity`` tokens (the ``paged=False`` fallback).
+    """Contiguous cache pool: ``num_lanes`` per-request cache slots of
+    ``capacity`` tokens (the ``paged=False`` fallback, and the pool of a
+    model with nothing to page).
 
-    Leaves are the model's own cache (``init_cache``) with the lane as its
-    batch axis: GQA ``k``/``v`` (U, num_lanes + 1, capacity, KH, hd) or
-    MLA ``ckv``/``k_rope`` (U, num_lanes + 1, capacity, ...), and ``len``
-    (U, num_lanes + 1).  One extra *scratch* lane (index ``num_lanes``)
-    absorbs the writes of padding lanes, so scatters with duplicate pad
-    indices can never corrupt a live request."""
+    ``leaves`` are the model's own cache (``init_cache``) by path, with
+    the lane as its batch axis (``batch_axes``): GQA ``units/b0/k``
+    (U, num_lanes + 1, capacity, KH, hd), ``units/b0/len`` (U,
+    num_lanes + 1), Mamba-2 ``units/b0/state`` (U, num_lanes + 1, H, N,
+    P), a tail block's ``tail/t0/state`` (num_lanes + 1, W), ...  One
+    extra *scratch* lane (index ``num_lanes``) absorbs the writes of
+    padding lanes, so scatters with duplicate pad indices can never
+    corrupt a live request.  A scatter overwrites every leaf of its
+    lanes, so a lane taken by a new request after a bucket prefill from
+    zeros carries nothing of its previous occupant."""
 
     def __init__(self, cfg, num_lanes: int, capacity: int, *, device="cuda"):
         self.num_lanes = int(num_lanes)
         self.capacity = int(capacity)
         self.device = torch.device(device)
-        self.leaves: Dict[str, torch.Tensor] = init_cache(
-            cfg, self.num_lanes + 1, self.capacity, device=self.device)["units"]["b0"]
+        self.leaves: Dict[str, torch.Tensor] = flatten_params(init_cache(
+            cfg, self.num_lanes + 1, self.capacity, device=self.device))
+        self._axis = batch_axes(cfg, self.capacity)
 
     @property
     def scratch(self) -> int:
@@ -225,14 +233,15 @@ class CachePool:
     def gather(self, lanes) -> Dict[str, Any]:
         """The lanes' caches as one batch (copies)."""
         idx = self._index(lanes)
-        return {"units": {"b0": {name: t[:, idx] for name, t in self.leaves.items()}}}
+        return unflatten({path: t.index_select(self._axis[path], idx)
+                          for path, t in self.leaves.items()})
 
     def scatter(self, lanes, caches: Dict[str, Any]) -> None:
         """Write a batch of lane caches back by lane id."""
         idx = self._index(lanes)
-        c = caches["units"]["b0"]
-        for name, t in self.leaves.items():
-            t[:, idx] = c[name].to(t.dtype)
+        for path, c in flatten_params(caches).items():
+            t = self.leaves[path]
+            t.index_copy_(self._axis[path], idx, c.to(t.dtype))
 
 
 class Scheduler:

@@ -133,7 +133,8 @@ def _check_counters(gw):
         act = step(**kw)
         for r in gw.scheduler.running:
             if r.state is RequestState.RUNNING:
-                assert gw.pool.lens[r.lane].tolist() == [r.pos] * gw.cfg.pattern_units
+                lens = gw.pool.state["units/b0/len"]
+                assert lens[r.lane].tolist() == [r.pos] * gw.cfg.pattern_units
         return act
 
     gw.step = checked
@@ -197,6 +198,41 @@ def test_graphs_match_eager_and_jax(weights, mode):
                 "prefill_chunks", "prefill_lane_tokens"):
         assert both.stats[key] == jgw.stats[key], key
     assert both._prefill_graphs.replays > 0
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_graphs_put_back_recurrent_lane_state(mode):
+    """A window-0 hybrid of RG-LRU and attention blocks (recurrentgemma-2b's
+    smoke variant, 5 layers with its tail, the window taken off) pages
+    its K/V and takes the kernel-resident decode with the RG-LRU and conv
+    state as lane state.  A capture's warm-up runs the step, so it must
+    put back every lane-state leaf it advanced, not only the counters, or
+    the replay after it advances the recurrent state a second time.  The
+    graph gateway and the eager one step in lockstep: same steps, tokens
+    and lane state after every step."""
+    name = "recurrentgemma-2b"
+    jcfg = jax_smoke_variant(jax_get_config(name)).replace(num_layers=5, window=0)
+    cfg = smoke_variant(get_config(name)).replace(num_layers=5, window=0)
+    params = params_from_jax(
+        jax_flatten_params(jax_init_params(jax.random.PRNGKey(0), jcfg)), device="cpu")
+    eager, gw = (_gateway(cfg, params, mode, backend=b) for b in (None, Recorder()))
+    assert any(p.startswith("tail/") and p.endswith("/state") for p in gw.pool.state)
+    for g in (eager, gw):
+        assert g.paged and g.kernel_decode and g.chunk_size == 0 and g.prefix is None
+    reqs = [[g.submit(p, license=t, max_new_tokens=6) for t, p in _stream()[:4]]
+            for g in (eager, gw)]
+    while True:
+        acts = [g.step() for g in (eager, gw)]
+        if acts[0] is None:
+            assert acts[1] is None
+            break
+        assert acts[0].kind == acts[1].kind
+        for path, t in eager.pool.state.items():
+            assert torch.equal(gw.pool.state[path], t), path
+    assert [r.out_tokens for r in reqs[1]] == [r.out_tokens for r in reqs[0]]
+    assert all(r.state is RequestState.DONE for r in reqs[1])
+    assert gw._graphs.captures > 0
+    assert gw._graphs.replays == gw.stats["resident_decode_steps"] > gw._graphs.captures
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -293,15 +329,15 @@ def test_failed_capture_raises_without_eager_retry(weights, monkeypatch):
 
     monkeypatch.setattr(gateway_mod, "serve_step_paged", no_eager)
     """The capture's error reaches the caller; the step is not retried
-    eagerly, and the lane counters the warm-up advanced are put back."""
+    eagerly, and the lane state the warm-up advanced is put back."""
     gw = _gateway(cfg, params, "float", backend=FailingCapture())
     req = gw.submit(_stream()[0][1], max_new_tokens=4)
     while req.state is not RequestState.RUNNING:
         assert gw.step().kind == "prefill"
-    lens = gw.pool.lens.clone()
+    state = {path: t.clone() for path, t in gw.pool.state.items()}
     with pytest.raises(RuntimeError, match="capture refused"):
         gw.step()
-    assert torch.equal(gw.pool.lens, lens)
+    assert all(torch.equal(gw.pool.state[path], t) for path, t in state.items())
     assert gw.stats["decode_steps"] == 0 and gw._graphs.replays == 0
     assert len(gw._graphs) == 0
 

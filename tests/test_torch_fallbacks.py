@@ -398,3 +398,103 @@ def test_fallback_argument_checks(weights):
     gw = LicensedGateway(cfg, params, device="cpu", paged=False, kernel_decode=True)
     assert not gw.kernel_decode and gw.prefix is None and gw.chunk_size == 0
     assert gw.max_lanes == gw.max_batch and gw.metrics()["decode_path"]["pallas"] == "off"
+
+
+# ------------------------------------------------------ the recurrent family
+# mamba2-130m (no per-token cache leaf: the contiguous pool) and a 5-layer
+# recurrentgemma-2b (one (rec, rec, attn) unit and two tail rec blocks;
+# the window's ring below the pool's capacity pages, above it is lane
+# state), on the routes the JAX slot picks for them by itself
+RECURRENT = {"mamba2-130m": None, "recurrentgemma-2b": 5}
+# the routes chosen, with kernel_decode=True asked for
+RECURRENT_ROUTES = {"mamba2-130m": dict(paged=False, kernel_decode=False, chunk_size=0),
+                    "recurrentgemma-2b": dict(paged=True, kernel_decode=False, chunk_size=0)}
+VIEWS = {"float": {}, "int8_in_scan": dict(quantized=True),
+         "int8_views": dict(quantized=True, materialize_int8_views=True)}
+
+
+@pytest.fixture(scope="module", params=sorted(RECURRENT))
+def recurrent(request):
+    name, layers = request.param, RECURRENT[request.param]
+    jcfg = jax_smoke_variant(jax_get_config(name))
+    cfg = smoke_variant(get_config(name))
+    if layers:
+        jcfg, cfg = jcfg.replace(num_layers=layers), cfg.replace(num_layers=layers)
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    return name, jcfg, jparams, cfg, params_from_jax(jax_flatten_params(jparams), device="cpu")
+
+
+def _recurrent_pair(recurrent, **kw):
+    name, jcfg, jparams, cfg, params = recurrent
+    jgw = JaxGateway(jcfg, jparams, tiers={"free": JaxLicenseTier(name="free", masks=FREE)},
+                     telemetry=False, **SMALL, **kw)
+    tgw = LicensedGateway(cfg, params, tiers={"free": LicenseTier(name="free", masks=FREE)},
+                          device="cpu", **SMALL, **kw)
+    return jgw, tgw
+
+
+@pytest.mark.parametrize("views", sorted(VIEWS))
+def test_recurrent_gateway_matches_jax(recurrent, views):
+    """Both tiers' greedy tokens on float views, the in-scan int8 store
+    and materialized int8 views, with the JAX gateway's trace, counters
+    and metrics sections; ``kernel_decode=True`` asked for and turned
+    off on both, no prefix cache, the bucket prefill."""
+    jgw, tgw = _recurrent_pair(recurrent, kernel_decode=True, **VIEWS[views])
+    stream = _mixed_stream()
+    jreqs, treqs = _drain(jgw, stream), _drain(tgw, stream)
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert _observed(tgw) == _observed(jgw)
+    want = RECURRENT_ROUTES[recurrent[0]]
+    assert {k: getattr(tgw, k) for k in want} == want == {k: getattr(jgw, k) for k in want}
+    assert tgw.prefix is None and jgw.prefix is None and not tgw.decode_kernels
+    m = tgw.metrics()
+    assert (m["cache_pool"]["paged"], m["decode_path"]["kernel_resident"],
+            m["chunked_prefill"]["enabled"]) == (want["paged"], False, False)
+    assert tgw.stats["resident_decode_steps"] == 0 and tgw.stats["prefill_chunks"] == 0
+
+
+def test_recurrent_gateway_argument_checks(recurrent):
+    """An explicit chunk size raises as in the JAX slot (the paged
+    recurrentgemma: lane state is not a counter; the contiguous mamba2:
+    no paged pool); so does asking for the decode kernels."""
+    name, jcfg, jparams, cfg, params = recurrent
+    match = "reconstructible" if name == "recurrentgemma-2b" else "requires the paged pool"
+    for make, tier_cls, p, c, extra in (
+            (JaxGateway, JaxLicenseTier, jparams, jcfg, dict(telemetry=False)),
+            (LicensedGateway, LicenseTier, params, cfg, dict(device="cpu"))):
+        with pytest.raises(ValueError, match=match):
+            make(c, p, chunk_size=4, **SMALL_GEOMETRY, **extra)
+    with pytest.raises(ValueError, match="kernel-resident decode"):
+        LicensedGateway(cfg, params, device="cpu", decode_kernels=True, **SMALL_GEOMETRY)
+    gw = LicensedGateway(cfg, params, device="cpu", chunk_size=0, **SMALL_GEOMETRY)
+    assert gw.chunk_size == 0
+
+
+# the pool geometry of SMALL without the lane and block counts
+SMALL_GEOMETRY = dict(max_batch=2, max_prompt=12, max_new_cap=8, block_size=4)
+
+
+def test_recurrent_lane_reuse_starts_from_pristine_state(recurrent):
+    """One lane (``max_batch=1``), two requests in a row: the second runs
+    on the lane the first left, and must give the tokens it gives on a
+    fresh gateway alone (a stale SSM or RG-LRU state would change them),
+    and the JAX gateway's."""
+    name, jcfg, jparams, cfg, params = recurrent
+    geometry = dict(max_batch=1, max_prompt=12, max_new_cap=8, block_size=4)
+    prompts = [_prompt(60, 9), _prompt(61, 12)]
+    jgw = JaxGateway(jcfg, jparams, telemetry=False, **geometry)
+    tgw = LicensedGateway(cfg, params, device="cpu", **geometry)
+    out = {}
+    for key, gw in (("jax", jgw), ("torch", tgw)):
+        reqs = [gw.submit(p, max_new_tokens=6) for p in prompts]
+        lanes = []
+        while gw.step() is not None:
+            lanes += [r.lane for r in reqs if r.lane is not None and r.lane not in lanes]
+        assert lanes == [0] and all(r.out_tokens for r in reqs)
+        out[key] = [r.out_tokens for r in reqs]
+    alone = LicensedGateway(cfg, params, device="cpu", **geometry)
+    r = alone.submit(prompts[1], max_new_tokens=6)
+    alone.run()
+    assert out["torch"] == out["jax"]
+    assert out["torch"][1] == r.out_tokens
+

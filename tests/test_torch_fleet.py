@@ -15,7 +15,10 @@ also equal isolated port gateways fed each slot's stream, and the
 results.  A heterogeneous fleet (a qwen2.5-3b slot beside a
 deepseek-v2-lite-16b slot, MLA's compressed cache a third of a qwen
 block's bytes) under one byte budget must give the JAX fleet's tokens,
-per-slot ``block_bytes`` and cross-slot evictions.
+per-slot ``block_bytes`` and cross-slot evictions.  The JAX fleet
+test's trio (qwen2.5-3b, mamba2-130m on the contiguous pool,
+recurrentgemma-2b with its lane state) must give the JAX fleet's tokens
+and actions.
 """
 import jax
 import numpy as np
@@ -399,6 +402,79 @@ def test_heterogeneous_fleet_matches_jax(mixed_weights):
     assert tf.gateways["qwen"].pool.block_bytes != tf.gateways["mla"].pool.block_bytes
     assert tev == jev
     assert {(a, o) for a, o, n in tev if a != o and n} == {("qwen", "mla"), ("mla", "qwen")}
+
+
+# ------------------------------------------------------------ the JAX trio
+# the JAX fleet test's trio: a GQA transformer (paged, chunked prefill),
+# a pure SSM (the contiguous pool) and a window / RG-LRU hybrid (paged,
+# bucket prefill, gather/scatter decode; 5 layers, so two tail blocks)
+TRIO = {"qwen2.5-3b": None, "mamba2-130m": None, "recurrentgemma-2b": 5}
+
+
+@pytest.fixture(scope="module")
+def trio():
+    out = {}
+    for i, (name, layers) in enumerate(TRIO.items()):
+        jcfg, cfg = jax_smoke_variant(jax_get_config(name)), smoke_variant(get_config(name))
+        if layers:
+            jcfg, cfg = jcfg.replace(num_layers=layers), cfg.replace(num_layers=layers)
+        jparams = jax_init_params(jax.random.PRNGKey(i), jcfg)
+        out[name] = (jcfg, cfg, jparams, params_from_jax(jax_flatten_params(jparams),
+                                                         device="cpu"))
+    return out
+
+
+def _trio_run(pkg, trio):
+    """Three jobs a model, tiers alternating, submitted a fixed clock
+    step apart and stepped to the drain.  Returns the fleet, the
+    requests and the model-tagged actions."""
+    clock = Clock()
+    p = PACKAGES[pkg]
+    fleet = p["fleet"](clock=clock, tenants=p["registry"](clock=clock))
+    for name, (jcfg, cfg, jparams, params) in trio.items():
+        fleet.add_model(name, jcfg if pkg == "jax" else cfg,
+                        jparams if pkg == "jax" else params,
+                        tiers={"free": p["tier"](name="free", masks=FREE)},
+                        **dict(GEOMETRY, num_blocks=12), **p["slot_kw"])
+    reqs = []
+    for i, name in enumerate(trio):
+        for j in range(3):
+            reqs.append(fleet.submit(name, _prompt(10 * i + j, 5 + 3 * j),
+                                     license="free" if (i + j) % 2 else "full",
+                                     max_new_tokens=3 + j))
+            clock.now += SUBMIT_DT
+    acts, _ = _steps(fleet, clock)
+    return fleet, reqs, acts
+
+
+def test_trio_fleet_matches_jax(trio):
+    """qwen2.5-3b, mamba2-130m and recurrentgemma-2b behind one fleet:
+    the JAX fleet's tokens, model-tagged actions and each slot's routes
+    and metrics sections; every slot's tokens equal an isolated port
+    gateway's."""
+    (jf, jreqs, jacts), (tf, treqs, tacts) = (_trio_run(pkg, trio) for pkg in PACKAGES)
+    assert all(r.state == RequestState.DONE for r in treqs)
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert tacts == jacts and {a[0] for a in tacts} == set(TRIO)
+    routes = {name: (gw.paged, gw.kernel_decode, gw.chunk_size, gw.prefix is not None)
+              for name, gw in tf.gateways.items()}
+    assert routes == {name: (gw.paged, gw.kernel_decode, gw.chunk_size, gw.prefix is not None)
+                      for name, gw in jf.gateways.items()}
+    assert routes["mamba2-130m"] == (False, False, 0, False)
+    assert routes["recurrentgemma-2b"] == (True, False, 0, False)
+    m, jm = tf.metrics(), jf.metrics()
+    validate_fleet_metrics(m, extra=PORT_EXTRA)
+    for name in TRIO:
+        for key in ("cache_pool", "chunked_prefill", "prefix_cache"):
+            assert m["models"][name][key] == jm["models"][name][key], (name, key)
+    for name, (_, cfg, _, params) in trio.items():
+        gw = LicensedGateway(cfg, params, tiers={"free": LicenseTier(name="free", masks=FREE)},
+                             device="cpu", **dict(GEOMETRY, num_blocks=12))
+        mine = [r for r in treqs if r.model == name]
+        alone = [gw.submit(r.prompt, license=r.license, max_new_tokens=r.max_new_tokens)
+                 for r in mine]
+        gw.run()
+        assert [r.out_tokens for r in alone] == [r.out_tokens for r in mine], name
 
 
 # ------------------------------------------------------- tenant enforcement

@@ -91,6 +91,27 @@ def test_store_flag_on_a_deepseek_config(arch, tmp_path, capsys):
     assert got == want
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b"])
+def test_store_flag_on_a_recurrent_config(arch, tmp_path, capsys):
+    """``--arch`` takes the recurrent family at smoke size (mamba2-130m on
+    the contiguous pool, recurrentgemma-2b with its lane state and
+    window): the JAX launcher's version line and greedy tokens in every
+    tier."""
+    cfg = jax_smoke_variant(jax_get_config(arch))
+    path = str(tmp_path / "recurrent.db")
+    store = JaxWeightStore(path)
+    for seed in (0, 1):
+        store.commit(cfg.name, jax_init_params(jax.random.PRNGKey(seed), cfg))
+    store.close()
+    args = ["--arch", arch, *ARGS[2:], "--store", path]
+    jax_serve.main(args)
+    want = _served(capsys.readouterr().out)
+    serve.main([*args, "--device", "cpu"])
+    got = _served(capsys.readouterr().out)
+    assert want[0] == ["loaded production version 2"] and len(want[1]) == 2
+    assert got == want
+
+
 def test_without_store_the_port_serves_its_own_random_weights(store_path, capsys):
     """The store's weights reach the tokens: the seed's random weights
     give others, and no version line."""

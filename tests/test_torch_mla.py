@@ -198,8 +198,9 @@ def test_paged_pool_leaves_match_jax(arch):
         jleaves = jax.tree_util.tree_leaves_with_path(jpool.gather([0], jpool.pad_tables([], 1)))
         paged = {str(path[-1].key): leaf.shape for path, leaf in jleaves
                  if str(path[-1].key) != "len"}
-        assert set(pool.leaves) == set(paged)
-        for name, t in pool.leaves.items():
+        assert {path.split("/")[-1] for path in pool.leaves} == set(paged)
+        for path, t in pool.leaves.items():
+            name = path.split("/")[-1]
             jarr = jpool._storage[[str(p[-1].key) for p, _ in jleaves].index(name)]
             assert tuple(t.shape) == jarr.shape[:1] + jarr.shape[2:], name
             assert str(t.dtype).split(".")[-1] == str(jarr.dtype), name
@@ -208,7 +209,8 @@ def test_paged_pool_leaves_match_jax(arch):
         assert pool.prefix_cacheable == jpool.prefix_cacheable is True
     if arch == "qwen2.5-3b":
         full = PagedCachePool(get_config(arch), 1, 16, 16, 1, device="cpu")
-        assert list(full.leaves) == ["k", "v"] and full.k is full.leaves["k"]
+        assert list(full.leaves) == ["units/b0/k", "units/b0/v"]
+        assert full.k is full.leaves["units/b0/k"]
         assert tuple(full.k.shape) == (36, 2, 16, 2, 128)
     if arch == "deepseek-v2-lite-16b":       # (512 + 64) * 2 B * 27 units a token
         assert pool.block_bytes == (512 + 64) * 2 * 27 * 16
@@ -249,5 +251,5 @@ def test_gateway_tokens_and_schedule_identical(streams):
     if name != "contiguous":
         assert tgw.stats["preempted"] > 0
         assert tgw.pool.block_bytes == jgw.pool.block_bytes
-        assert set(tgw.pool.leaves) == {"ckv", "k_rope"}
+        assert set(tgw.pool.leaves) == {"units/b0/ckv", "units/b0/k_rope"}
     assert (tgw.prefix is not None) == (name == "default")

@@ -363,8 +363,9 @@ def deepseek(request):
 
 def test_deepseek_config_fields_match_jax(deepseek):
     """Every field of the full config and its smoke variant, ``source``
-    included; ``check_supported`` takes both, and still refuses the
-    architectures that are not ported."""
+    included; ``check_supported`` takes both and the recurrent family
+    (mamba2-130m, recurrentgemma-2b, registered by the port), and still
+    refuses the architectures that are not ported."""
     import dataclasses
 
     jcfg, _, cfg, _ = deepseek
@@ -372,7 +373,10 @@ def test_deepseek_config_fields_match_jax(deepseek):
     for got, want in ((get_config(name), jax_get_config(name)), (cfg, jcfg)):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
         model.check_supported(got)
-    for other in ("mamba2-130m", "recurrentgemma-2b", "musicgen-large", "internvl2-26b"):
+    for ported in ("mamba2-130m", "recurrentgemma-2b"):
+        assert get_config(ported) == _port_config(ported)
+        model.check_supported(get_config(ported))
+    for other in ("musicgen-large", "internvl2-26b"):
         with pytest.raises(NotImplementedError, match="the other architectures"):
             model.check_supported(_port_config(other))
     with pytest.raises(NotImplementedError, match="the other architectures"):

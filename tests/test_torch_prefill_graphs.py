@@ -199,7 +199,7 @@ def test_prefill_replays_add_no_launch_counts(weights, monkeypatch):
 
 def test_failed_prefill_capture_raises_without_eager_retry(weights, monkeypatch):
     """The capture's error reaches the caller; the chunk is not retried
-    eagerly, and the lane counters its warm-up set are put back."""
+    eagerly, and the lane state its warm-up set is put back."""
     _, _, cfg, params = weights
 
     def no_eager(*a, **kw):
@@ -208,10 +208,10 @@ def test_failed_prefill_capture_raises_without_eager_retry(weights, monkeypatch)
     monkeypatch.setattr(gateway_mod, "prefill_chunk_step", no_eager)
     gw = _gateway(cfg, params, "float", backend=FailingCapture())
     req = gw.submit(_stream()[0][1], max_new_tokens=4)
-    lens = gw.pool.lens.clone()
+    state = {path: t.clone() for path, t in gw.pool.state.items()}
     with pytest.raises(RuntimeError, match="capture refused"):
         gw.step()
-    assert torch.equal(gw.pool.lens, lens)
+    assert all(torch.equal(gw.pool.state[path], t) for path, t in state.items())
     assert req.cursor == 0 and gw.stats["prefill_chunks"] == 0
     assert gw._prefill_graphs.captures == gw._prefill_graphs.replays == 0
     assert len(gw._prefill_graphs) == 0
@@ -242,8 +242,9 @@ def test_pool_takes_device_tables_and_fills(weights):
         caches = pool.override_counters(caches, wrap(fills))
         pool.scatter(wrap(lanes), wrap(tables), caches)
     assert torch.equal(host.k, dev.k) and torch.equal(host.v, dev.v)
-    assert torch.equal(host.lens, dev.lens)
-    assert host.lens[0].tolist() == [9] * cfg.pattern_units
+    lens = host.state["units/b0/len"]
+    assert torch.equal(lens, dev.state["units/b0/len"])
+    assert lens[0].tolist() == [9] * cfg.pattern_units
 
 
 # ------------------------------------------------------- on the card only

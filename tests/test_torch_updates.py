@@ -125,6 +125,33 @@ def test_midstream_staged_sync_matches_jax(tmp_path, weights, quantized,
     after it is served on v2 through that view (no miss); the port's v1
     tensors are untouched (copy-on-apply).  ``quantized``: materialized
     int8 views (True) or the in-scan dequant ("in_scan")."""
+    _midstream_sync(tmp_path, weights, quantized, background_fetch)
+
+
+@pytest.fixture(scope="module")
+def recurrent_weights():
+    """recurrentgemma-2b's smoke variant at 5 layers: one (rec, rec, attn)
+    unit and two tail blocks, whose rank-2 leaves travel in the delta."""
+    jcfg = jax_smoke_variant(jax_get_config("recurrentgemma-2b")).replace(num_layers=5)
+    jflat = jax_flatten_params(jax.device_get(
+        jax_init_params(jax.random.PRNGKey(0), jcfg)))
+    return jcfg, jflat, smoke_variant(get_config("recurrentgemma-2b")).replace(num_layers=5)
+
+
+@pytest.mark.parametrize("quantized", [True, "in_scan"])
+def test_recurrent_midstream_staged_sync_matches_jax(tmp_path, recurrent_weights, quantized):
+    """The same sync on recurrentgemma-2b (the paged pool with RG-LRU
+    lane state, the bucket prefill, the gather/scatter decode) from an
+    int8 store: the tail blocks' rank-2 leaves are in the delta and in
+    ``requantize_layers``, and the tokens before and after the flip are
+    the JAX gateway's."""
+    st = _midstream_sync(tmp_path, recurrent_weights, quantized, False,
+                         max_step_bytes=16 << 20)
+    # every leaf the 1.01 scale changes (the zero conv biases stay), tail ones included
+    assert st["layers_touched"] == sum(1 for v in recurrent_weights[1].values() if np.any(v))
+
+
+def _midstream_sync(tmp_path, weights, quantized, background_fetch, max_step_bytes=1 << 20):
     mode = ({} if not quantized else dict(quantized=True) if quantized == "in_scan"
             else dict(quantized=True, materialize_int8_views=True))
     pair = Pair(str(tmp_path / "lm.db"), weights, **mode)
@@ -135,7 +162,7 @@ def test_midstream_staged_sync_matches_jax(tmp_path, weights, quantized,
     for gw in pair.both:
         gw.step()
     pair.publish(pair.scaled(1.01), "v2")
-    kw = dict(max_step_bytes=1 << 20, requant_layers_per_step=6,
+    kw = dict(max_step_bytes=max_step_bytes, requant_layers_per_step=6,
               background_fetch=background_fetch)
     assert all(gw.begin_sync(**kw) for gw in pair.both)
     flips = []
@@ -169,6 +196,7 @@ def test_midstream_staged_sync_matches_jax(tmp_path, weights, quantized,
     assert after[1].version == after[0].version == 2
     assert after[1].out_tokens == after[0].out_tokens
     assert pair.tgw.views.misses == misses
+    return st
 
 
 def test_atomic_tier_and_version_flip_matches_jax(tmp_path, weights):
