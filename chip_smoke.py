@@ -252,7 +252,28 @@ Phases (each prints its own lines; any failure exits non-zero):
    mamba2-130m and recurrentgemma-2b: every request served, qwen's
    ``paged_attention`` launched, the recurrent slots' tokens equal their
    isolated runs' up to near-ties;
-12. a ``kernels`` JSON line, and the result line last.
+12. LayerNorm, the front-end stubs and int8 KV caches at full width and
+   depth, as phase 9 runs its models: (a) musicgen-large (48 layers of
+   MHA 32/32 at head dim 64 with LayerNorm, codec vocabulary 2,048) on
+   float views through the kernels (graph replays) and the plain route
+   (eager), tokens equal up to near-ties, each steady step beside its
+   weight-read bound; (b) musicgen-large in-scan from its int8 store (7
+   ``masked_dequant`` launches a unit a step: 336); (c) musicgen-large
+   with ``kv_cache_int8``: the paged pool of int8 codes and f32 scales
+   (69,632 bytes a layer-block), the kernel-resident step and its graphs
+   over the plain gather, no paged kernel launched, tokens equal (a)'s
+   plain route's up to near-ties; (d) internvl2-26b (48 layers of GQA
+   48/8) on float views of the ``full`` tier alone (a float ``free`` view
+   beside it would not fit), kernel route, then one full-width
+   ``prefill_step`` of 256 vision patches and 64 text tokens (time, peak
+   memory, finite logits); (e) internvl2-26b in-scan in both tiers from
+   an int8 store built unit by unit, ``vision_proj`` float beside it
+   (336 launches a step).  Phase 12 must launch ``paged_attention``,
+   ``paged_decode_write`` and ``masked_dequant``.  Phase 2 also runs
+   ``paged_attention`` at both models' decode shapes (32/32 heads at
+   head dim 64, 48/8 at 128; 8 x 4096 tokens) back to back, in a graph
+   and L2-cold;
+13. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
 device is present or when run outside a checkout of the repository.
@@ -392,6 +413,11 @@ PA_GRANITE_CASES = {"granite_serving": PA_CASES["serving"], "granite_long": PA_C
 # (a GQA group of 1), the same contexts
 PA_MHA = (16, 16, 128, 16)
 PA_MHA_CASES = {"mha_serving": PA_CASES["serving"], "mha_long": PA_CASES["long"]}
+# phase 12's decode shapes at 8 x 4096 tokens: musicgen-large's MHA (32
+# q heads on 32 kv heads at head dim 64: a group of 1, 268 MB of K/V) and
+# internvl2-26b's GQA (48 on 8 at head dim 128: a group of 6)
+PA_FRONTEND_CASES = {"musicgen_long": ((32, 32, 64, 16), PA_CASES["long"]),
+                     "internvl_long": ((48, 8, 128, 16), PA_CASES["long"])}
 
 
 def paged_bound(peaks, q, lens, shape=PA_SHAPE):
@@ -524,6 +550,9 @@ def check_kernels(peaks, torch, ops, ref, kernels_pa, kernels_md):
     for name, case_lens in PA_MHA_CASES.items():
         cases[name] = paged_case(torch, kernels_pa, ref, peaks, pa_gen, case_lens,
                                  cold=True, shape=PA_MHA)
+    for name, (shape, case_lens) in PA_FRONTEND_CASES.items():
+        cases[name] = paged_case(torch, kernels_pa, ref, peaks, pa_gen, case_lens,
+                                 cold=True, shape=shape)
     for name, c in cases.items():
         cold = f", L2-cold {c['ms_cold']:.4f} ms" if "ms_cold" in c else ""
         alone = f" (extension call alone {c['ms_ext']:.4f})" if "ms_ext" in c else ""
@@ -2093,9 +2122,13 @@ def near_ties(label, reqs, ref_reqs, rows, ref_rows, vocab, ref="the cold run",
               capped=True):
     """Greedy tokens of ``reqs`` against ``ref``'s (``ref_reqs``):
     identical, or each request's first parting a near-tie by phase 4's
-    rule (the reference's gap between the two tokens below the lane's max
-    |logit diff|, and that diff within 0.05 x max(|logit|, 1) of the
-    reference row).  ``capped=False`` drops the cap on the diff: a MoE
+    rule (the reference's gap between the two tokens at most the lane's
+    max |logit diff|, and that diff within 0.05 x max(|logit|, 1) of the
+    reference row).  A gap equal to the diff counts: bf16 logits lie on a
+    grid, so both are multiples of one step, and a shift of the diff
+    brings the two logits to a tie, which argmax breaks towards the lower
+    id (musicgen-large's 2,048 logits near 3 sit 0.0156 apart).
+    ``capped=False`` drops the cap on the diff: a MoE
     model's routes swap experts where their routers nearly tie, a jump no
     rounding tolerance bounds (``moe_route_check`` holds the cap with the
     picks pinned)."""
@@ -2108,7 +2141,7 @@ def near_ties(label, reqs, ref_reqs, rows, ref_rows, vocab, ref="the cold run",
             f"{p['plain_gap']:.4f}, lane max |logit diff| {p['lane_max_abs_diff']:.4f} "
             f"(tol {p['tol']:.4f})")
     wide = [p["request"] for p in split
-            if not (p["plain_gap"] < p["lane_max_abs_diff"]
+            if not (p["plain_gap"] <= p["lane_max_abs_diff"]
                     and (p["lane_max_abs_diff"] <= p["tol"] or not capped))]
     if wide:
         fail(f"{label}: requests {wide} part from {ref} at a step that is not a near-tie")
@@ -3464,10 +3497,11 @@ def dense_outer(cfg, torch, device="cuda"):
 
 
 def dense_run(label, cfg, params, tiers, np, torch, device="cuda", route=None, check=None,
-              geometry=GEOMETRY, jobs=None, **kw):
+              geometry=GEOMETRY, jobs=None, view_tiers=("full", "free"), **kw):
     """One gateway (``kw`` its arguments beside ``geometry``) serving
     ``jobs`` ((prompt, tier, new tokens); by default the first
-    DENSE_REQUESTS of phase 3's stream): both tiers' views built first (as
+    DENSE_REQUESTS of phase 3's stream): the views of ``view_tiers`` (both
+    tiers by default) built first (as
     phase 3 does), then the launch counters zeroed, the stream drained and
     the counters read.  Checks each kernel the route runs: on the kernel
     route ``paged_attention`` and ``paged_decode_write`` launch once a unit
@@ -3488,7 +3522,7 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", route=None, c
     # go with it: two float views of nemotron-4-15b do not fit beside a
     # third
     views = {tier: view_build(torch, ops, lambda: gw.view_for(tier))[1]
-             for tier in ("full", "free")}
+             for tier in view_tiers}
     got_route = {k: getattr(gw, k) for k in (route or {})}
     if got_route != (route or {}):
         fail(f"{label}: the gateway chose {got_route}, not {route}")
@@ -4211,6 +4245,227 @@ def recurrent_phase(peaks, np, torch, device="cuda", config=None):
     return out, launches
 
 
+# ------------------------------------------------------------ phase 12
+# LayerNorm, the front-end stubs and int8 KV caches at full width and
+# depth, random bf16 weights from SEED, phase 9's requests and tiers:
+# musicgen-large (48 layers, MHA 32/32 at head dim 64, LayerNorm with
+# biases, SwiGLU d_ff 8192, the codec vocabulary of 2,048) and
+# internvl2-26b (48 layers, GQA 48/8 at head dim 128, SwiGLU d_ff 16384,
+# vocab 92553, a 256-patch vision prefix through ``vision_proj``).  In-scan,
+# each unit dequantizes 7 int8 leaves a step (336 a step for either); with
+# ``kv_cache_int8`` a layer-block of 16 tokens holds int8 codes and f32
+# scales: 16 x 32 x (2 x 64 + 2 x 4) = 69,632 bytes for musicgen-large
+# against 131,072 in bf16.  A float ``free`` view of internvl2-26b beside
+# its ``full`` weights would be 2 x 39.8 GB, so its float run serves the
+# ``full`` tier alone
+FRONTEND_DEQUANTS = 7
+KV8_LAYER_BLOCK = 16 * 32 * (2 * 64 + 2 * 4)
+VLM_PREFILL = dict(patches=256, text=64)
+
+
+def weight_bound(peaks, params):
+    """Every byte of ``params`` over the card's memory rate (ms; None
+    without a card): phase 9's weight-read bound of a decode step, which
+    counts the whole embedding table though a step reads 8 of its rows
+    (internvl2-26b's table is 1.1 of its 39.8 GB)."""
+    if peaks is None:
+        return None
+    return 1e3 * sum(t.numel() * t.element_size() for t in _leaves(params)) / peaks[0]
+
+
+def vlm_prefill(label, cfg, params, np, torch, device="cuda"):
+    """One ``prefill_step(patch_embeds=)`` of VLM_PREFILL's patches and
+    text tokens on one lane at full width, twice (the second warm): host
+    clock ending in a synchronize, peak memory, and the last row's logits
+    finite over the vocabulary and -1e9 past it."""
+    from repro_torch.models import init_cache
+    from repro_torch.serving.engine import prefill_step
+
+    rng = np.random.default_rng(SEED + 12)
+    p, n = VLM_PREFILL["patches"], VLM_PREFILL["text"]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n), dtype=np.int32)).to(device)
+    patches = torch.from_numpy(rng.standard_normal((1, p, cfg.d_model), dtype=np.float32)
+                               ).to(device, cfg.dtype)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        cache = init_cache(cfg, 1, p + n, device=device)
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = prefill_step(params, cfg, toks, cache, patch_embeds=patches)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    lens = cache["units"]["b0"]["len"]
+    if tuple(logits.shape) != (1, cfg.padded_vocab) or not bool((lens == p + n).all()):
+        fail(f"{label}: logits {tuple(logits.shape)}, cache lengths {lens.unique().tolist()} "
+             f"after {p} patches and {n} tokens")
+    if not (bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+            and bool((logits[:, cfg.vocab_size:] == -1e9).all())):
+        fail(f"{label}: non-finite logits, or a padded id not at -1e9")
+    out = dict(patches=p, text=n, first_ms=times[0], warm_ms=times[1],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               max_abs_logit=float(logits[:, :cfg.vocab_size].abs().max()))
+    log(f"  {label}: prefill_step of 1 x ({p} patches + {n} tokens) {times[1]:.2f} ms warm "
+        f"(first {times[0]:.2f} ms; host clock, synchronized, eager), peak "
+        f"{out['peak_gb']:.1f} GB, last-row logits finite (max |logit| "
+        f"{out['max_abs_logit']:.3f})")
+    del cache, logits
+    return out
+
+
+def frontend_phase(peaks, np, torch, device="cuda", config=None):
+    """Phase 12 (see the module docstring): (a) musicgen-large on float
+    views, kernel route (graphs) and plain route (eager), tokens equal up
+    to near-ties; (b) musicgen-large in-scan from its int8 store; (c)
+    musicgen-large with ``kv_cache_int8``: the kernel-resident step and
+    its graphs over the plain gather, no paged kernel, tokens against
+    (a)'s plain route up to near-ties; (d) internvl2-26b on float views of
+    the ``full`` tier, kernel route, and one full-width prefill with its
+    vision prefix; (e) internvl2-26b in-scan, both tiers, from an int8
+    store built unit by unit.  Returns each run's summary and the
+    launches of all the runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.licensing import LicenseTier
+    from repro_torch.models import init_params
+    from repro_torch.serving.quantized import quantize_serving_params
+
+    tiers = {"free": LicenseTier(name="free", masks=FREE_TIER)}
+    config = config or get_config
+    out, launches = {}, {}
+
+    def add(run):
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    def steady(label, run, bound):
+        if bound is not None:
+            log(f"  {label}: steady step {run['step_ms']:.2f} ms against its "
+                f"{bound:.2f} ms weight-read bound ({run['step_ms'] / bound:.1f}x)")
+        run["weight_bound_ms"] = bound
+
+    def in_scan(label, cfg, store, **kw):
+        _, _, run = dense_run(f"{label} in-scan int8", cfg, store, tiers, np, torch, device,
+                              already_quantized=True, **kw)
+        want = FRONTEND_DEQUANTS * cfg.pattern_units
+        if run["masked_dequant_per_step"] != want:
+            fail(f"{label}: {run['masked_dequant_per_step']} masked_dequant launches a step "
+                 f"in-scan, not {want}")
+        add(run)
+        return run
+
+    t12 = time.perf_counter()
+    gc.collect()          # phase 11's gateways and fleet, cyclic garbage since its return
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        log(f"phase 12: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before it")
+    cfg = config("musicgen-large")
+    log(f"phase 12a: musicgen-large at full width, {cfg.num_layers} layers (d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"LayerNorm, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab {cfg.padded_vocab}, front end "
+        f"{cfg.frontend!r}), float views, kernel and plain routes")
+    params = init_params(cfg, seed=SEED, device=device)
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  {n / 1e9:.3f} B parameters, {2 * n / 1e9:.2f} GB of bf16")
+    bound = weight_bound(peaks, params)
+    k_reqs, k_rows, kern = dense_run("12a musicgen-large float views, kernel route", cfg,
+                                     params, tiers, np, torch, device)
+    steady("12a kernel route", kern, bound)
+    p_reqs, p_rows, plain = dense_run("12a musicgen-large float views, plain route", cfg,
+                                      params, tiers, np, torch, device, decode_kernels=False)
+    a = dict(kernel=kern, plain=plain,
+             parts=near_ties("12a musicgen-large, plain route", p_reqs, k_reqs, p_rows,
+                             k_rows, cfg.vocab_size, ref="the kernel route"))
+    del k_rows
+    add(kern)
+    add(plain)
+    log("phase 12c: musicgen-large with kv_cache_int8 on float views (paged int8 codes and "
+        "f32 scales, graphs over the plain gather)")
+    cfg8 = cfg.replace(kv_cache_int8=True)
+
+    def kv8_check(gw, reqs, rows):
+        if gw._graphs is None and device == "cuda":
+            fail("12c: the int8-KV gateway captured no decode graphs")
+        if gw.pool.block_bytes != cfg.num_layers * KV8_LAYER_BLOCK and device == "cuda":
+            fail(f"12c: {gw.pool.block_bytes} bytes a block, not {cfg.num_layers} x "
+                 f"{KV8_LAYER_BLOCK}")
+        leaves = sorted(p.rsplit("/", 1)[-1] for p in gw.pool.leaves)
+        if leaves != ["k", "k_scale", "v", "v_scale"]:
+            fail(f"12c: paged leaves {leaves}")
+        return dict(block_bytes=gw.pool.block_bytes,
+                    layer_block_bytes=gw.pool.block_bytes // cfg.num_layers,
+                    bf16_layer_block_bytes=16 * cfg.num_kv_heads * cfg.head_dim * 4)
+
+    c_reqs, c_rows, c = dense_run("12c musicgen-large int8 KV", cfg8, params, tiers, np,
+                                  torch, device, check=kv8_check,
+                                  route=dict(kernel_decode=True, decode_kernels=False))
+    steady("12c int8 KV", c, bound)
+    c["parts"] = near_ties("12c musicgen-large int8 KV", c_reqs, p_reqs, c_rows, p_rows,
+                           cfg.vocab_size, ref="12a's plain route")
+    del p_rows, c_rows
+    add(c)
+    t0 = time.perf_counter()
+    store = quantize_serving_params(params)
+    sync()
+    store_s = time.perf_counter() - t0
+    del params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"phase 12b: musicgen-large in-scan from its int8 store (quantize_serving_params, "
+        f"{store_s:.2f} s, {sum(t.numel() * t.element_size() for t in _leaves(store)) / 1e9:.2f}"
+        f" GB)")
+    b = in_scan("12b musicgen-large", cfg, store)
+    steady("12b in-scan", b, bound)
+    del store
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["musicgen-large"] = dict(float=a, in_scan=b, kv_int8=c, store_s=store_s)
+
+    cfg = config("internvl2-26b")
+    log(f"phase 12d: internvl2-26b at full width, {cfg.num_layers} layers (d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff} {cfg.mlp_type}, vocab {cfg.padded_vocab}, {cfg.num_patches} patches "
+        f"through vision_proj), float views of the full tier, kernel route")
+    params = init_params(cfg, seed=SEED, device=device)
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  {n / 1e9:.3f} B parameters, {2 * n / 1e9:.2f} GB of bf16")
+    bound = weight_bound(peaks, params)
+    full_jobs = [(p, "full", m) for p, _, m in dense_jobs(cfg, np)]
+    _, _, d = dense_run("12d internvl2-26b float views (full tier)", cfg, params, {}, np,
+                        torch, device, jobs=full_jobs, view_tiers=("full",))
+    steady("12d kernel route", d, bound)
+    add(d)
+    d["prefill"] = vlm_prefill("12d internvl2-26b", cfg, params, np, torch, device)
+    del params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log("phase 12e: internvl2-26b in-scan, tiers full and free, from an int8 store built unit "
+        "by unit (vision_proj float beside it)")
+    t0 = time.perf_counter()
+    store = store_by_unit(cfg, torch, device)
+    sync()
+    e_store = dict(store_s=time.perf_counter() - t0,
+                   store_gb=sum(t.numel() * t.element_size() for t in _leaves(store)) / 1e9)
+    if not (torch.is_tensor(store.get("vision_proj"))
+            and store["vision_proj"].dtype == cfg.dtype):
+        fail("12e: the int8 store lacks a float vision_proj")
+    log(f"  12e: int8 store built in {e_store['store_s']:.2f} s, {e_store['store_gb']:.2f} GB")
+    e = in_scan("12e internvl2-26b", cfg, store)
+    steady("12e in-scan", e, bound)
+    e.update(e_store)
+    del store
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["internvl2-26b"] = dict(float=d, in_scan=e)
+    out["s"] = time.perf_counter() - t12
+    log(f"  phase 12 took {out['s']:.1f} s")
+    return out, launches
+
+
 def main() -> None:
     t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4533,6 +4788,15 @@ def main() -> None:
     rows["masked_dequant"]["cases"]["tail/t0/mixer/w_r (rank 2)"] = \
         recurrent["recurrentgemma-2b"]["int8"]["rank2"]
 
+    # ---------------------------------------------------------- phase 12
+    frontend, phase12_launches = frontend_phase(peaks, np, torch)
+    log(f"  launches on phase 12's paths: {phase12_launches}")
+    for name in ("paged_attention", "paged_decode_write", "masked_dequant"):
+        if phase12_launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on phase 12's paths")
+    for name, n in phase12_launches.items():
+        launches[name] += n
+
     # ---------------------------------------------------------- summary
     kernels = [dict(name=name, launches=launches[name], **row)
                for name, row in rows.items()]
@@ -4551,7 +4815,8 @@ def main() -> None:
                     "dense": dense, "fallbacks": fallbacks,
                     "phase9_launches": phase9_launches,
                     "moe_mla": moe, "phase10_launches": phase10_launches,
-                    "recurrent": recurrent, "phase11_launches": phase11_launches}))
+                    "recurrent": recurrent, "phase11_launches": phase11_launches,
+                    "frontend": frontend, "phase12_launches": phase12_launches}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -62,8 +62,9 @@ class ModelConfig:
     seq_sharded_acts: bool = False
     fsdp: bool = False
     pin_acts: bool = False
-    norm_bf16_apply: bool = False
-    kv_cache_int8: bool = False
+    # numerics knobs
+    norm_bf16_apply: bool = False        # rms_norm: stats in f32, apply in the input dtype
+    kv_cache_int8: bool = False          # int8 K/V with a scale a (token, head)
     # citation
     source: str = ""
 

@@ -1,7 +1,7 @@
-"""Neural layers of the port: RMS norm, RoPE, GQA causal attention
-(prefill, decode, chunked ``attend_cache``; linear or, with a sliding
-window, a ring cache), the kernel-resident paged
-decode attention, DeepSeek-V2's multi-head latent attention (MLA,
+"""Neural layers of the port: RMS norm and LayerNorm, RoPE, GQA causal
+attention (prefill, decode, chunked ``attend_cache``; linear or, with a
+sliding window, a ring cache; float or int8 K/V), the kernel-resident
+paged decode attention, DeepSeek-V2's multi-head latent attention (MLA,
 contiguous and paged), and the SwiGLU and squared-ReLU MLPs.
 
 Counterpart of ``repro/models/layers.py`` restricted to what the ported
@@ -22,10 +22,36 @@ import torch.nn.functional as F
 
 
 # --------------------------------------------------------------------- norms
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             bf16_apply: bool = False) -> torch.Tensor:
+    """Statistics in f32; applied in f32, or with ``bf16_apply`` in the
+    input dtype (the rsqrt cast to it first), as the JAX package does."""
     x32 = x.float()
     var = (x32 * x32).mean(-1, keepdim=True)
+    if bf16_apply:
+        r = torch.rsqrt(var + eps).to(x.dtype)
+        return x * r * scale.to(x.dtype)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 statistics and the population variance
+    (``jnp.var``; ``torch.var`` defaults to the unbiased estimate)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, unbiased=False, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg=None) -> torch.Tensor:
+    """A block's or the final norm: LayerNorm when ``p`` has a ``bias``,
+    else RMS, applied in the input dtype when ``cfg.norm_bf16_apply``."""
+    if "bias" in p:
+        return layer_norm(x, p["norm_scale"], p["bias"])
+    return rms_norm(x, p["norm_scale"],
+                    bf16_apply=bool(cfg is not None and cfg.norm_bf16_apply))
 
 
 # ---------------------------------------------------------------------- RoPE
@@ -153,14 +179,18 @@ def attention_block(
         out = attention_core(q, k, v, q_offset=pos, window=window)
         new_cache = None
     else:
+        quant = "k_scale" in cache
         cap = cache["k"].shape[1]
-        ck, cv = cache["k"], cache["v"]
         ring = bool(window) and attend_cache
         rows = torch.arange(b, device=x.device)[:, None].expand(b, s)
         if ring:
             assert s <= cap, (s, cap)  # one chunk may not lap the ring
             slot = positions % cap
-            old_k, old_v = ck.clone(), cv.clone()
+            if quant:
+                old_k = _kv_dequantize(cache["k"], cache["k_scale"], k.dtype)
+                old_v = _kv_dequantize(cache["v"], cache["v_scale"], v.dtype)
+            else:
+                old_k, old_v = cache["k"].clone(), cache["v"].clone()
             # the position in slot i before this chunk: the largest
             # t < pos with t mod cap == i (negative = empty)
             last = positions[:, :1] - 1
@@ -169,33 +199,49 @@ def attention_block(
             slot = positions.clamp(0, cap - 1)
         else:
             slot = positions % cap
-        k_w, v_w = k, v
+        if quant:
+            kq, ks = _kv_quantize(k)
+            vq, vs = _kv_quantize(v)
+            writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            writes = {"k": k, "v": v}
         if ring and chunk_valid is not None:
+            # pad rows write back their slot's resident content (codes and
+            # scales as they are on an int8 ring)
             keep = (torch.arange(s, device=x.device)[None, :]
                     < torch.as_tensor(chunk_valid, device=x.device).reshape(-1, 1))
             sel = keep[..., None, None]                            # (B|1, s, 1, 1)
-            k_w = torch.where(sel, k, old_k[rows, slot])
-            v_w = torch.where(sel, v, old_v[rows, slot])
+            writes = {n: torch.where(sel, t, cache[n][rows, slot]) for n, t in writes.items()}
+        w_rows, w_slot = rows, slot
         if s > cap:                        # the last cap positions, distinct slots
-            k_w, v_w = k_w[:, -cap:], v_w[:, -cap:]
-            rows, slot = rows[:, -cap:], slot[:, -cap:]
-        ck[rows, slot] = k_w.to(ck.dtype)
-        cv[rows, slot] = v_w.to(cv.dtype)
+            writes = {n: t[:, -cap:] for n, t in writes.items()}
+            w_rows, w_slot = rows[:, -cap:], slot[:, -cap:]
+        for n, t in writes.items():
+            cache[n][w_rows, w_slot] = t.to(cache[n].dtype)
         cv_n = s if chunk_valid is None else torch.as_tensor(chunk_valid,
                                                               device=x.device)
         new_len = torch.clamp(cache["len"] + cv_n, max=cap).to(cache["len"].dtype)
         if ring:
-            out = attention_core(q, torch.cat([old_k, k], 1), torch.cat([old_v, v], 1),
+            # an int8 ring attends the fresh chunk round-tripped through
+            # int8, as every other key is seen
+            k_att = _kv_dequantize(kq, ks, k.dtype) if quant else k
+            v_att = _kv_dequantize(vq, vs, v.dtype) if quant else v
+            out = attention_core(q, torch.cat([old_k, k_att], 1), torch.cat([old_v, v_att], 1),
                                  q_offset=pos, window=window,
                                  k_positions=torch.cat([old_pos, positions], 1))
         elif s == 1 or attend_cache:
             # RoPE is applied at each key's absolute position, so the order
             # of a ring's slots does not matter to the scores
-            out = attention_core(q, ck, cv, q_offset=pos,
+            if quant:
+                kk = _kv_dequantize(cache["k"], cache["k_scale"], k.dtype)
+                vv = _kv_dequantize(cache["v"], cache["v_scale"], v.dtype)
+            else:
+                kk, vv = cache["k"], cache["v"]
+            out = attention_core(q, kk, vv, q_offset=pos,
                                  kv_len=None if attend_cache else new_len)
         else:
             out = attention_core(q, k, v, q_offset=pos, window=window)
-        new_cache = {"k": ck, "v": cv, "len": new_len}
+        new_cache = {**{n: cache[n] for n in writes}, "len": new_len}
     y = out.reshape(b, s, h * hd) @ p["wo"]
     return y, new_cache
 
@@ -255,7 +301,21 @@ def attention_block_paged(
     bs = kc.shape[1]
     blk = torch.gather(tables, 1, (pos // bs)[:, None].long())[:, 0]
     off = (pos % bs).to(torch.int32)
-    if use_kernel:
+    quant = "k_scale" in cache
+    if quant and use_kernel:
+        raise ValueError("attention_block_paged: the paged kernels read float K/V; an int8 "
+                         "cache takes use_kernel=False")
+    if quant:
+        kq, ks = _kv_quantize(k[:, 0])
+        vq, vs = _kv_quantize(v[:, 0])
+        for n, t in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+            cache[n][blk.long(), off.long()] = t
+        kk = _kv_dequantize(gather_paged(kc, tables), gather_paged(cache["k_scale"], tables),
+                            k.dtype)
+        vv = _kv_dequantize(gather_paged(vc, tables), gather_paged(cache["v_scale"], tables),
+                            v.dtype)
+        out = paged_decode_attend(q[:, 0], kk, vv, pos + 1)
+    elif use_kernel:
         from repro_torch.kernels.paged_attention import (paged_attention,
                                                          paged_decode_write)
 
@@ -269,9 +329,45 @@ def attention_block_paged(
         out = paged_decode_attend(q[:, 0], gather_paged(kc, tables),
                                   gather_paged(vc, tables), pos + 1)
     # len + 1 never clamps here: the gateway admits pos < capacity only
-    new_cache = {"k": kc, "v": vc, "len": cache["len"] + 1}
+    new_cache = {**cache, "len": cache["len"] + 1}
     y = out.reshape(b, 1, h * hd) @ p["wo"]
     return y, new_cache
+
+
+def init_attn_cache(cfg, batch, capacity: int, dtype, device) -> Dict[str, torch.Tensor]:
+    """Zeroed GQA cache; ``batch`` is an int or a tuple of leading axes
+    (the model's (units, batch)).  With ``cfg.kv_cache_int8`` the ``k``/
+    ``v`` leaves are int8 codes with f32 ``k_scale``/``v_scale`` (..., cap,
+    KH, 1), one scale a (token, head)."""
+    lead = tuple(batch) if isinstance(batch, tuple) else (batch,)
+    shape = (*lead, capacity, cfg.num_kv_heads, cfg.head_dim)
+    cache = {"len": torch.zeros(lead, dtype=torch.int32, device=device)}
+    if cfg.kv_cache_int8:
+        for n in ("k", "v"):
+            cache[n] = torch.zeros(shape, dtype=torch.int8, device=device)
+            cache[f"{n}_scale"] = torch.zeros((*shape[:-1], 1), dtype=torch.float32,
+                                              device=device)
+    else:
+        cache.update(k=torch.zeros(shape, dtype=dtype, device=device),
+                     v=torch.zeros(shape, dtype=dtype, device=device))
+    return cache
+
+
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., hd) -> int8 codes and (..., 1) f32 scales: symmetric absmax
+    over the head dim, scale 1 on a zero row, ``torch.round`` half to
+    even as ``jnp.round``.  The divisor 127 is a device tensor: CUDA
+    computes a division by a host scalar as a product with its
+    reciprocal, which would move scales by an ulp."""
+    x32 = x.float()
+    amax = x32.abs().amax(-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), 1.0)
+    codes = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def _kv_dequantize(codes: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (codes.float() * scale).to(dtype)
 
 
 # ------------------------------------------------------------ MLA attention

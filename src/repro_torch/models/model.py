@@ -1,9 +1,13 @@
 """Decoder-only model of the port over the ported block kinds: the dense
 GQA decoders (qwen2.5-3b, granite-34b, minitron-8b, nemotron-4-15b), the
 DeepSeek MoE models (deepseek-moe-16b with GQA attention,
-deepseek-v2-lite-16b with MLA) and the recurrent family (mamba2-130m:
+deepseek-v2-lite-16b with MLA), the recurrent family (mamba2-130m:
 Mamba-2 SSD blocks; recurrentgemma-2b: RG-LRU blocks and sliding-window
-attention, 2:1).
+attention, 2:1) and the front-end stubs: musicgen-large (LayerNorm, MHA
+over codec tokens; its ``"audio"`` front end has no code, as in the JAX
+model) and internvl2-26b (projected vision patch embeddings prepended to
+the text tokens).  Any GQA config may keep its K/V in int8
+(``kv_cache_int8``).
 
 Counterpart of ``repro/models/model.py``.  Layers are grouped into
 *pattern units*, one cycle of ``cfg.layer_pattern`` (``b0``, ``b1``, ...
@@ -24,7 +28,7 @@ Entry points:
                                                 JAX package's weights
   init_cache(cfg, batch, capacity, device=)  -> contiguous cache dict
   forward(params, cfg, tokens, ...)          -> (logits, cache)
-  lm_loss(params, cfg, tokens, labels)       -> (loss, parts)
+  lm_loss(params, cfg, tokens, labels, patch_embeds=) -> (loss, parts)
 
 Differentiating ``lm_loss`` with autograd is the training path's
 counterpart of ``jax.value_and_grad``: when the unit leaves require grad,
@@ -52,25 +56,28 @@ _KINDS = ("attn", "ssm", "rec")
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs decoders of attention blocks (GQA or MLA, then a
     SwiGLU or squared-ReLU MLP or the MoE block), Mamba-2 blocks and
-    RG-LRU blocks, in any pattern, with RMS norms; a sliding window on
-    GQA attention only (MLA refuses windows, as the JAX package does).
-    Everything else raises."""
+    RG-LRU blocks, in any pattern, with RMS norms or LayerNorm, float or
+    int8 K/V (MLA caches ignore the flag, as the JAX package's do), and
+    the ``"none"``, ``"audio"`` and ``"vision"`` front ends; a sliding
+    window on GQA attention only (MLA refuses windows, as the JAX package
+    does).  Everything else raises."""
     ported = (bool(cfg.layer_pattern) and all(k in _KINDS for k in cfg.layer_pattern)
               and cfg.mlp_type in ("swiglu", "squared_relu")
-              and not cfg.norm_layernorm and not (cfg.use_mla and cfg.window)
-              and cfg.frontend == "none" and not cfg.kv_cache_int8)
+              and not (cfg.use_mla and cfg.window)
+              and cfg.frontend in ("none", "audio", "vision"))
     if not ported:
         raise NotImplementedError(
-            f"{cfg.name}: only attention decoders (GQA or MLA, dense MLP or MoE) and the "
-            f"recurrent family (Mamba-2, RG-LRU) are ported; see ROADMAP.md, 'the other "
-            f"architectures'")
+            f"{cfg.name}: only attention decoders (GQA or MLA without a window, dense MLP "
+            f"or MoE), the recurrent family (Mamba-2, RG-LRU) and the audio and vision "
+            f"front-end stubs are ported; see ROADMAP.md, 'the other architectures'")
 
 
 # ------------------------------------------------------------------- params
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random weights with the JAX package's distributions (normal /
-    sqrt(fan_in) matrices, 0.02-scaled embedding, head and float32
-    router, zero biases, unit norms; the SSM and RG-LRU leaves as
+    sqrt(fan_in) matrices, ``vision_proj`` among them, 0.02-scaled
+    embedding, head and float32 router, zero biases, unit norms with a
+    zero ``bias`` under LayerNorm; the SSM and RG-LRU leaves as
     ``ssm.init_ssm`` and ``rglru.init_rglru`` say), drawn from a
     ``torch.Generator`` seeded with ``seed`` — the values differ from
     ``jax.random``'s."""
@@ -86,12 +93,25 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, 
              for j, kind in enumerate(cfg.layer_pattern)}
     params = {"embed": {"tok": normal((cfg.padded_vocab, d), 0.02)},
               "units": units,
-              "final_norm": {"norm_scale": torch.ones(d, dtype=dt, device=device)},
+              "final_norm": _init_norm(cfg, (), device),
               "lm_head": normal((d, cfg.padded_vocab), 0.02)}
     if cfg.tail_pattern:
         params["tail"] = {f"t{j}": _init_block(cfg, kind, (), normal, device)
                           for j, kind in enumerate(cfg.tail_pattern)}
+    if cfg.frontend == "vision":
+        # projector from the (stub) vision encoder's output to d_model
+        params["vision_proj"] = normal((d, d), d ** -0.5)
     return params
+
+
+def _init_norm(cfg: ModelConfig, lead, device) -> Dict[str, torch.Tensor]:
+    """Unit ``norm_scale`` and, under LayerNorm, a zero ``bias``, with the
+    leading axes ``lead``."""
+    shape = (*lead, cfg.d_model)
+    p = {"norm_scale": torch.ones(shape, dtype=cfg.dtype, device=device)}
+    if cfg.norm_layernorm:
+        p["bias"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    return p
 
 
 def _init_block(cfg: ModelConfig, kind: str, lead, normal, device) -> Dict[str, Any]:
@@ -113,13 +133,14 @@ def _init_block(cfg: ModelConfig, kind: str, lead, normal, device) -> Dict[str, 
         p.update(w_up=dense(d, ff), w_down=dense(ff, d))   # squared ReLU: two
         return p
 
+    def norm():
+        return _init_norm(cfg, lead, device)
+
     if kind == "ssm":
-        return {"norm1": {"norm_scale": ones(d)},
-                "mixer": S.init_ssm(cfg, lead, normal, device)}
+        return {"norm1": norm(), "mixer": S.init_ssm(cfg, lead, normal, device)}
     if kind == "rec":
         mixer = R.init_rglru(cfg, lead, normal, device)
-        return {"norm1": {"norm_scale": ones(d)}, "mixer": mixer,
-                "norm2": {"norm_scale": ones(d)}, "ffn": mlp(cfg.d_ff)}
+        return {"norm1": norm(), "mixer": mixer, "norm2": norm(), "ffn": mlp(cfg.d_ff)}
     h = cfg.num_heads
     if cfg.use_mla:
         nope, rope_d, vd, r = (cfg.qk_nope_dim, cfg.rope_head_dim, cfg.v_head_dim,
@@ -143,8 +164,7 @@ def _init_block(cfg: ModelConfig, kind: str, lead, normal, device) -> Dict[str, 
             ffn["shared"] = mlp(ff * cfg.num_shared_experts)
     else:
         ffn = mlp(cfg.d_ff)
-    return {"norm1": {"norm_scale": ones(d)}, "mixer": mixer,
-            "norm2": {"norm_scale": ones(d)}, "ffn": ffn}
+    return {"norm1": norm(), "mixer": mixer, "norm2": norm(), "ffn": ffn}
 
 
 def _to_tensor(arr, device) -> torch.Tensor:
@@ -170,7 +190,9 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device="cuda") -> Di
     every leaf stacked on the unit axis, ``tail`` each tail block's.  GQA
     ``k``/``v`` (U, B, cap, KH, hd) with ``cap = min(capacity, window)``
     under a sliding window (a ring), MLA ``ckv`` (U, B, cap, r) and
-    ``k_rope`` (U, B, cap, rope_d), each with ``len`` (U, B) int32;
+    ``k_rope`` (U, B, cap, rope_d), each with ``len`` (U, B) int32 (GQA
+    int8 codes with f32 ``k_scale``/``v_scale`` (U, B, cap, KH, 1) under
+    ``kv_cache_int8``);
     Mamba-2 ``conv`` and f32 ``state`` (U, B, H, N, P); RG-LRU ``conv``
     and f32 ``state`` (U, B, W).  A tail leaf has no unit axis."""
     check_supported(cfg)
@@ -193,10 +215,7 @@ def _init_block_cache(cfg: ModelConfig, kind: str, lead, capacity: int, device):
     cap = min(capacity, cfg.window) if cfg.window else capacity
     if cfg.use_mla:
         return L.init_mla_cache(cfg, lead, cap, dt, device)
-    shape = (*lead, cap, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "len": torch.zeros(lead, dtype=torch.int32, device=device)}
+    return L.init_attn_cache(cfg, lead, cap, dt, device)
 
 
 # ------------------------------------------------------------------ forward
@@ -212,14 +231,14 @@ def _apply_block(p: Dict[str, Any], kind: str, x: torch.Tensor, cfg: ModelConfig
     ``attend_cache``: the gateway never routes models with recurrent
     state through chunked or suffix prefill.  Returns (x, aux loss or
     ``None``, the block's new cache)."""
-    h = L.rms_norm(x, p["norm1"]["norm_scale"])
+    h = L.apply_norm(x, p["norm1"], cfg)
     if kind == "ssm":
         y, new_cache = S.ssm_block(p["mixer"], h, cfg, cache=cache)
         return x + y, None, new_cache
     if kind == "rec":
         y, new_cache = R.rglru_block(p["mixer"], h, cfg, cache=cache)
         x = x + y
-        h2 = L.rms_norm(x, p["norm2"]["norm_scale"])
+        h2 = L.apply_norm(x, p["norm2"], cfg)
         return x + L.mlp_block(p["ffn"], h2, cfg), None, new_cache
     if paged_tables is not None and cfg.use_mla:
         y, new_cache = L.mla_block_paged(p["mixer"], h, cfg, cache=cache,
@@ -236,7 +255,7 @@ def _apply_block(p: Dict[str, Any], kind: str, x: torch.Tensor, cfg: ModelConfig
             p["mixer"], h, cfg, cache=cache, pos=pos, window=cfg.window,
             attend_cache=attend_cache, chunk_valid=chunk_valid)
     x = x + y.to(x.dtype)
-    h2 = L.rms_norm(x, p["norm2"]["norm_scale"])
+    h2 = L.apply_norm(x, p["norm2"], cfg)
     if cfg.num_experts:
         y2, aux = moe_block(p["ffn"], h2, cfg)
     else:
@@ -259,7 +278,7 @@ def _unbound_units(tree: Dict[str, Any]):
             for u in range(len(next(iter(parts.values()))))]
 
 
-def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, **kw,
+def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: Optional[torch.Tensor], **kw,
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (logits (B, S, padded_vocab) f32, cache or None); the
     arguments are :func:`forward_aux`'s."""
@@ -270,8 +289,9 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, **kw
 def forward_aux(
     params: Dict[str, Any],
     cfg: ModelConfig,
-    tokens: torch.Tensor,                 # (B, S) int
+    tokens: Optional[torch.Tensor],       # (B, S) int
     *,
+    patch_embeds: Optional[torch.Tensor] = None,   # (B, P, D) vision stub output
     cache: Optional[Dict[str, Any]] = None,
     pos=0,
     license_intervals=None,
@@ -282,6 +302,11 @@ def forward_aux(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Dict[str, Any]]]:
     """Returns (logits (B, S, padded_vocab) f32, the MoE aux loss summed
     over units (an f32 scalar; ``None`` without experts), cache or None).
+
+    ``patch_embeds`` (B, P, D), the vision encoder stub's output, is
+    projected through ``vision_proj`` (where the params have one), cast
+    to ``cfg.dtype`` and prepended to the token embeddings: S counts the
+    P patch positions first.
 
     ``params`` may hold int8 ``{"codes", "scale"}`` leaves
     (``serving/quantized.py``): each unit's, and each tail block's, are
@@ -309,7 +334,15 @@ def forward_aux(
     from repro_torch.serving.quantized import dequant_tree, qleaves
 
     quantized = next(qleaves(params["units"]), None) is not None
-    x = params["embed"]["tok"][tokens.long()]
+    parts = []
+    if patch_embeds is not None:
+        proj = params.get("vision_proj")
+        pe = (torch.einsum("bpd,df->bpf", patch_embeds, proj) if proj is not None
+              else patch_embeds)
+        parts.append(pe.to(cfg.dtype))
+    if tokens is not None:
+        parts.append(params["embed"]["tok"][tokens.long()])
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     unbound = _unbound_units(params["units"])
     aux = None
 
@@ -337,7 +370,7 @@ def forward_aux(
         if quantized:
             tp = dequant_tree(tp, license_intervals, cfg.dtype)
         run(tp, kind, None if cache is None else cache["tail"][f"t{j}"])
-    x = L.rms_norm(x, params["final_norm"]["norm_scale"])
+    x = L.apply_norm(x, params["final_norm"], cfg)
     logits = (x @ params["lm_head"]).float()
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e9
@@ -347,12 +380,15 @@ def forward_aux(
 # --------------------------------------------------------------------- loss
 def lm_loss(
     params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
-    labels: torch.Tensor,
+    labels: torch.Tensor, *, patch_embeds: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal LM cross-entropy + ``moe_aux_weight`` times the MoE aux
     loss (0 without experts).  labels = next-token ids, with -100 entries
-    masked out."""
-    logits, aux, _ = forward_aux(params, cfg, tokens)
+    masked out; they cover the text only, so the logits of a vision
+    prefix's P patch positions are dropped first."""
+    logits, aux, _ = forward_aux(params, cfg, tokens, patch_embeds=patch_embeds)
+    if patch_embeds is not None:
+        logits = logits[:, patch_embeds.shape[1]:]
     mask = labels != -100
     safe = torch.where(mask, labels, 0).long()
     logp = torch.log_softmax(logits, dim=-1)

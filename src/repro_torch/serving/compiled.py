@@ -1,5 +1,7 @@
 """The compiled steps of the port: CUDA graphs of the kernel-resident
-paged decode and of the chunked prefill.
+paged decode and of the chunked prefill.  The decode step runs through
+the paged kernels (``slot.decode_kernels``) or, over an int8 KV cache,
+through the plain gather, which the kernels cannot read.
 
 Counterpart of ``repro/serving/gateway.py::_compiled_paged_decode``.  The
 JAX gateway jit-compiles its decode step once per (config, used table

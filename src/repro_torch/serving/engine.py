@@ -23,11 +23,13 @@ from repro_torch.models import model as model_lib
 
 
 def prefill_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict[str, Any],
-                 license_intervals=None):
+                 patch_embeds: Optional[torch.Tensor] = None, license_intervals=None):
     """Fill a fresh (zero) cache from a token batch (B, S) at positions
-    0..S-1 (the bucket prefill); returns (last-token logits (B, V),
-    cache)."""
-    logits, cache = model_lib.forward(params, cfg, tokens, cache=cache, pos=0,
+    0..S-1 (the bucket prefill), after a vision prefix of
+    ``patch_embeds`` (B, P, D) where one is given (then positions
+    0..P+S-1); returns (last-token logits (B, V), cache)."""
+    logits, cache = model_lib.forward(params, cfg, tokens, patch_embeds=patch_embeds,
+                                      cache=cache, pos=0,
                                       license_intervals=license_intervals)
     return logits[:, -1], cache
 

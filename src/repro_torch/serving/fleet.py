@@ -217,18 +217,27 @@ class ModelSlot:
                               else bool(kernel_decode) and supported)
         # the kernels serve the kernel-resident step only, on a CUDA
         # device, where they are the default; the gather/scatter decode
-        # and the CPU take the plain path
+        # and the CPU take the plain path.  They read float K/V: an int8
+        # cache takes the plain gather, as the JAX slot's paged block
+        # does whatever is asked, decided here once
         on_cuda = self.device.type == "cuda"
         if decode_kernels is None:
-            decode_kernels = on_cuda and self.kernel_decode
+            decode_kernels = on_cuda and self.kernel_decode and not cfg.kv_cache_int8
         elif decode_kernels and not self.kernel_decode:
             raise ValueError("decode_kernels=True needs the kernel-resident decode "
                              "(paged=True, kernel_decode not False, no sliding window): "
                              "the gather/scatter decode has no kernels")
+        elif decode_kernels and cfg.kv_cache_int8:
+            raise ValueError("decode_kernels=True needs a float KV cache: the paged "
+                             "kernels read float K/V, and kv_cache_int8 keeps int8 codes")
         elif decode_kernels and not on_cuda:
             raise ValueError(f"decode_kernels=True needs a CUDA device, got "
                              f"{self.device}")
         self.decode_kernels = bool(decode_kernels)
+        # the compiled steps (CUDA graphs) take the kernel-resident decode
+        # on the card: through the kernels, or the int8 cache's plain gather
+        compiled = on_cuda and self.kernel_decode and (self.decode_kernels
+                                                       or cfg.kv_cache_int8)
         if self.paged:
             self._prefill_blocks = max(1, cdiv(self.max_prompt, self.pool.block_size))
             if self.pool.num_blocks - int(watermark_blocks) < self._prefill_blocks:
@@ -395,9 +404,9 @@ class ModelSlot:
         # compiled.py): CUDA graphs of the kernel path on the card, both
         # in one memory pool; the plain path and the CPU run eagerly.
         # Private: the eager steps stay reachable by setting either to None.
-        self._graphs = DecodeGraphs(self) if self.decode_kernels else None
+        self._graphs = DecodeGraphs(self) if compiled else None
         self._prefill_graphs = (PrefillGraphs(self, backend=self._graphs.backend)
-                                if self.decode_kernels and self.chunked else None)
+                                if compiled and self.chunked else None)
 
         self._register_telemetry()
         # seed the audit ledger: the tiers this slot can serve from birth

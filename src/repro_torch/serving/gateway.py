@@ -34,8 +34,11 @@ width) on the in-scan int8 path (``serving/compiled.py``), as the JAX
 gateway compiles one per width; the kernel path rounds the used width up
 to a power of two, so a view holds a few graphs at any context.  A
 prefill chunk there is a graph too, one per (pow2 lanes, pow2 table
-width) and view, the JAX gateway's jit key.  The plain path
-(``decode_kernels=False``) and the CPU decode and prefill eagerly.  The
+width) and view, the JAX gateway's jit key.  An int8 KV cache
+(``kv_cache_int8``) keeps the kernel-resident step and its graphs but
+writes and reads through the plain gather, as the kernels read float
+K/V.  The plain path (``decode_kernels=False``) on a float cache and the
+CPU decode and prefill eagerly.  The
 JAX gateway's fallbacks are explicit arguments: the bucket prefill
 (``chunk_size=0``), the gather/scatter decode (``kernel_decode=False``)
 and the contiguous pool (``paged=False``); they run eagerly.  The
@@ -168,9 +171,11 @@ class LicensedGateway:
     decode_kernels:
         Route the kernel-resident decode write and attention through the
         Hopper kernels, the step replayed as a CUDA graph.  Default: on a
-        CUDA device with the kernel-resident decode; ``True`` off a CUDA
-        device or without the kernel-resident decode raises, ``False``
-        selects the plain path (eager).
+        CUDA device with the kernel-resident decode and a float KV
+        cache; ``True`` off a CUDA device, without the kernel-resident
+        decode or with ``kv_cache_int8`` raises, ``False`` selects the
+        plain path (eager on a float cache; an int8 cache's plain gather
+        is captured in the graphs on the card).
     decode_pallas:
         The JAX slot's name for the same switch, read once into
         ``decode_kernels``: ``"pallas"`` is ``True``, ``"off"`` is
@@ -612,7 +617,8 @@ class LicensedGateway:
             if self.sanitizer is not None:
                 self.sanitizer.retrace.note("steps", _sampling_key(reqs))
             caches = stack_lane_caches(self.cfg, self.max_batch, self._zero_cap, self.device)
-            logits, caches = prefill_step(params, self.cfg, self._to_device(toks), caches, li)
+            logits, caches = prefill_step(params, self.cfg, self._to_device(toks), caches,
+                                          license_intervals=li)
             outs = self._sample(logits, reqs)
             lanes = self.pool.pad_lanes([self.scheduler.start(r) for r in reqs],
                                         self.max_batch)
@@ -977,7 +983,7 @@ class LicensedGateway:
             poss[i] = r.pos
         if self.kernel_decode:
             used = max(r.pos // self.pool.block_size + 1 for r in reqs)
-            if self.decode_kernels:
+            if self.decode_kernels or self._graphs is not None:
                 used = table_width(used, self.pool.blocks_per_lane)
             if self.sanitizer is not None:
                 self.sanitizer.retrace.note("decode_width", used)

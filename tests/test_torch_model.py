@@ -363,9 +363,11 @@ def deepseek(request):
 
 def test_deepseek_config_fields_match_jax(deepseek):
     """Every field of the full config and its smoke variant, ``source``
-    included; ``check_supported`` takes both and the recurrent family
-    (mamba2-130m, recurrentgemma-2b, registered by the port), and still
-    refuses the architectures that are not ported."""
+    included; ``check_supported`` takes both, the recurrent family
+    (mamba2-130m, recurrentgemma-2b) and the front-end stubs
+    (musicgen-large, internvl2-26b), each registered by the port, and
+    ``kv_cache_int8`` (which an MLA cache ignores), and still refuses MLA
+    with a window, as the JAX package does."""
     import dataclasses
 
     jcfg, _, cfg, _ = deepseek
@@ -373,14 +375,13 @@ def test_deepseek_config_fields_match_jax(deepseek):
     for got, want in ((get_config(name), jax_get_config(name)), (cfg, jcfg)):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
         model.check_supported(got)
-    for ported in ("mamba2-130m", "recurrentgemma-2b"):
+    for ported in ("mamba2-130m", "recurrentgemma-2b", "musicgen-large", "internvl2-26b"):
         assert get_config(ported) == _port_config(ported)
         model.check_supported(get_config(ported))
-    for other in ("musicgen-large", "internvl2-26b"):
+    model.check_supported(get_config(name).replace(kv_cache_int8=True))
+    if cfg.use_mla:
         with pytest.raises(NotImplementedError, match="the other architectures"):
-            model.check_supported(_port_config(other))
-    with pytest.raises(NotImplementedError, match="the other architectures"):
-        model.check_supported(get_config(name).replace(kv_cache_int8=True))
+            model.check_supported(get_config(name).replace(window=4096))
 
 
 def _port_config(name):
