@@ -273,7 +273,28 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``paged_attention`` at both models' decode shapes (32/32 heads at
    head dim 64, 48/8 at 128; 8 x 4096 tokens) back to back, in a graph
    and L2-cold;
-13. a ``kernels`` JSON line, and the result line last.
+13. the batch engine, host sampling and the launch tools on phase 3's
+   weights (qwen2.5-3b at full width and depth, tiers full, pro and
+   free): (a) ``ServingEngine`` on float views, 6 requests (prompts of
+   64-256 tokens, 16 new, greedy; eager, each decode step timed with a
+   synchronize on each side), its tokens held against the same requests
+   through ``engine.gateway(record_logits=True)`` on the kernel route,
+   parting only at near-ties by phase 4's rule from the rows both
+   computed; (b) the same with ``quantized=True`` (252 ``masked_dequant``
+   launches every step) against the gateway's in-scan route; (c) phase
+   3's stream with greedy lanes and lanes at temperature 0.8 (top_k 0, 5
+   and 50) through the kernel route with ``fuse_sampling`` True and
+   False (three waves, the last timed: the second still captures
+   graphs), fused with its rows kept and with ``record_logits`` (one wave
+   each): tokens identical in all four, the recorded rows equal to the
+   fused rows bit for bit, ms a step both ways, and the median epilogue
+   and batched device draw of the timed wave; (d)
+   ``launch.roofline``'s decode bound at (a)'s largest group beside its
+   step and phase 3's graph step, and ``launch.dryrun``'s weight and
+   cache bytes beside what ``init_params`` and ``init_cache`` allocate
+   (within 1%).  Phase 13 must launch ``paged_attention``,
+   ``paged_decode_write`` and ``masked_dequant``;
+14. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
 device is present or when run outside a checkout of the repository.
@@ -293,11 +314,6 @@ SEED = 0
 ARCH = "qwen2.5-3b"
 FREE_TIER = {"*": ((0.0, 0.01),)}
 
-# published peaks (NVIDIA data sheets, SXM parts): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores (the rate the kernels' f32 arithmetic runs at),
-# and the dense bf16 tensor-core FLOP/s (bounds work on bf16 inputs)
-CARD_PEAKS = {"H100": (3.35e12, 67e12, 989e12), "H200": (4.8e12, 67e12, 989e12)}
-RATE_NAMES = {1: "f32 67e12 FLOP/s", 2: "bf16 tensor cores 989e12 FLOP/s"}
 
 
 def fail(msg: str) -> None:
@@ -647,7 +663,7 @@ def check_masked_dequant(peaks, torch, ops, ref, kernels_md, gen):
     as the per-slice loop with a stack (a view build one 2-D slice per
     launch)."""
     dev = torch.device("cuda")
-    lo, hi = ops.pack_intervals(MD_INTERVALS, dev)
+    lo, hi = ops.pack_intervals(MD_INTERVALS, device=dev)
     live = sum(1 for a, b in MD_INTERVALS if a < b)
     cases = {}
 
@@ -788,7 +804,8 @@ def view_cases(peaks, torch, ops, store, free, dtype, reps=3):
     cases = {}
     for tier in (free, None):
         name = f"view {tier.name if tier else 'full'}"
-        li = tier_intervals(tier)
+        dev = next(_qpaths(store))[1]["codes"].device
+        li = tier_intervals(tier, device=dev)
         live = 0 if li is None else int((li[1] > li[0]).sum())
         runs = []
         for _ in range(reps):
@@ -797,8 +814,7 @@ def view_cases(peaks, torch, ops, store, free, dtype, reps=3):
             runs.append(got)
             if len(runs) < reps:
                 del view
-        dev = next(_qpaths(store))[1]["codes"].device
-        lo, hi = (t.to(dev) for t in (li if li is not None else ops.pack_intervals([])))
+        lo, hi = li if li is not None else ops.pack_intervals([], device=dev)
         for path, q in _qpaths(store):
             want = ref.masked_dequant(q["codes"], q["scale"], lo, hi, dtype)
             if not md_exact(_at(view, path), want):
@@ -956,6 +972,7 @@ def check_prefill_mlp(peaks, torch, ops, ref):
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import quant_matmul as qmm_mod
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import roofline
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
@@ -1015,7 +1032,7 @@ def check_prefill_mlp(peaks, torch, ops, ref):
                        plain_ms=time_ms(lambda: ref.flash_attention(
                            q, k, v, causal=True, window=c["window"],
                            q_offset=c["q_offset"], groups=bh // bkh), iters=3, warmup=1),
-                       bound_ms=bnd, bound_by=by, bound_rate=RATE_NAMES[rate],
+                       bound_ms=bnd, bound_by=by, bound_rate=roofline.RATE_NAMES[rate],
                        flop=4 * hd * pairs, bytes=nbytes, library_ms=None,
                        design=fa_mod.design(dtype, hd))
             if name == "causal" and dtype == torch.bfloat16:
@@ -1042,7 +1059,7 @@ def check_prefill_mlp(peaks, torch, ops, ref):
                        ms=time_ms(lambda: ops.quant_matmul(x, codes, scale), iters=20),
                        plain_ms=time_ms(lambda: ref.quant_matmul(x, codes, scale,
                                                                  torch.bfloat16), iters=5),
-                       bound_ms=bnd, bound_by=by, bound_rate=RATE_NAMES[2],
+                       bound_ms=bnd, bound_by=by, bound_rate=roofline.RATE_NAMES[2],
                        flop=2 * m * kdim * n, bytes=nbytes,
                        design=qmm_mod.design(x.dtype, m))
             cold = m <= qmm_mod.SMALL_M
@@ -1261,11 +1278,11 @@ def record_rows(gw):
     rows = {}
     sample = gw._sample
 
-    def recorded(logits, reqs, greedy=None):
+    def recorded(logits, reqs, greedy=None, emit=None):
         kept = logits[: len(reqs)].clone()
         for i, r in enumerate(reqs):
             rows[(r.rid, len(r.out_tokens))] = kept[i]
-        return sample(logits, reqs, greedy)
+        return sample(logits, reqs, greedy, emit)
 
     gw._sample = recorded
     return rows
@@ -4057,7 +4074,7 @@ def rank2_dequant_case(peaks, store, torch, ops):
 
     leaf = store["tail"]["t0"]["mixer"]["w_r"]
     codes, scale = leaf["codes"], leaf["scale"]
-    lo, hi = ops.pack_intervals(MD_INTERVALS, codes.device)
+    lo, hi = ops.pack_intervals(MD_INTERVALS, device=codes.device)
     live = sum(1 for a, b in MD_INTERVALS if a < b)
 
     def call():
@@ -4466,6 +4483,326 @@ def frontend_phase(peaks, np, torch, device="cuda", config=None):
     return out, launches
 
 
+# ------------------------------------------------------------ phase 13
+# the batch engine, host sampling and the launch tools at qwen2.5-3b's
+# full width and depth on phase 3's weights: 6 requests in three tiers
+# (two a tier: the engine's groups), prompts of 64-256 tokens, one length
+# a group (the engine pads a shorter prompt of its group on the left with
+# its first token, which the gateway does not), 16 new tokens each,
+# greedy; 13c's stream is phase 3's with its lanes greedy or sampling at
+# temperature 0.8 (top_k 0, 5 and 50, a seed each)
+ENGINE_PROMPTS = [64, 256, 128, 64, 256, 128]
+ENGINE_TIERS = ["full", "pro", "free", "full", "pro", "free"]
+ENGINE_NEW = 16
+ENGINE_PRO = {"*": ((0.0, 0.005),)}
+ENGINE_GEOMETRY = dict(max_batch=8, max_prompt=256, max_new_cap=ENGINE_NEW)
+HOST_SAMPLING = [dict(), dict(temperature=0.8, top_k=0, seed=11),
+                 dict(temperature=0.8, top_k=5, seed=12), dict(),
+                 dict(temperature=0.8, top_k=50, seed=13), dict(temperature=0.8, top_k=5, seed=14)]
+
+
+def engine_jobs(cfg, np):
+    """(prompt, tier) of phase 13's engine requests, from ``SEED``."""
+    rng = np.random.default_rng(SEED + 13)
+    return [(rng.integers(0, cfg.vocab_size, n, dtype=np.int32), t)
+            for n, t in zip(ENGINE_PROMPTS, ENGINE_TIERS)]
+
+
+def engine_run(label, eng, jobs, torch):
+    """Serve ``jobs`` through ``ServingEngine.generate`` (greedy): every
+    decode step timed on the host clock with a synchronize on each side,
+    its ``masked_dequant`` launches counted, and a host copy of the
+    logits row each token is sampled from kept by (request index, token
+    index).  Returns
+    the requests (each with ``rid`` = its index), the rows and a summary."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request
+    from repro_torch.serving import engine as engine_mod
+
+    reqs = [Request(prompt=p, max_new_tokens=ENGINE_NEW, license=t) for p, t in jobs]
+    index = {id(r): i for i, r in enumerate(reqs)}
+    rows, steps, group = {}, [], []
+    generate_group, sample, serve_step = (eng._generate_group, engine_mod.sample,
+                                          engine_mod.serve_step)
+
+    def in_group(g, tier, seed):
+        group[:] = g
+        return generate_group(g, tier, seed)
+
+    def recorded(logits, *a, **kw):
+        host = logits.float().cpu()          # the record's copy; the engine copies no row
+        for i, r in enumerate(group):
+            rows[(index[id(r)], len(r.out_tokens))] = host[i]
+        return sample(logits, *a, **kw)
+
+    def timed(*a, **kw):
+        n = ops.LAUNCHES["masked_dequant"]
+        sync()
+        t0 = time.perf_counter()
+        out = serve_step(*a, **kw)
+        sync()
+        steps.append((time.perf_counter() - t0, ops.LAUNCHES["masked_dequant"] - n))
+        return out
+
+    eng._generate_group = in_group
+    engine_mod.sample, engine_mod.serve_step = recorded, timed
+    try:
+        t0 = time.perf_counter()
+        eng.generate(reqs)
+        sync()
+        dt = time.perf_counter() - t0
+    finally:
+        del eng._generate_group
+        engine_mod.sample, engine_mod.serve_step = sample, serve_step
+    if any(len(r.out_tokens) != ENGINE_NEW for r in reqs):
+        fail(f"{label}: a request did not get its {ENGINE_NEW} tokens")
+    step_s = sorted(s for s, _ in steps)
+    out = dict(generate_s=dt, decode_steps=len(steps),
+               decode_ms_p50=1e3 * step_s[len(step_s) // 2], decode_ms_max=1e3 * step_s[-1],
+               masked_dequant_per_step=sorted({d for _, d in steps}))
+    log(f"  {label}: {len(reqs)} requests in {len({t for _, t in jobs})} tier groups, "
+        f"{len(reqs) * ENGINE_NEW} tokens in {dt:.2f} s; eager decode step p50 "
+        f"{out['decode_ms_p50']:.2f} ms (max {out['decode_ms_max']:.2f}) over "
+        f"{len(steps)} steps, synchronized on each side; masked_dequant launches a step "
+        f"{out['masked_dequant_per_step']}")
+    return [SimpleNamespace(rid=i, out_tokens=r.out_tokens) for i, r in enumerate(reqs)], \
+        rows, out
+
+
+def engine_gateway_run(label, eng, jobs, np, torch):
+    """The same requests through ``eng.gateway(record_logits=True)`` (the
+    kernel route on the card, graphs and all): its requests and their
+    rows by (rid, token index)."""
+    gw = eng.gateway(record_logits=True, **ENGINE_GEOMETRY)
+    reqs = [gw.submit(p, license=t, max_new_tokens=ENGINE_NEW) for p, t in jobs]
+    t0 = time.perf_counter()
+    gw.run()
+    sync()
+    dt = time.perf_counter() - t0
+    if any(r.state.value != "done" or len(r.logits_rows) != ENGINE_NEW for r in reqs):
+        fail(f"{label}: a request did not finish with one logits row a token")
+    m = gw.metrics()
+    log(f"  {label}: the same requests through engine.gateway(record_logits=True) in "
+        f"{dt:.2f} s ({m['decode_steps']} decode steps, {m['prefill_chunks']} prefill chunks, "
+        f"kernels {m['decode_path']['kernels']}, decode graphs "
+        f"{0 if gw._graphs is None else gw._graphs.captures} captured)")
+    rows = {(r.rid, t): torch.from_numpy(row) for r in reqs for t, row in enumerate(r.logits_rows)}
+    return reqs, rows, dict(serve_s=dt, decode_steps=m["decode_steps"],
+                            prefill_chunks=m["prefill_chunks"])
+
+
+def host_sampling_run(label, cfg, params, tiers, np, torch, device, record=False, waves=1,
+                      **kw):
+    """Phase 3's stream with HOST_SAMPLING's lanes, in ``waves`` waves on
+    one gateway (``kw`` its arguments): the first captures the graphs, the
+    last is timed (host clock, synchronized at the ends), and so are, in
+    that wave, each step's epilogue (``gateway._sample``: the draws, the
+    argmax, the copies to the host; synchronized before, and it ends with
+    its own copy of the tokens) and each batched draw of the sampling
+    lanes (``gateway._draw``, synchronized on each side).  ``record``
+    keeps the fused rows (``record_rows``).  Returns every wave's
+    requests, the rows, the last wave's ms a step, and the medians of the
+    epilogue's and the draw's ms."""
+    from repro_torch.serving import LicensedGateway
+    from repro_torch.serving import gateway as gateway_mod
+
+    gw = LicensedGateway(cfg, params, tiers=tiers, device=device, **GEOMETRY, **kw)
+    rows = record_rows(gw) if record else None
+    out, ms, draws, epilogues = [], None, [], []
+    draw, epilogue = gateway_mod._draw, gw._sample
+
+    def timed_draw(*a):
+        sync()
+        t0 = time.perf_counter()
+        toks = draw(*a)
+        sync()
+        draws.append(1e3 * (time.perf_counter() - t0))
+        return toks
+
+    def timed_epilogue(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        toks = epilogue(*a, **k)
+        epilogues.append(1e3 * (time.perf_counter() - t0))
+        return toks
+
+    gateway_mod._draw, gw._sample = timed_draw, timed_epilogue
+    try:
+        for _ in range(waves):
+            draws.clear()
+            epilogues.clear()
+            out += serve_wave(label, gw, cfg, np)
+            ms = out.pop()
+    finally:
+        gateway_mod._draw = draw
+        gw._sample = epilogue
+    draw_ms = float(np.median(draws)) if draws else None
+    epi_ms = float(np.median(epilogues))
+    log(f"  {label}: {len(out)} requests in {waves} wave(s), fuse_sampling "
+        f"{gw.fuse_sampling}, record_logits {gw.record_logits}; last wave {ms:.2f} ms a "
+        f"step, its epilogue {epi_ms:.3f} ms (median of {len(epilogues)}), "
+        f"{len(draws)} batched draws of {draw_ms:.3f} ms (median); decode graphs "
+        f"{0 if gw._graphs is None else gw._graphs.captures} captured, "
+        f"{0 if gw._graphs is None else gw._graphs.replays} replayed")
+    return out, rows, ms, dict(epilogue_ms=epi_ms, draw_ms=draw_ms, draws=len(draws))
+
+
+def serve_wave(label, gw, cfg, np):
+    """One wave of phase 3's stream with HOST_SAMPLING's lanes on ``gw``;
+    returns its requests and, last, its ms a step."""
+    m0 = gw.metrics()
+    reqs = [gw.submit(p, license=t, max_new_tokens=n, **HOST_SAMPLING[i % len(HOST_SAMPLING)])
+            for i, (p, t, n) in enumerate(stream_jobs(cfg, np))]
+    sync()
+    t0 = time.perf_counter()
+    gw.run()
+    sync()
+    dt = time.perf_counter() - t0
+    m = gw.metrics()
+    steps = (m["decode_steps"] + m["prefill_chunks"]
+             - m0["decode_steps"] - m0["prefill_chunks"])
+    if any(r.state.value != "done" for r in reqs):
+        fail(f"{label}: a request did not finish")
+    return reqs + [1e3 * dt / steps]
+
+
+def engine_phase(cfg, params, np, torch, graph_step_ms=None, alloc_weight_bytes=None,
+                 device="cuda"):
+    """Phase 13 (see the module docstring): (a) ``ServingEngine`` on float
+    views against ``engine.gateway(record_logits=True)``, greedy tokens
+    equal up to near-ties; (b) the same with ``quantized=True`` (the
+    in-scan dequant, 252 ``masked_dequant`` launches a step) against the
+    gateway's in-scan route; (c) host sampling: phase 3's stream with
+    greedy and sampling lanes through the kernel route, fused and host
+    mode, tokens identical and the ``record_logits`` rows equal to the
+    fused run's bit for bit; (d) ``launch.roofline``'s decode bound and
+    ``launch.dryrun``'s bytes beside the measured step and allocation.
+    Returns each part's summary and the launches of all of them."""
+    from repro_torch.core.licensing import LicenseTier
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import init_cache
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.quantized import qleaves
+
+    t13 = time.perf_counter()
+    tiers = {"free": LicenseTier(name="free", masks=FREE_TIER),
+             "pro": LicenseTier(name="pro", masks=ENGINE_PRO)}
+    jobs = engine_jobs(cfg, np)
+    out = {}
+    ops.reset_launches()
+
+    log(f"phase 13a: ServingEngine on float views, {cfg.name} at full width and depth, "
+        f"tiers full/pro/free, prompts {ENGINE_PROMPTS}, {ENGINE_NEW} new tokens, greedy")
+    eng = ServingEngine(cfg, params, tiers=tiers, device=device)
+    e_reqs, e_rows, a = engine_run("13a engine, float views", eng, jobs, torch)
+    g_reqs, g_rows, a["gateway"] = engine_gateway_run("13a", eng, jobs, np, torch)
+    a["parts"] = near_ties("13a engine", e_reqs, g_reqs, e_rows, g_rows, cfg.vocab_size,
+                           ref="the gateway's kernel route")
+    out["a_float"] = a
+    del eng, e_rows, g_rows
+    gc.collect()
+
+    log("phase 13b: ServingEngine(quantized=True): one int8 store, each tier's intervals "
+        "dequantized in every step")
+    eng = ServingEngine(cfg, params, tiers=tiers, quantized=True, device=device)
+    want = len(list(qleaves(eng.base_params["units"]))) * cfg.pattern_units
+    e_reqs, e_rows, b = engine_run("13b engine, in-scan int8", eng, jobs, torch)
+    if b["masked_dequant_per_step"] != [want]:
+        fail(f"13b: masked_dequant launches a step {b['masked_dequant_per_step']}, not {want}")
+    g_reqs, g_rows, b["gateway"] = engine_gateway_run("13b", eng, jobs, np, torch)
+    b["parts"] = near_ties("13b engine in-scan", e_reqs, g_reqs, e_rows, g_rows,
+                           cfg.vocab_size, ref="the gateway's in-scan route")
+    out["b_in_scan"] = b
+    del eng, e_rows, g_rows
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    log("phase 13c: host sampling on the kernel route: phase 3's stream with greedy lanes and "
+        "lanes at temperature 0.8 (top_k 0, 5, 50), fused against host mode")
+    fused, _, fused_ms, fused_t = host_sampling_run("13c fused", cfg, params, tiers, np,
+                                                    torch, device, waves=3)
+    host, _, host_ms, host_t = host_sampling_run("13c host", cfg, params, tiers, np, torch,
+                                                 device, waves=3, fuse_sampling=False)
+    kept, fused_rows, _, _ = host_sampling_run("13c fused, rows kept", cfg, params, tiers, np,
+                                               torch, device, record=True)
+    recorded, _, _, _ = host_sampling_run("13c record_logits", cfg, params, tiers, np, torch,
+                                          device, record_logits=True)
+    toks = [[r.out_tokens for r in run] for run in (fused, host)]
+    if toks[0] != toks[1] or not all([r.out_tokens for r in run] == toks[0][:len(run)]
+                                     for run in (kept, recorded)):
+        fail("13c: fused and host sampling gave different tokens")
+    sampled = sum(len(r.out_tokens) for r in fused if r.temperature > 0)
+    n_rows = 0
+    for r, k in zip(recorded, kept):
+        if len(r.logits_rows) != len(r.out_tokens):
+            fail(f"13c: request {r.rid} kept {len(r.logits_rows)} rows for "
+                 f"{len(r.out_tokens)} tokens")
+        for t, row in enumerate(r.logits_rows):
+            if not torch.equal(fused_rows[(k.rid, t)].cpu(), torch.from_numpy(row)):
+                fail(f"13c: request {r.rid}'s record_logits row {t} differs from the fused "
+                     f"run's")
+            n_rows += 1
+    log(f"  13c: tokens identical in all four runs ({sum(map(len, toks[0]))} tokens in the "
+        f"three-wave runs, {sampled} of them drawn at temperature 0.8); {n_rows} record_logits "
+        f"rows equal to the fused run's bit for bit; {fused_ms:.2f} ms a step fused against "
+        f"{host_ms:.2f} host; the epilogue {fused_t['epilogue_ms']:.3f} ms fused against "
+        f"{host_t['epilogue_ms']:.3f} host (medians), a batched draw {fused_t['draw_ms']:.3f} "
+        f"ms fused and {host_t['draw_ms']:.3f} host (medians)")
+    out["c_host_sampling"] = dict(fused_ms_per_step=fused_ms, host_ms_per_step=host_ms,
+                                  fused_epilogue_ms=fused_t["epilogue_ms"],
+                                  host_epilogue_ms=host_t["epilogue_ms"],
+                                  fused_draw_ms=fused_t["draw_ms"], host_draw_ms=host_t["draw_ms"],
+                                  tokens=sum(map(len, toks[0])),
+                                  sampled_tokens=sampled, rows_bit_equal=n_rows)
+    del fused, host, kept, recorded, fused_rows
+    gc.collect()
+
+    groups = {}
+    for (p, t) in jobs:
+        groups.setdefault(t, []).append(len(p))
+    batch = max(len(v) for v in groups.values())
+    cap = max(max(v) for v in groups.values()) + ENGINE_NEW
+    log(f"phase 13d: launch.roofline and launch.dryrun at 13a's largest engine group "
+        f"(batch {batch}, capacity {cap})")
+    rep = dryrun.dry_run(cfg, InputShape("engine_13a", "decode", cap, batch))
+    before = torch.cuda.memory_allocated() if device == "cuda" else 0
+    cache = init_cache(cfg, batch, cap, device=device)
+    alloc_cache = (torch.cuda.memory_allocated() - before if device == "cuda"
+                   else sum(t.numel() * t.element_size() for t in _leaves(cache)))
+    del cache
+    bound_ms = 1e3 * rep["bound_s"]
+    graph = "not measured" if graph_step_ms is None else f"{graph_step_ms:.2f} ms"
+    log(f"  13d: decode bound {bound_ms:.4f} ms ({rep['dominant']}: {rep['bytes'] / 1e9:.4f} GB "
+        f"at {roofline.CARD_PEAKS[rep['card']][0] / 1e12:.2f} TB/s, {rep['flops'] / 1e9:.2f} "
+        f"GFLOP counted against {rep['model_flops'] / 1e9:.2f} of model_step_flops) beside "
+        f"13a's eager engine step {a['decode_ms_p50']:.2f} ms and phase 3's graph step "
+        f"(8 lanes) {graph}")
+    log(f"  13d: dryrun weight bytes {rep['weight_bytes'] / 1e9:.4f} GB against "
+        f"{'not measured' if alloc_weight_bytes is None else f'{alloc_weight_bytes / 1e9:.4f} GB'}"
+        f" allocated by init_params; cache bytes {rep['cache_bytes'] / 1e6:.4f} MB against "
+        f"{alloc_cache / 1e6:.4f} MB allocated by init_cache")
+    if alloc_weight_bytes is not None and \
+            abs(rep["weight_bytes"] - alloc_weight_bytes) > 0.01 * alloc_weight_bytes:
+        fail("13d: the dry run's weight bytes are more than 1% off the allocation")
+    if abs(rep["cache_bytes"] - alloc_cache) > 0.01 * alloc_cache:
+        fail("13d: the dry run's cache bytes are more than 1% off the allocation")
+    out["d_roofline"] = dict(batch=batch, capacity=cap, bound_ms=bound_ms,
+                             dominant=rep["dominant"], bytes=rep["bytes"], flops=rep["flops"],
+                             model_flops=rep["model_flops"], weight_bytes=rep["weight_bytes"],
+                             cache_bytes=rep["cache_bytes"], alloc_weight_bytes=alloc_weight_bytes,
+                             alloc_cache_bytes=alloc_cache, graph_step_ms=graph_step_ms,
+                             engine_step_ms=a["decode_ms_p50"])
+    launches = dict(ops.LAUNCHES)
+    out["s"] = time.perf_counter() - t13
+    log(f"  phase 13 took {out['s']:.1f} s")
+    return out, launches
+
+
 def main() -> None:
     t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4486,6 +4823,7 @@ def main() -> None:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as kernels_pa
     from repro_torch.kernels.build import load_extension
+    from repro_torch.launch import roofline
     from repro_torch.models import init_params
     from repro_torch.serving import LicensedGateway
 
@@ -4498,9 +4836,9 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
     kind = torch.cuda.get_device_name(0)
-    peaks = next((v for k, v in CARD_PEAKS.items() if k in kind), None)
-    if peaks is None:
+    if roofline.card_key(kind) is None:
         fail(f"no published peaks for {kind!r}; bounds cannot be derived")
+    peaks = roofline.CARD_PEAKS[roofline.card_key(kind)]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}")
     t0 = time.perf_counter()
     load_extension()
@@ -4797,6 +5135,28 @@ def main() -> None:
     for name, n in phase12_launches.items():
         launches[name] += n
 
+    # ---------------------------------------------------------- phase 13
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=SEED, device="cuda")
+    alloc = torch.cuda.memory_allocated() - before
+    if leaf_sums(params, torch) != fingerprint:
+        fail("13: init_params(seed) did not re-create phase 3's weights")
+    graph_step = next((r["decode_profile"]["unprofiled_ms_per_step"]
+                       for r in compiled["float"]["runs"]
+                       if r["path"] == "graph" and r.get("decode_profile")), None)
+    engine, phase13_launches = engine_phase(cfg, params, np, torch, graph_step, alloc)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  launches on phase 13's paths: {phase13_launches}")
+    for name in ("paged_attention", "paged_decode_write", "masked_dequant"):
+        if phase13_launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on phase 13's paths")
+    for name, n in phase13_launches.items():
+        launches[name] += n
+
     # ---------------------------------------------------------- summary
     kernels = [dict(name=name, launches=launches[name], **row)
                for name, row in rows.items()]
@@ -4816,7 +5176,8 @@ def main() -> None:
                     "phase9_launches": phase9_launches,
                     "moe_mla": moe, "phase10_launches": phase10_launches,
                     "recurrent": recurrent, "phase11_launches": phase11_launches,
-                    "frontend": frontend, "phase12_launches": phase12_launches}))
+                    "frontend": frontend, "phase12_launches": phase12_launches,
+                    "engine": engine, "phase13_launches": phase13_launches}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -25,5 +25,20 @@ from repro_torch.configs import (  # noqa: F401
     recurrentgemma_2b,
 )
 
+# the assigned pool, in the JAX package's order (the launch tools'
+# ``--all`` sweeps it)
+ASSIGNED_ARCHS = (
+    "mamba2-130m",
+    "qwen2.5-3b",
+    "musicgen-large",
+    "recurrentgemma-2b",
+    "deepseek-v2-lite-16b",
+    "nemotron-4-15b",
+    "internvl2-26b",
+    "minitron-8b",
+    "deepseek-moe-16b",
+    "granite-34b",
+)
+
 __all__ = ["ModelConfig", "get_config", "list_configs", "register",
-           "smoke_variant"]
+           "smoke_variant", "ASSIGNED_ARCHS"]

@@ -92,6 +92,56 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # ---------------- parameter counting (roofline MODEL_FLOPS) ----------
+    def param_counts(self) -> Dict[str, float]:
+        d, v = self.d_model, self.vocab_size
+        per_layer_attn = per_layer_mlp = per_layer_moe_active = per_layer_moe_total = 0.0
+        per_layer_ssm = per_layer_rec = 0.0
+        if "attn" in self.layer_pattern:
+            if self.use_mla:
+                h = self.num_heads
+                per_layer_attn = (
+                    d * h * (self.qk_nope_dim + self.rope_head_dim)
+                    + d * (self.kv_lora_rank + self.rope_head_dim)
+                    + self.kv_lora_rank * h * (self.qk_nope_dim + self.v_head_dim)
+                    + h * self.v_head_dim * d
+                )
+            else:
+                per_layer_attn = d * self.head_dim * (
+                    self.num_heads * 2 + self.num_kv_heads * 2
+                )
+        if self.num_experts:
+            per_expert = 3 * d * self.moe_d_ff
+            per_layer_moe_total = self.num_experts * per_expert + d * self.num_experts
+            per_layer_moe_active = self.experts_per_token * per_expert + d * self.num_experts
+            shared = self.num_shared_experts * 3 * d * self.moe_d_ff
+            per_layer_moe_total += shared
+            per_layer_moe_active += shared
+        elif self.d_ff:
+            mult = 3 if self.mlp_type == "swiglu" else 2
+            per_layer_mlp = mult * d * self.d_ff
+        if "ssm" in self.layer_pattern:
+            di = self.ssm_expand * d
+            per_layer_ssm = d * (2 * di + 2 * self.ssm_state + di // self.ssm_head_dim) + di * d
+        if "rec" in self.layer_pattern:
+            w = self.lru_width
+            per_layer_rec = d * w * 2 + 2 * w * w + w * d
+
+        total = active = 2 * v * d  # embed + head
+        for i in range(self.num_layers):
+            kind = self.block_kind(i)
+            if kind == "attn":
+                body = per_layer_attn + (per_layer_moe_total or per_layer_mlp)
+                act = per_layer_attn + (per_layer_moe_active or per_layer_mlp)
+            elif kind == "ssm":
+                body = act = per_layer_ssm
+            else:  # rec
+                body = per_layer_rec + per_layer_mlp
+                act = body
+            total += body
+            active += act
+        return {"total": float(total), "active": float(active)}
+
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 

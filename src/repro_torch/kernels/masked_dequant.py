@@ -32,9 +32,10 @@ def masked_dequant(codes: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor,
     (``ops.pack_intervals``).  Returns the licensed weights in codes'
     shape and ``out_dtype`` (f32 or bf16).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    and anything the kernel does not take raises."""
-    if codes.device.type == "cpu":
+    CPU tensors take the plain version, and so do ``meta`` tensors
+    (shapes only: the launch tools' dry run); CUDA tensors launch the
+    kernel, and anything the kernel does not take raises."""
+    if codes.device.type in ("cpu", "meta"):
         return ref.masked_dequant(codes, scale, lo, hi, out_dtype)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"masked_dequant: out_dtype must be float32 or bfloat16, "

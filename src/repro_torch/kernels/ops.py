@@ -64,11 +64,12 @@ def num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def pack_intervals(intervals: Sequence[Tuple[float, float]],
-                   device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pad a license tier's interval list to (MAX_INTERVALS,) f32 lo/hi;
-    padding slots have lo == hi == 0 and are inert.  Both are rows of one
-    (2, MAX_INTERVALS) tensor: one host-to-device copy per call."""
+def pack_intervals(intervals: Sequence[Tuple[float, float]], *,
+                   device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad a license tier's interval list to (MAX_INTERVALS,) f32 lo/hi on
+    ``device`` (no default: the caller names it); padding slots have
+    lo == hi == 0 and are inert.  Both are rows of one (2, MAX_INTERVALS)
+    tensor: one host-to-device copy per call."""
     ivs = list(intervals)[:MAX_INTERVALS]
     packed = np.zeros((2, MAX_INTERVALS), np.float32)
     for i, (a, b) in enumerate(ivs):
@@ -91,7 +92,7 @@ def masked_dequant(codes: torch.Tensor, scale: torch.Tensor,
     c = codes.shape[-1]
     if scale.ndim == 1:
         scale = scale.reshape(1, -1) if scale.numel() == c else scale.reshape(-1, 1)
-    lo, hi = pack_intervals(intervals, codes.device)
+    lo, hi = pack_intervals(intervals, device=codes.device)
     return _kernel(codes, scale, lo, hi, out_dtype=out_dtype)
 
 

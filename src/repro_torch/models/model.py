@@ -80,9 +80,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, 
     zero ``bias`` under LayerNorm; the SSM and RG-LRU leaves as
     ``ssm.init_ssm`` and ``rglru.init_rglru`` say), drawn from a
     ``torch.Generator`` seeded with ``seed`` — the values differ from
-    ``jax.random``'s."""
+    ``jax.random``'s.  On the ``meta`` device (shapes and dtypes only,
+    the launch tools' dry run) nothing is drawn."""
     check_supported(cfg)
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    gen = (None if torch.device(device).type == "meta"
+           else torch.Generator(device=device).manual_seed(int(seed)))
     dt, d = cfg.dtype, cfg.d_model
 
     def normal(shape, scale, dtype=dt):

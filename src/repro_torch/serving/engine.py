@@ -1,25 +1,34 @@
-"""Serving steps of the port: the bucket and chunked prefill, the suffix
-prefill of a prefix-cache hit, the gather/scatter and kernel-resident
-paged decode, and per-lane sampling.
+"""Serving engine of the port: the serving steps the gateway calls (the
+bucket and chunked prefill, the suffix prefill of a prefix-cache hit,
+the gather/scatter and kernel-resident paged decode), the host
+sampler, and ``ServingEngine``, the batch engine with per-tier licensed
+weight views.
 
-Counterpart of the functions of ``repro/serving/engine.py`` the gateway
-calls (``ServingEngine``, ``Request`` and the host ``sample`` are not
-ported).  The JAX package ``vmap``\\ s a batch-1 step over lanes;
-here the lane axis is the model's batch dimension, with per-lane
-positions written out.  Sampling draws from a ``torch.Generator`` seeded
-per (request seed, token index), so a restarted request reproduces its
-tokens; the draws cannot match the JAX package's ``fold_in`` keys, so
-only greedy tokens are comparable across the two.
+Counterpart of ``repro/serving/engine.py``.  The JAX package ``vmap``\\ s
+a batch-1 step over lanes; here the lane axis is the model's batch
+dimension, with per-lane positions written out.  Every stochastic draw
+of the port, the gateway's and the engine's, is computed on the
+logits' device by :func:`sample_rows` from uniforms drawn on the host
+by CPU ``torch.Generator``\\ s: one uniform a row, uploaded with the
+rows' temperatures and top-k in one copy.  The gateway seeds one
+generator per (request seed, token index) (:func:`lane_uniform`), so a
+restarted request reproduces its tokens, and its fused and host modes
+draw through the same call on the same device rows, so they give the
+same tokens.  The draws cannot match the JAX package's ``fold_in``
+keys, so only greedy tokens are comparable across the two.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.licensing import FULL_TIER, LicenseTier, apply_license
 from repro_torch.models import model as model_lib
+from repro_torch.serving.scheduler import TierViewCache
 
 
 def prefill_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict[str, Any],
@@ -120,23 +129,178 @@ def right_align(prompts: Sequence[np.ndarray], width: int, rows: int) -> np.ndar
     return toks
 
 
-def lane_generator(seed: int, n_out: int, device) -> torch.Generator:
-    """The generator a lane draws its ``n_out``-th token from."""
-    return torch.Generator(device=device).manual_seed(
-        ((int(seed) & 0xFFFFFFFF) << 20) ^ int(n_out))
+def lane_uniform(seed: int, n_out: int) -> float:
+    """The uniform a gateway lane draws its ``n_out``-th token with: the
+    first number of a CPU generator seeded per (request seed, token
+    index)."""
+    gen = torch.Generator().manual_seed(((int(seed) & 0xFFFFFFFF) << 20) ^ int(n_out))
+    return float(torch.rand(1, generator=gen))
 
 
-def sample_lane(logits: torch.Tensor, generator: Optional[torch.Generator],
-                temperature: float, top_k: int) -> torch.Tensor:
-    """One lane's token from its logits row (V,): greedy (argmax) when
-    ``temperature <= 0``, else a temperature-scaled categorical draw,
-    restricted to the ``top_k`` largest logits when ``top_k > 0``."""
+def sample_rows(rows: torch.Tensor, uniforms: Sequence[float],
+                temperatures: Sequence[float], top_ks: Sequence[int]) -> torch.Tensor:
+    """One categorical draw from each of ``rows`` (m, V), computed on
+    their device: row ``i`` scaled by ``temperatures[i]`` (> 0),
+    restricted to its ``top_ks[i]`` largest logits when that is > 0,
+    and drawn by inverse transform, ``uniforms[i]`` against the
+    cumulative probabilities (the first index whose sum passes it,
+    capped at the first that reaches the total, so a rounding of the
+    uniform up to the total never lands on a logit of probability 0 past
+    the last live one).  The three host sequences go to the device in
+    one copy; the divisor is a tensor, as CUDA turns a division by a
+    Python scalar into a product with its reciprocal.  A row's token
+    depends on its row, uniform, temperature and k only.  Returns (m,)
+    int32 on the rows' device."""
+    v = rows.shape[-1]
+    ks = [min(max(0, int(k)), v) for k in top_ks]
+    knobs = torch.tensor([list(uniforms), list(temperatures), ks],
+                         dtype=torch.float32).to(rows.device)
+    u, temperature, k = knobs[0, :, None], knobs[1, :, None], knobs[2].long()
+    scaled = rows.float() / temperature
+    if max(ks):
+        kth = torch.topk(scaled, max(ks), dim=-1).values.gather(
+            1, (k - 1).clamp(min=0)[:, None])
+        kth = kth.masked_fill(k[:, None] == 0, -float("inf"))
+        scaled = scaled.masked_fill(scaled < kth, -float("inf"))
+    cdf = torch.cumsum(torch.softmax(scaled, -1), -1)
+    total = cdf[:, -1:].contiguous()
+    drawn = torch.minimum(torch.searchsorted(cdf, u * total, right=True),
+                          torch.searchsorted(cdf, total))
+    return drawn[:, 0].to(torch.int32)
+
+
+def sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None, *,
+           temperature: float = 1.0, top_k: int = 0) -> torch.Tensor:
+    """Tokens (int32, on the logits' device) from a (B, V) batch or a
+    (V,) row: greedy (the first argmax) when ``temperature <= 0``, else
+    a temperature-scaled categorical draw after top-k
+    (:func:`sample_rows`), one uniform a row from ``generator``, a CPU
+    generator."""
     if temperature <= 0:
         return torch.argmax(logits, -1).to(torch.int32)
-    scaled = logits.float() / max(temperature, 1e-6)
-    if top_k:
-        kth = torch.topk(scaled, min(int(top_k), scaled.shape[-1])).values[-1]
-        scaled = torch.where(scaled < kth, torch.full_like(scaled, -float("inf")),
-                             scaled)
-    probs = torch.softmax(scaled, -1)
-    return torch.multinomial(probs, 1, generator=generator)[0].to(torch.int32)
+    rows = logits.reshape(-1, logits.shape[-1])
+    m = rows.shape[0]
+    uniforms = torch.rand(m, generator=generator).tolist()
+    drawn = sample_rows(rows, uniforms, [temperature] * m, [top_k] * m)
+    return drawn.reshape(logits.shape[:-1])
+
+
+@dataclass
+class Request:
+    prompt: np.ndarray                 # (S,) int32
+    max_new_tokens: int = 16
+    license: str = "full"
+    temperature: float = 0.0
+    out_tokens: List[int] = field(default_factory=list)
+
+
+class ServingEngine:
+    """Batched serving with per-tier licensed weight views.
+
+    Weight views are built once per tier (masking is elementwise and
+    cheap beside serving) and cached: the paper's "unlimited licenses,
+    one stored model".  Each group of same-tier requests prefills in one
+    step into a fresh contiguous cache and decodes eagerly, every step
+    one ``serve_step``; the gateway (:meth:`gateway`) is the fast path,
+    with the paged pool, the kernels and CUDA graphs.
+
+    ``quantized=True``: ONE int8 store serves every tier, each tier's
+    intervals fused into the dequant inside every step (one
+    ``masked_dequant`` launch per int8 leaf of a unit on the card).
+    ``device`` is where the weights live and the engine runs (default
+    ``cuda``); params elsewhere raise ``ValueError``.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Any,
+                 tiers: Optional[Dict[str, LicenseTier]] = None,
+                 quantized: bool = False, *, device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if params["embed"]["tok"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed']['tok'].device}, "
+                             f"the engine on {self.device}")
+        self.quantized = bool(quantized)
+        if self.quantized:
+            from repro_torch.serving.quantized import quantize_serving_params
+
+            self.base_params = quantize_serving_params(params)
+        else:
+            self.base_params = params
+        self.tiers = dict(tiers or {})
+        self.tiers.setdefault("full", FULL_TIER)
+        # (tier, version=None)-keyed views, the gateway's cache; the
+        # engine is versionless
+        self._views = TierViewCache(self._build_view, capacity=64)
+
+    def _build_view(self, license_name: str, _version):
+        """(params, intervals) licensed view, built once per tier."""
+        tier = self.tiers.get(license_name)
+        if tier is None:
+            raise KeyError(f"unknown license tier {license_name!r}")
+        if self.quantized:
+            from repro_torch.serving.quantized import tier_intervals
+
+            # one store, every tier
+            return self.base_params, tier_intervals(tier, device=self.device)
+        return apply_license(self.base_params, tier), None
+
+    def params_for(self, license_name: str):
+        return self._views.get(license_name)[0]
+
+    def intervals_for(self, license_name: str):
+        if not self.quantized:
+            return None
+        return self._views.get(license_name)[1]
+
+    def gateway(self, **kw):
+        """A :class:`~repro_torch.serving.gateway.LicensedGateway` over
+        this engine's weights, tiers and device (the continuous-batching
+        front end).  Quantization follows the engine; construct
+        ``LicensedGateway`` directly to choose another weight-store
+        mode."""
+        if "quantized" in kw or "already_quantized" in kw:
+            raise ValueError("gateway() mirrors the engine's quantization; "
+                             "construct LicensedGateway directly to override")
+        from repro_torch.serving.gateway import LicensedGateway
+
+        kw.setdefault("device", self.device)
+        return LicensedGateway(self.cfg, self.base_params, tiers=self.tiers,
+                               quantized=self.quantized,
+                               already_quantized=self.quantized, **kw)
+
+    def generate(self, requests: List[Request], *, seed: int = 0) -> List[Request]:
+        """Serve a batch of requests, grouped by tier.  Greedy tokens
+        are the argmax on the device; a group at a temperature draws on
+        the device from uniforms of one CPU generator seeded with
+        ``seed``.  Only the token ids come to the host, once a step."""
+        by_tier: Dict[str, List[Request]] = {}
+        for r in requests:
+            by_tier.setdefault(r.license, []).append(r)
+        for tier_name, group in by_tier.items():
+            self._generate_group(group, tier_name, seed)
+        return requests
+
+    def _generate_group(self, group: List[Request], tier_name: str, seed: int):
+        params = self.params_for(tier_name)
+        li = self.intervals_for(tier_name)
+        cfg, dev = self.cfg, self.device
+        b = len(group)
+        max_prompt = max(len(r.prompt) for r in group)
+        max_new = max(r.max_new_tokens for r in group)
+        toks = right_align([r.prompt for r in group], max_prompt, b)
+        cache = model_lib.init_cache(cfg, b, max_prompt + max_new, device=dev)
+        logits, cache = prefill_step(params, cfg, torch.from_numpy(toks).to(dev), cache,
+                                     license_intervals=li)
+        gen = torch.Generator().manual_seed(int(seed))
+        temperature = group[0].temperature
+        cur = sample(logits, gen, temperature=temperature)
+        # one copy of b token ids a step; the tokens stay on the device
+        for i, t in enumerate(cur.tolist()):
+            group[i].out_tokens.append(t)
+        for step in range(max_new - 1):
+            pos = torch.full((b,), max_prompt + step, dtype=torch.int32, device=dev)
+            logits, cache = serve_step(params, cfg, cur[:, None], cache, pos, li)
+            cur = sample(logits, gen, temperature=temperature)
+            for i, t in enumerate(cur.tolist()):
+                if len(group[i].out_tokens) < group[i].max_new_tokens:
+                    group[i].out_tokens.append(t)

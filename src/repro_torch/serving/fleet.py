@@ -41,12 +41,6 @@ then the others', LRU within each, always through the owning slot's
 ``PrefixCache``) before giving up.  Decode growth that still finds no
 headroom preempts within its own slot, never across slots.  The budget
 reads host counters only: no device access on admission.
-
-Every constructor argument of the JAX slot is recognised.  Those whose
-features are not ported accept the values the port implements (the JAX
-default among them where the port behaves as the JAX slot does at that
-default); anything else raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it — never accepted and then ignored.
 """
 from __future__ import annotations
 
@@ -74,24 +68,6 @@ from repro_torch.serving.scheduler import (CachePool, GatewayRequest, RequestSta
 from repro_torch.serving.telemetry import (FLEET_METRICS_KEYS, GATEWAY_METRICS_KEYS,
                                            Telemetry)
 from repro_torch.serving.tracing import AuditLog, TraceRecorder, merge_chrome_traces
-
-# argument -> (the values the port implements, ROADMAP.md item for the rest)
-_LEFT_OUT: Dict[str, Tuple[Tuple[Any, ...], str]] = {
-    # the port samples on the device inside every step and keeps no logits
-    "fuse_sampling": ((True,), "the rest of the package"),
-    "record_logits": ((False,), "the rest of the package"),
-}
-
-
-def _check_left_out(kw: Dict[str, Any]) -> None:
-    for name, value in kw.items():
-        if name not in _LEFT_OUT:
-            raise TypeError(f"unexpected argument {name!r}")
-        ported, item = _LEFT_OUT[name]
-        if value not in ported:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet; see ROADMAP.md, {item!r}")
-
 
 def _decode_kernels_arg(decode_kernels: Optional[bool],
                         decode_pallas: Optional[str]) -> Optional[bool]:
@@ -140,6 +116,8 @@ class ModelSlot:
         kernel_decode: Optional[bool] = None,
         decode_pallas: Optional[str] = None,
         decode_kernels: Optional[bool] = None,
+        fuse_sampling: bool = True,
+        record_logits: bool = False,
         view_capacity: int = 8,
         version: int = 1,
         server: Any = None,
@@ -156,9 +134,7 @@ class ModelSlot:
         telemetry: Any = True,
         sanitize: Optional[bool] = None,
         device="cuda",
-        **left_out: Any,
     ):
-        _check_left_out(left_out)
         check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -193,6 +169,8 @@ class ModelSlot:
         self.tiers.setdefault("full", FULL_TIER)
         self.views = TierViewCache(self._materialize, capacity=view_capacity)
         self._store_graphs = StoreGraphs()   # the in-scan path's, per version
+        self.record_logits = bool(record_logits)
+        self.fuse_sampling = bool(fuse_sampling) and not self.record_logits
 
         decode_kernels = _decode_kernels_arg(decode_kernels, decode_pallas)
         self.paged = bool(paged)
@@ -704,7 +682,7 @@ class ModelSlot:
             return View(params, None, GraphSet(params))
         from repro_torch.serving.quantized import tier_intervals
 
-        return View(base, tier_intervals(tier, self.device),
+        return View(base, tier_intervals(tier, device=self.device),
                     self._store_graphs.get(version, base))
 
     # ------------------------------------------------------ scheduler callbacks

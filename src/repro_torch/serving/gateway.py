@@ -93,8 +93,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.transport import Transport, TransportError
 from repro_torch.serving.compiled import table_width
-from repro_torch.serving.engine import (lane_generator, prefill_chunk_step, prefill_step,
-                                        prefill_suffix_step, right_align, sample_lane,
+from repro_torch.serving.engine import (lane_uniform, prefill_chunk_step, prefill_step,
+                                        prefill_suffix_step, right_align, sample_rows,
                                         serve_step, serve_step_paged, stack_lane_caches)
 from repro_torch.serving.fleet import ModelSlot
 from repro_torch.serving.paging import cdiv
@@ -107,11 +107,24 @@ def _pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
-def _sampling_key(reqs: List[GatewayRequest]) -> Tuple[bool, bool, bool]:
+def _sampling_key(reqs: List[GatewayRequest], fused: bool) -> Tuple[bool, bool, bool]:
     """A micro-batch's sampling variant, the sanitizer's key as in the
-    JAX package: (fused, any sampling lane, any top-k lane)."""
+    JAX package: (fused, any sampling lane, any top-k lane), and
+    (False, False, False) for every batch of the host mode."""
+    if not fused:
+        return (False, False, False)
     with_rng = any(r.temperature > 0 for r in reqs)
     return (True, with_rng, with_rng and any(r.top_k for r in reqs))
+
+
+def _draw(logits: torch.Tensor, reqs: List[GatewayRequest], lanes: List[int]) -> torch.Tensor:
+    """The tokens (m,) int32 of the sampling lanes ``lanes`` of a step,
+    drawn on the device from their logits rows, each with the uniform
+    of its (request seed, token index) (``engine.sample_rows``)."""
+    picked = [reqs[i] for i in lanes]
+    return sample_rows(logits[lanes],
+                       [lane_uniform(r.seed, len(r.out_tokens)) for r in picked],
+                       [r.temperature for r in picked], [r.top_k for r in picked])
 
 
 class LicensedGateway:
@@ -183,6 +196,17 @@ class LicensedGateway:
         raises ``ValueError`` (the port has no interpret mode).
         ``metrics()["decode_path"]["pallas"]`` reports the resolved
         route: ``"pallas"`` when the kernels run, else ``"off"``.
+    fuse_sampling:
+        Sample in the step's epilogue (default): greedy lanes take the
+        argmax on the device, sampling lanes draw on the device, and one
+        token id a lane comes to the host.  ``False`` is the
+        return-logits escape hatch: every step's rows come to the host,
+        greedy lanes take the host argmax, and sampling lanes draw as in
+        the fused mode, so the tokens are identical.
+    record_logits:
+        Keep each emitted token's logits row (V,) f32 on the request
+        (``req.logits_rows``) for equivalence tests; implies
+        ``fuse_sampling=False``.
     view_capacity:
         Licensed views kept in the (tier, version) LRU cache.
     version / model:
@@ -388,6 +412,8 @@ class LicensedGateway:
             temperature=0.0 if temperature <= 1e-6 else temperature,
             top_k=min(max(0, int(top_k)), self.cfg.padded_vocab), seed=seed,
         )
+        if self.record_logits:
+            req.logits_rows = []
         req.rid = self._next_rid
         self._next_rid += 1
         req.submit_t = self.clock()
@@ -512,21 +538,39 @@ class LicensedGateway:
         return torch.from_numpy(a).to(self.device)
 
     def _sample(self, logits: torch.Tensor, reqs: List[GatewayRequest],
-                greedy: Optional[torch.Tensor] = None) -> np.ndarray:
-        """Per-lane epilogue of a step, on the device: greedy lanes take
-        the argmax (``greedy``, when the compiled step computed it),
-        sampling lanes draw from their own generator; only one token id
-        per lane comes back to the host."""
-        rows = logits[: len(reqs)]
-        if greedy is None:
-            toks = torch.argmax(rows, -1).to(torch.int32)
-        else:
-            toks = greedy[: len(reqs)].clone()
+                greedy: Optional[torch.Tensor] = None,
+                emit: Optional[List[bool]] = None) -> np.ndarray:
+        """Per-lane epilogue of a step: the tokens (n,) of the lanes of
+        ``reqs`` from their logits rows.  ``emit`` marks the lanes whose
+        token is emitted now (default: all); the others draw nothing.
+
+        Fused (the default): greedy lanes take the argmax on the device
+        (``greedy``, when the compiled step computed it); only the step's
+        token ids come to the host.  Host mode (``fuse_sampling=False``):
+        the step's rows come to the host once, as f32; greedy lanes take
+        ``np.argmax`` and, under ``record_logits``, each emitting lane
+        keeps its row.  Sampling lanes draw on the device from the device
+        rows through one :func:`_draw` in both modes, and both argmaxes
+        take the first maximum, so the modes' tokens are identical."""
+        n = len(reqs)
+        emit = [True] * n if emit is None else emit
+        lanes = [i for i, r in enumerate(reqs) if emit[i] and r.temperature > 0]
+        drawn = _draw(logits, reqs, lanes) if lanes else None
+        if self.fuse_sampling:
+            toks = (torch.argmax(logits[:n], -1) if greedy is None
+                    else greedy[:n]).to(torch.int32, copy=True)
+            if drawn is not None:
+                toks[lanes] = drawn
+            return toks.cpu().numpy()
+        # a copy even on the CPU: the rows outlive the step's buffers
+        host = logits[:n].to(device="cpu", dtype=torch.float32, copy=True).numpy()
+        toks = np.argmax(host, -1).astype(np.int32)
+        if drawn is not None:
+            toks[lanes] = drawn.cpu().numpy()
         for i, r in enumerate(reqs):
-            if r.temperature > 0:
-                gen = lane_generator(r.seed, len(r.out_tokens), self.device)
-                toks[i] = sample_lane(rows[i], gen, r.temperature, r.top_k)
-        return toks.cpu().numpy()
+            if emit[i] and r.logits_rows is not None:
+                r.logits_rows.append(host[i])
+        return toks
 
     def _alloc_blocks(self, n: int) -> List[int]:
         """Allocate ``n`` blocks, reclaiming retained prefix chains (LRU)
@@ -615,7 +659,7 @@ class LicensedGateway:
             outs = self._run_prefix_prefill(act, toks, matches, lanes, params, li)
         else:
             if self.sanitizer is not None:
-                self.sanitizer.retrace.note("steps", _sampling_key(reqs))
+                self.sanitizer.retrace.note("steps", _sampling_key(reqs, self.fuse_sampling))
             caches = stack_lane_caches(self.cfg, self.max_batch, self._zero_cap, self.device)
             logits, caches = prefill_step(params, self.cfg, self._to_device(toks), caches,
                                           license_intervals=li)
@@ -683,7 +727,7 @@ class LicensedGateway:
         self.stats["prefill_lane_tokens"] += w * len(reqs)
         self._note_block_use()
         if self.sanitizer is not None:
-            self.sanitizer.retrace.note("prefix_prefill", _sampling_key(reqs))
+            self.sanitizer.retrace.note("prefix_prefill", _sampling_key(reqs, self.fuse_sampling))
         lane_ids = self.pool.pad_lanes(lanes, self.max_batch)
         tables = self.pool.pad_tables([r.blocks for r in reqs], self.max_batch)
         caches = self.pool.gather(tables)
@@ -781,7 +825,7 @@ class LicensedGateway:
         cols = min(self.pool.blocks_per_lane, _pow2(need))
         if self.sanitizer is not None:
             self.sanitizer.retrace.note("prefill_chunk", (b, cols))
-            self.sanitizer.retrace.note("prefix_prefill", _sampling_key(reqs))
+            self.sanitizer.retrace.note("prefix_prefill", _sampling_key(reqs, self.fuse_sampling))
         sub = np.zeros((b, w), np.int32)
         poss = np.zeros(b, np.int32)
         lasts = np.zeros(b, np.int64)
@@ -798,11 +842,12 @@ class LicensedGateway:
         lane_ids = self.pool.pad_lanes([r.lane for r in reqs], b)
         tables = self.pool.pad_tables([r.blocks[:cols] for r in reqs], b,
                                       n_cols=cols)
+        done = [int(fills[i]) >= len(r.prompt) for i, r in enumerate(reqs)]
         if self._prefill_graphs is not None:
             rows, greedy = self._prefill_graphs.step(
                 view, sub, poss, lasts, fills, lane_ids, tables,
                 self._scatter_tables(tables, reqs))
-            outs = self._sample(rows, reqs, greedy)
+            outs = self._sample(rows, reqs, greedy, done)
         else:
             params, li = view
             caches = self.pool.gather(tables)
@@ -810,7 +855,7 @@ class LicensedGateway:
                                                 caches, self._to_device(poss),
                                                 license_intervals=li)
             rows = logits[torch.arange(b, device=self.device), self._to_device(lasts)]
-            outs = self._sample(rows, reqs)
+            outs = self._sample(rows, reqs, emit=done)
             caches = self.pool.override_counters(caches, fills)
             self.pool.scatter(lane_ids, self._scatter_tables(tables, reqs), caches)
         self.stats["prefill_lane_tokens"] += w * len(reqs)
@@ -987,7 +1032,7 @@ class LicensedGateway:
                 used = table_width(used, self.pool.blocks_per_lane)
             if self.sanitizer is not None:
                 self.sanitizer.retrace.note("decode_width", used)
-                self.sanitizer.retrace.note("paged_decode", _sampling_key(reqs))
+                self.sanitizer.retrace.note("paged_decode", _sampling_key(reqs, self.fuse_sampling))
             tables = self.pool.pad_tables([r.blocks[:used] for r in reqs],
                                           self.max_batch, used)
             if self._graphs is not None:
@@ -1005,7 +1050,7 @@ class LicensedGateway:
             self.stats["resident_decode_steps"] += 1
         else:
             if self.sanitizer is not None:
-                self.sanitizer.retrace.note("steps", _sampling_key(reqs))
+                self.sanitizer.retrace.note("steps", _sampling_key(reqs, self.fuse_sampling))
             params, li = view
             if self.paged:
                 tables = self.pool.pad_tables([r.blocks for r in reqs], self.max_batch)

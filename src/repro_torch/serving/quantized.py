@@ -163,9 +163,10 @@ def materialize_licensed_view(qparams: Any, tier: Optional[LicenseTier],
     Non-quantized leaves are shared with the store."""
     from repro_torch.kernels.masked_dequant import masked_dequant
 
-    li = tier_intervals(tier)
+    device = qparams["embed"]["tok"].device
+    li = tier_intervals(tier, device=device)
     ivs = [] if li is None else [(a, b) for a, b in zip(*(t.tolist() for t in li)) if b > a]
-    lo, hi = pack_intervals(ivs, qparams["embed"]["tok"].device)
+    lo, hi = pack_intervals(ivs, device=device)
 
     def dq(leaf):
         codes, scale = leaf["codes"], leaf["scale"]
@@ -176,13 +177,13 @@ def materialize_licensed_view(qparams: Any, tier: Optional[LicenseTier],
     return _map_qleaves(dq, qparams)
 
 
-def tier_intervals(tier: Optional[LicenseTier], device="cpu",
+def tier_intervals(tier: Optional[LicenseTier], *, device,
                    ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-    """Pack a tier's intervals for the fused dequant, on ``device``,
-    copied as the JAX package has it: the '*' intervals first, then every
-    other pattern's, merged into ONE global set (so on a tier with
-    per-layer patterns the int8 view masks more than ``apply_license``
-    does).  ``None`` for a tier that masks nothing.  One host-to-device
+    """Pack a tier's intervals for the fused dequant, on ``device`` (no
+    default: the caller names it), copied as the JAX package has it: the
+    '*' intervals first, then every other pattern's, merged into ONE
+    global set (so on a tier with per-layer patterns the int8 view masks
+    more than ``apply_license`` does).  ``None`` for a tier that masks nothing.  One host-to-device
     copy: the in-scan view packs once per (tier, version), never in a
     step."""
     if tier is None or not tier.masks:
@@ -193,4 +194,4 @@ def tier_intervals(tier: Optional[LicenseTier], device="cpu",
             ivs.extend(v)
     if not ivs:
         return None
-    return pack_intervals(ivs, device)
+    return pack_intervals(ivs, device=device)

@@ -79,6 +79,7 @@ class GatewayRequest:
     pos: int = 0                             # next decode position
     start_seq: int = -1                      # admission order (preemption age)
     preemptions: int = 0
+    logits_rows: Optional[List[np.ndarray]] = None   # record_logits only
     error: Optional[str] = None
     submit_t: float = 0.0
     first_token_t: Optional[float] = None
@@ -102,6 +103,13 @@ class GatewayRequest:
         if self.finish_t is None:
             return None
         return self.finish_t - self.submit_t
+
+    @property
+    def ttft(self) -> Optional[float]:
+        """Submit -> first token wall time."""
+        if self.first_token_t is None:
+            return None
+        return self.first_token_t - self.submit_t
 
 
 @dataclass
@@ -311,6 +319,9 @@ class Scheduler:
         req.state = RequestState.QUEUED
         self.waiting.append(req)
 
+    def free_lanes(self) -> int:
+        return len(self._free_lanes)
+
     def start(self, req: GatewayRequest, *, prefilling: bool = False) -> int:
         """Move a request to RUNNING (or PREFILLING, when its prompt will
         chunk through over several steps), assigning it a lane."""
@@ -344,6 +355,8 @@ class Scheduler:
         req.cursor = 0
         req.prefix_tokens = 0
         req.out_tokens.clear()
+        if req.logits_rows is not None:
+            req.logits_rows.clear()
         req.first_token_t = None
         req._last_tok_t = None
         req.preemptions += 1

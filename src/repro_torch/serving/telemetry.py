@@ -39,6 +39,7 @@ return (a gateway built with ``telemetry=False``).
 """
 from __future__ import annotations
 
+import json
 import math
 import time
 from bisect import bisect_left
@@ -452,3 +453,7 @@ def validate_fleet_metrics(metrics: Dict[str, Any],
         validate_gateway_metrics(m, extra=FLEET_MODEL_EXTRA_KEYS + tuple(extra))
         for k in FLEET_MODEL_EXTRA_KEYS:
             assert k in m, f"models[{name!r}] missing fleet extra {k!r}"
+
+
+def dump_json(obj: Any) -> str:
+    return json.dumps(obj, indent=2, sort_keys=False, default=str)

@@ -14,11 +14,12 @@ the two frameworks sum logits in different orders (~1e-6 apart in f32),
 which moves no argmax at these weights.
 
 Sampled tokens are not compared: the port draws from torch.Generators,
-the JAX gateway from ``jax.random`` keys.
+the JAX gateway from ``jax.random`` keys.  The host-sampling modes
+(``fuse_sampling=False``, ``record_logits=True``) serve the same stream
+to the default slot's tokens.
 """
 import inspect
 import os
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -41,11 +42,9 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.licensing import LicenseTier
 from repro_torch.models.model import params_from_jax
 from repro_torch.serving import BlockAllocator, LicensedGateway, RequestState
-from repro_torch.serving.fleet import _LEFT_OUT
 from repro_torch.serving.quantized import quantize_serving_params
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-ROADMAP = Path(__file__).resolve().parents[1] / "ROADMAP.md"
 
 FREE = {"*": ((0.0, 0.01),)}
 # mixed tiers, prompt lengths off block multiples (block_size 4)
@@ -168,7 +167,9 @@ def test_left_out_arguments_raise(weights):
     # the fallbacks are ported: the contiguous pool is taken
     gw = LicensedGateway(cfg, params, device="cpu", paged=False)
     assert not gw.paged and gw.metrics()["cache_pool"]["paged"] is False
-    assert set(_LEFT_OUT) == {"fuse_sampling", "record_logits"}
+    # host sampling is ported; record_logits implies it, as in the JAX slot
+    gw = LicensedGateway(cfg, params, device="cpu", record_logits=True)
+    assert (gw.fuse_sampling, gw.record_logits) == (False, True)
     # the lease is ported: its arguments are taken
     gw = LicensedGateway(cfg, params, device="cpu", lease_ttl_s=5.0,
                          lease_policy="floor", lease_floor_tier="full")
@@ -202,8 +203,9 @@ def test_slot_takes_every_reference_default(weights):
     _, _, cfg, params = weights
     defaults = _reference_defaults()
     assert {"lease_ttl_s", "lease_grace_s", "lease_policy", "lease_floor_tier"} < set(defaults)
-    assert not [name for name in _LEFT_OUT if name.startswith("lease")]
+    assert (defaults["fuse_sampling"], defaults["record_logits"]) == (True, False)
     gw = LicensedGateway(cfg, params, device="cpu", **defaults)
+    assert gw.fuse_sampling and not gw.record_logits
     assert gw.chunk_size == gw.pool.block_size and not gw.quantized
     assert gw.prefix is not None             # the JAX default: cache on
     assert gw.completed.maxlen == gw.trace.maxlen == defaults["history"]
@@ -217,17 +219,43 @@ def test_slot_takes_every_reference_default(weights):
     assert not lease["server_attached"] and lease["degraded_seconds_total"] == 0.0
 
 
-# one value each that the JAX slot takes and the port does not implement
-_UNPORTED = {"fuse_sampling": False, "record_logits": True}
+# the values of the JAX slot's sampling arguments other than its defaults
+_HOST_MODES = {"fuse_sampling": False, "record_logits": True}
 
 
-@pytest.mark.parametrize("name", sorted(_UNPORTED))
-def test_unported_value_names_its_roadmap_item(weights, name):
+@pytest.mark.parametrize("name", sorted(_HOST_MODES))
+def test_host_sampling_modes_serve_a_stream(weights, name):
+    """A slot built with ``fuse_sampling=False`` or ``record_logits=True``
+    serves the mixed-tier stream (preemptions included) to the default
+    slot's tokens, greedy and sampled; under ``record_logits`` each
+    request keeps one row (padded_vocab,) f32 per token, whose argmax is
+    its greedy token."""
     _, _, cfg, params = weights
-    item = _LEFT_OUT[name][1]
-    assert item.split(" (")[0] in ROADMAP.read_text().lower()
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
-        LicensedGateway(cfg, params, device="cpu", **{name: _UNPORTED[name]})
+
+    def run(**kw):
+        gw = LicensedGateway(cfg, params,
+                             tiers={"free": LicenseTier(name="free", masks=FREE)},
+                             device="cpu", **GEOMETRY, **kw)
+        reqs = [gw.submit(_prompt(i, n), license=tier, max_new_tokens=6 + i % 3,
+                          temperature=0.0 if i % 2 else 0.9, top_k=5 * (i % 3), seed=i)
+                for i, (tier, n) in enumerate(STREAM)]
+        gw.run()
+        assert gw.stats["preempted"] > 0
+        return gw, reqs
+
+    _, want = run()
+    gw, got = run(**{name: _HOST_MODES[name]})
+    assert not gw.fuse_sampling
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+    for r in got:
+        if not gw.record_logits:
+            assert r.logits_rows is None
+            continue
+        assert len(r.logits_rows) == len(r.out_tokens)
+        assert all(row.shape == (cfg.padded_vocab,) and row.dtype == np.float32
+                   for row in r.logits_rows)
+        if r.temperature == 0:
+            assert [int(np.argmax(row)) for row in r.logits_rows] == r.out_tokens
 
 
 @pytest.mark.parametrize("flags", [[], ["--int8-views"]])

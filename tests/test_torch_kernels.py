@@ -183,7 +183,7 @@ def test_masked_dequant_stacked_matches_jax(scale_kind, out_dtype):
     package's ``materialize_licensed_view`` builds a leaf; bit for bit."""
     codes, scale = _stacked_case(21, 3, 40, 72, scale_kind)
     intervals, edge_lo, edge_hi = _edge_intervals(codes, scale)
-    lo, hi = ops.pack_intervals(intervals)
+    lo, hi = ops.pack_intervals(intervals, device="cpu")
     got = masked_dequant(torch.from_numpy(codes), torch.from_numpy(scale), lo, hi,
                          out_dtype=getattr(torch, out_dtype))
     assert got.shape == codes.shape and ops.LAUNCHES["masked_dequant"] == 0
@@ -201,11 +201,28 @@ def test_masked_dequant_stacked_matches_jax(scale_kind, out_dtype):
 
 
 def test_pack_intervals_matches_jax():
-    lo, hi = ops.pack_intervals(INTERVALS)
+    lo, hi = ops.pack_intervals(INTERVALS, device="cpu")
     jlo, jhi = jax_ops.pack_intervals(INTERVALS)
     np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
     np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi))
     assert ops.MAX_INTERVALS == jax_ops.MAX_INTERVALS
+
+
+@pytest.mark.parametrize("pack", ["pack_intervals", "tier_intervals"])
+def test_interval_packers_need_a_device(pack):
+    """Both packers take the device as a required keyword: no call
+    lands its intervals on the CPU by default."""
+    from repro_torch.core.licensing import LicenseTier
+    from repro_torch.serving import quantized
+
+    fn, arg = ((ops.pack_intervals, INTERVALS) if pack == "pack_intervals"
+               else (quantized.tier_intervals, LicenseTier(name="free", masks={"*": INTERVALS})))
+    with pytest.raises(TypeError):
+        fn(arg)
+    with pytest.raises(TypeError):
+        fn(arg, "cpu")
+    lo, hi = fn(arg, device="cpu")
+    assert lo.device.type == hi.device.type == "cpu" and lo.shape == (ops.MAX_INTERVALS,)
 
 
 def _delta_case(seed, n, n_delta, n_pad):
@@ -329,7 +346,7 @@ def test_masked_dequant_kernel_matches_plain(cuda, scale_kind, stacked, cols):
     assert offset.data_ptr() % 16 != 0
     scale = _scale_for(aligned, scale_kind, rng)
     intervals, _, _ = _edge_intervals(aligned.cpu().numpy(), scale.cpu().numpy())
-    lo, hi = ops.pack_intervals(intervals, cuda)
+    lo, hi = ops.pack_intervals(intervals, device=cuda)
     for codes in (aligned, offset):
         for dtype, bits in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
             before = ops.LAUNCHES["masked_dequant"]
@@ -348,7 +365,7 @@ def test_masked_dequant_kernel_in_cuda_graph(cuda):
     rng = torch.Generator().manual_seed(13)
     codes = torch.randint(-127, 128, (4, 64, 2048), generator=rng, dtype=torch.int8).to(cuda)
     scale = _scale_for(codes, "per_column", rng)
-    lo, hi = ops.pack_intervals(INTERVALS, cuda)
+    lo, hi = ops.pack_intervals(INTERVALS, device=cuda)
     masked_dequant(codes, scale, lo, hi, out_dtype=torch.bfloat16)   # build, warm up
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -356,7 +373,7 @@ def test_masked_dequant_kernel_in_cuda_graph(cuda):
         out = masked_dequant(codes, scale, lo, hi, out_dtype=torch.bfloat16)
     codes.copy_(torch.randint(-127, 128, codes.shape, generator=rng,
                               dtype=torch.int8).to(cuda))
-    new_lo, new_hi = ops.pack_intervals([(0.0, 0.02)], cuda)
+    new_lo, new_hi = ops.pack_intervals([(0.0, 0.02)], device=cuda)
     lo.copy_(new_lo)
     hi.copy_(new_hi)
     graph.replay()
@@ -369,7 +386,7 @@ def test_masked_dequant_kernel_in_cuda_graph(cuda):
 def test_masked_dequant_kernel_rejects(cuda):
     codes = torch.zeros(2, 8, 32, dtype=torch.int8, device=cuda)
     scale = torch.ones(2, 1, 32, device=cuda)
-    lo, hi = ops.pack_intervals(INTERVALS, cuda)
+    lo, hi = ops.pack_intervals(INTERVALS, device=cuda)
     with pytest.raises(TypeError, match="int8"):
         masked_dequant(codes.to(torch.int16), scale, lo, hi)
     for bad in (torch.ones(2, 1, 31, device=cuda), torch.ones(3, 1, 32, device=cuda),

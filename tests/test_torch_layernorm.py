@@ -268,7 +268,7 @@ def test_musicgen_in_scan_int8_and_license(musicgen):
         jstore, jcfg, jnp.asarray(toks),
         license_intervals=jax_tier_intervals(JaxLicenseTier(name="free", masks=FREE)))
     got, _ = model.forward(store, cfg, torch.from_numpy(toks),
-                           license_intervals=quantized.tier_intervals(lt))
+                           license_intervals=quantized.tier_intervals(lt, device="cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     view = apply_license(params, lt)
     for norm in ("norm1", "norm2"):

@@ -111,7 +111,7 @@ def test_materialized_int8_view_identical(weights, tier, out_dtype):
     masks = TIERS.get(tier, {})
     jt = jax_licensing.LicenseTier(name=tier, masks=masks)
     tt = licensing.LicenseTier(name=tier, masks=masks)
-    li, jli = quantized.tier_intervals(tt), jax_quantized.tier_intervals(jt)
+    li, jli = quantized.tier_intervals(tt, device="cpu"), jax_quantized.tier_intervals(jt)
     assert (li is None) == (jli is None)
     if li is not None:
         for a, b in zip(li, jli):

@@ -183,7 +183,7 @@ def test_in_scan_int8_forward(weights, tier):
     store = quantized.quantize_serving_params(params)
     lt = LicenseTier(name=tier, masks=masks)
     got, _ = model.forward(store, cfg, torch.from_numpy(toks),
-                           license_intervals=quantized.tier_intervals(lt))
+                           license_intervals=quantized.tier_intervals(lt, device="cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     view = quantized.materialize_licensed_view(store, lt, cfg.dtype)
     mat, _ = model.forward(view, cfg, torch.from_numpy(toks))
@@ -282,7 +282,7 @@ def test_dense_in_scan_int8_forward(dense):
         7 if cfg.mlp_type == "swiglu" else 6)
     got, _ = model.forward(store, cfg, torch.from_numpy(toks),
                            license_intervals=quantized.tier_intervals(
-                               LicenseTier(name="free", masks=masks)))
+                               LicenseTier(name="free", masks=masks), device="cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -486,7 +486,7 @@ def test_deepseek_in_scan_int8_forward(deepseek, tier):
         cfg.pattern_units, cfg.num_experts, 1, cfg.moe_d_ff)
     lt = LicenseTier(name=tier, masks=masks)
     got, _ = model.forward(store, cfg, torch.from_numpy(toks),
-                           license_intervals=quantized.tier_intervals(lt))
+                           license_intervals=quantized.tier_intervals(lt, device="cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     view = quantized.materialize_licensed_view(store, lt, cfg.dtype)
     mat, _ = model.forward(view, cfg, torch.from_numpy(toks))

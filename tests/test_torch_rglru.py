@@ -199,7 +199,7 @@ def test_in_scan_int8_forward_with_tail(weights, tier):
                                   np.asarray(jstore["tail"]["t0"]["mixer"]["w_r"]["codes"]))
     lt = LicenseTier(name=tier, masks=masks)
     got, _ = model.forward(store, cfg, torch.from_numpy(toks),
-                           license_intervals=quantized.tier_intervals(lt))
+                           license_intervals=quantized.tier_intervals(lt, device="cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     view = quantized.materialize_licensed_view(store, lt, cfg.dtype)
     mat, _ = model.forward(view, cfg, torch.from_numpy(toks))

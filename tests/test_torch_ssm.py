@@ -211,7 +211,7 @@ def test_in_scan_int8_forward(weights):
     assert [n for n, _ in _qnames(store)] == ["units/b0/mixer/in_proj", "units/b0/mixer/out_proj"]
     got, _ = model.forward(store, cfg, torch.from_numpy(toks),
                            license_intervals=quantized.tier_intervals(
-                               LicenseTier(name="free", masks=masks)))
+                               LicenseTier(name="free", masks=masks), device="cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
