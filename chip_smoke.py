@@ -192,14 +192,15 @@ Phases (each prints its own lines; any failure exits non-zero):
    memory, captures and replays printed, then the stream submitted again
    and 8 steady decode steps timed (graph replays on the kernel route,
    synchronized on each side): (a)
-   nemotron-4-15b (squared ReLU) at full depth on float views through
-   the kernels and through the plain route (tokens equal, parting only
-   at near-ties by phase 4's rule), then from its int8 store
+   nemotron-4-15b (squared ReLU) at 4 of its 32 layers on float views
+   through the kernels and through the plain route (tokens equal,
+   parting only at near-ties by phase 4's rule), then from its int8 store
    (``quantize_serving_params``, one unit at a time) with the in-scan
-   dequant (192 ``masked_dequant`` launches a step); (b) minitron-8b at full depth, both routes; (c) granite-34b
+   dequant (24 ``masked_dequant`` launches a step); (b) minitron-8b at 4
+   of its 32 layers, both routes; (c) granite-34b
    (48 q heads on one kv head, ``paged_attention``'s instance for groups
-   above 32) at full depth from an int8 store built unit by unit on the
-   card, both routes (616 launches a step); (d) the gateway's fallbacks
+   above 32) at 44 of its 88 layers from an int8 store built unit by unit
+   on the card, both routes (308 launches a step); (d) the gateway's fallbacks
    at qwen2.5-3b on phase 3's weights: phase 3's stream with
    ``kernel_decode=False`` (tokens equal phase 3's up to near-ties), with
    ``chunk_size=0`` and the cache off, and with ``paged=False`` (whose
@@ -222,7 +223,20 @@ Phases (each prints its own lines; any failure exits non-zero):
    deepseek-v2-lite-16b (MLA) on float views on the default route, whose
    graphs launch no paged kernel (MLA's paged decode is plain PyTorch,
    as the JAX package has it); (d) deepseek-v2-lite-16b in-scan (270 a
-   step).  Phase 10 must launch ``paged_attention``,
+   step); (e) deepseek-v2-lite-16b under long_500k's 4,096-token sliding
+   window on the same weights, drop-free (a capacity factor of experts /
+   top-k, so a row's length changes no route), through the slot's own
+   route (bucket prefill, gather/scatter decode on the contiguous pool
+   of 4,096-slot latent rings): a 4,160-token prompt in tier full and a
+   1,024-token one in tier free, both in the 4,160-token bucket (longer
+   than the ring), 64 greedy tokens each; the ring's leaves must hold
+   4,096 slots (127.4 MB a lane), and the tokens must equal the argmax of
+   a cacheless windowed ``forward`` over each whole sequence,
+   teacher-forced, up to near-ties (the gap below the row's max |logit
+   diff|), and with every layer's expert picks pinned to the gateway's
+   every row within phase 4's tolerance (the bucket prefill's seconds,
+   the synchronized eager decode step and peak memory printed).  Phase
+   10 must launch ``paged_attention``,
    ``paged_decode_write`` and ``masked_dequant``.  Phase 2 also runs
    ``paged_attention`` at deepseek-moe-16b's decode shape (16/16 heads,
    a GQA group of 1; contexts 9-96 and 8 x 4096) back to back, in a graph
@@ -3413,14 +3427,19 @@ def training_phase(cfg, params, np, torch):
 # ------------------------------------------------------------ phase 9
 # the dense family beyond qwen at full width: nemotron-4-15b (squared
 # ReLU, 48 q heads over 8) and minitron-8b (squared ReLU, 32 over 8) at
-# full depth, granite-34b (SwiGLU at d_ff 24576, 48 q heads on ONE kv
-# head: 47.25 B parameters, 94.5 GB of bf16) from an int8 store built
-# unit by unit.  Random bf16 weights from SEED, phase 3's GEOMETRY, the
-# first DENSE_REQUESTS requests of phase 3's stream in tiers full and free;
-# decode and prefill graphs on (the default gateway).  Every config runs
-# at full depth: granite's 88 units of int8 codes (47.9 GB) fit beside
-# the graph pools on an 80 GB card
+# DENSE_CUT_UNITS layers, granite-34b (SwiGLU at d_ff 24576, 48 q heads on
+# ONE kv head: 47.25 B parameters, 94.5 GB of bf16 at its 88 layers) at
+# GRANITE_UNITS from an int8 store built unit by unit.  Random bf16
+# weights from SEED, phase 3's GEOMETRY, the first DENSE_REQUESTS requests
+# of phase 3's stream in tiers full and free; decode and prefill graphs on
+# (the default gateway).  At full depth granite's 88 units of int8 codes
+# (47.9 GB) fit beside the graph pools on an 80 GB card
 DENSE_REQUESTS = 8
+# 9a and 9b run nemotron-4-15b and minitron-8b at this depth (of their 32
+# layers), 9c granite-34b at GRANITE_UNITS (of 88): every width, head
+# group and kernel instance stays; the depth cuts pay for phase 10e
+DENSE_CUT_UNITS = 4
+GRANITE_UNITS = 44
 # decode steps timed in each run's steady window (``steady_decode_ms``)
 DENSE_STEADY_STEPS = 8
 # 9d: the gateway's fallbacks on phase 3's weights (qwen2.5-3b), each run
@@ -3672,8 +3691,9 @@ def dense_phase(np, torch, device="cuda", config=None):
     t9 = time.perf_counter()
     if device == "cuda":
         log(f"phase 9: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before it")
-    cfg = config("nemotron-4-15b")
-    log(f"phase 9a: nemotron-4-15b at full width, {cfg.num_layers} units (d_model "
+    cfg = config("nemotron-4-15b").replace(num_layers=DENSE_CUT_UNITS)
+    log(f"phase 9a: nemotron-4-15b at full width, {cfg.num_layers} units (depth cut from 32; "
+        f"d_model "
         f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff} "
         f"{cfg.mlp_type}, vocab {cfg.padded_vocab}, {cfg.dtype_name})")
     params = init_params(cfg, seed=SEED, device=device)
@@ -3701,8 +3721,9 @@ def dense_phase(np, torch, device="cuda", config=None):
 
     # 9b: minitron-8b, float (kernel and plain routes)
     t9 = time.perf_counter()
-    cfg = config("minitron-8b")
-    log(f"phase 9b: minitron-8b at full width, {cfg.num_layers} units ({cfg.num_heads}/"
+    cfg = config("minitron-8b").replace(num_layers=DENSE_CUT_UNITS)
+    log(f"phase 9b: minitron-8b at full width, {cfg.num_layers} units (depth cut from 32; "
+        f"{cfg.num_heads}/"
         f"{cfg.num_kv_heads} heads, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab {cfg.padded_vocab})")
     params = init_params(cfg, seed=SEED, device=device)
     n = sum(t.numel() for t in _leaves(params))
@@ -3718,8 +3739,9 @@ def dense_phase(np, torch, device="cuda", config=None):
 
     # 9c: granite-34b from an int8 store built unit by unit on the card
     t9 = time.perf_counter()
-    cfg = config("granite-34b")
-    log(f"phase 9c: granite-34b at full width, {cfg.num_layers} units ({cfg.num_heads}/"
+    cfg = config("granite-34b").replace(num_layers=GRANITE_UNITS)
+    log(f"phase 9c: granite-34b at full width, {cfg.num_layers} units (depth cut from 88; "
+        f"{cfg.num_heads}/"
         f"{cfg.num_kv_heads} heads, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab "
         f"{cfg.padded_vocab}), served from an int8 store built unit by unit")
     t0 = time.perf_counter()
@@ -3839,9 +3861,205 @@ def moe_phase(np, torch, device="cuda", config=None):
     c = dict(float=run)
     log("phase 10d: deepseek-v2-lite-16b in-scan from an int8 store built unit by unit")
     c["in_scan"] = in_scan("10d deepseek-v2-lite-16b", cfg)
+    log(f"phase 10e: deepseek-v2-lite-16b under a {WINDOW_MLA}-token sliding window on the "
+        f"same weights, the latent ring on the slot's own route")
+    t0 = time.perf_counter()
+    params = params_of(cfg)
+    c["window"] = window_mla_phase(cfg, params, tiers, np, torch, device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(c["window"])
+    c["window"]["s"] = time.perf_counter() - t0
+    log(f"  phase 10e took {c['window']['s']:.1f} s")
     c["s"] = time.perf_counter() - t10
     out["deepseek-v2-lite-16b"] = c
     return out, launches
+
+
+# phase 10e: long_500k's sliding window on deepseek-v2-lite-16b, the field
+# ``launch.shapes.adapt_config`` sets, over the latent ring (each MLA
+# layer's ``ckv`` and ``k_rope`` in 4,096 slots)
+WINDOW_MLA = 4096
+WINDOW_MLA_JOBS = (("full", 4160), ("free", 1024))      # (tier, prompt tokens)
+WINDOW_MLA_NEW = 64
+WINDOW_MLA_GEOMETRY = dict(max_batch=1, max_prompt=4160, max_new_cap=WINDOW_MLA_NEW)
+WINDOW_MLA_TOL = 0.05          # phase 4's: x max(|logit|, 1) of the reference row
+
+
+def window_mla_phase(cfg, params, tiers, np, torch, device="cuda"):
+    """Phase 10e: ``cfg`` (deepseek-v2-lite-16b) under a WINDOW_MLA
+    sliding window and drop-free, through ``LicensedGateway`` on the
+    route the slot picks (no per-token leaf to page: the contiguous pool,
+    bucket prefill, gather/scatter decode, no prefix cache), two requests
+    of WINDOW_MLA_JOBS, greedy, every step synchronized and timed, every
+    router call recorded.  Then, per request, the teacher-forced
+    reference: a cacheless windowed ``forward`` of the bucket's row and
+    the generated tokens on the tier's view, on its own expert picks and
+    with every layer's picks pinned to the gateway's.  Returns the
+    summary (with the wrappers' launches: none, MLA has no kernel)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.model import forward
+    from repro_torch.serving import LicensedGateway
+    from repro_torch.serving.engine import right_align
+
+    label = "10e deepseek-v2-lite-16b windowed"
+    geo = WINDOW_MLA_GEOMETRY
+    wcfg = cfg.replace(window=WINDOW_MLA,
+                       moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    longest = geo["max_prompt"] + WINDOW_MLA_NEW - 1
+    if not all(moe.capacity(n, wcfg) >= n for n in (1, geo["max_prompt"], longest)):
+        fail(f"{label}: the capacity factor {wcfg.moe_capacity_factor} drops tokens")
+    rng = np.random.default_rng(SEED + 10)
+    jobs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), tier)
+            for tier, n in WINDOW_MLA_JOBS]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    gw = LicensedGateway(wcfg, params, tiers=tiers, device=device, **geo)
+    route = dict(paged=gw.paged, chunk_size=gw.chunk_size, kernel_decode=gw.kernel_decode,
+                 decode_kernels=gw.decode_kernels, prefix_cache=gw.prefix is not None,
+                 graphs=gw._graphs is not None)
+    want_route = dict(paged=False, chunk_size=0, kernel_decode=False, decode_kernels=False,
+                      prefix_cache=False, graphs=False)
+    if route != want_route:
+        fail(f"{label}: the slot chose {route}, not {want_route}")
+    leaves = {path.rsplit("/", 1)[-1]: t for path, t in gw.pool.leaves.items()
+              if path.rsplit("/", 1)[-1] in ("ckv", "k_rope")}
+    units = wcfg.pattern_units
+    lane_bytes = sum(t[:, 0].numel() * t.element_size() for t in leaves.values())
+    elt = torch.empty((), dtype=wcfg.dtype).element_size()
+    want_bytes = units * WINDOW_MLA * (wcfg.kv_lora_rank + wcfg.rope_head_dim) * elt
+    shapes = {k: tuple(t.shape) for k, t in leaves.items()}
+    if not (set(leaves) == {"ckv", "k_rope"}
+            and all(t.shape[2] == WINDOW_MLA and t.dtype == wcfg.dtype
+                    for t in leaves.values())
+            and lane_bytes == want_bytes):
+        fail(f"{label}: ring leaves {shapes}, {lane_bytes} bytes a lane, not {WINDOW_MLA} "
+             f"slots and {want_bytes}")
+    log(f"  {label}: route {route}; the ring's leaves {shapes} (units, lanes + scratch, "
+        f"slots, dim): {lane_bytes / 1e6:.1f} MB a lane")
+    for tier in ("full", "free"):
+        gw.view_for(tier)
+    rows = record_rows(gw)
+    calls, marks = [], []               # router calls; (calls so far, [(rid, token index)])
+    sample = gw._sample
+
+    def marked(logits, reqs, greedy=None, emit=None):
+        marks.append((len(calls), [(r.rid, len(r.out_tokens)) for r in reqs]))
+        return sample(logits, reqs, greedy, emit)
+
+    gw._sample = marked
+    ops.reset_launches()
+    reqs = [gw.submit(p, license=t, max_new_tokens=WINDOW_MLA_NEW) for p, t in jobs]
+    route_fn = pinned_routes(torch, calls)
+    steps = []
+    try:
+        while True:
+            sync()
+            t0 = time.perf_counter()
+            act = gw.step()
+            sync()
+            if act is None:
+                break
+            steps.append((act.kind, time.perf_counter() - t0))
+    finally:
+        moe.route = route_fn
+    launches = dict(ops.LAUNCHES)
+    if any(launches.values()):
+        fail(f"{label}: launches {launches} on a route with no kernel")
+    bad = [r.rid for r in reqs if r.state.value != "done"
+           or len(r.out_tokens) != WINDOW_MLA_NEW]
+    if bad:
+        fail(f"{label}: requests {bad} did not finish")
+    prefill_s = [dt for kind, dt in steps if kind == "prefill"]
+    decode_ms = sorted(1e3 * dt for kind, dt in steps if kind != "prefill")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else 0.0
+    out = dict(route=route, ring_shapes=shapes, ring_lane_bytes=lane_bytes,
+               prefill_s=prefill_s, decode_steps=len(decode_ms),
+               decode_ms_p50=decode_ms[len(decode_ms) // 2], decode_ms_max=decode_ms[-1],
+               peak_gb=peak, launches=launches, requests=[])
+    log(f"  {label}: {len(reqs)} requests x {WINDOW_MLA_NEW} tokens; bucket prefill of "
+        f"{geo['max_prompt']} tokens {[round(s, 3) for s in prefill_s]} s (synchronized); "
+        f"a steady eager decode step p50 {out['decode_ms_p50']:.2f} ms, max "
+        f"{out['decode_ms_max']:.2f} (over {len(decode_ms)} steps, host clock, synchronized "
+        f"on each side); peak {peak:.1f} GB; launches {launches}")
+
+    # every step's router calls by (request, token index): the prefill's
+    # rows give positions [0, max_prompt), decode step t position
+    # max_prompt + t - 1
+    picks = {}
+    for (end, members), start in zip(marks, [0] + [m[0] for m in marks[:-1]]):
+        if end - start != units:
+            fail(f"{label}: {end - start} router calls in a step, not {units}")
+        for row, key in enumerate(members):
+            picks[key] = [calls[u][1][row:row + 1] for u in range(start, end)]
+    del calls
+    vocab = cfg.vocab_size
+    for (prompt, tier), r in zip(jobs, reqs):
+        seq = np.concatenate([right_align([prompt], geo["max_prompt"], 1)[0],
+                              np.asarray(r.out_tokens[:-1], np.int32)])
+        pinned = [(None, torch.cat([picks[(r.rid, t)][u] for t in range(WINDOW_MLA_NEW)], 1))
+                  for u in range(units)]
+        if pinned[0][1].shape[1] != len(seq):
+            fail(f"{label}: {pinned[0][1].shape[1]} pinned positions for {len(seq)} tokens")
+        got = torch.stack([rows[(r.rid, t)] for t in range(WINDOW_MLA_NEW)])[:, :vocab].float()
+        view, li = gw.view_for(tier)
+        res = dict(rid=r.rid, tier=tier, prompt=len(prompt))
+        for name, pin in (("own", None), ("pinned", pinned)):
+            rec = []
+            fn = pinned_routes(torch, rec, pin)
+            try:
+                with torch.no_grad():
+                    logits, _ = forward(view, wcfg, torch.from_numpy(seq[None]).to(device),
+                                        license_intervals=li)
+            finally:
+                moe.route = fn
+            ref = logits[0, geo["max_prompt"] - 1:, :vocab].float()
+            del logits, rec
+            res[name] = teacher_forced_parts(f"{label} request {r.rid} ({tier}), {name} "
+                                             f"expert picks", r.out_tokens, got, ref,
+                                             capped=name == "pinned")
+            del ref
+        out["requests"].append(res)
+        del got, pinned
+    del gw, rows, picks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def teacher_forced_parts(label, tokens, got, ref, capped):
+    """Greedy ``tokens`` (n,) and their logits rows ``got`` (n, V) against
+    a teacher-forced reference's rows ``ref`` (n, V) at the same
+    positions: every position where the argmaxes part must be a near-tie
+    (the reference's gap between its token and the emitted one at most
+    the row's max |logit diff|), and with ``capped`` every row's diff
+    within WINDOW_MLA_TOL x max(|logit|, 1) of the reference row (phase
+    4's tolerance).  Returns the numbers."""
+    if [int(i) for i in got.argmax(-1).tolist()] != list(tokens):
+        fail(f"{label}: the recorded rows do not give the emitted tokens")
+    diff = (got - ref).abs().amax(-1)
+    tol = WINDOW_MLA_TOL * ref.abs().amax(-1).clamp(min=1.0)
+    ref_tok = ref.argmax(-1)
+    emitted = ref_tok.new_tensor(list(tokens))
+    gap = ref.gather(1, ref_tok[:, None])[:, 0] - ref.gather(1, emitted[:, None])[:, 0]
+    parted = (ref_tok != emitted).nonzero()[:, 0].tolist()
+    wide = [t for t in parted if not gap[t] <= diff[t]]
+    over = (diff > tol).nonzero()[:, 0].tolist()
+    res = dict(positions=len(tokens), parted=parted, max_abs_diff=diff.max().item(),
+               tol=tol.min().item(), rows_over_tol=len(over),
+               gaps=[round(gap[t].item(), 4) for t in parted],
+               diffs=[round(diff[t].item(), 4) for t in parted])
+    log(f"  {label}: argmax equal at {len(tokens) - len(parted)}/{len(tokens)} positions; "
+        f"partings {parted} with reference gaps {res['gaps']} against row diffs "
+        f"{res['diffs']}; max |logit diff| {res['max_abs_diff']:.4f}, {len(over)} rows over "
+        f"{WINDOW_MLA_TOL} x max(|logit|, 1) (min {res['tol']:.4f})")
+    if wide:
+        fail(f"{label}: positions {wide} part from the cacheless forward at no near-tie")
+    if capped and over:
+        fail(f"{label}: rows {over} differ beyond phase 4's tolerance with the picks pinned")
+    return res
 
 
 def host_rows(rows):

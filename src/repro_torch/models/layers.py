@@ -1,8 +1,9 @@
 """Neural layers of the port: RMS norm and LayerNorm, RoPE, GQA causal
 attention (prefill, decode, chunked ``attend_cache``; linear or, with a
 sliding window, a ring cache; float or int8 K/V), the kernel-resident
-paged decode attention, DeepSeek-V2's multi-head latent attention (MLA,
-contiguous and paged), and the SwiGLU and squared-ReLU MLPs.
+paged decode attention, DeepSeek-V2's multi-head latent attention (MLA:
+contiguous, linear or under a sliding window a latent ring, and paged),
+and the SwiGLU and squared-ReLU MLPs.
 
 Counterpart of ``repro/models/layers.py`` restricted to what the ported
 decoders run; numerics follow it step by step (f32 norms and RoPE, q scaled in
@@ -403,7 +404,7 @@ def _mla_kv(p: Dict[str, Any], c_kv: torch.Tensor, k_rope: torch.Tensor, cfg):
 def mla_block(
     p: Dict[str, Any], x: torch.Tensor, cfg, *,
     cache: Optional[Dict[str, torch.Tensor]] = None,
-    pos=0, attend_cache: bool = False, chunk_valid=None,
+    pos=0, window: int = 0, attend_cache: bool = False, chunk_valid=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Multi-head Latent Attention (DeepSeek-V2).  The cache holds the
     compressed ``ckv`` (B, cap, r) and the shared rotary key ``k_rope``
@@ -412,35 +413,60 @@ def mla_block(
 
     Modes as :func:`attention_block`'s: prefill, decode with the cache's
     ``len`` and chunked prefill (``attend_cache``), whose writes past the
-    last slot clamp onto it.  With a cache, queries attend over the whole
-    updated cache (causal masking bounds them).  The softmax scale is
-    1/sqrt(nope + rope_d), q's head dim, as in the JAX package."""
+    last slot clamp onto it.  Without a window, queries attend over the
+    whole updated cache (causal masking bounds them).
+
+    With a sliding window the cache is a latent ring by the rule of
+    :func:`attention_block`: ``cap`` slots (``init_cache`` sizes it
+    ``min(capacity, window)``), position ``t`` in slot ``t mod cap``.  A
+    prefill attends over its own fresh latents under the window and, when
+    it is longer than the ring, writes only its last ``cap`` positions;
+    decode attends over the ring's ``len`` valid slots, which hold the
+    window.  Chunked prefill on a windowed cache is refused, as in the
+    JAX package.  (The JAX package's windowed decode masks the ring by
+    slot index, so from position cap + window - 1 on it masks every slot
+    and returns zeros; that is not copied.)
+
+    The softmax scale is 1/sqrt(nope + rope_d), q's head dim, as in the
+    JAX package."""
     b, s, _ = x.shape
     h, vd = cfg.num_heads, cfg.v_head_dim
     pos_t = torch.as_tensor(pos, device=x.device).reshape(-1, 1)
     positions = (pos_t + torch.arange(s, device=x.device)).expand(b, s)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
 
+    attend_window = window
     if cache is not None:
+        if attend_cache and window:
+            raise NotImplementedError("windowed MLA chunked prefill is unsupported "
+                                      "(as in the JAX package)")
         cap = cache["ckv"].shape[1]
         slot = positions.clamp(0, cap - 1) if attend_cache else positions % cap
         rows = torch.arange(b, device=x.device)[:, None].expand(b, s)
         c_all, kr_all = cache["ckv"], cache["k_rope"]
-        c_all[rows, slot] = c_kv.to(c_all.dtype)
-        kr_all[rows, slot] = k_rope[:, :, 0].to(kr_all.dtype)
+        c_w, kr_w = c_kv, k_rope[:, :, 0]
+        if s > cap:                        # the last cap positions, distinct slots
+            c_w, kr_w = c_w[:, -cap:], kr_w[:, -cap:]
+            rows, slot = rows[:, -cap:], slot[:, -cap:]
+        c_all[rows, slot] = c_w.to(c_all.dtype)
+        kr_all[rows, slot] = kr_w.to(kr_all.dtype)
         cv_n = s if chunk_valid is None else torch.as_tensor(chunk_valid,
                                                               device=x.device)
         new_len = torch.clamp(cache["len"] + cv_n, max=cap).to(cache["len"].dtype)
         new_cache = {"ckv": c_all, "k_rope": kr_all, "len": new_len}
-        kv_src, kr_src = c_all, kr_all[:, :, None, :]
-        kv_len = None if attend_cache else new_len
+        if window and s > 1:               # a ring's prefill: its own latents
+            kv_src, kr_src, kv_len = c_kv, k_rope, None
+        else:                              # decode over a ring's valid slots (the window)
+            kv_src, kr_src = c_all, kr_all[:, :, None, :]
+            kv_len = None if attend_cache else new_len
+            attend_window = 0
     else:
         new_cache = None
         kv_src, kr_src, kv_len = c_kv, k_rope, None
 
     k, v = _mla_kv(p, kv_src, kr_src, cfg)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
-    out = attention_core(qfull, k, v, q_offset=pos,
+    out = attention_core(qfull, k, v, q_offset=pos, window=attend_window,
                          kv_len=kv_len if s == 1 else None)
     y = out.reshape(b, s, h * vd) @ p["wo"]
     return y, new_cache

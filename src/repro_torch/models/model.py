@@ -58,18 +58,19 @@ def check_supported(cfg: ModelConfig) -> None:
     SwiGLU or squared-ReLU MLP or the MoE block), Mamba-2 blocks and
     RG-LRU blocks, in any pattern, with RMS norms or LayerNorm, float or
     int8 K/V (MLA caches ignore the flag, as the JAX package's do), and
-    the ``"none"``, ``"audio"`` and ``"vision"`` front ends; a sliding
-    window on GQA attention only (MLA refuses windows, as the JAX package
-    does).  Everything else raises."""
+    the ``"none"``, ``"audio"`` and ``"vision"`` front ends.  A sliding
+    window makes every attention cache a ring of ``min(capacity,
+    window)`` slots: GQA K/V, or MLA's compressed latents and rotary keys
+    (``layers.mla_block``).  Everything else raises."""
     ported = (bool(cfg.layer_pattern) and all(k in _KINDS for k in cfg.layer_pattern)
               and cfg.mlp_type in ("swiglu", "squared_relu")
-              and not (cfg.use_mla and cfg.window)
               and cfg.frontend in ("none", "audio", "vision"))
     if not ported:
         raise NotImplementedError(
-            f"{cfg.name}: only attention decoders (GQA or MLA without a window, dense MLP "
-            f"or MoE), the recurrent family (Mamba-2, RG-LRU) and the audio and vision "
-            f"front-end stubs are ported; see ROADMAP.md, 'the other architectures'")
+            f"{cfg.name}: only attention decoders (GQA or MLA, with or without a sliding "
+            f"window; dense MLP or MoE), the recurrent family (Mamba-2, RG-LRU) and the "
+            f"audio and vision front-end stubs are ported; see ROADMAP.md, 'the other "
+            f"architectures'")
 
 
 # ------------------------------------------------------------------- params
@@ -251,7 +252,8 @@ def _apply_block(p: Dict[str, Any], kind: str, x: torch.Tensor, cfg: ModelConfig
             use_kernel=paged_kernel)
     elif cfg.use_mla:
         y, new_cache = L.mla_block(p["mixer"], h, cfg, cache=cache, pos=pos,
-                                   attend_cache=attend_cache, chunk_valid=chunk_valid)
+                                   window=cfg.window, attend_cache=attend_cache,
+                                   chunk_valid=chunk_valid)
     else:
         y, new_cache = L.attention_block(
             p["mixer"], h, cfg, cache=cache, pos=pos, window=cfg.window,

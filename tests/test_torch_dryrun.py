@@ -7,10 +7,9 @@ must equal the JAX package's exactly for every assigned arch x shape,
 and ``input_specs`` must give the shapes and dtypes of JAX's
 ``eval_shape`` leaf for leaf (the cache layouts are the same trees; the
 decode ``pos`` is (B,) in the port, a scalar in JAX, and is not
-compared).  MLA under long_500k's sliding window is refused by the
-port's model, which the JAX package's decode takes: the dry run reports
-that combination with its error (ROADMAP.md, queue 3).  The dry run
-runs one arch of each family (dense, MoE, MLA, SSM, RG-LRU, vision) at
+compared).  MLA under long_500k's sliding window runs on the port's
+latent ring: its cache is the window's 4,096 slots, and its counted
+flops are the port's own products over them.  The dry run runs one arch of each family (dense, MoE, MLA, SSM, RG-LRU, vision) at
 smoke size on the ``meta`` device, every step kind: the counted flops
 of the dense, recurrent and vision families must lie within a stated
 band of ``model_step_flops``, those of MoE and MLA within 1% of the
@@ -65,12 +64,6 @@ def _dtype(x):
 def test_input_specs_match_jax_eval_shape(arch, shape):
     cfg, _ = shapes.adapt_config(get_config(arch), shapes.SHAPES[shape])
     jcfg, _ = jax_shapes.adapt_config(jax_get_config(arch), jax_shapes.SHAPES[shape])
-    if cfg.use_mla and cfg.window:
-        # long_500k's window on MLA: refused by the port's model (the
-        # JAX package's decode takes it; ROADMAP.md, queue 3)
-        with pytest.raises(NotImplementedError):
-            shapes.input_specs(cfg, shapes.SHAPES[shape])
-        return
     kind, spec = shapes.input_specs(cfg, shapes.SHAPES[shape])
     jkind, jspec = jax_shapes.input_specs(jcfg, jax_shapes.SHAPES[shape])
     assert kind == jkind
@@ -188,17 +181,33 @@ def test_one_choice_of_card_sets_peaks_and_memory(monkeypatch):
     assert rep["memory_s"] == rep["bytes"] / roofline.CARD_PEAKS["H200"][0]
 
 
-def test_main_reports_every_combo_and_its_errors(tmp_path, capsys):
+def test_main_reports_every_combo_and_its_errors(tmp_path, capsys, monkeypatch):
     """The CLI prints one JSON line per combo and writes one file each
-    under ``--out``; MLA with a sliding window (long_500k's variant) is
-    refused by the model, reported with its error, and sets the exit
-    code; ``--out`` under benchmarks/ is refused."""
+    under ``--out``; MLA with a sliding window (long_500k's variant) runs
+    on its latent ring: a report whose cache is 27 x 4,096 slots of 512 +
+    64 bf16, whose flops are the port's own products over them, and
+    whose bound is the larger roofline term; a combination that raises is
+    reported with its error and sets the exit code; ``--out`` under
+    benchmarks/ is refused."""
     assert dryrun.main(["--arch", "mamba2-130m", "--shape", "long_500k",
                         "--out", str(tmp_path)]) == 0
     rep = json.loads(capsys.readouterr().out.strip())
     assert rep["arch"] == "mamba2-130m" and rep["step_kind"] == "decode"
     assert rep["card_bytes_source"].startswith("80 GiB") or torch.cuda.is_available()
     assert json.loads((tmp_path / "mamba2-130m__long_500k.json").read_text()) == rep
+    assert dryrun.main(["--arch", "deepseek-v2-lite-16b", "--shape", "long_500k"]) == 0
+    mla = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cfg, _ = shapes.adapt_config(get_config("deepseek-v2-lite-16b"), shapes.SHAPES["long_500k"])
+    assert "error" not in mla and mla["step_kind"] == "decode" and cfg.window == 4096
+    assert mla["cache_bytes"] == cfg.num_layers * 4096 * (512 + 64) * 2 + 4 * cfg.num_layers
+    assert mla["flops"] == pytest.approx(port_flops(cfg, "decode", 1, 4096), rel=DISPATCH_TOL)
+    assert mla["bound_s"] == max(mla["compute_s"], mla["memory_s"]) > 0
+    assert mla["fits_one_card"]
+
+    def refused(arch, shape, quantized=False):
+        raise NotImplementedError(f"{arch} at {shape}")
+
+    monkeypatch.setattr(dryrun, "run_combo", refused)
     assert dryrun.main(["--arch", "deepseek-v2-lite-16b", "--shape", "long_500k"]) == 1
     bad = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert bad["error"].startswith("NotImplementedError")

@@ -31,12 +31,13 @@ from repro.core.licensing import LicenseTier as JaxLicenseTier
 from repro.core.pytree_io import flatten_params as jax_flatten_params
 from repro.models import init_params as jax_init_params
 from repro.models import layers as jax_layers
+from repro.models import model as jax_model
 from repro.serving import LicensedGateway as JaxGateway
 from repro.serving.paging import PagedCachePool as JaxPagedCachePool
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.licensing import LicenseTier
-from repro_torch.models import layers
+from repro_torch.models import layers, model
 from repro_torch.models.model import params_from_jax
 from repro_torch.serving import LicensedGateway, RequestState
 from repro_torch.serving.paging import PagedCachePool
@@ -62,6 +63,8 @@ def weights():
 jax_mla_block = jax.jit(jax_layers.mla_block, static_argnums=(2,),
                         static_argnames=("attend_cache",))
 jax_mla_block_paged = jax.jit(jax_layers.mla_block_paged, static_argnums=(2,))
+jax_mla_block_windowed = jax.jit(jax_layers.mla_block, static_argnums=(2,),
+                                 static_argnames=("attend_cache", "window"))
 
 
 def _mixer(jparams, params):
@@ -180,6 +183,114 @@ def test_mla_block_paged_matches_jax(weights):
     for key in ("ckv", "k_rope"):
         _close(cache[key][:nb], np.asarray(jcache[key])[0, :nb])
     assert cache["len"].tolist() == [1, 1, 1, 1]
+
+
+# ------------------------------------------------------ the latent ring
+WINDOWS = (4, 8)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_mla_window_ring_before_wrap_matches_jax(weights, window):
+    """A 2-token prefill into a ring of ``window`` slots, then decode up
+    to the last slot: before the wrap, slot = position and the JAX ring
+    is right.  Outputs at every step and the ring's leaves against it."""
+    jcfg, jparams, cfg, params = weights
+    jp, p = _mixer(jparams, params)
+    xs = _x(20 + window, 2, window, cfg.d_model)
+    jcache = jax_layers.init_mla_cache(jcfg, 2, window, jnp.float32)
+    cache = layers.init_mla_cache(cfg, 2, window, torch.float32, "cpu")
+    want, jcache = jax_mla_block_windowed(jp, jnp.asarray(xs[:, :2]), jcfg, cache=jcache,
+                                          window=window)
+    got, cache = layers.mla_block(p, torch.from_numpy(xs[:, :2]), cfg, cache=cache,
+                                  window=window)
+    _close(got, want)
+    for t in range(2, window):
+        want, jcache = jax_mla_block_windowed(jp, jnp.asarray(xs[:, t:t + 1]), jcfg,
+                                              cache=jcache, pos=t, window=window)
+        got, cache = layers.mla_block(p, torch.from_numpy(xs[:, t:t + 1]), cfg, cache=cache,
+                                      pos=t, window=window)
+        _close(got, want)
+    for key in ("ckv", "k_rope"):
+        _close(cache[key], jcache[key])
+    assert cache["len"].tolist() == np.asarray(jcache["len"]).tolist() == [window] * 2
+
+
+@pytest.mark.parametrize("prefill", ["short", "past_ring"])
+@pytest.mark.parametrize("window", WINDOWS)
+def test_mla_window_ring_matches_jax_cacheless(weights, window, prefill):
+    """The ring against the JAX cacheless ``mla_block(window=W)`` over the
+    whole sequence (causal, so its row t is position t's output): a
+    prefill of 2 tokens, or of W + 3 (longer than the ring, which keeps
+    its last W positions), then 3 W + 1 decode steps, every row held at
+    1e-5.  The ring's leaves hold the last W positions' latents."""
+    jcfg, jparams, cfg, params = weights
+    jp, p = _mixer(jparams, params)
+    n0 = 2 if prefill == "short" else window + 3
+    total = n0 + 3 * window + 1
+    xs = _x(40 + window + n0, 2, total, cfg.d_model)
+    want, _ = jax_mla_block_windowed(jp, jnp.asarray(xs), jcfg, window=window)
+    want = np.asarray(want)
+    cache = layers.init_mla_cache(cfg, 2, window, torch.float32, "cpu")
+    got, cache = layers.mla_block(p, torch.from_numpy(xs[:, :n0]), cfg, cache=cache,
+                                  window=window)
+    _close(got, want[:, :n0])
+    for t in range(n0, total):
+        got, cache = layers.mla_block(p, torch.from_numpy(xs[:, t:t + 1]), cfg, cache=cache,
+                                      pos=t, window=window)
+        _close(got[:, 0], want[:, t])
+    assert cache["len"].tolist() == [window] * 2
+    _, _, c_kv, k_rope = (t.detach() for t in layers._mla_qkv(
+        p, torch.from_numpy(xs), cfg, torch.arange(total)))
+    last = torch.arange(total - window, total)
+    for key, fresh in (("ckv", c_kv), ("k_rope", k_rope[:, :, 0])):
+        torch.testing.assert_close(cache[key][:, last % window], fresh[:, last], **TOL)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_mla_window_chunked_prefill_refused(weights, window):
+    """``attend_cache`` on a windowed MLA cache raises, as the JAX block
+    asserts; the window-0 chunk on the same cache runs."""
+    jcfg, jparams, cfg, params = weights
+    jp, p = _mixer(jparams, params)
+    chunk = torch.from_numpy(_x(7, 1, 2, cfg.d_model))
+    cache = layers.init_mla_cache(cfg, 1, window, torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="windowed MLA chunked prefill"):
+        layers.mla_block(p, chunk, cfg, cache=cache, pos=2, window=window, attend_cache=True)
+    with pytest.raises(AssertionError, match="windowed MLA chunked prefill"):
+        jax_layers.mla_block(jp, jnp.asarray(chunk.numpy()), jcfg,
+                             cache=jax_layers.init_mla_cache(jcfg, 1, window, jnp.float32),
+                             pos=2, window=window, attend_cache=True)
+    layers.mla_block(p, chunk, cfg, cache=cache, pos=2, attend_cache=True)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_windowed_model_greedy_matches_jax_forward(weights, window):
+    """deepseek-v2-lite-16b (smoke) under ``window``: a 6-token prompt and
+    3 W greedy tokens decoded through the port's latent ring
+    (``init_cache`` sizes it min(capacity, W)), against the JAX package's
+    cacheless windowed ``forward`` over the whole sequence, teacher-forced
+    on the port's tokens: the same argmax at every position (hence the
+    same free-running greedy text) and logits within 1e-4."""
+    jcfg, jparams, cfg, params = weights
+    jcfg, cfg = jcfg.replace(window=window), cfg.replace(window=window)
+    model.check_supported(cfg)
+    prompt = np.random.default_rng(60 + window).integers(0, cfg.vocab_size, (1, 6))
+    steps = 3 * window
+    cache = model.init_cache(cfg, 1, prompt.shape[1] + steps, device="cpu")
+    assert cache["units"]["b0"]["ckv"].shape[2] == window
+    logits, cache = model.forward(params, cfg, torch.from_numpy(prompt), cache=cache)
+    rows = [logits[0, -1]]
+    toks = [int(rows[-1][:cfg.vocab_size].argmax())]
+    for t in range(steps - 1):
+        logits, cache = model.forward(params, cfg, torch.tensor([[toks[-1]]]), cache=cache,
+                                      pos=prompt.shape[1] + t)
+        rows.append(logits[0, 0])
+        toks.append(int(rows[-1][:cfg.vocab_size].argmax()))
+    seq = np.concatenate([prompt[0], toks[:-1]])[None]
+    want, _, _ = jax_model.forward(jparams, jcfg, jnp.asarray(seq))
+    want = np.asarray(want)[0, prompt.shape[1] - 1:]
+    assert [int(r[:cfg.vocab_size].argmax()) for r in want] == toks
+    _close(torch.stack(rows), want, atol=1e-4, rtol=1e-4)
 
 
 # ---------------------------------------------------------------- the pool

@@ -366,8 +366,9 @@ def test_deepseek_config_fields_match_jax(deepseek):
     included; ``check_supported`` takes both, the recurrent family
     (mamba2-130m, recurrentgemma-2b) and the front-end stubs
     (musicgen-large, internvl2-26b), each registered by the port, and
-    ``kv_cache_int8`` (which an MLA cache ignores), and still refuses MLA
-    with a window, as the JAX package does."""
+    ``kv_cache_int8`` (which an MLA cache ignores) and a sliding window
+    (MLA's latent ring since it was ported; the JAX package takes both),
+    and still refuses an MLP it has not ported."""
     import dataclasses
 
     jcfg, _, cfg, _ = deepseek
@@ -379,9 +380,9 @@ def test_deepseek_config_fields_match_jax(deepseek):
         assert get_config(ported) == _port_config(ported)
         model.check_supported(get_config(ported))
     model.check_supported(get_config(name).replace(kv_cache_int8=True))
-    if cfg.use_mla:
-        with pytest.raises(NotImplementedError, match="the other architectures"):
-            model.check_supported(get_config(name).replace(window=4096))
+    model.check_supported(get_config(name).replace(window=4096))
+    with pytest.raises(NotImplementedError, match="the other architectures"):
+        model.check_supported(get_config(name).replace(mlp_type="gelu"))
 
 
 def _port_config(name):
