@@ -211,7 +211,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    tokens equal its isolated run's).  Phase 2 also runs
    ``paged_attention`` at granite's decode shape (48/1 heads, contexts
    9-96 and 8 x 4096) back to back, in a graph and L2-cold;
-10. DeepSeek MoE and MLA at full width and depth, as phase 9 runs its
+10. DeepSeek MoE and MLA at full width, 14 of their 28 and 27 layers
+   (``MOE_UNITS``), as phase 9 runs its
    models (random bf16 weights, phase 9's requests and tiers, each run's
    counters zeroed just before its stream and read just after, a steady
    decode step, peak memory, captures, replays and the KV pool's block
@@ -219,10 +220,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    top-6 + 2 shared) on float views through the kernels (graph replays)
    and through the plain route (eager), tokens equal up to near-ties;
    (b) deepseek-moe-16b in-scan from an int8 store built unit by unit
-   (10 ``masked_dequant`` launches a unit a step: 280); (c)
+   (10 ``masked_dequant`` launches a unit a step: 140); (c)
    deepseek-v2-lite-16b (MLA) on float views on the default route, whose
    graphs launch no paged kernel (MLA's paged decode is plain PyTorch,
-   as the JAX package has it); (d) deepseek-v2-lite-16b in-scan (270 a
+   as the JAX package has it); (d) deepseek-v2-lite-16b in-scan (140 a
    step); (e) deepseek-v2-lite-16b under long_500k's 4,096-token sliding
    window on the same weights, drop-free (a capacity factor of experts /
    top-k, so a row's length changes no route), through the slot's own
@@ -230,7 +231,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    of 4,096-slot latent rings): a 4,160-token prompt in tier full and a
    1,024-token one in tier free, both in the 4,160-token bucket (longer
    than the ring), 64 greedy tokens each; the ring's leaves must hold
-   4,096 slots (127.4 MB a lane), and the tokens must equal the argmax of
+   4,096 slots (66.1 MB a lane at 14 layers), and the tokens must equal the argmax of
    a cacheless windowed ``forward`` over each whole sequence,
    teacher-forced, up to near-ties (the gap below the row's max |logit
    diff|), and with every layer's expert picks pinned to the gateway's
@@ -267,22 +268,23 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``paged_attention`` launched, the recurrent slots' tokens equal their
    isolated runs' up to near-ties;
 12. LayerNorm, the front-end stubs and int8 KV caches at full width and
-   depth, as phase 9 runs its models: (a) musicgen-large (48 layers of
-   MHA 32/32 at head dim 64 with LayerNorm, codec vocabulary 2,048) on
+   24 of their 48 layers (``FRONTEND_UNITS``), as phase 9 runs its
+   models: (a) musicgen-large (MHA 32/32 at head dim 64 with LayerNorm,
+   codec vocabulary 2,048) on
    float views through the kernels (graph replays) and the plain route
    (eager), tokens equal up to near-ties, each steady step beside its
    weight-read bound; (b) musicgen-large in-scan from its int8 store (7
-   ``masked_dequant`` launches a unit a step: 336); (c) musicgen-large
+   ``masked_dequant`` launches a unit a step: 168); (c) musicgen-large
    with ``kv_cache_int8``: the paged pool of int8 codes and f32 scales
    (69,632 bytes a layer-block), the kernel-resident step and its graphs
    over the plain gather, no paged kernel launched, tokens equal (a)'s
-   plain route's up to near-ties; (d) internvl2-26b (48 layers of GQA
-   48/8) on float views of the ``full`` tier alone (a float ``free`` view
+   plain route's up to near-ties; (d) internvl2-26b (GQA 48/8) on float
+   views of the ``full`` tier alone (a float ``free`` view
    beside it would not fit), kernel route, then one full-width
    ``prefill_step`` of 256 vision patches and 64 text tokens (time, peak
    memory, finite logits); (e) internvl2-26b in-scan in both tiers from
    an int8 store built unit by unit, ``vision_proj`` float beside it
-   (336 launches a step).  Phase 12 must launch ``paged_attention``,
+   (168 launches a step).  Phase 12 must launch ``paged_attention``,
    ``paged_decode_write`` and ``masked_dequant``.  Phase 2 also runs
    ``paged_attention`` at both models' decode shapes (32/32 heads at
    head dim 64, 48/8 at 128; 8 x 4096 tokens) back to back, in a graph
@@ -308,7 +310,23 @@ Phases (each prints its own lines; any failure exits non-zero):
    cache bytes beside what ``init_params`` and ``init_cache`` allocate
    (within 1%).  Phase 13 must launch ``paged_attention``,
    ``paged_decode_write`` and ``masked_dequant``;
-14. a ``kernels`` JSON line, and the result line last.
+14. the host mesh: ``launch.mesh.make_host_mesh()`` over the card (NCCL,
+   a world of one rank, a (1, 1) mesh named ("data", "model")), phase 3's
+   weights (re-created from the seed) placed by
+   ``distribution.sharding.params_shardings`` as DTensors, and phase 3's
+   first 8 prompts right-aligned into one ``prefill_step`` and 16 greedy
+   ``serve_step``s on a contiguous cache placed by ``cache_shardings``,
+   under ``implicit_replication``: (a) float weights, (b) the int8 store
+   in-scan in tier free, ``masked_dequant`` launched through
+   ``local_map`` (252 a step, as many as the plain in-scan steps launch).
+   Each run is held to the same steps on plain tensors: greedy tokens
+   identical; logits bit for bit, or, where they differ, the first
+   differing step, the ops whose counts differ between the two decode
+   steps and phase 4's tolerance.  The synchronized decode step on the
+   mesh and plain (the host's cost of DTensor dispatch), the prefill,
+   the collectives of a prefill and a decode step on the one-rank world
+   and the peak memory are printed;
+15. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
 device is present or when run outside a checkout of the repository.
@@ -3773,6 +3791,10 @@ def dense_phase(np, torch, device="cuda", config=None):
 # dequantizes 10 int8 leaves a step: 4 attention, 3 expert stacks (one
 # launch each, (64, 2048, 1408) codes) and 3 shared
 MOE_LEAVES_PER_UNIT = 10
+# phase 10 runs deepseek-moe-16b and deepseek-v2-lite-16b at this depth (of
+# their 28 and 27 layers): every width, head group and kernel instance
+# stays; the cut pays for phase 14
+MOE_UNITS = 14
 
 
 def moe_phase(np, torch, device="cuda", config=None):
@@ -3827,8 +3849,10 @@ def moe_phase(np, torch, device="cuda", config=None):
     if device == "cuda":
         log(f"phase 10: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before it")
     t10 = time.perf_counter()
-    cfg = config("deepseek-moe-16b")
-    log(f"phase 10a: deepseek-moe-16b at full width, {cfg.num_layers} units (d_model "
+    full = config("deepseek-moe-16b")
+    cfg = full.replace(num_layers=min(full.num_layers, MOE_UNITS))
+    log(f"phase 10a: deepseek-moe-16b at full width, {cfg.num_layers} units (depth cut from "
+        f"{full.num_layers}; d_model "
         f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} experts "
         f"top-{cfg.experts_per_token} of d_ff {cfg.moe_d_ff} + {cfg.num_shared_experts} "
         f"shared, vocab {cfg.padded_vocab}, {cfg.dtype_name})")
@@ -3845,8 +3869,10 @@ def moe_phase(np, torch, device="cuda", config=None):
     out["deepseek-moe-16b"] = a
 
     t10 = time.perf_counter()
-    cfg = config("deepseek-v2-lite-16b")
-    log(f"phase 10c: deepseek-v2-lite-16b at full width, {cfg.num_layers} units (MLA "
+    full = config("deepseek-v2-lite-16b")
+    cfg = full.replace(num_layers=min(full.num_layers, MOE_UNITS))
+    log(f"phase 10c: deepseek-v2-lite-16b at full width, {cfg.num_layers} units (depth cut "
+        f"from {full.num_layers}; MLA "
         f"kv_lora_rank {cfg.kv_lora_rank}, qk_nope {cfg.qk_nope_dim} + rope "
         f"{cfg.rope_head_dim}, v {cfg.v_head_dim}, {cfg.num_heads} heads; "
         f"{cfg.num_experts} experts top-{cfg.experts_per_token} + "
@@ -4481,19 +4507,23 @@ def recurrent_phase(peaks, np, torch, device="cuda", config=None):
 
 
 # ------------------------------------------------------------ phase 12
-# LayerNorm, the front-end stubs and int8 KV caches at full width and
-# depth, random bf16 weights from SEED, phase 9's requests and tiers:
+# LayerNorm, the front-end stubs and int8 KV caches at full width,
+# random bf16 weights from SEED, phase 9's requests and tiers:
 # musicgen-large (48 layers, MHA 32/32 at head dim 64, LayerNorm with
 # biases, SwiGLU d_ff 8192, the codec vocabulary of 2,048) and
 # internvl2-26b (48 layers, GQA 48/8 at head dim 128, SwiGLU d_ff 16384,
 # vocab 92553, a 256-patch vision prefix through ``vision_proj``).  In-scan,
-# each unit dequantizes 7 int8 leaves a step (336 a step for either); with
+# each unit dequantizes 7 int8 leaves a step (168 a step at FRONTEND_UNITS); with
 # ``kv_cache_int8`` a layer-block of 16 tokens holds int8 codes and f32
 # scales: 16 x 32 x (2 x 64 + 2 x 4) = 69,632 bytes for musicgen-large
 # against 131,072 in bf16.  A float ``free`` view of internvl2-26b beside
 # its ``full`` weights would be 2 x 39.8 GB, so its float run serves the
 # ``full`` tier alone
 FRONTEND_DEQUANTS = 7
+# phase 12 runs musicgen-large and internvl2-26b at this depth (of their 48
+# layers): every width, head group and kernel instance stays; with phase
+# 10's cut it pays for phase 14
+FRONTEND_UNITS = 24
 KV8_LAYER_BLOCK = 16 * 32 * (2 * 64 + 2 * 4)
 VLM_PREFILL = dict(patches=256, text=64)
 
@@ -4594,8 +4624,10 @@ def frontend_phase(peaks, np, torch, device="cuda", config=None):
     if device == "cuda":
         torch.cuda.empty_cache()
         log(f"phase 12: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before it")
-    cfg = config("musicgen-large")
-    log(f"phase 12a: musicgen-large at full width, {cfg.num_layers} layers (d_model "
+    full = config("musicgen-large")
+    cfg = full.replace(num_layers=min(full.num_layers, FRONTEND_UNITS))
+    log(f"phase 12a: musicgen-large at full width, {cfg.num_layers} layers (depth cut from "
+        f"{full.num_layers}; d_model "
         f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
         f"LayerNorm, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab {cfg.padded_vocab}, front end "
         f"{cfg.frontend!r}), float views, kernel and plain routes")
@@ -4658,8 +4690,10 @@ def frontend_phase(peaks, np, torch, device="cuda", config=None):
         torch.cuda.empty_cache()
     out["musicgen-large"] = dict(float=a, in_scan=b, kv_int8=c, store_s=store_s)
 
-    cfg = config("internvl2-26b")
-    log(f"phase 12d: internvl2-26b at full width, {cfg.num_layers} layers (d_model "
+    full = config("internvl2-26b")
+    cfg = full.replace(num_layers=min(full.num_layers, FRONTEND_UNITS))
+    log(f"phase 12d: internvl2-26b at full width, {cfg.num_layers} layers (depth cut from "
+        f"{full.num_layers}; d_model "
         f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
         f"{cfg.d_ff} {cfg.mlp_type}, vocab {cfg.padded_vocab}, {cfg.num_patches} patches "
         f"through vision_proj), float views of the full tier, kernel route")
@@ -5021,6 +5055,205 @@ def engine_phase(cfg, params, np, torch, graph_step_ms=None, alloc_weight_bytes=
     return out, launches
 
 
+# phase 14: the host mesh, on phase 3's first requests
+MESH_REQUESTS = 8
+MESH_NEW = 16
+MESH_TOL = 0.05                # phase 4's: x max(|logit|, 1)
+
+
+def mesh_phase(cfg, params, np, torch, device="cuda"):
+    """Phase 14 (see the module docstring): ``launch.mesh.make_host_mesh``
+    over the card (NCCL, a world of one), the weights and a contiguous
+    cache placed by ``distribution.sharding``, and phase 3's first
+    MESH_REQUESTS prompts (right-aligned to the longest) through one
+    ``prefill_step`` and MESH_NEW greedy ``serve_step``s under
+    ``implicit_replication``, (a) on float weights and (b) on the int8
+    store in-scan in the free tier, ``masked_dequant`` launched through
+    ``local_map``; each held to the same steps on plain tensors.  Returns
+    the summary and the mesh runs' launches."""
+    import contextlib
+    import os
+    import statistics
+
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.core.licensing import LicenseTier
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_cache
+    from repro_torch.serving.engine import prefill_step, right_align, serve_step
+    from repro_torch.serving.quantized import qleaves, quantize_serving_params, tier_intervals
+
+    t14 = time.perf_counter()
+    prompts = [p for p, _, _ in stream_jobs(cfg, np)[:MESH_REQUESTS]]
+    width, b = max(map(len, prompts)), len(prompts)
+    tokens = torch.from_numpy(right_align(prompts, width, b).astype(np.int64)).to(device)
+    # NCCL's bootstrap of a one-rank world binds a socket: on the loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(device)
+    log(f"phase 14: the host mesh, {cfg.name} at full width and depth: "
+        f"make_host_mesh({device!r}) {tuple(mesh.shape)} {mesh.mesh_dim_names} over "
+        f"{torch.distributed.get_backend()} in {time.perf_counter() - t0:.2f} s; "
+        f"{b} prompts of phase 3's stream right-aligned to {width} tokens, one prefill_step "
+        f"and {MESH_NEW} greedy serve_steps on a contiguous cache")
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def placed(tree, shardings):
+        return shd.distribute_tree(tree, shardings, mesh)
+
+    def run(p, li, on_mesh, count=None):
+        cache = init_cache(cfg, b, width + MESH_NEW, device=device)
+        toks = tokens
+        if on_mesh:
+            p = placed(p, shd.params_shardings(p, mesh, cfg))
+            cache = placed(cache, shd.cache_shardings(cache, mesh, b))
+            toks = placed({"t": tokens}, shd.data_shardings({"t": tokens}, mesh))["t"]
+        rows, picks, step_ms = [], [], []
+        modes = contextlib.ExitStack()
+        if on_mesh:
+            modes.enter_context(implicit_replication())
+        if count is not None:
+            modes.enter_context(count)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with modes:
+            sync()
+            t = time.perf_counter()
+            lg, cache = prefill_step(p, cfg, toks, cache, license_intervals=li)
+            rows.append(full(lg).float())
+            sync()
+            prefill_ms = 1e3 * (time.perf_counter() - t)
+            for i in range(1 if count is not None else MESH_NEW):
+                nxt = rows[-1].argmax(-1)
+                picks.append(nxt)
+                pos = torch.full((b,), width + i, dtype=torch.int32, device=device)
+                sync()
+                t = time.perf_counter()
+                lg, cache = serve_step(p, cfg, nxt[:, None], cache, pos, li)
+                rows.append(full(lg).float())
+                sync()
+                step_ms.append(1e3 * (time.perf_counter() - t))
+        return dict(rows=rows, tokens=torch.stack(picks).T.tolist() if picks else [],
+                    prefill_ms=prefill_ms, step_ms=step_ms, launches=dict(ops.LAUNCHES),
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    def op_counts(p, li, on_mesh):
+        """aten ops of one decode step after the prefill, by name (DTensor's
+        local ops on the mesh)."""
+        from collections import Counter
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Names(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.n = Counter()
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                self.n[str(func)] += 1
+                return func(*args, **(kwargs or {}))
+
+        cache = init_cache(cfg, b, width + 1, device=device)
+        toks, pos = tokens, torch.full((b,), width, dtype=torch.int32, device=device)
+        ctx = contextlib.nullcontext()
+        if on_mesh:
+            p = placed(p, shd.params_shardings(p, mesh, cfg))
+            cache = placed(cache, shd.cache_shardings(cache, mesh, b))
+            ctx = implicit_replication()
+        names = Names()
+        with ctx:
+            lg, cache = prefill_step(p, cfg, toks, cache, license_intervals=li)
+            with names:
+                serve_step(p, cfg, full(lg).argmax(-1)[:, None], cache, pos, li)
+        return names.n
+
+    out, launches = {}, {}
+    tiers = {"free": LicenseTier(name="free", masks=FREE_TIER)}
+    try:
+        for key, label in (("a_float", "14a float weights"),
+                           ("b_in_scan", "14b int8 store in-scan, tier free")):
+            if key == "a_float":
+                p, li = params, None
+            else:
+                t0 = time.perf_counter()
+                p = quantize_serving_params(params)
+                li = tier_intervals(tiers["free"], device=device)
+                sync()
+                log(f"  14b: int8 store built in {time.perf_counter() - t0:.2f} s")
+            plain = run(p, li, False)
+            meshed = run(p, li, True)
+            cost = op_cost.OpCostMode()
+            run(p, li, True, count=cost)
+            per_step = meshed["launches"].get("masked_dequant", 0) // (MESH_NEW + 1)
+            res = dict(
+                mesh_step_ms=statistics.median(meshed["step_ms"]),
+                plain_step_ms=statistics.median(plain["step_ms"]),
+                mesh_prefill_ms=meshed["prefill_ms"], plain_prefill_ms=plain["prefill_ms"],
+                mesh_peak_gb=meshed["peak_gb"], plain_peak_gb=plain["peak_gb"],
+                launches=meshed["launches"], plain_launches=plain["launches"],
+                collectives=dict(cost.collectives.count_by_kind),
+                collective_bytes=cost.collectives.total_bytes)
+            log(f"  {label}: decode step {res['mesh_step_ms']:.2f} ms on the mesh against "
+                f"{res['plain_step_ms']:.2f} ms plain eager (median of {MESH_NEW}, host clock, "
+                f"synchronized on each side: {res['mesh_step_ms'] / res['plain_step_ms']:.2f}x, "
+                f"the host's cost of DTensor dispatch); prefill {res['mesh_prefill_ms']:.1f} "
+                f"against {res['plain_prefill_ms']:.1f} ms (the mesh's first call included)")
+            log(f"  {label}: collectives of the prefill and one decode step on the one-rank world "
+                f"{res['collectives'] or 'none'}, {res['collective_bytes']} bytes; "
+                f"peak memory {res['mesh_peak_gb']:.2f} GB on the mesh, {res['plain_peak_gb']:.2f} "
+                f"GB plain; launches on the mesh {meshed['launches']}")
+            if meshed["tokens"] != plain["tokens"]:
+                fail(f"{label}: greedy tokens on the mesh differ from the plain steps'")
+            diffs = [float((m - q).abs().max()) for m, q in zip(meshed["rows"], plain["rows"])]
+            scale = max(float(q.abs().max()) for q in plain["rows"])
+            res["max_abs_logit_diff"] = max(diffs)
+            if res["max_abs_logit_diff"] == 0.0:
+                log(f"  {label}: logits of all {len(diffs)} steps bit for bit equal to the plain "
+                    f"steps'; greedy tokens identical ({b} x {MESH_NEW})")
+            else:
+                first = next(i for i, d in enumerate(diffs) if d)
+                got, want = op_counts(p, li, True), op_counts(p, li, False)
+                moved = {k: (got[k], want[k]) for k in set(got) | set(want)
+                         if got[k] != want[k]}
+                res["op_count_diff"] = moved
+                log(f"  {label}: logits differ from the plain steps' from step {first} (0 is "
+                    f"the prefill), max |diff| {res['max_abs_logit_diff']:.4g} against max "
+                    f"|logit| {scale:.3f} (tol {MESH_TOL * max(scale, 1.0):.4f}); greedy tokens "
+                    f"identical; the ops a decode step runs (mesh, plain) where the counts "
+                    f"differ: {moved}")
+                if not res["max_abs_logit_diff"] <= MESH_TOL * max(scale, 1.0):
+                    fail(f"{label}: the mesh's logits differ by more than phase 4's tolerance")
+            if key == "b_in_scan":
+                want = len(list(qleaves(p["units"]))) * cfg.pattern_units
+                if per_step != want or meshed["launches"] != plain["launches"]:
+                    fail(f"14b: masked_dequant through local_map launched {per_step} a step "
+                         f"({meshed['launches']}), the plain in-scan steps {plain['launches']}; "
+                         f"want {want} a step")
+                log(f"  14b: masked_dequant launched through local_map {per_step} times a step "
+                    f"({meshed['launches']['masked_dequant']} in all), as the plain in-scan steps")
+            for k, v in meshed["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            out[key] = res
+            del p, plain, meshed
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+    out["s"] = time.perf_counter() - t14
+    log(f"  phase 14 took {out['s']:.1f} s")
+    return out, launches
+
+
 def main() -> None:
     t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -5365,7 +5598,6 @@ def main() -> None:
                        for r in compiled["float"]["runs"]
                        if r["path"] == "graph" and r.get("decode_profile")), None)
     engine, phase13_launches = engine_phase(cfg, params, np, torch, graph_step, alloc)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  launches on phase 13's paths: {phase13_launches}")
@@ -5373,6 +5605,17 @@ def main() -> None:
         if phase13_launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on phase 13's paths")
     for name, n in phase13_launches.items():
+        launches[name] += n
+
+    # ---------------------------------------------------------- phase 14
+    host_mesh, phase14_launches = mesh_phase(cfg, params, np, torch)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  launches on phase 14's paths: {phase14_launches}")
+    if phase14_launches.get("masked_dequant", 0) <= 0:
+        fail("kernel masked_dequant was not launched on phase 14's paths")
+    for name, n in phase14_launches.items():
         launches[name] += n
 
     # ---------------------------------------------------------- summary
@@ -5395,7 +5638,8 @@ def main() -> None:
                     "moe_mla": moe, "phase10_launches": phase10_launches,
                     "recurrent": recurrent, "phase11_launches": phase11_launches,
                     "frontend": frontend, "phase12_launches": phase12_launches,
-                    "engine": engine, "phase13_launches": phase13_launches}))
+                    "engine": engine, "phase13_launches": phase13_launches,
+                    "host_mesh": host_mesh, "phase14_launches": phase14_launches}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

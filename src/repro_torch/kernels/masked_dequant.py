@@ -20,6 +20,7 @@ source says how it streams them.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops, ref
 
@@ -34,7 +35,12 @@ def masked_dequant(codes: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor,
 
     CPU tensors take the plain version, and so do ``meta`` tensors
     (shapes only: the launch tools' dry run); CUDA tensors launch the
-    kernel, and anything the kernel does not take raises."""
+    kernel, and anything the kernel does not take raises.  A ``DTensor``
+    raises: a leaf on a mesh reaches the kernel shard by shard, through
+    ``local_map`` (``serving/quantized.py``)."""
+    if isinstance(codes, DTensor) or isinstance(scale, DTensor):
+        raise TypeError("masked_dequant takes local tensors: dequantize a DTensor leaf "
+                        "through local_map (serving.quantized.dequant_leaf)")
     if codes.device.type in ("cpu", "meta"):
         return ref.masked_dequant(codes, scale, lo, hi, out_dtype)
     if out_dtype not in (torch.float32, torch.bfloat16):

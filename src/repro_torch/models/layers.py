@@ -20,6 +20,152 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.distribution.sharding import axis_sizes, on_mesh, placements
+
+
+# ------------------------------------------------------------------ the mesh
+def hint_sharding(x: torch.Tensor, *spec) -> torch.Tensor:
+    """Pin a ``DTensor``'s placements; identity on a plain tensor.
+
+    Model code stays mesh-agnostic: under a mesh the hint redistributes
+    ``x`` to the spec's placements (one entry per tensor dim, an axis
+    name, a tuple of them or ``None``, as in
+    ``distribution.sharding``); off the mesh it returns ``x`` itself, so
+    the plain path runs the same ops.  The sentinel ``"batch"`` resolves
+    to ("pod", "data") when the mesh has a pod axis, else ("data",).  A
+    spec naming an axis the mesh lacks leaves ``x`` as it is.  Where the
+    axes named on a dim do not divide it (a batch of 1 over 16 data
+    ranks), the dim stays whole: GSPMD pads such a shard, DTensor's views
+    cannot split an uneven one.  A ``DTensor`` is redistributed even to
+    the placements it has: that step's backward hands the gradient on in
+    a layout DTensor's einsum backward can view (deepseek-moe-16b's
+    expert products at train_4k fail without it)."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    sizes = axis_sizes(mesh)
+    batch = ("pod", "data") if "pod" in sizes else ("data",)
+    resolved = []
+    for dim, e in enumerate(batch if s == "batch" else s for s in spec):
+        axes = (e,) if isinstance(e, str) else tuple(e or ())
+        if any(a not in sizes for a in axes):
+            return x
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        resolved.append(axes if x.shape[dim] % n == 0 else ())
+    return x.redistribute(mesh, on_mesh(placements(resolved, mesh), mesh))
+
+
+def unshard(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with dim ``dim`` whole on every rank and no pending sum (a
+    ``DTensor``'s shards of other dims kept); identity on a plain
+    tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    pls = tuple(Replicate() if p.is_shard(dim) or p.is_partial() else p
+                for p in x.placements)
+    return x if pls == tuple(x.placements) else x.redistribute(x.device_mesh, pls)
+
+
+def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(..., heads * d) -> (..., heads, d).  Under a mesh whose shards of
+    the last dim do not divide the heads (a smoke model's 4 heads over 16
+    ranks), the dim is first made whole: DTensor cannot split it."""
+    if heads % _head_shards(x, x.ndim - 1):
+        x = unshard(x, -1)
+    return x.reshape(*x.shape[:-1], heads, x.shape[-1] // heads)
+
+
+def merge_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., heads, d) -> (..., heads * d), the input of the product with
+    ``w``.  Under a mesh the merged dim is placed as ``w``'s contraction
+    dim already: DTensor would do that inside the product, and the
+    backward of its own move cannot split the gradient back into heads
+    that do not divide over the ranks."""
+    y = x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    if not (isinstance(y, DTensor) and isinstance(w, DTensor)):
+        return y
+    pls = on_mesh(tuple(Shard(y.ndim - 1) if pw.is_shard(w.ndim - 2) else py
+                        for py, pw in zip(y.placements, w.placements)), y.device_mesh)
+    return y if pls == tuple(y.placements) else y.redistribute(y.device_mesh, pls)
+
+
+def _head_shards(x: torch.Tensor, dim: int = 2) -> int:
+    """How many ranks share ``x``'s dim ``dim`` (1 for a plain tensor)."""
+    if not isinstance(x, DTensor):
+        return 1
+    n = 1
+    for size, p in zip(x.device_mesh.shape, x.placements):
+        if p.is_shard(dim):
+            n *= size
+    return n
+
+
+def write_at(leaf: torch.Tensor, index: Tuple[torch.Tensor, ...], value: torch.Tensor) -> None:
+    """``leaf[index] = value`` in place, ``index`` a tuple of integer
+    tensors over the leaf's leading dims (a cache's lanes and slots).
+
+    A ``DTensor`` leaf (under a mesh) is written shard by shard: DTensor
+    has no in-place scatter that keeps a sharded leaf's placements, and
+    its out-of-place one gathers the whole leaf.  Each rank takes the
+    indices and the values whole on the mesh dims that shard an indexed
+    dim (as the leaf's on the others) and writes only the entries that
+    fall in its own shard.  A ``meta`` leaf (the dry run) has no data to
+    pick those by: every value is written at its place clamped into the
+    shard, which costs what the real write does."""
+    if not isinstance(leaf, DTensor):
+        leaf[index] = value
+        return
+    mesh, pls, n = leaf.device_mesh, leaf.placements, len(index)
+    idx = torch.broadcast_tensors(*(i.full_tensor() if isinstance(i, DTensor) else i
+                                    for i in index))
+    v_pls = on_mesh(tuple(Shard(p.dim - n + idx[0].ndim) if p.is_shard() and p.dim >= n
+                          else Replicate() for p in pls), mesh)
+    local, vals = leaf.to_local(), value.redistribute(mesh, v_pls).to_local()
+    if local.shape[:n] == leaf.shape[:n]:        # no indexed dim is split
+        local[idx] = vals
+        return
+    coord = mesh.get_coordinate()
+    offsets = []
+    for d in range(n):
+        o = 0
+        for c, size, p in zip(coord, mesh.shape, pls):
+            if p.is_shard(d):
+                o = o * size + c
+        offsets.append(o * local.shape[d])
+    if local.is_meta:
+        local[tuple((i - o).clamp(0, size - 1)
+                    for i, o, size in zip(idx, offsets, local.shape))] = vals
+        return
+    hit = torch.ones(idx[0].shape, dtype=torch.bool, device=local.device)
+    for i, o, size in zip(idx, offsets, local.shape):
+        hit &= (i >= o) & (i < o + size)
+    local[tuple(i[hit] - o for i, o in zip(idx, offsets))] = vals[hit]
+
+
+def index_add_rows(buf: torch.Tensor, index: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``buf.index_add_(0, index, vals)``, returned.  Under a mesh
+    (``vals`` a ``DTensor``) the add is out of place: DTensor's dispatch
+    refuses to add its values into a plain buffer in place.  Both give
+    the same bits."""
+    if isinstance(vals, DTensor):
+        return buf.index_add(0, index, vals)
+    return buf.index_add_(0, index, vals)
+
+
+def fill_last_from(x: torch.Tensor, start: int, value: float) -> torch.Tensor:
+    """``x[..., start:] = value``, returned.  A ``DTensor`` (vocab-sharded
+    logits under a mesh) is filled by ``masked_fill`` instead: DTensor has
+    no in-place fill of a slice of a sharded dim.  Both give the same
+    bits."""
+    if isinstance(x, DTensor):
+        return x.masked_fill(torch.arange(x.shape[-1], device=x.device) >= start, value)
+    x[..., start:] = value
+    return x
 
 
 # --------------------------------------------------------------------- norms
@@ -112,6 +258,12 @@ def attention_core(
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     groups = h // kh
+    if groups > 1 and kh % _head_shards(q):
+        # under a mesh whose head shards do not divide the kv heads (e.g. 16
+        # ranks, 2 kv heads): DTensor cannot split a sharded head dim into
+        # (kv, group), so each query head gets its own copy of its kv head
+        k, v = k.repeat_interleave(groups, dim=2), v.repeat_interleave(groups, dim=2)
+        kh, groups = h, 1
     qg = _scale_q(q, 1.0 / math.sqrt(hd)).reshape(b, sq, kh, groups, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
     k_pos = torch.arange(sk, device=q.device)
@@ -140,9 +292,9 @@ def _attn_qkv(p: Dict[str, Any], x: torch.Tensor, cfg, positions: torch.Tensor):
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, kh, hd), positions, cfg.rope_theta)
-    return q, k, v.reshape(b, s, kh, hd)
+    q = apply_rope(split_heads(q, h), positions, cfg.rope_theta)
+    k = apply_rope(split_heads(k, kh), positions, cfg.rope_theta)
+    return q, k, split_heads(v, kh)
 
 
 def attention_block(
@@ -218,7 +370,7 @@ def attention_block(
             writes = {n: t[:, -cap:] for n, t in writes.items()}
             w_rows, w_slot = rows[:, -cap:], slot[:, -cap:]
         for n, t in writes.items():
-            cache[n][w_rows, w_slot] = t.to(cache[n].dtype)
+            write_at(cache[n], (w_rows, w_slot), t.to(cache[n].dtype))
         cv_n = s if chunk_valid is None else torch.as_tensor(chunk_valid,
                                                               device=x.device)
         new_len = torch.clamp(cache["len"] + cv_n, max=cap).to(cache["len"].dtype)
@@ -243,7 +395,7 @@ def attention_block(
         else:
             out = attention_core(q, k, v, q_offset=pos, window=window)
         new_cache = {**{n: cache[n] for n in writes}, "len": new_len}
-    y = out.reshape(b, s, h * hd) @ p["wo"]
+    y = merge_heads(out, p["wo"]) @ p["wo"]
     return y, new_cache
 
 
@@ -380,7 +532,7 @@ def _mla_qkv(p: Dict[str, Any], x: torch.Tensor, cfg, positions: torch.Tensor):
     b, s, _ = x.shape
     h = cfg.num_heads
     nope, rope_d, r = cfg.qk_nope_dim, cfg.rope_head_dim, cfg.kv_lora_rank
-    q = (x @ p["wq"]).reshape(b, s, h, nope + rope_d)
+    q = split_heads(x @ p["wq"], h)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     dkv = x @ p["w_dkv"]                                      # (B, S, r + rope_d)
     c_kv = rms_norm(dkv[..., :r], p["ckv_norm"])
@@ -395,7 +547,7 @@ def _mla_kv(p: Dict[str, Any], c_kv: torch.Tensor, k_rope: torch.Tensor, cfg):
     per-head keys (B, S, H, nope + rope_d) and values (B, S, H, vd)."""
     b, sk, _ = c_kv.shape
     h, nope, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
-    ukv = (c_kv @ p["w_ukv"]).reshape(b, sk, h, nope + vd)
+    ukv = split_heads(c_kv @ p["w_ukv"], h)
     k_nope, v = ukv[..., :nope], ukv[..., nope:]
     k = torch.cat([k_nope, k_rope.expand(b, sk, h, k_rope.shape[-1])], dim=-1)
     return k, v
@@ -448,8 +600,8 @@ def mla_block(
         if s > cap:                        # the last cap positions, distinct slots
             c_w, kr_w = c_w[:, -cap:], kr_w[:, -cap:]
             rows, slot = rows[:, -cap:], slot[:, -cap:]
-        c_all[rows, slot] = c_w.to(c_all.dtype)
-        kr_all[rows, slot] = kr_w.to(kr_all.dtype)
+        write_at(c_all, (rows, slot), c_w.to(c_all.dtype))
+        write_at(kr_all, (rows, slot), kr_w.to(kr_all.dtype))
         cv_n = s if chunk_valid is None else torch.as_tensor(chunk_valid,
                                                               device=x.device)
         new_len = torch.clamp(cache["len"] + cv_n, max=cap).to(cache["len"].dtype)
@@ -468,7 +620,7 @@ def mla_block(
     qfull = torch.cat([q_nope, q_rope], dim=-1)
     out = attention_core(qfull, k, v, q_offset=pos, window=attend_window,
                          kv_len=kv_len if s == 1 else None)
-    y = out.reshape(b, s, h * vd) @ p["wo"]
+    y = merge_heads(out, p["wo"]) @ p["wo"]
     return y, new_cache
 
 

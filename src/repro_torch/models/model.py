@@ -347,6 +347,11 @@ def forward_aux(
     if tokens is not None:
         parts.append(params["embed"]["tok"][tokens.long()])
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    if cfg.pin_acts and x.shape[1] > 1:
+        # pin the entry activation: the vocab-sharded embedding gather (and
+        # the VLM patch/text concat) otherwise seed feature-sharded
+        # residuals through the whole layer stack
+        x = L.hint_sharding(x, "batch", None, None)
     unbound = _unbound_units(params["units"])
     aux = None
 
@@ -362,6 +367,16 @@ def forward_aux(
             if t is not c[name]:
                 c[name].copy_(t)
 
+    def pin_residual():
+        nonlocal x
+        # pin the residual stream between units: batch over the DP axes,
+        # optionally seq-sharded over "model" (Megatron-SP)
+        if cache is None and x.shape[1] > 1:
+            if cfg.seq_sharded_acts:
+                x = L.hint_sharding(x, "batch", "model", None)
+            elif cfg.pin_acts:
+                x = L.hint_sharding(x, "batch", None, None)
+
     for u in range(cfg.pattern_units):
         unit_params = _unit(params["units"], u) if unbound is None else unbound[u]
         if quantized:
@@ -369,6 +384,7 @@ def forward_aux(
         unit_cache = None if cache is None else _unit(cache["units"], u)
         for j, kind in enumerate(cfg.layer_pattern):
             run(unit_params[f"b{j}"], kind, None if unit_cache is None else unit_cache[f"b{j}"])
+        pin_residual()
     for j, kind in enumerate(cfg.tail_pattern):
         tp = params["tail"][f"t{j}"]
         if quantized:
@@ -377,7 +393,7 @@ def forward_aux(
     x = L.apply_norm(x, params["final_norm"], cfg)
     logits = (x @ params["lm_head"]).float()
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e9
+        logits = L.fill_last_from(logits, cfg.vocab_size, -1e9)
     return logits, aux, cache
 
 

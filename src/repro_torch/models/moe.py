@@ -24,7 +24,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import mlp_block
+from repro_torch.models.layers import hint_sharding, index_add_rows, mlp_block
 
 
 def capacity(s: int, cfg) -> int:
@@ -88,14 +88,15 @@ def moe_block(p: Dict[str, Any], x: torch.Tensor, cfg) -> Tuple[torch.Tensor, to
     rows = torch.arange(b, device=x.device)[:, None]
     slot = (rows * e + flat_e) * cap + safe_pos                   # (B, S·k)
     buf = torch.zeros((b * e * cap, d), dtype=x.dtype, device=x.device)
-    buf.index_add_(0, slot.reshape(-1), vals.reshape(-1, d))
-    buf = buf.reshape(b, e, cap, d)
+    buf = index_add_rows(buf, slot.reshape(-1), vals.reshape(-1, d))
+    buf = hint_sharding(buf.reshape(b, e, cap, d), "batch", "model", None, None)
 
     w = p["experts"]
     g = torch.einsum("becd,edf->becf", buf, w["w_gate"])
     u = torch.einsum("becd,edf->becf", buf, w["w_up"])
     h = F.silu(g) * u
     out_buf = torch.einsum("becf,efd->becd", h, w["w_down"]).to(x.dtype)
+    out_buf = hint_sharding(out_buf, "batch", "model", None, None)      # (B, E, C, D)
 
     gathered = out_buf[rows, flat_e, safe_pos]                   # (B, S·k, D)
     weight = top_p.reshape(b, s * k) * keep.to(top_p.dtype)

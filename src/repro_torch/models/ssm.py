@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import rms_norm, unshard
 
 
 def d_inner(cfg) -> int:
@@ -142,10 +142,13 @@ def ssm_block(p: Dict[str, Any], xin: torch.Tensor, cfg, *,
     b, length, _ = xin.shape
     di, h, n, pd = d_inner(cfg), n_heads(cfg), cfg.ssm_state, cfg.ssm_head_dim
     f32 = torch.float32
-    z, xbc, dt_raw = _split_proj(cfg, xin @ p["in_proj"])
+    # under a mesh the projection and the conv cache may shard channels
+    # across heads that do not divide over the ranks (mamba2-130m's 24 over
+    # 16): the head split below needs them whole
+    z, xbc, dt_raw = _split_proj(cfg, unshard(xin @ p["in_proj"], -1))
     xbc, new_conv = causal_conv(xbc, p["conv_w"], p["conv_b"],
                                 None if cache is None else cache["conv"])
-    xbc = F.silu(xbc)
+    xbc = F.silu(unshard(xbc, -1))
     xs = xbc[..., :di].reshape(b, length, h, pd)
     bm, cm = xbc[..., di: di + n], xbc[..., di + n:]
     dt = softplus(dt_raw.to(f32) + p["dt_bias"])

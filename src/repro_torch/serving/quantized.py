@@ -16,6 +16,7 @@ import functools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.licensing import LicenseTier
 from repro_torch.kernels.ops import MAX_INTERVALS, pack_intervals
@@ -104,7 +105,33 @@ def dequant_leaf(leaf: Any, lo: torch.Tensor, hi: torch.Tensor, dtype) -> Any:
         return leaf
     from repro_torch.kernels.masked_dequant import masked_dequant
 
+    if isinstance(leaf["codes"], DTensor):
+        return _dequant_sharded(leaf["codes"], leaf["scale"], lo, hi, dtype)
     return masked_dequant(leaf["codes"], leaf["scale"], lo, hi, out_dtype=dtype)
+
+
+def _dequant_sharded(codes: DTensor, scale: DTensor, lo: torch.Tensor, hi: torch.Tensor,
+                     dtype) -> DTensor:
+    """:func:`dequant_leaf` of a leaf on a mesh: each rank dequantizes
+    its own shard of the codes through ``local_map`` (the kernel on the
+    card, the plain version on the CPU) and the result keeps the codes'
+    placements.  The replicated scale is first cut to the rank's shard
+    where it spans the sharded dim (a column-parallel leaf's per-column
+    scale); a dim where the scale has size 1 (a row-parallel leaf's
+    contraction dim) keeps it whole.  ``lo``/``hi`` are plain tensors,
+    the same on every rank."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels.masked_dequant import masked_dequant
+
+    mesh, pls = codes.device_mesh, codes.placements
+    s_pls = tuple(p if isinstance(p, Shard) and scale.shape[p.dim] == codes.shape[p.dim]
+                  else Replicate() for p in pls)
+    scale = scale.redistribute(mesh, s_pls)     # Replicate -> Shard: a local slice
+    fn = local_map(functools.partial(masked_dequant, out_dtype=dtype), out_placements=(pls,),
+                   in_placements=(pls, s_pls, None, None), device_mesh=mesh)
+    return fn(codes, scale, lo, hi)
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,6 +153,9 @@ def dequant_tree(tree: Any, license_intervals, dtype) -> Any:
         return tree
     device = first["codes"].device
     lo, hi = _no_intervals(device) if license_intervals is None else license_intervals
+    if isinstance(lo, DTensor) or isinstance(hi, DTensor):
+        raise TypeError("dequant_tree: the tier's lo/hi are plain tensors, the same on "
+                        "every rank of a mesh")
     if device.type == "cpu":
         live = lo < hi
         lo, hi = lo[live], hi[live]

@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree_io import flatten_params, unflatten
 from repro_torch.models import model as model_lib
+from repro_torch.models.layers import hint_sharding
 from repro_torch.training import optimizer as opt_lib
 
 
@@ -69,15 +70,19 @@ def make_train_step(
         if m <= 1:
             (loss, parts), grads = grad_fn(params, batch)
         else:
-            # microbatch i is rows [i*B/m, (i+1)*B/m); grads accumulate in f32
+            # microbatch i is rows [i*B/m, (i+1)*B/m), each batch-sharded
+            # under a mesh; grads accumulate in f32
             rows = next(iter(batch.values())).shape[0] // m
-            grads = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            micro = {k: hint_sharding(v.reshape(m, rows, *v.shape[1:]),
+                                      None, "batch", *([None] * (v.ndim - 1)))
+                     for k, v in batch.items()}
+            grads = {name: torch.zeros_like(p, dtype=torch.float32)
                      for name, p in flatten_params(params).items()}
             device = _device(params)
             loss = torch.zeros((), dtype=torch.float32, device=device)
             aux = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(m):
-                mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                mb = {k: v[i] for k, v in micro.items()}
                 (l, parts_i), g = grad_fn(params, mb)
                 for name, gi in flatten_params(g).items():
                     grads[name] += gi.float()
