@@ -190,7 +190,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    graphs on), each gateway's launch counters zeroed just before its
    stream and read just after, every run's tokens/s, ms per step, peak
    memory, captures and replays printed, then the stream submitted again
-   and 8 steady decode steps timed (graph replays on the kernel route,
+   and 8 steady decode steps timed (graph replays on every route,
    synchronized on each side): (a)
    nemotron-4-15b (squared ReLU) at 4 of its 32 layers on float views
    through the kernels and through the plain route (tokens equal,
@@ -201,14 +201,22 @@ Phases (each prints its own lines; any failure exits non-zero):
    (48 q heads on one kv head, ``paged_attention``'s instance for groups
    above 32) at 44 of its 88 layers from an int8 store built unit by unit
    on the card, both routes (308 launches a step); (d) the gateway's fallbacks
-   at qwen2.5-3b on phase 3's weights: phase 3's stream with
+   at qwen2.5-3b on phase 3's weights, every step a graph replay or
+   capture (the gather/scatter decode, the bucket prefill and its
+   prefix-hit suffix prefill): phase 3's stream with
    ``kernel_decode=False`` (tokens equal phase 3's up to near-ties), with
    ``chunk_size=0`` and the cache off, and with ``paged=False`` (whose
    bucket prefill pads prompts on the left: tokens equal the paged bucket
-   run's up to near-ties), phase 3b's stream with ``chunk_size=0`` with
-   the prefix cache on and off (equal up to near-ties, hits with it on),
-   and a fleet with a contiguous slot beside a paged one (each slot's
-   tokens equal its isolated run's).  Phase 2 also runs
+   run's up to near-ties), each then timed in a steady decode window in
+   turns, graph and eager on the same gateway (``steady_turns``), and
+   served again on a gateway with its compiled steps taken away, whose
+   greedy tokens must be identical; phase 3b's stream with
+   ``chunk_size=0`` with the prefix cache on and off (equal up to
+   near-ties, hits with it on; each also served eagerly, tokens
+   identical), and a fleet with a contiguous slot beside a paged one
+   (each slot's tokens equal its isolated run's, every family
+   replayed); each run prints its families' captures, replays and the
+   graphs' pool bytes.  Phase 2 also runs
    ``paged_attention`` at granite's decode shape (48/1 heads, contexts
    9-96 and 8 x 4096) back to back, in a graph and L2-cold;
 10. DeepSeek MoE and MLA at full width, 14 of their 28 and 27 layers
@@ -218,7 +226,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    decode step, peak memory, captures, replays and the KV pool's block
    bytes printed): (a) deepseek-moe-16b (MHA 16/16 heads, 64 experts
    top-6 + 2 shared) on float views through the kernels (graph replays)
-   and through the plain route (eager), tokens equal up to near-ties;
+   and through the plain route (graph replays too), tokens equal up to
+   near-ties;
    (b) deepseek-moe-16b in-scan from an int8 store built unit by unit
    (10 ``masked_dequant`` launches a unit a step: 140); (c)
    deepseek-v2-lite-16b (MLA) on float views on the default route, whose
@@ -228,15 +237,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    window on the same weights, drop-free (a capacity factor of experts /
    top-k, so a row's length changes no route), through the slot's own
    route (bucket prefill, gather/scatter decode on the contiguous pool
-   of 4,096-slot latent rings): a 4,160-token prompt in tier full and a
-   1,024-token one in tier free, both in the 4,160-token bucket (longer
-   than the ring), 64 greedy tokens each; the ring's leaves must hold
+   of 4,096-slot latent rings, each step a graph replay or capture): a
+   4,160-token prompt in tier full and a 1,024-token one in tier free,
+   both in the 4,160-token bucket (longer than the ring), 64 greedy
+   tokens each, every step synchronized and timed; then the same
+   gateway's steady decode step in turns, graph and eager; then its
+   graphs dropped and the two requests served eagerly with every router
+   call recorded (tokens identical to the graph run's); the ring's leaves must hold
    4,096 slots (66.1 MB a lane at 14 layers), and the tokens must equal the argmax of
    a cacheless windowed ``forward`` over each whole sequence,
    teacher-forced, up to near-ties (the gap below the row's max |logit
    diff|), and with every layer's expert picks pinned to the gateway's
    every row within phase 4's tolerance (the bucket prefill's seconds,
-   the synchronized eager decode step and peak memory printed).  Phase
+   synchronized graph and eager decode steps and peak memory printed).  Phase
    10 must launch ``paged_attention``,
    ``paged_decode_write`` and ``masked_dequant``.  Phase 2 also runs
    ``paged_attention`` at deepseek-moe-16b's decode shape (16/16 heads,
@@ -245,28 +258,35 @@ Phases (each prints its own lines; any failure exits non-zero):
 11. the recurrent family at full width and depth, as phase 9 runs its
    models (random bf16 weights, phase 9's requests and tiers, each run's
    counters zeroed just before its stream and read just after, a steady
-   decode step and peak memory printed): (a) recurrentgemma-2b (8 units
+   decode step and peak memory printed; every run of (a)-(d) but the
+   materialized views and the f32 witness also served again on the eager
+   route on the same gateway, tokens identical, and its steady decode
+   step timed in turns, graph and eager, every compiled family captured
+   and replayed): (a) recurrentgemma-2b (8 units
    of (rec, rec, attn) + 2 tail RG-LRU layers, MQA under a 2,048-token
    window) on float views with ``kernel_decode=True`` asked for: the
    gateway must choose the paged pool, the bucket prefill (chunk_size 0),
-   no prefix cache and the gather/scatter decode, and launch no paged
-   kernel; (b) the same from an int8 store built unit by unit, in-scan
-   (200 ``masked_dequant`` launches a step: 23 leaves a unit, 8 a tail
-   block) and on materialized int8 views, and ``masked_dequant`` on the
+   no prefix cache and the gather/scatter decode (CUDA graphs, as the
+   bucket prefill), and launch no paged kernel; (b) the same from an
+   int8 store built unit by unit, in-scan (200 ``masked_dequant``
+   launches a step: 23 leaves a unit, 8 a tail block, through the
+   wrappers' warm-ups and in the device trace of 4 graph-replayed decode
+   steps) and on materialized int8 views, and ``masked_dequant`` on the
    store's rank-2 tail leaf ``tail/t0/mixer/w_r`` bit for bit against the
    plain version, timed (its row joins the ``kernels`` line's cases);
    (c) recurrentgemma-2b past its window: two prompts of 2,500 and 3,000
    tokens in a 3,072-token bucket, 16 new tokens each, on the contiguous
    pool (nothing to page at that capacity) whose rings wrap; (d)
    mamba2-130m (24 Mamba-2 layers) on the contiguous pool, float, in f32
-   and in-scan (48 launches a step); in (a), (c) and (d) the first 4
-   greedy tokens of every request are held against a cacheless
+   and in-scan (48 launches a step, in the trace too); in (a), (c) and
+   (d) the first 4 greedy tokens of every request are held against a cacheless
    ``forward`` over the sequence so far (the bucket's left padding
    included), parting only at near-ties by phase 4's rule, and in f32
    every row within 1e-3 x max(|logit|, 1) of it; (e) a fleet of qwen2.5-3b,
    mamba2-130m and recurrentgemma-2b: every request served, qwen's
    ``paged_attention`` launched, the recurrent slots' tokens equal their
-   isolated runs' up to near-ties;
+   isolated runs' up to near-ties, every slot's decode steps graph
+   replays;
 12. LayerNorm, the front-end stubs and int8 KV caches at full width and
    24 of their 48 layers (``FRONTEND_UNITS``), as phase 9 runs its
    models: (a) musicgen-large (MHA 32/32 at head dim 64 with LayerNorm,
@@ -333,6 +353,7 @@ device is present or when run outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import resource
@@ -1289,8 +1310,11 @@ def prefill_report(gw, chunk_s=None):
              prefill_replays=None if pg is None else pg.replays,
              chunk_p50_ms=1e3 * h["p50"] if h["count"] else None,
              kv_pool_gb=gw.pool.nbytes / 1e9)
-    how = ("eager prefill" if pg is None else
-           f"prefill graphs: {pg.captures} captures, {pg.replays} replays")
+    bucket = {f.strip("_"): g for f, g in graph_families(gw).items()
+              if f in ("_bucket_graphs", "_suffix_graphs")}
+    how = (f"prefill graphs: {pg.captures} captures, {pg.replays} replays" if pg is not None
+           else "; ".join(f"{k} {g.captures} captures, {g.replays} replays"
+                          for k, g in bucket.items()) if bucket else "eager prefill")
     p50 = "not recorded" if n["chunk_p50_ms"] is None else f"{n['chunk_p50_ms']:.2f} ms"
     text = f"{how}, chunk p50 (step_prefill_s) {p50}"
     if chunk_s is not None:
@@ -1789,6 +1813,116 @@ def check_trace_launches(label, cfg, prof, runs):
 # turns: eager, graph, graph, eager on phase 3's stream
 COMPILED_MODES = {"float": {}, "in_scan": dict(quantized=True)}
 COMPILED_TURNS = ("eager", "graph", "graph", "eager")
+# every compiled step family a gateway may hold (``ModelSlot.compile_steps``):
+# the kernel-resident decode, the chunked prefill, and the bucket path's
+# gather/scatter decode, bucket prefill and prefix-hit suffix prefill
+GRAPH_FAMILIES = ("_graphs", "_prefill_graphs", "_gather_graphs", "_bucket_graphs",
+                  "_suffix_graphs")
+# decode steps timed in each turn of ``steady_turns``
+TURN_STEPS = 4
+
+
+def graph_families(gw):
+    """``gw``'s compiled step families that are on, by attribute."""
+    return {f: getattr(gw, f) for f in GRAPH_FAMILIES if getattr(gw, f) is not None}
+
+
+class eager_route:
+    """Inside it, ``gw``'s compiled steps are taken away (the eager
+    route of every step); they come back, graphs and counts, after it."""
+
+    def __init__(self, gw):
+        self.gw = gw
+
+    def __enter__(self):
+        self.saved = graph_families(self.gw)
+        for f in self.saved:
+            setattr(self.gw, f, None)
+        return self.gw
+
+    def __exit__(self, *exc):
+        for f, g in self.saved.items():
+            setattr(self.gw, f, g)
+
+
+def graph_report(gw):
+    """Captures and replays of each family of ``gw`` and the bytes of
+    their one memory pool, with a line of text."""
+    fams = graph_families(gw)
+    counts = {f.strip("_"): dict(captures=g.captures, replays=g.replays)
+              for f, g in fams.items()}
+    pool = next(iter(fams.values())).backend.pool_bytes() if fams else 0
+    text = ("eager" if not fams else
+            "graphs: " + ", ".join(f"{k} {v['captures']} captures / {v['replays']} replays"
+                                   for k, v in counts.items())
+            + f", pool {pool / 1e9:.3f} GB")
+    return dict(families=counts, pool_bytes=pool, text=text)
+
+
+def eager_steps_of(gw, m):
+    """The forward steps ``gw`` ran through Python (so through the kernel
+    wrappers, which count them): each family's capture warm-ups, and the
+    steps of a kind no family compiled (``m``: its ``metrics()``)."""
+    dec = gw._graphs if gw.kernel_decode else gw._gather_graphs
+    pre = [g for g in ((gw._prefill_graphs,) if gw.chunked
+                       else (gw._bucket_graphs, gw._suffix_graphs)) if g is not None]
+    decodes = dec.captures if dec is not None else m["decode_steps"]
+    prefills = (sum(g.captures for g in pre) if pre else
+                m["prefill_chunks"] if gw.chunked else m["prefill_batches"])
+    return decodes, prefills
+
+
+def steady_turns(label, gw, jobs, steps=TURN_STEPS):
+    """Submit ``jobs`` ((prompt, tier, new tokens)) to ``gw`` again, its
+    graphs captured by a first drain, step until no request waits or
+    prefills, then time decode steps in turns, COMPILED_TURNS (eager,
+    graph, graph, eager), ``steps`` a turn, on the host clock with a
+    synchronize on each side: the same gateway's graph replays beside its
+    eager steps (``eager_route``) on the same lanes.  No graph may be
+    captured in the window.  Returns each turn's ms a step and the
+    medians.  Leaves the stream mid-flight."""
+    import numpy as np
+
+    gw.__dict__.pop("_sample", None)           # drop record_rows's per-step copy
+    reqs = [gw.submit(p, license=t, max_new_tokens=n) for p, t, n in jobs]
+    while any(r.state.value in ("queued", "prefilling") for r in reqs):
+        if gw.step() is None:
+            fail(f"{label}: the stream drained before every request decoded")
+    lanes = sum(r.state.value == "running" for r in reqs)
+    before = {f: g.captures for f, g in graph_families(gw).items()}
+    if not before:
+        fail(f"{label}: the gateway holds no compiled steps to time")
+    turns = []
+    for kind in COMPILED_TURNS:
+        with (eager_route(gw) if kind == "eager" else contextlib.nullcontext()):
+            sync()
+            t0 = time.perf_counter()
+            acts = [gw.step() for _ in range(steps)]
+            sync()
+        if [a.kind if a is not None else None for a in acts] != ["decode"] * steps:
+            fail(f"{label}: a {kind} turn ran {acts}, not {steps} decode steps")
+        turns.append((kind, 1e3 * (time.perf_counter() - t0) / steps))
+    after = {f: g.captures for f, g in graph_families(gw).items()}
+    if after != before:
+        fail(f"{label}: graphs captured in the timed window: {before} -> {after}")
+    out = dict(turns=turns, lanes=lanes, turn_steps=steps,
+               graph_ms=float(np.median([ms for k, ms in turns if k == "graph"])),
+               eager_ms=float(np.median([ms for k, ms in turns if k == "eager"])))
+    log(f"  {label}: a steady decode step {out['graph_ms']:.2f} ms through the graphs against "
+        f"{out['eager_ms']:.2f} ms eager on the same gateway ({lanes} lanes; turns "
+        + ", ".join(f"{k} {ms:.2f}" for k, ms in turns)
+        + f" ms, {steps} steps a turn, host clock, synchronized on each side)")
+    return out
+
+
+def same_tokens(label, reqs, ref_reqs, ref="the eager route"):
+    """Greedy tokens of ``reqs`` identical to ``ref_reqs``' (the graphs
+    run the eager route's kernels in its order)."""
+    got, want = [r.out_tokens for r in reqs], [r.out_tokens for r in ref_reqs]
+    if got != want:
+        bad = [r.rid for r, a, b in zip(reqs, got, want) if a != b]
+        fail(f"{label}: greedy tokens differ from {ref}'s on requests {bad}")
+    log(f"  {label}: greedy tokens identical to {ref}'s on {len(reqs)}/{len(reqs)} requests")
 
 
 def compiled_run(label, gw, cfg, np, torch, graphs, profile):
@@ -3479,17 +3613,17 @@ def steady_decode_ms(label, gw, jobs, steps=DENSE_STEADY_STEPS):
     """Submit ``jobs`` to ``gw`` again (its graphs captured by a first
     drain), step until no request waits or prefills, then time ``steps``
     decode steps on the host clock with a synchronize on each side:
-    graph replays on the kernel route, eager steps on the plain one.
-    Returns the ms a step, the lanes decoding at the window's start and
-    the decode graphs captured inside it (0 expected).  Leaves the
-    stream mid-flight."""
+    graph replays of the route's decode step on the card, eager steps
+    where its graphs were taken away.  Returns the ms a step, the lanes
+    decoding at the window's start and the decode graphs captured inside
+    it (0 expected).  Leaves the stream mid-flight."""
     gw.__dict__.pop("_sample", None)           # drop record_rows's per-step copy
     reqs = [gw.submit(p, license=t, max_new_tokens=n) for p, t, n in jobs]
     while any(r.state.value in ("queued", "prefilling") for r in reqs):
         if gw.step() is None:
             fail(f"{label}: the stream drained before every request decoded")
     lanes = sum(r.state.value == "running" for r in reqs)
-    g = gw._graphs
+    g = gw._graphs if gw.kernel_decode else gw._gather_graphs
     captures = g.captures if g is not None else 0
     sync()
     t0 = time.perf_counter()
@@ -3551,7 +3685,8 @@ def dense_outer(cfg, torch, device="cuda"):
 
 
 def dense_run(label, cfg, params, tiers, np, torch, device="cuda", route=None, check=None,
-              geometry=GEOMETRY, jobs=None, view_tiers=("full", "free"), **kw):
+              geometry=GEOMETRY, jobs=None, view_tiers=("full", "free"), turns=False,
+              trace_steps=0, **kw):
     """One gateway (``kw`` its arguments beside ``geometry``) serving
     ``jobs`` ((prompt, tier, new tokens); by default the first
     DENSE_REQUESTS of phase 3's stream): the views of ``view_tiers`` (both
@@ -3563,8 +3698,14 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", route=None, c
     in-scan store ``masked_dequant`` launches once per int8 leaf of every
     unit and tail block of each eager step or warm-up.  ``route`` maps
     gateway attributes to the values the gateway must have chosen;
-    ``check(gw, reqs, rows)`` runs after the drain.  Returns the
-    requests, their logits rows and a summary; the gateway is dropped."""
+    ``check(gw, reqs, rows)`` runs after the drain.  With ``turns`` (a
+    gateway without a prefix cache) the stream is served again on the
+    eager route (``eager_route``), its greedy tokens identical to the
+    graphs', and the steady decode step is timed in turns, graph beside
+    eager (``steady_turns``); then ``trace_steps`` decode steps through
+    the graphs are profiled and the device trace's ``masked_dequant``
+    launches a step read.  Returns the requests, their logits rows and
+    a summary; the gateway is dropped."""
     from repro_torch.kernels import ops
     from repro_torch.serving import LicensedGateway
     from repro_torch.serving.quantized import qleaves
@@ -3595,7 +3736,10 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", route=None, c
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens):
         fail(f"{label}: token ids outside the vocabulary")
     m = gw.metrics()
-    g, pg = gw._graphs, gw._prefill_graphs
+    # the route's decode and prefill families (None: eager)
+    g = gw._graphs if gw.kernel_decode else gw._gather_graphs
+    pg = gw._prefill_graphs if gw.chunked else gw._bucket_graphs
+    graphs = graph_report(gw)
     units = cfg.pattern_units
     # the forward steps: decode steps and prefill chunks, or the bucket
     # prefills where there are no chunks (``prefill_batches`` counts the
@@ -3610,7 +3754,7 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", route=None, c
                replays=None if g is None else g.replays,
                prefill_captures=None if pg is None else pg.captures,
                prefill_replays=None if pg is None else pg.replays,
-               graph_pool_gb=None if g is None else g.backend.pool_bytes() / 1e9,
+               graph_pool_gb=graphs["pool_bytes"] / 1e9, graphs=graphs["families"],
                launches=launches)
     out["block_bytes"] = gw.pool.block_bytes if gw.paged else None
     if gw.decode_kernels:
@@ -3626,8 +3770,7 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", route=None, c
         store = gw._weights[gw.version]
         leaves = (sum(1 for _ in qleaves(store["units"])) * units
                   + sum(1 for _ in qleaves(store.get("tail", {}))))
-        eager = (steps if g is None
-                 else g.captures + (pg.captures if pg is not None else m["prefill_chunks"]))
+        eager = sum(eager_steps_of(gw, m))
         out["masked_dequant_per_step"] = launches["masked_dequant"] / eager
         if launches["masked_dequant"] != leaves * eager:
             fail(f"{label}: {launches['masked_dequant']} masked_dequant launches over "
@@ -3636,14 +3779,50 @@ def dense_run(label, cfg, params, tiers, np, torch, device="cuda", route=None, c
         out["route"] = got_route
     if check is not None:
         out["check"] = check(gw, reqs, rows)
-    out.update(steady_decode_ms(label, gw, jobs))
-    how = ("eager" if g is None else
-           f"graphs: {g.captures} decode captures, {g.replays} replays, "
-           f"{pg.captures if pg else 0} prefill captures, {pg.replays if pg else 0} replays, "
-           f"pool {out['graph_pool_gb']:.3f} GB")
+    if turns:
+        if gw.prefix is not None:
+            fail(f"{label}: an eager rerun on a gateway with a prefix cache takes other steps")
+        gw.__dict__.pop("_sample", None)
+        ops.reset_launches()
+        with eager_route(gw):
+            again = [gw.submit(p, license=t, max_new_tokens=n) for p, t, n in jobs]
+            t0 = time.perf_counter()
+            gw.run()
+            sync()
+            out["eager_serve_s"] = time.perf_counter() - t0
+        out["eager_launches"] = dict(ops.LAUNCHES)
+        out["eager_tokens_per_s"] = sum(len(r.out_tokens) for r in again) / out["eager_serve_s"]
+        same_tokens(label, reqs, again)
+        out.update(steady_turns(label, gw, jobs))
+        out["step_ms"] = out["graph_ms"]
+        idle = {f: c for f, c in graph_report(gw)["families"].items()
+                if not (c["captures"] > 0 and c["replays"] > 0)}
+        if idle:
+            fail(f"{label}: compiled families not both captured and replayed: {idle}")
+        if trace_steps:
+            kinds = []
+            prof = profile_window(label.replace(" ", "_"), lambda: kinds.extend(
+                gw.step().kind for _ in range(trace_steps)), torch, trace_steps)
+            if prof is None or kinds != ["decode"] * trace_steps:
+                fail(f"{label}: the profiled window ran {kinds} (device trace "
+                     f"{'missing' if prof is None else 'present'})")
+            out["trace"] = dict(steps=trace_steps, busy_share=prof["busy_share"],
+                                graph_launches_per_step=prof["graph_launches_per_step"],
+                                kernels_per_step=prof["kernel_launches_per_step"],
+                                masked_dequant_per_step=(prof["port_kernels"]["masked_dequant"]
+                                                         / trace_steps))
+            log(f"  {label}: the device trace of {trace_steps} graph-replayed decode steps "
+                f"shows {out['trace']['masked_dequant_per_step']:.0f} masked_dequant launches "
+                f"a step")
+    else:
+        out.update(steady_decode_ms(label, gw, jobs))
+    how = graphs["text"]
     per = (f", masked_dequant {out['masked_dequant_per_step']:.0f} a step"
            if "masked_dequant_per_step" in out else "")
-    steady = (f"a steady decode step {out['step_ms']:.2f} ms "
+    steady = (f"a steady decode step {out['graph_ms']:.2f} ms through the graphs, "
+              f"{out['eager_ms']:.2f} ms eager (in turns; the eager rerun "
+              f"{out['eager_tokens_per_s']:.1f} tokens/s)" if turns else
+              f"a steady decode step {out['step_ms']:.2f} ms "
               f"({'graph replays' if g is not None else 'eager'}, {DENSE_STEADY_STEPS} steps "
               f"of {out['lanes']} lanes, host clock, synchronized; "
               f"{out['captures_in_window']} captures in the window; device ms not measured)")
@@ -3799,8 +3978,8 @@ MOE_UNITS = 14
 
 def moe_phase(np, torch, device="cuda", config=None):
     """Phase 10: (a) deepseek-moe-16b on float views, kernel route (graph
-    replays) against the plain route (eager), tokens equal up to
-    near-ties; (b) deepseek-moe-16b in-scan from an int8 store built unit
+    replays) against the plain route (graph replays of the plain step),
+    tokens equal up to near-ties; (b) deepseek-moe-16b in-scan from an int8 store built unit
     by unit; (c) deepseek-v2-lite-16b on float views on the default route
     (graphs; MLA's paged block has no kernel route); (d) deepseek-v2-lite-
     16b in-scan from an int8 store built unit by unit.  Returns each run's
@@ -3910,6 +4089,9 @@ WINDOW_MLA = 4096
 WINDOW_MLA_JOBS = (("full", 4160), ("free", 1024))      # (tier, prompt tokens)
 WINDOW_MLA_NEW = 64
 WINDOW_MLA_GEOMETRY = dict(max_batch=1, max_prompt=4160, max_new_cap=WINDOW_MLA_NEW)
+# new tokens a request of the turns window: the first request runs to its
+# end on the one lane, the second leaves 2 x 4 x TURN_STEPS decode steps
+WINDOW_MLA_TURN_NEW = 2 * len(COMPILED_TURNS) * TURN_STEPS
 WINDOW_MLA_TOL = 0.05          # phase 4's: x max(|logit|, 1) of the reference row
 
 
@@ -3945,9 +4127,11 @@ def window_mla_phase(cfg, params, tiers, np, torch, device="cuda"):
     gw = LicensedGateway(wcfg, params, tiers=tiers, device=device, **geo)
     route = dict(paged=gw.paged, chunk_size=gw.chunk_size, kernel_decode=gw.kernel_decode,
                  decode_kernels=gw.decode_kernels, prefix_cache=gw.prefix is not None,
-                 graphs=gw._graphs is not None)
+                 graphs=sorted(graph_families(gw)))
     want_route = dict(paged=False, chunk_size=0, kernel_decode=False, decode_kernels=False,
-                      prefix_cache=False, graphs=False)
+                      prefix_cache=False,
+                      graphs=sorted(("_bucket_graphs", "_gather_graphs")) if device == "cuda"
+                      else [])
     if route != want_route:
         fail(f"{label}: the slot chose {route}, not {want_route}")
     leaves = {path.rsplit("/", 1)[-1]: t for path, t in gw.pool.leaves.items()
@@ -3967,6 +4151,30 @@ def window_mla_phase(cfg, params, tiers, np, torch, device="cuda"):
         f"slots, dim): {lane_bytes / 1e6:.1f} MB a lane")
     for tier in ("full", "free"):
         gw.view_for(tier)
+    # the graph route first: every step a capture or a replay, timed; then
+    # the same gateway in turns, graph and eager; then its graphs dropped
+    # for the eager run below, which records every step's router calls
+    ops.reset_launches()
+    g_reqs = [gw.submit(p, license=t, max_new_tokens=WINDOW_MLA_NEW) for p, t in jobs]
+    g_steps = timed_steps(gw)
+    if any(ops.LAUNCHES.values()):
+        fail(f"{label}: launches {dict(ops.LAUNCHES)} on a route with no kernel")
+    g_decode = sorted(1e3 * dt for kind, dt in g_steps if kind != "prefill")
+    turns = steady_turns(label, gw, [(p, t, WINDOW_MLA_TURN_NEW) for p, t in jobs])
+    graphs = graph_report(gw)
+    idle = {f: c for f, c in graphs["families"].items()
+            if not (c["captures"] > 0 and c["replays"] > 0)}
+    if device == "cuda" and idle:
+        fail(f"{label}: compiled families not both captured and replayed: {idle}")
+    log(f"  {label}: through the graphs, bucket prefills "
+        f"{[round(dt, 3) for kind, dt in g_steps if kind == 'prefill']} s and a decode step "
+        f"p50 {g_decode[len(g_decode) // 2]:.2f} ms, max {g_decode[-1]:.2f} (over "
+        f"{len(g_decode)} steps, synchronized on each side); {graphs['text']}")
+    gw.slot.compile_steps(None)
+    gw.run()                             # the turns window's stream, eagerly
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
     rows = record_rows(gw)
     calls, marks = [], []               # router calls; (calls so far, [(rid, token index)])
     sample = gw._sample
@@ -3979,16 +4187,8 @@ def window_mla_phase(cfg, params, tiers, np, torch, device="cuda"):
     ops.reset_launches()
     reqs = [gw.submit(p, license=t, max_new_tokens=WINDOW_MLA_NEW) for p, t in jobs]
     route_fn = pinned_routes(torch, calls)
-    steps = []
     try:
-        while True:
-            sync()
-            t0 = time.perf_counter()
-            act = gw.step()
-            sync()
-            if act is None:
-                break
-            steps.append((act.kind, time.perf_counter() - t0))
+        steps = timed_steps(gw)
     finally:
         moe.route = route_fn
     launches = dict(ops.LAUNCHES)
@@ -3998,12 +4198,16 @@ def window_mla_phase(cfg, params, tiers, np, torch, device="cuda"):
            or len(r.out_tokens) != WINDOW_MLA_NEW]
     if bad:
         fail(f"{label}: requests {bad} did not finish")
+    same_tokens(label, g_reqs, reqs, ref="the graph route")
     prefill_s = [dt for kind, dt in steps if kind == "prefill"]
     decode_ms = sorted(1e3 * dt for kind, dt in steps if kind != "prefill")
     peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else 0.0
     out = dict(route=route, ring_shapes=shapes, ring_lane_bytes=lane_bytes,
                prefill_s=prefill_s, decode_steps=len(decode_ms),
                decode_ms_p50=decode_ms[len(decode_ms) // 2], decode_ms_max=decode_ms[-1],
+               graph_prefill_s=[dt for kind, dt in g_steps if kind == "prefill"],
+               graph_decode_ms_p50=g_decode[len(g_decode) // 2], graph_decode_ms_max=g_decode[-1],
+               turns=turns, graphs=graphs["families"], graph_pool_bytes=graphs["pool_bytes"],
                peak_gb=peak, launches=launches, requests=[])
     log(f"  {label}: {len(reqs)} requests x {WINDOW_MLA_NEW} tokens; bucket prefill of "
         f"{geo['max_prompt']} tokens {[round(s, 3) for s in prefill_s]} s (synchronized); "
@@ -4055,6 +4259,20 @@ def window_mla_phase(cfg, params, tiers, np, torch, device="cuda"):
     return out
 
 
+def timed_steps(gw):
+    """Step ``gw`` until it is idle, each step timed on the host clock
+    between two synchronizes; returns [(kind, seconds)]."""
+    steps = []
+    while True:
+        sync()
+        t0 = time.perf_counter()
+        act = gw.step()
+        sync()
+        if act is None:
+            return steps
+        steps.append((act.kind, time.perf_counter() - t0))
+
+
 def teacher_forced_parts(label, tokens, got, ref, capped):
     """Greedy ``tokens`` (n,) and their logits rows ``got`` (n, V) against
     a teacher-forced reference's rows ``ref`` (n, V) at the same
@@ -4093,6 +4311,31 @@ def host_rows(rows):
     return {k: v.cpu() for k, v in rows.items()}
 
 
+def eager_twin(label, cfg, params, tiers, np, device, graph_reqs, **kw):
+    """Phase 3's stream on a gateway of ``kw`` with its compiled steps
+    taken away (``compile_steps(None)``: every step eager), timed; its
+    greedy tokens must equal the graph route's ``graph_reqs``.  Returns
+    the seconds and tokens/s."""
+    from repro_torch.serving import LicensedGateway
+
+    gw = LicensedGateway(cfg, params, tiers=tiers, device=device, **kw)
+    gw.slot.compile_steps(None)
+    for tier in ("full", "free"):
+        gw.view_for(tier)
+    reqs = submit_all(gw, cfg, np)
+    t0 = time.perf_counter()
+    gw.run()
+    sync()
+    dt = time.perf_counter() - t0
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    same_tokens(label, graph_reqs, reqs)
+    log(f"  {label}: the eager route served the stream in {dt:.2f} s ({tokens / dt:.1f} "
+        f"tokens/s)")
+    del gw
+    gc.collect()
+    return dict(serve_s=dt, tokens_per_s=tokens / dt)
+
+
 def fallback_phase(cfg, params, tiers, np, torch, ref_reqs, ref_rows, device="cuda"):
     """Phase 9d: the gateway's fallbacks on phase 3's weights.  Phase 3's
     stream with ``kernel_decode=False`` (greedy tokens equal phase 3's
@@ -4125,7 +4368,16 @@ def fallback_phase(cfg, params, tiers, np, torch, ref_reqs, ref_rows, device="cu
         m = gw.metrics()
         t.update(cache_pool_paged=m["cache_pool"]["paged"], decode_path=m["decode_path"],
                  chunked_prefill=m["chunked_prefill"])
+        t.update(steady_turns(f"9d {name}", gw, dense_jobs(cfg, np)))
+        t["graphs"] = graph_report(gw)
+        idle = {f: c for f, c in t["graphs"]["families"].items()
+                if not (c["captures"] > 0 and c["replays"] > 0)}
+        log(f"  9d {name}: {t['graphs']['text']}")
+        if device == "cuda" and (idle or not t["graphs"]["families"]):
+            fail(f"9d {name}: compiled families not both captured and replayed: {idle}")
         del gw
+        t["eager"] = eager_twin(f"9d {name}", cfg, params, tiers, np, device, reqs,
+                                **kw, **GEOMETRY)
         ran[name] = (reqs, host_rows(rows))
         if ref is not None:
             t["parts"] = near_ties(f"9d {name}", reqs, ran[ref][0], ran[name][1], ran[ref][1],
@@ -4148,8 +4400,30 @@ def fallback_phase(cfg, params, tiers, np, torch, ref_reqs, ref_rows, device="cu
         add(ops.LAUNCHES)
         got[name][2]["launches"] = dict(ops.LAUNCHES)
         got[name][2]["admission_grouping"] = gw.metrics()["admission_grouping"]
+        got[name][2]["graphs"] = graph_report(gw)
+        fams = got[name][2]["graphs"]["families"]
+        want = {"graphs", "bucket_graphs"} | ({"suffix_graphs"} if not kw else set())
+        if device == "cuda" and not (set(fams) == want
+                                     and all(c["captures"] > 0 for c in fams.values())):
+            fail(f"9d ({name}): compiled families {fams}, not {sorted(want)} each captured")
         out[name] = got[name][2]
         del gw
+        gc.collect()
+        egw = LicensedGateway(cfg, params, tiers=tiers, device=device, chunk_size=0, **kw,
+                              **GEOMETRY)
+        egw.slot.compile_steps(None)
+        t0 = time.perf_counter()
+        ereqs = []
+        for wave in (stream[:2], stream[2:]):
+            ereqs += [egw.submit(p, license=t, max_new_tokens=SHARED_NEW) for t, p in wave]
+            egw.run()
+        sync()
+        out[name]["eager_serve_s"] = time.perf_counter() - t0
+        same_tokens(f"9d ({name})", got[name][0], ereqs)
+        log(f"  9d ({name}): the eager route served the stream in "
+            f"{out[name]['eager_serve_s']:.2f} s against {out[name]['serve_s']:.2f} s "
+            f"through the graphs")
+        del egw, ereqs
         gc.collect()
     on, off = out["bucket_prefix_on"], out["bucket_prefix_off"]
     if not (on["prefix_tokens_reused"] > 0 and on["prefix_cache"]["hits"] > 0):
@@ -4189,7 +4463,12 @@ def fallback_phase(cfg, params, tiers, np, torch, ref_reqs, ref_rows, device="cu
     out["fleet"] = dict(serve_s=dt, steps=steps, tokens=tokens, tokens_per_s=tokens / dt,
                         ms_per_step=1e3 * dt / steps, launches=dict(ops.LAUNCHES),
                         cache_used_bytes=m["fleet"]["cache_used_bytes"],
-                        paged={n: m["models"][n]["cache_pool"]["paged"] for n in reqs})
+                        paged={n: m["models"][n]["cache_pool"]["paged"] for n in reqs},
+                        graphs={n: graph_report(gw) for n, gw in fleet.gateways.items()})
+    for n, rep in out["fleet"]["graphs"].items():
+        if device == "cuda" and not all(c["replays"] > 0 for c in rep["families"].values()):
+            fail(f"9d fleet: {n}'s steps were not all graph replays: {rep['text']}")
+        log(f"  9d fleet {n}: {rep['text']}")
     log(f"  9d fleet (a paged and a contiguous slot): {sum(len(r) for r in reqs.values())} "
         f"requests, {tokens} tokens in {dt:.2f} s ({out['fleet']['tokens_per_s']:.1f} tokens/s, "
         f"{out['fleet']['ms_per_step']:.1f} ms per fleet step over {steps}); each slot's greedy "
@@ -4215,6 +4494,8 @@ WINDOW_GEOMETRY = dict(max_batch=2, max_prompt=3072, max_new_cap=16)
 WINDOW_PROMPTS = (2500, 3000)
 # decode steps held against a cacheless forward over the sequence so far
 FORWARD_CHECK_STEPS = 4
+# graph-replayed decode steps profiled in-scan for their masked_dequant launches
+TRACE_STEPS = 4
 # (d): mamba2-130m served in f32 as well, every checked row (agreeing
 # tokens included) within this share of max(|logit|, 1) of the cacheless
 # f32 forward: the witness that the bf16 runs' distance from theirs is
@@ -4303,7 +4584,7 @@ def window_run(label, cfg, params, tiers, np, torch, device="cuda"):
 
     _, _, out = dense_run(label, cfg, params, tiers, np, torch, device,
                           route=RECURRENT_ROUTES["mamba2-130m"], check=check,
-                          geometry=WINDOW_GEOMETRY, jobs=jobs)
+                          geometry=WINDOW_GEOMETRY, jobs=jobs, turns=True)
     return out
 
 
@@ -4381,13 +4662,16 @@ def recurrent_phase(peaks, np, torch, device="cuda", config=None):
 
     def in_scan(label, cfg, route, store):
         # dense_run holds the launches to the store's int8 leaves; at full
-        # size they must also be the count predicted above
+        # size they must also be the count predicted above, as must the
+        # graphs' replayed steps in the device trace
         _, _, run = dense_run(f"{label} in-scan int8", cfg, store, tiers, np, torch, device,
-                              route=route, already_quantized=True)
+                              route=route, already_quantized=True, turns=True,
+                              trace_steps=TRACE_STEPS if device == "cuda" else 0)
         want = RECURRENT_DEQUANTS.get(cfg.name)
-        if want is not None and run["masked_dequant_per_step"] != want:
+        traced = run.get("trace", {}).get("masked_dequant_per_step", want)
+        if want is not None and not run["masked_dequant_per_step"] == traced == want:
             fail(f"{label}: {run['masked_dequant_per_step']} masked_dequant launches a step "
-                 f"in-scan, not {want}")
+                 f"in-scan through the wrappers, {traced} in the trace, not {want}")
         add(run)
         return run
 
@@ -4404,7 +4688,8 @@ def recurrent_phase(peaks, np, torch, device="cuda", config=None):
     params = params_of(cfg)
     rg_reqs, rg_rows, a = dense_run("11a recurrentgemma-2b float views", cfg, params, tiers,
                                     np, torch, device, route=rg, kernel_decode=True,
-                                    check=check("11a recurrentgemma-2b float views", cfg))
+                                    check=check("11a recurrentgemma-2b float views", cfg),
+                                    turns=True)
     add(a)
     log("phase 11c: recurrentgemma-2b past its window (contiguous pool, the ring wraps)")
     c = window_run("11c recurrentgemma-2b past the window", cfg, params, tiers, np, torch,
@@ -4441,7 +4726,8 @@ def recurrent_phase(peaks, np, torch, device="cuda", config=None):
     mb = RECURRENT_ROUTES["mamba2-130m"]
     mb_reqs, mb_rows, d = dense_run("11d mamba2-130m float views", cfg, params, tiers, np,
                                     torch, device, route=mb,
-                                    check=check("11d mamba2-130m float views", cfg))
+                                    check=check("11d mamba2-130m float views", cfg),
+                                    turns=True)
     add(d)
     fleet_params["mamba2-130m"] = params
     del params
@@ -4494,8 +4780,15 @@ def recurrent_phase(peaks, np, torch, device="cuda", config=None):
     e["routes"] = {name: dict(paged=gw.paged, kernel_decode=gw.kernel_decode,
                               chunk_size=gw.chunk_size, prefix=gw.prefix is not None)
                    for name, gw in fleet.gateways.items()}
+    e["graphs"] = {name: graph_report(gw) for name, gw in fleet.gateways.items()}
+    for name, rep in e["graphs"].items():
+        fams = rep["families"]
+        dec = fams.get("graphs") or fams.get("gather_graphs")
+        if device == "cuda" and not (dec and dec["captures"] > 0 and dec["replays"] > 0):
+            fail(f"11e: {name}'s decode steps were not graph replays: {rep['text']}")
     log(f"  11e: {sum(e['tokens'].values())} tokens ({e['tokens']}) in {dt:.2f} s over "
-        f"{steps} fleet steps; routes {e['routes']}; launches {e['launches']}")
+        f"{steps} fleet steps; routes {e['routes']}; launches {e['launches']}; "
+        + "; ".join(f"{n} {r['text']}" for n, r in e["graphs"].items()))
     del fleet, fleet_rows, rg_rows, mb_rows
     gc.collect()
     if device == "cuda":
@@ -4581,7 +4874,7 @@ def vlm_prefill(label, cfg, params, np, torch, device="cuda"):
 
 def frontend_phase(peaks, np, torch, device="cuda", config=None):
     """Phase 12 (see the module docstring): (a) musicgen-large on float
-    views, kernel route (graphs) and plain route (eager), tokens equal up
+    views, kernel route and plain route (graphs both), tokens equal up
     to near-ties; (b) musicgen-large in-scan from its int8 store; (c)
     musicgen-large with ``kv_cache_int8``: the kernel-resident step and
     its graphs over the plain gather, no paged kernel, tokens against
@@ -5071,7 +5364,6 @@ def mesh_phase(cfg, params, np, torch, device="cuda"):
     store in-scan in the free tier, ``masked_dequant`` launched through
     ``local_map``; each held to the same steps on plain tensors.  Returns
     the summary and the mesh runs' launches."""
-    import contextlib
     import os
     import statistics
 

@@ -21,7 +21,9 @@ this mode first, so that the flop counter sees the DTensor ops.
 
 Each op is keyed by the innermost ``repro_torch`` frame that issued it,
 ``path/in/package.py:function`` (the counterpart of HLO ``op_name``
-provenance); ops issued from outside the package are keyed ``<outside>``.
+provenance), a product through ``models.layers.matmul`` by that
+function's caller; ops issued from outside the package are keyed
+``<outside>``.
 """
 from __future__ import annotations
 
@@ -56,14 +58,20 @@ def _bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+# helpers that issue an op on their caller's behalf: the op is the caller's
+_FORWARDERS = frozenset({"models/layers.py:matmul"})
+
+
 def _site() -> str:
     """``file:function`` of the innermost frame in the package (this
-    module's own frames skipped)."""
+    module's own frames and the ``_FORWARDERS`` skipped)."""
     f = sys._getframe(2)
     while f is not None:
         path = f.f_code.co_filename
         if path.startswith(_PKG) and path != _HERE:
-            return f"{os.path.relpath(path, _PKG)}:{f.f_code.co_name}"
+            site = f"{os.path.relpath(path, _PKG)}:{f.f_code.co_name}"
+            if site not in _FORWARDERS:
+                return site
         f = f.f_back
     return "<outside>"
 

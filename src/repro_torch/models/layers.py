@@ -16,6 +16,7 @@ cache handed to a block comes back holding the new tokens.
 from __future__ import annotations
 
 import math
+import numbers
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -69,6 +70,30 @@ def unshard(x: torch.Tensor, dim: int) -> torch.Tensor:
     pls = tuple(Replicate() if p.is_shard(dim) or p.is_partial() else p
                 for p in x.placements)
     return x if pls == tuple(x.placements) else x.redistribute(x.device_mesh, pls)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for activations (B, ..., K) and a weight (K, N).
+
+    Off the mesh it is ``x @ w`` itself.  Under a mesh the product runs
+    on the flattened rows, and where DTensor shards those rows over mesh
+    axes whose sizes do not divide B (a prefill of 4 rows on 16 data
+    ranks), they are made whole before the rows are unflattened:
+    DTensor cannot unflatten such a shard, where GSPMD pads it.  The
+    values are the product's either way.  ``launch.op_cost`` keys the
+    product by this function's caller."""
+    if not isinstance(x, DTensor) or x.ndim < 3:
+        return x @ w
+    rows = x.reshape(-1, x.shape[-1])
+    # redistributed to its own layout: the backward hands the rows'
+    # gradient on in it, which unflattens
+    y = rows.redistribute(rows.device_mesh, rows.placements) @ w
+    mesh = y.device_mesh
+    split = [i for i, p in enumerate(y.placements) if type(p) is Shard and p.dim == 0]
+    if x.shape[0] % math.prod(mesh.size(i) for i in split):
+        y = y.redistribute(mesh, tuple(Replicate() if i in split else p
+                                       for i, p in enumerate(y.placements)))
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -237,6 +262,15 @@ def _scale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
     return q * torch.tensor(scale, dtype=q.dtype)
 
 
+def device_offset(pos, device) -> torch.Tensor:
+    """``pos`` (an int, or (B,) per lane) on ``device``: an int is filled
+    there, not copied from the host, so a step that passes one (the
+    bucket prefill's 0) stays capturable in a CUDA graph."""
+    if isinstance(pos, numbers.Integral):
+        return torch.full((), int(pos), dtype=torch.int64, device=device)
+    return torch.as_tensor(pos, device=device)
+
+
 def attention_core(
     q: torch.Tensor,              # (B, Sq, H, hd)
     k: torch.Tensor,              # (B, Sk, KH, hd)
@@ -268,7 +302,7 @@ def attention_core(
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
     k_pos = torch.arange(sk, device=q.device)
     kp = (k_pos if k_positions is None else k_positions).reshape(-1, 1, sk)  # (B|1, 1, Sk)
-    q_off = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1)   # (B|1, 1)
+    q_off = device_offset(q_offset, q.device).reshape(-1, 1)             # (B|1, 1)
     q_pos = (q_off + torch.arange(sq, device=q.device))[:, :, None]     # (B|1, Sq, 1)
     mask = kp <= q_pos                                                   # (B|1, Sq, Sk)
     if k_positions is not None:
@@ -287,9 +321,9 @@ def _attn_qkv(p: Dict[str, Any], x: torch.Tensor, cfg, positions: torch.Tensor):
     paged paths (``positions`` broadcastable to (B, S))."""
     b, s, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = matmul(x, p["wq"])
+    k = matmul(x, p["wk"])
+    v = matmul(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = apply_rope(split_heads(q, h), positions, cfg.rope_theta)
@@ -324,7 +358,7 @@ def attention_block(
     """
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
-    pos_t = torch.as_tensor(pos, device=x.device).reshape(-1, 1)
+    pos_t = device_offset(pos, x.device).reshape(-1, 1)
     positions = (pos_t + torch.arange(s, device=x.device)).expand(b, s)
     q, k, v = _attn_qkv(p, x, cfg, positions)
 
@@ -395,7 +429,7 @@ def attention_block(
         else:
             out = attention_core(q, k, v, q_offset=pos, window=window)
         new_cache = {**{n: cache[n] for n in writes}, "len": new_len}
-    y = merge_heads(out, p["wo"]) @ p["wo"]
+    y = matmul(merge_heads(out, p["wo"]), p["wo"])
     return y, new_cache
 
 
@@ -532,9 +566,9 @@ def _mla_qkv(p: Dict[str, Any], x: torch.Tensor, cfg, positions: torch.Tensor):
     b, s, _ = x.shape
     h = cfg.num_heads
     nope, rope_d, r = cfg.qk_nope_dim, cfg.rope_head_dim, cfg.kv_lora_rank
-    q = split_heads(x @ p["wq"], h)
+    q = split_heads(matmul(x, p["wq"]), h)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    dkv = x @ p["w_dkv"]                                      # (B, S, r + rope_d)
+    dkv = matmul(x, p["w_dkv"])                               # (B, S, r + rope_d)
     c_kv = rms_norm(dkv[..., :r], p["ckv_norm"])
     k_rope = dkv[..., r:][:, :, None, :]                      # (B, S, 1, rope_d)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -547,7 +581,7 @@ def _mla_kv(p: Dict[str, Any], c_kv: torch.Tensor, k_rope: torch.Tensor, cfg):
     per-head keys (B, S, H, nope + rope_d) and values (B, S, H, vd)."""
     b, sk, _ = c_kv.shape
     h, nope, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
-    ukv = split_heads(c_kv @ p["w_ukv"], h)
+    ukv = split_heads(matmul(c_kv, p["w_ukv"]), h)
     k_nope, v = ukv[..., :nope], ukv[..., nope:]
     k = torch.cat([k_nope, k_rope.expand(b, sk, h, k_rope.shape[-1])], dim=-1)
     return k, v
@@ -583,7 +617,7 @@ def mla_block(
     JAX package."""
     b, s, _ = x.shape
     h, vd = cfg.num_heads, cfg.v_head_dim
-    pos_t = torch.as_tensor(pos, device=x.device).reshape(-1, 1)
+    pos_t = device_offset(pos, x.device).reshape(-1, 1)
     positions = (pos_t + torch.arange(s, device=x.device)).expand(b, s)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
 
@@ -620,7 +654,7 @@ def mla_block(
     qfull = torch.cat([q_nope, q_rope], dim=-1)
     out = attention_core(qfull, k, v, q_offset=pos, window=attend_window,
                          kv_len=kv_len if s == 1 else None)
-    y = merge_heads(out, p["wo"]) @ p["wo"]
+    y = matmul(merge_heads(out, p["wo"]), p["wo"])
     return y, new_cache
 
 
@@ -672,10 +706,10 @@ def mlp_block(p: Dict[str, Any], x: torch.Tensor, cfg) -> torch.Tensor:
     """SwiGLU when the block has ``w_gate``, else the nemotron family's
     squared ReLU, ``relu(x @ w_up) ** 2`` as ``r * r`` in the activation
     dtype."""
-    u = x @ p["w_up"]
+    u = matmul(x, p["w_up"])
     if "w_gate" in p:
-        h = F.silu(x @ p["w_gate"]) * u
+        h = F.silu(matmul(x, p["w_gate"])) * u
     else:
         r = F.relu(u)
         h = r * r
-    return h @ p["w_down"]
+    return matmul(h, p["w_down"])

@@ -391,7 +391,7 @@ def forward_aux(
             tp = dequant_tree(tp, license_intervals, cfg.dtype)
         run(tp, kind, None if cache is None else cache["tail"][f"t{j}"])
     x = L.apply_norm(x, params["final_norm"], cfg)
-    logits = (x @ params["lm_head"]).float()
+    logits = L.matmul(x, params["lm_head"]).float()
     if cfg.padded_vocab != cfg.vocab_size:
         logits = L.fill_last_from(logits, cfg.vocab_size, -1e9)
     return logits, aux, cache

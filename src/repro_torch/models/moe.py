@@ -24,7 +24,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import hint_sharding, index_add_rows, mlp_block
+from repro_torch.models.layers import hint_sharding, index_add_rows, matmul, mlp_block
 
 
 def capacity(s: int, cfg) -> int:
@@ -38,7 +38,7 @@ def route(p: Dict[str, Any], x: torch.Tensor, cfg):
     """Router of one block: (probs (B, S, E) f32, top_p (B, S, k) f32,
     top_e (B, S, k) int64), top_p renormalized over the k picks when the
     config says so."""
-    logits = x.float() @ p["router"]
+    logits = matmul(x.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, cfg.experts_per_token, dim=-1)
     if cfg.moe_renormalize:

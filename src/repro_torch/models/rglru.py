@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import matmul
 from repro_torch.models.ssm import causal_conv, softplus
 
 _C = 8.0  # Griffin's fixed gate sharpness
@@ -80,12 +81,12 @@ def rglru_block(p: Dict[str, Any], xin: torch.Tensor, cfg, *,
     ``state`` (B, W) f32; one token with a cache takes the single step.
     Returns (out, the new cache as new tensors, or ``None``)."""
     f32 = torch.float32
-    gate = xin @ p["w_gate"]
-    u, new_conv = causal_conv(xin @ p["w_x"], p["conv_w"], p["conv_b"],
+    gate = matmul(xin, p["w_gate"])
+    u, new_conv = causal_conv(matmul(xin, p["w_x"]), p["conv_w"], p["conv_b"],
                               None if cache is None else cache["conv"])
     u32 = u.to(f32)
-    r = torch.sigmoid(u32 @ p["w_r"].to(f32))
-    i = torch.sigmoid(u32 @ p["w_i"].to(f32))
+    r = torch.sigmoid(matmul(u32, p["w_r"].to(f32)))
+    i = torch.sigmoid(matmul(u32, p["w_i"].to(f32)))
     if u.shape[1] == 1 and cache is not None:
         a = torch.exp(-_C * r[:, 0] * softplus(p["a_param"]))
         final = (a * cache["state"].to(f32)
@@ -95,7 +96,7 @@ def rglru_block(p: Dict[str, Any], xin: torch.Tensor, cfg, *,
         h, final = _rglru_scan(u32, r, i, p["a_param"],
                                None if cache is None else cache["state"].to(f32))
     out = F.gelu(gate.to(f32), approximate="tanh") * h
-    out = out.to(xin.dtype) @ p["w_out"]
+    out = matmul(out.to(xin.dtype), p["w_out"])
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv.to(cache["conv"].dtype),

@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rms_norm, unshard
+from repro_torch.models.layers import matmul, rms_norm, unshard
 
 
 def d_inner(cfg) -> int:
@@ -145,7 +145,7 @@ def ssm_block(p: Dict[str, Any], xin: torch.Tensor, cfg, *,
     # under a mesh the projection and the conv cache may shard channels
     # across heads that do not divide over the ranks (mamba2-130m's 24 over
     # 16): the head split below needs them whole
-    z, xbc, dt_raw = _split_proj(cfg, unshard(xin @ p["in_proj"], -1))
+    z, xbc, dt_raw = _split_proj(cfg, unshard(matmul(xin, p["in_proj"]), -1))
     xbc, new_conv = causal_conv(xbc, p["conv_w"], p["conv_b"],
                                 None if cache is None else cache["conv"])
     xbc = F.silu(unshard(xbc, -1))
@@ -176,7 +176,7 @@ def ssm_block(p: Dict[str, Any], xin: torch.Tensor, cfg, *,
     y = y + xs.to(f32) * p["D_skip"][:, None]
     y = y.reshape(b, length, di).to(xin.dtype)
     y = rms_norm(y * F.silu(z), p["gate_norm"])
-    out = y @ p["out_proj"]
+    out = matmul(y, p["out_proj"])
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv.to(cache["conv"].dtype),

@@ -1,7 +1,9 @@
-"""The compiled steps of the port: CUDA graphs of the kernel-resident
-paged decode and of the chunked prefill.  The decode step runs through
-the paged kernels (``slot.decode_kernels``) or, over an int8 KV cache,
-through the plain gather, which the kernels cannot read.
+"""The compiled steps of the port: CUDA graphs of every step the gateway
+runs on the card.  The kernel-resident paged decode runs through the
+paged kernels (``slot.decode_kernels``) or through the plain gather (an
+int8 KV cache, which the kernels cannot read, or ``decode_kernels=False``);
+the chunked prefill, and the bucket path's gather/scatter decode, bucket
+prefill and prefix-hit suffix prefill (below) complete the set.
 
 Counterpart of ``repro/serving/gateway.py::_compiled_paged_decode``.  The
 JAX gateway jit-compiles its decode step once per (config, used table
@@ -54,6 +56,24 @@ computed on the host), and the picked rows' logits and greedy argmax.
 A capture's warm-up is the chunk itself (the scatter sets the counters
 a replay would set again), so no replay follows a capture.
 
+The bucket path (:class:`GatherDecodeGraphs`, :class:`BucketPrefillGraphs`,
+:class:`SuffixPrefillGraphs`) is the counterpart of the JAX package's
+``_compiled_steps`` (the lane-batched bucket prefill and the
+gather/scatter decode, on the paged and the contiguous pool) and of
+``_compiled_prefix_prefill`` on the bucket path: one graph per view (per
+version in-scan) at the fixed (``max_batch``, capacity) or (``max_batch``,
+``max_prompt``) shape, the suffix prefill one per (suffix width, view),
+kept in the view's ``bucket_graphs`` under (family, *key).  Their static
+inputs hold full ``max_batch`` rows: the lane ids, the full block tables
+and their write-back twins with the shared-block redirect (computed on
+the host), and each family's tokens and positions.  The gather, the
+step and the scatter all sit inside the graph; the contiguous pool's
+every leaf is lane state, put back around a decode warm-up like the
+paged pool's.  The models (the SSD chunk scan, the RG-LRU doubling scan,
+rings, MoE dispatch) run no host synchronization, and an integer
+position is filled on the device (``layers.device_offset``), so every
+route captures as it is.
+
 The backend is a constructor parameter: ``CudaGraphBackend`` on the
 card; the CPU tests pass one whose replay re-runs the captured function.
 """
@@ -65,8 +85,10 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.pytree_io import flatten_params
 from repro_torch.kernels import ops
-from repro_torch.serving.engine import prefill_chunk_step, serve_step_paged
+from repro_torch.serving.engine import (prefill_chunk_step, prefill_step, prefill_suffix_step,
+                                        serve_step, serve_step_paged, stack_lane_caches)
 
 
 def table_width(used: int, cap: int) -> int:
@@ -91,23 +113,28 @@ def _restore(pool: Any, snapshot: Dict[str, torch.Tensor]) -> None:
 class GraphSet(dict):
     """Table width -> captured decode step, over the weights ``params``;
     ``prefill`` maps (lanes, table width) -> captured prefill chunk over
-    the same weights."""
+    the same weights, and ``bucket`` (family, *key) -> the bucket path's
+    captured steps (:class:`GatherDecodeGraphs`, :class:`BucketPrefillGraphs`,
+    :class:`SuffixPrefillGraphs`)."""
 
     def __init__(self, params: Any):
         super().__init__()
         self.params = params
         self.prefill: Dict[Tuple[int, int], Any] = {}
+        self.bucket: Dict[Tuple[Any, ...], Any] = {}
 
 
 class View(tuple):
     """A licensed view ``(params, intervals)``, as ``TierViewCache`` holds
-    it, with the :class:`GraphSet` of the decode steps captured on it and
-    its prefill chunks (``prefill_graphs``)."""
+    it, with the :class:`GraphSet` of the decode steps captured on it, its
+    prefill chunks (``prefill_graphs``) and its bucket-path steps
+    (``bucket_graphs``)."""
 
     def __new__(cls, params: Any, intervals: Any, graphs: GraphSet):
         view = super().__new__(cls, (params, intervals))
         view.graphs = graphs
         view.prefill_graphs = graphs.prefill
+        view.bucket_graphs = graphs.bucket
         return view
 
 
@@ -217,6 +244,32 @@ class _StepGraphs:
     def _static_intervals(self):
         return (self.intervals[0], self.intervals[1]) if self.in_scan else None
 
+    def _capture_replayed(self, fn: Callable[[], None]) -> Any:
+        """Warm up and capture ``fn``, then put back the lane state the
+        warm-up advanced: the caller replays the graph for this step."""
+        state = _snapshot(self.slot.pool)
+        try:
+            self.backend.warmup(fn)
+            graph = self.backend.capture(fn)
+        finally:
+            _restore(self.slot.pool, state)
+        self.captures += 1
+        return graph
+
+    def _capture_ran(self, fn: Callable[[], None]) -> Any:
+        """Warm up and capture ``fn``; the warm-up is this step, so its
+        writes and lane state stand (a replay would write the same
+        again), and only a failed capture puts the lane state back."""
+        state = _snapshot(self.slot.pool)
+        try:
+            self.backend.warmup(fn)
+            graph = self.backend.capture(fn)
+        except BaseException:
+            _restore(self.slot.pool, state)
+            raise
+        self.captures += 1
+        return graph
+
 
 class DecodeGraphs(_StepGraphs):
     """A slot's compiled decode step (see the module docstring)."""
@@ -272,14 +325,7 @@ class DecodeGraphs(_StepGraphs):
             self.logits.copy_(logits)
             self.greedy.copy_(torch.argmax(logits, -1))
 
-        state = _snapshot(pool)
-        try:
-            self.backend.warmup(step)
-            graph = self.backend.capture(step)
-        finally:
-            _restore(pool, state)
-        self.captures += 1
-        return graph
+        return self._capture_replayed(step)
 
 
 class PrefillGraphs(_StepGraphs):
@@ -355,15 +401,225 @@ class PrefillGraphs(_StepGraphs):
             caches = pool.override_counters(caches, self.fills.dev[:b])
             pool.scatter(self.lanes.dev[:b], scatter.dev[:b], caches)
 
-        # the warm-up is this chunk: its K/V writes and lane state stand
-        # (a replay would write the same again); a failed capture puts the
-        # lanes' state back
-        state = _snapshot(pool)
-        try:
-            self.backend.warmup(chunk)
-            graph = self.backend.capture(chunk)
-        except BaseException:
-            _restore(pool, state)
-            raise
-        self.captures += 1
-        return graph
+        return self._capture_ran(chunk)
+
+
+class _BucketGraphs(_StepGraphs):
+    """What the bucket path's families share: their graphs live in the
+    views' ``bucket_graphs`` under (``family``, *key), and every step
+    fills the static lane ids (B,) int64 and, on the paged pool, the
+    gather and write-back tables (B, ``blocks_per_lane``) int32."""
+
+    family = ""
+
+    def __init__(self, slot: Any, backend: Optional[Any] = None):
+        super().__init__(slot, backend)
+        b, dev = slot.max_batch, slot.device
+        self.lanes = _Input((b,), torch.int64, dev)
+        if slot.paged:
+            shape = (b, slot.pool.blocks_per_lane)
+            self.tables = _Input(shape, torch.int32, dev)
+            self.scatter_tables = _Input(shape, torch.int32, dev)
+
+    def keys(self) -> set:
+        """The live graphs' keys, read from the views that own them:
+        (tier, version, *key), or (version, *key) in-scan."""
+        return {(k[1], *key[1:]) if self.in_scan else (*k, *key[1:])
+                for k, view in self.slot.views._entries.items()
+                for key in view.bucket_graphs if key[0] == self.family}
+
+    def _fill(self, lanes: Sequence[int], tables: Optional[np.ndarray],
+              scatter_tables: Optional[np.ndarray]) -> None:
+        self.lanes.fill(lanes)
+        if tables is not None:
+            self.tables.fill(tables)
+            self.scatter_tables.fill(scatter_tables)
+
+    def _scatter(self, caches: Dict[str, Any]) -> None:
+        """The lanes' caches into the pool: through the write-back tables
+        on the paged pool, by lane id on the contiguous one."""
+        if self.slot.paged:
+            self.slot.pool.scatter(self.lanes.dev, self.scatter_tables.dev, caches)
+        else:
+            self.slot.pool.scatter(self.lanes.dev, caches)
+
+    def _emit(self, logits: torch.Tensor) -> None:
+        self.logits.copy_(logits)
+        self.greedy.copy_(torch.argmax(logits, -1))
+
+
+class GatherDecodeGraphs(_BucketGraphs):
+    """A slot's compiled gather/scatter decode, one graph per view (per
+    version in-scan): the counterpart of the JAX package's
+    ``_compiled_steps`` decode, whose jit key is the fixed gathered shape
+    (``max_batch``, capacity).  Inside: each lane's logical cache gathered
+    from the pool (through the full tables on the paged pool),
+    ``engine.serve_step``, the logits and greedy argmax, and the scatter
+    back (through the write-back tables, shared blocks redirected to the
+    null block).  Static inputs besides :class:`_BucketGraphs`': tokens
+    (B, 1) int32, positions (B,) int32.  The warm-up's lane state is put
+    back and the step replayed, as :class:`DecodeGraphs` does."""
+
+    family = "decode"
+
+    def __init__(self, slot: Any, backend: Optional[Any] = None):
+        super().__init__(slot, backend)
+        b, dev = slot.max_batch, slot.device
+        self.tokens = _Input((b, 1), torch.int32, dev)
+        self.positions = _Input((b,), torch.int32, dev)
+
+    def step(self, view: View, tokens: np.ndarray, positions: np.ndarray,
+             lanes: Sequence[int], tables: Optional[np.ndarray] = None,
+             scatter_tables: Optional[np.ndarray] = None):
+        """One decode step through ``view``'s graph, captured on first
+        use.  Host arguments as the eager step's: tokens (B, 1),
+        positions (B,), lane ids (B,) and, on the paged pool, the tables
+        and write-back tables (B, blocks_per_lane).  Returns the static
+        logits (B, V) and greedy tokens (B,), valid until the next step."""
+        params, intervals = view
+        self.tokens.fill(tokens)
+        self.positions.fill(positions)
+        self._fill(lanes, tables, scatter_tables)
+        self._load_intervals(intervals)
+        graph = view.bucket_graphs.get((self.family,))
+        if graph is None:
+            graph = view.bucket_graphs[(self.family,)] = self._capture(params)
+        self.backend.replay(graph)
+        self.replays += 1
+        return self.logits, self.greedy
+
+    def _capture(self, params: Any) -> Any:
+        slot, pool = self.slot, self.slot.pool
+        li = self._static_intervals()
+
+        def step():
+            caches = (pool.gather(self.tables.dev, self.lanes.dev) if slot.paged
+                      else pool.gather(self.lanes.dev))
+            logits, caches = serve_step(params, slot.cfg, self.tokens.dev, caches,
+                                        self.positions.dev, li)
+            self._emit(logits)
+            self._scatter(caches)
+
+        return self._capture_replayed(step)
+
+
+class BucketPrefillGraphs(_BucketGraphs):
+    """A slot's compiled bucket prefill (``chunk_size=0``), one graph per
+    view (per version in-scan) at (``max_batch``, ``max_prompt``): the
+    counterpart of the JAX package's ``_compiled_steps`` prefill.  Inside:
+    the fresh lane caches (a static ``init_cache`` of ``max_batch`` lanes)
+    zeroed in place, ``engine.prefill_step`` on the right-aligned prompts
+    (static (B, max_prompt) int32 tokens), the logits and greedy argmax,
+    and the scatter into the pool through the lanes' ``prefill_blocks``
+    tables.  The warm-up is the step (:meth:`_StepGraphs._capture_ran`),
+    so no replay follows a capture."""
+
+    family = "prefill"
+
+    def __init__(self, slot: Any, backend: Optional[Any] = None):
+        super().__init__(slot, backend)
+        self.tokens = _Input((slot.max_batch, slot.max_prompt), torch.int32, slot.device)
+        self.caches: Optional[Dict[str, Any]] = None     # made at the first capture
+
+    def step(self, view: View, tokens: np.ndarray, lanes: Sequence[int],
+             tables: Optional[np.ndarray] = None,
+             scatter_tables: Optional[np.ndarray] = None):
+        """One bucket prefill through ``view``'s graph, captured on first
+        use.  Host arguments: the right-aligned tokens (B, max_prompt),
+        the padded lane ids (B,) and, on the paged pool, the lanes'
+        tables and write-back tables (B, blocks_per_lane).  Returns the
+        static last-row logits (B, V) and greedy tokens (B,)."""
+        params, intervals = view
+        self.tokens.fill(tokens)
+        self._fill(lanes, tables, scatter_tables)
+        self._load_intervals(intervals)
+        graph = view.bucket_graphs.get((self.family,))
+        if graph is None:
+            view.bucket_graphs[(self.family,)] = self._capture(params)
+        else:
+            self.backend.replay(graph)
+            self.replays += 1
+        return self.logits, self.greedy
+
+    def _capture(self, params: Any) -> Any:
+        slot = self.slot
+        li = self._static_intervals()
+        if self.caches is None:
+            self.caches = stack_lane_caches(slot.cfg, slot.max_batch, slot._zero_cap,
+                                            slot.device)
+        leaves = list(flatten_params(self.caches).values())
+
+        def step():
+            for t in leaves:
+                t.zero_()
+            logits, caches = prefill_step(params, slot.cfg, self.tokens.dev, self.caches,
+                                          license_intervals=li)
+            self._emit(logits)
+            self._scatter(caches)
+
+        return self._capture_ran(step)
+
+
+class SuffixPrefillGraphs(_BucketGraphs):
+    """A slot's compiled prefix-hit bucket prefill, one graph per (suffix
+    width, view) (per (width, version) in-scan): the JAX package's
+    ``_compiled_prefix_prefill`` key.  Inside: the lanes' caches gathered
+    through their tables (adopted blocks by reference),
+    ``engine.prefill_suffix_step`` on each lane's uncached suffix at its
+    own offset, each lane's last real row picked, its logits and greedy
+    argmax, the counters pinned to ``max_prompt`` and the scatter through
+    the write-back tables.  Static inputs besides :class:`_BucketGraphs`':
+    per width the suffix tokens (B, W) int32, and the offsets (B,)
+    int32, last real rows (B,) int64 and fills (B,) int32 (``max_prompt``
+    each).  The warm-up is the step, as :class:`BucketPrefillGraphs`'."""
+
+    family = "suffix"
+
+    def __init__(self, slot: Any, backend: Optional[Any] = None):
+        super().__init__(slot, backend)
+        b, dev = slot.max_batch, slot.device
+        self.tokens: Dict[int, _Input] = {}
+        self.offsets = _Input((b,), torch.int32, dev)
+        self.lasts = _Input((b,), torch.int64, dev)
+        self.fills = torch.full((b,), slot.max_prompt, dtype=torch.int32, device=dev)
+
+    def step(self, view: View, tokens: np.ndarray, offsets: np.ndarray,
+             lasts: np.ndarray, lanes: Sequence[int], tables: np.ndarray,
+             scatter_tables: np.ndarray):
+        """One suffix prefill through ``view``'s graph for the width of
+        ``tokens`` (B, W), captured on first use.  Host arguments as the
+        eager step's: offsets (B,), last real rows (B,), lane ids (B,),
+        tables and write-back tables (B, blocks_per_lane).  Returns the
+        static picked-row logits (B, V) and greedy tokens (B,)."""
+        params, intervals = view
+        width = int(tokens.shape[1])
+        if width not in self.tokens:
+            self.tokens[width] = _Input((self.slot.max_batch, width), torch.int32,
+                                        self.slot.device)
+        self.tokens[width].fill(tokens)
+        self.offsets.fill(offsets)
+        self.lasts.fill(lasts)
+        self._fill(lanes, tables, scatter_tables)
+        self._load_intervals(intervals)
+        graph = view.bucket_graphs.get((self.family, width))
+        if graph is None:
+            view.bucket_graphs[(self.family, width)] = self._capture(params, width)
+        else:
+            self.backend.replay(graph)
+            self.replays += 1
+        return self.logits, self.greedy
+
+    def _capture(self, params: Any, width: int) -> Any:
+        slot, pool = self.slot, self.slot.pool
+        li = self._static_intervals()
+        tokens = self.tokens[width]
+
+        def step():
+            caches = pool.gather(self.tables.dev)
+            logits, caches = prefill_suffix_step(params, slot.cfg, tokens.dev, caches,
+                                                 self.offsets.dev, li)
+            self._emit(logits[torch.arange(slot.max_batch, device=logits.device),
+                              self.lasts.dev])
+            self._scatter(pool.override_counters(caches, self.fills))
+
+        return self._capture_ran(step)

@@ -8,8 +8,8 @@ entitlements and quotas enforced at the door.  Three layers:
 * :class:`ModelSlot` — everything one served model owns: the weight
   versions, the (tier, version)-keyed view cache, the block-paged KV
   pool, the shared-prefix radix cache over it, the chunked-prefill
-  scheduler, the compiled decode and chunked-prefill steps (CUDA graphs
-  on the card, ``serving/compiled.py``), the serving stats, the observability
+  scheduler, the compiled decode and prefill steps of every route (CUDA
+  graphs on the card, ``serving/compiled.py``), the serving stats, the observability
   substrate (a ``Telemetry`` registry with the slot's instruments, a
   ``TraceRecorder`` event tape and an ``AuditLog``, all on the slot's
   clock), the opt-in sanitizer, and the license-server state of the
@@ -59,8 +59,9 @@ from repro_torch.core.transport import (DirectTransport, RetryPolicy, Transport,
                                         TransportTimeout)
 from repro_torch.models.model import check_supported
 from repro_torch.serving.paging import NoPagedLeavesError, PagedCachePool, cdiv
-from repro_torch.serving.compiled import (DecodeGraphs, GraphSet, PrefillGraphs, StoreGraphs,
-                                          View)
+from repro_torch.serving.compiled import (BucketPrefillGraphs, CudaGraphBackend, DecodeGraphs,
+                                          GatherDecodeGraphs, GraphSet, PrefillGraphs,
+                                          StoreGraphs, SuffixPrefillGraphs, View)
 from repro_torch.serving.prefix import PrefixCache
 from repro_torch.serving.engine import right_align
 from repro_torch.serving.scheduler import (CachePool, GatewayRequest, RequestState,
@@ -212,10 +213,6 @@ class ModelSlot:
             raise ValueError(f"decode_kernels=True needs a CUDA device, got "
                              f"{self.device}")
         self.decode_kernels = bool(decode_kernels)
-        # the compiled steps (CUDA graphs) take the kernel-resident decode
-        # on the card: through the kernels, or the int8 cache's plain gather
-        compiled = on_cuda and self.kernel_decode and (self.decode_kernels
-                                                       or cfg.kv_cache_int8)
         if self.paged:
             self._prefill_blocks = max(1, cdiv(self.max_prompt, self.pool.block_size))
             if self.pool.num_blocks - int(watermark_blocks) < self._prefill_blocks:
@@ -378,13 +375,10 @@ class ModelSlot:
         # suffix-width bucket (the grouping decision, in metrics())
         self.bucket_batches: Dict[int, int] = {}
 
-        # the compiled decode and chunked-prefill steps (serving/
-        # compiled.py): CUDA graphs of the kernel path on the card, both
-        # in one memory pool; the plain path and the CPU run eagerly.
-        # Private: the eager steps stay reachable by setting either to None.
-        self._graphs = DecodeGraphs(self) if compiled else None
-        self._prefill_graphs = (PrefillGraphs(self, backend=self._graphs.backend)
-                                if compiled and self.chunked else None)
+        # the compiled steps (serving/compiled.py): on the card every
+        # route's decode and prefill is a CUDA graph, all in one memory
+        # pool; the CPU runs them eagerly
+        self.compile_steps(CudaGraphBackend(self.device) if on_cuda else None)
 
         self._register_telemetry()
         # seed the audit ledger: the tiers this slot can serve from birth
@@ -392,6 +386,25 @@ class ModelSlot:
             for name in self.tiers:
                 self.audit.record("tier_grant", model=self.model, tier=name,
                                   version=self.version, source="config")
+
+    def compile_steps(self, backend: Any) -> None:
+        """The compiled steps of this slot's routes, on ``backend``
+        (``None``: every step eager): the kernel-resident decode
+        (``_graphs``) or the gather/scatter decode (``_gather_graphs``),
+        and the chunked prefill (``_prefill_graphs``) or the bucket
+        prefill (``_bucket_graphs``) with, under the prefix cache, its
+        suffix prefill (``_suffix_graphs``); the others are ``None``.
+        Private attributes: the eager steps stay reachable by setting
+        any of them to ``None``."""
+        def family(cls, wanted: bool):
+            return cls(self, backend=backend) if backend is not None and wanted else None
+
+        self._graphs = family(DecodeGraphs, self.kernel_decode)
+        self._prefill_graphs = family(PrefillGraphs, self.chunked)
+        self._gather_graphs = family(GatherDecodeGraphs, not self.kernel_decode)
+        self._bucket_graphs = family(BucketPrefillGraphs, not self.chunked)
+        self._suffix_graphs = family(SuffixPrefillGraphs,
+                                     not self.chunked and self.prefix is not None)
 
     # ---------------------------------------------------------- observability
     def _register_telemetry(self) -> None:

@@ -37,12 +37,14 @@ prefill chunk there is a graph too, one per (pow2 lanes, pow2 table
 width) and view, the JAX gateway's jit key.  An int8 KV cache
 (``kv_cache_int8``) keeps the kernel-resident step and its graphs but
 writes and reads through the plain gather, as the kernels read float
-K/V.  The plain path (``decode_kernels=False``) on a float cache and the
-CPU decode and prefill eagerly.  The
-JAX gateway's fallbacks are explicit arguments: the bucket prefill
+K/V; so does the plain path (``decode_kernels=False``).  The JAX
+gateway's fallbacks are explicit arguments: the bucket prefill
 (``chunk_size=0``), the gather/scatter decode (``kernel_decode=False``)
-and the contiguous pool (``paged=False``); they run eagerly.  The
-recurrent models take them by themselves, as in the JAX slot:
+and the contiguous pool (``paged=False``); on the card each of their
+steps is a CUDA graph too (one a view, the suffix prefill one per
+suffix width and view), as the JAX gateway jit-compiles them.  The CPU
+decodes and prefills eagerly.  The recurrent models take the fallbacks
+by themselves, as in the JAX slot:
 mamba2-130m has no per-token cache leaf (the contiguous pool), and
 recurrentgemma-2b's RG-LRU and ring lane state rules out the prefix
 cache, chunked prefill and, with its window, the kernel-resident decode
@@ -174,21 +176,21 @@ class LicensedGateway:
         prompts right-aligned into the ``max_prompt`` bucket with
         repeated-first-token padding, one step per admission, with the
         prefix cache's suffix prefill and suffix-width admission groups
-        (eager on the card).  A positive value on the contiguous pool
-        raises.
+        (CUDA graphs on the card).  A positive value on the contiguous
+        pool raises.
     kernel_decode:
         Kernel-resident paged decode (default: on the paged pool).
         ``False`` gathers each lane's logical cache, decodes it with
-        ``serve_step`` and scatters it back, eagerly and without the
-        kernels.
+        ``serve_step`` and scatters it back, without the kernels (one
+        CUDA graph a view on the card).
     decode_kernels:
         Route the kernel-resident decode write and attention through the
         Hopper kernels, the step replayed as a CUDA graph.  Default: on a
         CUDA device with the kernel-resident decode and a float KV
         cache; ``True`` off a CUDA device, without the kernel-resident
         decode or with ``kv_cache_int8`` raises, ``False`` selects the
-        plain path (eager on a float cache; an int8 cache's plain gather
-        is captured in the graphs on the card).
+        plain path (captured in the graphs on the card, as an int8
+        cache's plain gather is).
     decode_pallas:
         The JAX slot's name for the same switch, read once into
         ``decode_kernels``: ``"pallas"`` is ``True``, ``"off"`` is
@@ -632,7 +634,7 @@ class LicensedGateway:
         hit runs every lane's uncached suffix instead
         (:meth:`_run_prefix_prefill`).  Each lane emits its first token,
         and its prompt chain goes to the prefix cache."""
-        params, li = self.views.get(act.tier, act.version)
+        view = self.views.get(act.tier, act.version)
         reqs = act.requests
         toks = right_align([r.prompt for r in reqs], self.max_prompt, self.max_batch)
         # longest-cached-prefix lookup before any allocation: matching
@@ -656,26 +658,34 @@ class LicensedGateway:
             lanes = [self.scheduler.start(r) for r in reqs]
             for r in reqs:
                 self._note_admission(r)
-            outs = self._run_prefix_prefill(act, toks, matches, lanes, params, li)
+            outs = self._run_prefix_prefill(act, toks, matches, lanes, view)
         else:
             if self.sanitizer is not None:
                 self.sanitizer.retrace.note("steps", _sampling_key(reqs, self.fuse_sampling))
-            caches = stack_lane_caches(self.cfg, self.max_batch, self._zero_cap, self.device)
-            logits, caches = prefill_step(params, self.cfg, self._to_device(toks), caches,
-                                          license_intervals=li)
-            outs = self._sample(logits, reqs)
             lanes = self.pool.pad_lanes([self.scheduler.start(r) for r in reqs],
                                         self.max_batch)
             for r in reqs:
                 self._note_admission(r)
+            tables = None
             if self.paged:
                 for r in reqs:
                     r.blocks = self._alloc_blocks(self._prefill_blocks)
                 self._note_block_use()
                 tables = self.pool.pad_tables([r.blocks for r in reqs], self.max_batch)
-                self.pool.scatter(lanes, tables, caches)
+            if self._bucket_graphs is not None:
+                logits, greedy = self._bucket_graphs.step(view, toks, lanes, tables, tables)
+                outs = self._sample(logits, reqs, greedy)
             else:
-                self.pool.scatter(lanes, caches)
+                params, li = view
+                caches = stack_lane_caches(self.cfg, self.max_batch, self._zero_cap,
+                                           self.device)
+                logits, caches = prefill_step(params, self.cfg, self._to_device(toks), caches,
+                                              license_intervals=li)
+                outs = self._sample(logits, reqs)
+                if self.paged:
+                    self.pool.scatter(lanes, tables, caches)
+                else:
+                    self.pool.scatter(lanes, caches)
             self.stats["prefill_lane_tokens"] += self.max_prompt * len(reqs)
         self.stats["max_running"] = max(self.stats["max_running"],
                                         len(self.scheduler.running))
@@ -696,7 +706,7 @@ class LicensedGateway:
 
     def _run_prefix_prefill(self, act: ScheduledAction, toks: np.ndarray,
                             matches: List[Tuple[List[int], int]], lanes: List[int],
-                            params: Any, li: Any) -> np.ndarray:
+                            view: Any) -> np.ndarray:
         """Bucket prefill of a micro-batch with >= 1 prefix-cache hit:
         every lane runs only its uncached suffix, at its own offset, in
         one step.  Lanes share the width ``W = max(suffix lens)``; a
@@ -704,8 +714,9 @@ class LicensedGateway:
         prompt in the lane's own blocks or the null block, masked by
         ``len`` until decode overwrites them) and each lane's last real
         row is picked.  Adopted blocks enter the table by reference;
-        write-back redirects every shared block to the null block.
-        Returns the lanes' first tokens."""
+        write-back redirects every shared block to the null block.  On
+        the card the step is a graph replay, one graph per (suffix width,
+        view).  Returns the lanes' first tokens."""
         reqs = act.requests
         suffix = [self.max_prompt - n for _, n in matches]
         w = max(suffix)
@@ -730,6 +741,12 @@ class LicensedGateway:
             self.sanitizer.retrace.note("prefix_prefill", _sampling_key(reqs, self.fuse_sampling))
         lane_ids = self.pool.pad_lanes(lanes, self.max_batch)
         tables = self.pool.pad_tables([r.blocks for r in reqs], self.max_batch)
+        wb = self._scatter_tables(tables, reqs)
+        if self._suffix_graphs is not None:
+            rows, greedy = self._suffix_graphs.step(view, sub, poss, lasts, lane_ids,
+                                                    tables, wb)
+            return self._sample(rows, reqs, greedy)
+        params, li = view
         caches = self.pool.gather(tables)
         logits, caches = prefill_suffix_step(params, self.cfg, self._to_device(sub), caches,
                                              self._to_device(poss), li)
@@ -739,7 +756,7 @@ class LicensedGateway:
         # the step's len accounting saw only W suffix tokens; pin the
         # counters to the true logical fill before they reach the pool
         caches = self.pool.override_counters(caches, self.max_prompt)
-        self.pool.scatter(lane_ids, self._scatter_tables(tables, reqs), caches)
+        self.pool.scatter(lane_ids, wb, caches)
         return outs
 
     # ------------------------------------------------------ chunked prefill
@@ -1010,7 +1027,8 @@ class LicensedGateway:
         it is a graph replay; sampled lanes draw from its logits rows
         here.  Otherwise (``kernel_decode=False`` or the contiguous
         pool) each lane's logical cache is gathered, decoded by
-        ``serve_step`` and scattered back, eagerly."""
+        ``serve_step`` and scattered back: on the card one graph replay
+        a view, the three inside it."""
         if self.paged:
             act.requests = self._grow_block_tables(act.requests)
             if not act.requests:
@@ -1051,24 +1069,28 @@ class LicensedGateway:
         else:
             if self.sanitizer is not None:
                 self.sanitizer.retrace.note("steps", _sampling_key(reqs, self.fuse_sampling))
-            params, li = view
+            tables = wb = None
             if self.paged:
                 tables = self.pool.pad_tables([r.blocks for r in reqs], self.max_batch)
-                caches = self.pool.gather(tables, lanes)
-            else:
-                caches = self.pool.gather(lanes)
-            logits, caches = serve_step(params, self.cfg, self._to_device(toks), caches,
-                                        self._to_device(poss), li)
-            outs = self._sample(logits, reqs)
-            if self.paged:
                 # shared (prefix-cache) blocks are read-only: redirect their
                 # redundant write-back to the null block (the write target
                 # itself is always private, copied above)
                 wb = (self._scatter_tables(tables, reqs)
                       if self.prefix is not None else tables)
-                self.pool.scatter(lanes, wb, caches)
+            if self._gather_graphs is not None:
+                logits, greedy = self._gather_graphs.step(view, toks, poss, lanes, tables, wb)
+                outs = self._sample(logits, reqs, greedy)
             else:
-                self.pool.scatter(lanes, caches)
+                params, li = view
+                caches = (self.pool.gather(tables, lanes) if self.paged
+                          else self.pool.gather(lanes))
+                logits, caches = serve_step(params, self.cfg, self._to_device(toks), caches,
+                                            self._to_device(poss), li)
+                outs = self._sample(logits, reqs)
+                if self.paged:
+                    self.pool.scatter(lanes, wb, caches)
+                else:
+                    self.pool.scatter(lanes, caches)
         for i, r in enumerate(reqs):
             r.pos += 1
             if self.obs:

@@ -236,7 +236,17 @@ class CachePool:
         return lanes + [self.scratch] * (width - len(lanes))
 
     def _index(self, lanes) -> torch.Tensor:
+        """An int64 device index: host lane ids are copied over; a device
+        tensor (a compiled step's static input) is used where it lies."""
+        if isinstance(lanes, torch.Tensor):
+            return lanes.long()
         return torch.as_tensor(np.asarray(lanes, np.int64)).to(self.device)
+
+    @property
+    def state(self) -> Dict[str, torch.Tensor]:
+        """Every leaf of a contiguous pool is lane state (a compiled
+        step's warm-up puts it back)."""
+        return self.leaves
 
     def gather(self, lanes) -> Dict[str, Any]:
         """The lanes' caches as one batch (copies)."""

@@ -1,8 +1,9 @@
 """One rank of ``tests/test_torch_mesh.py``'s gloo world: the port's
-sharded ``prefill_step`` and ``serve_step`` on a (2, 2) mesh, and
+sharded ``prefill_step`` and ``serve_step`` on a (2, 2) mesh,
 qwen2.5-3b's int8 store on (1, 4), where its 2 kv heads do not divide
 over the query heads' 4 shards: the in-scan int8 dequant's leaves
-gathered back whole, and its steps.  Imports no JAX: the weights come as ``.npz`` files of the
+gathered back whole, and its steps, and qwen2.5-3b's steps at an uneven
+batch, ``UNEVEN`` rows on a (4, 1) mesh.  Imports no JAX: the weights come as ``.npz`` files of the
 JAX package's flat params, and rank 0 writes what it saw to
 ``out.npz`` in the same directory."""
 from pathlib import Path
@@ -13,6 +14,7 @@ import torch.distributed as dist
 
 ARCHS = ("qwen2.5-3b", "deepseek-moe-16b", "mamba2-130m")
 B, S, CAP, STEPS = 4, 8, 16, 4
+UNEVEN = 2                   # rows over 4 data ranks
 
 
 def config(arch):
@@ -24,8 +26,8 @@ def config(arch):
     return cfg.replace(vocab_size=500) if arch == "qwen2.5-3b" else cfg
 
 
-def tokens(arch):
-    return np.random.default_rng(len(arch)).integers(0, 500, (B, S), dtype=np.int64)
+def tokens(arch, rows=B):
+    return np.random.default_rng(len(arch)).integers(0, 500, (rows, S), dtype=np.int64)
 
 
 def _full(t):
@@ -38,16 +40,17 @@ def sharded_steps(cfg, params, toks, mesh, license_intervals=None):
     """Prefill then ``STEPS`` greedy decode steps with every param and
     cache leaf placed on ``mesh`` by the partition rules and the tokens
     batch-sharded, under ``implicit_replication``: (logits of each step
-    gathered, (steps + 1, B, V); tokens (steps, B))."""
+    gathered, (steps + 1, B, V); tokens (steps, B)); B is ``toks``' rows."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.distribution import sharding as shd
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import prefill_step, serve_step
 
+    b = toks.shape[0]
     dp = shd.distribute_tree(params, shd.params_shardings(params, mesh, cfg), mesh)
-    cache = model_lib.init_cache(cfg, B, CAP, device="cpu")
-    cache = shd.distribute_tree(cache, shd.cache_shardings(cache, mesh, B), mesh)
+    cache = model_lib.init_cache(cfg, b, CAP, device="cpu")
+    cache = shd.distribute_tree(cache, shd.cache_shardings(cache, mesh, b), mesh)
 
     def place(t):
         return shd.distribute_tree({"t": t}, shd.data_shardings({"t": t}, mesh), mesh)["t"]
@@ -60,7 +63,7 @@ def sharded_steps(cfg, params, toks, mesh, license_intervals=None):
         for i in range(STEPS):
             nxt = torch.from_numpy(logits[-1].argmax(-1)[:, None])
             out.append(nxt[:, 0].numpy())
-            pos = torch.full((B,), S + i, dtype=torch.int32)
+            pos = torch.full((b,), S + i, dtype=torch.int32)
             lg, cache = serve_step(dp, cfg, place(nxt), cache, pos, license_intervals)
             logits.append(_full(lg))
     return np.stack(logits), np.stack(out)
@@ -84,6 +87,7 @@ def run(rank: int, world: int, where: str) -> None:
 
         mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
         tp = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+        dp = init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model"))
         out = {}
         for arch in ARCHS:
             cfg = config(arch)
@@ -102,6 +106,8 @@ def run(rank: int, world: int, where: str) -> None:
                             out[f"int8/units/{u}/{name}"] = _full(leaf)
                 out["int8/logits"], out["int8/tokens"] = sharded_steps(
                     cfg, store, tokens(arch), tp, license_intervals=li)
+                out["uneven/logits"], out["uneven/tokens"] = sharded_steps(
+                    cfg, params, tokens(arch, UNEVEN), dp)
         if rank == 0:
             np.savez(d / "out.npz", **out)
     finally:

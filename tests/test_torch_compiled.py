@@ -18,7 +18,8 @@ dequant), with the prefill chunks eager and through their graphs too.  The graph
 invalidation, version GC), the launch counts (warm-ups only, no replay
 adds any), the kernel path's table widths and a capture that raises are
 checked one by one.  One ``gpu`` test serves a stream through real CUDA
-graphs against the eager kernel path.
+graphs against the eager steps, on the kernel path and on every other
+route (``tests/test_torch_fallback_graphs.py`` holds those on the CPU).
 """
 import weakref
 
@@ -373,30 +374,48 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+# the card's routes: the kernel path (the default), the plain
+# kernel-resident decode, and the bucket path's families
+CARD_ROUTES = {"kernels": {}, "plain_decode": dict(decode_kernels=False),
+               "kernel_decode_off": dict(kernel_decode=False),
+               "bucket_prefix": dict(chunk_size=0), "contiguous": dict(paged=False)}
+FAMILIES = ("_graphs", "_prefill_graphs", "_gather_graphs", "_bucket_graphs", "_suffix_graphs")
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(CARD_ROUTES))
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_cuda_graphs_match_eager_kernels_on_card(weights, cuda, mode):
-    """The default gateway on the card (CUDA graphs) against the same
-    gateway with the graphs taken away (the eager kernel path): greedy
-    tokens identical over the whole stream."""
+def test_cuda_graphs_match_eager_kernels_on_card(weights, cuda, mode, route):
+    """The default gateway on the card (CUDA graphs on every route)
+    against the same gateway with the graphs taken away (the eager
+    steps): greedy tokens identical over the whole stream, every family
+    of the route captured and replayed; on the kernel path the wrappers
+    count the warm-ups' launches only."""
     _, _, cfg, params = weights
     dev_params = _to(params, cuda)
     runs = []
     for graphs in (True, False):
         gw = LicensedGateway(cfg, dev_params, device=cuda,
                              tiers={"free": LicenseTier(name="free", masks=FREE)},
-                             **{**GEOMETRY, **MODES[mode]})
-        assert gw.decode_kernels and gw._graphs is not None
-        assert gw.metrics()["decode_path"]["pallas"] == "pallas"
+                             **{**GEOMETRY, **MODES[mode], **CARD_ROUTES[route]})
+        families = [f for f in FAMILIES if getattr(gw, f) is not None]
+        assert families
         if not graphs:
-            gw._graphs = None
+            gw.slot.compile_steps(None)
         ops.reset_launches()
         toks = [r.out_tokens for r in _drain(gw, _stream())]
         runs.append((gw, toks, ops.LAUNCHES["paged_attention"]))
     (graph_gw, graph_toks, graph_n), (eager_gw, eager_toks, eager_n) = runs
     assert graph_toks == eager_toks
+    for f in families:
+        assert getattr(graph_gw, f).captures > 0, f
+    decode = graph_gw._graphs if graph_gw.kernel_decode else graph_gw._gather_graphs
+    assert decode.replays == graph_gw.stats["decode_steps"] > decode.captures
+    if route != "kernels":
+        assert graph_n == eager_n == 0
+        return
     graphs = graph_gw._graphs
-    assert graphs.replays == graph_gw.stats["resident_decode_steps"] > graphs.captures > 0
+    assert graph_gw.decode_kernels and graph_gw.metrics()["decode_path"]["pallas"] == "pallas"
     # the wrappers count the warm-ups' launches, never a capture's
     units = cfg.pattern_units
     assert graph_n == units * graphs.captures

@@ -14,10 +14,14 @@ heads' 4 shards: the in-scan int8 dequant of every unit, gathered, must
 equal the unsharded ``dequant_tree`` bit for bit, and its steps the
 unsharded in-scan steps.
 
+qwen2.5-3b's steps at 2 rows on a (4, 1) mesh, a batch the data axis
+does not divide, must give the unsharded steps' tokens and logits too.
+
 (b) ``launch.dryrun.dry_run`` with a mesh on the fake world (made in a
 fixture, destroyed at teardown): decode, prefill and train at (2, 2)
 and (16, 16) on smoke variants, a rank's bytes equal to its local
-shards', no collective bytes on (1, 1), and ``launch.analyze``'s three
+shards', and at 4 rows on (16, 16), a batch the data axis does not
+divide; no collective bytes on (1, 1), and ``launch.analyze``'s three
 tables.
 """
 import json
@@ -89,14 +93,15 @@ def world(tmp_path_factory):
 def plain_steps(cfg, params, toks, license_intervals=None):
     """The unsharded port on the same schedule as ``W.sharded_steps``,
     the tokens its own greedy picks."""
-    cache = model_lib.init_cache(cfg, W.B, W.CAP, device="cpu")
+    b = toks.shape[0]
+    cache = model_lib.init_cache(cfg, b, W.CAP, device="cpu")
     lg, cache = prefill_step(params, cfg, torch.from_numpy(toks), cache,
                              license_intervals=license_intervals)
     logits, out = [lg.numpy()], []
     for i in range(W.STEPS):
         nxt = torch.from_numpy(logits[-1].argmax(-1)[:, None])
         out.append(nxt[:, 0].numpy())
-        pos = torch.full((W.B,), W.S + i, dtype=torch.int32)
+        pos = torch.full((b,), W.S + i, dtype=torch.int32)
         lg, cache = serve_step(params, cfg, nxt, cache, pos, license_intervals)
         logits.append(lg.numpy())
     return np.stack(logits), np.stack(out)
@@ -115,6 +120,17 @@ def test_sharded_steps_match_unsharded(world, arch):
     _close(out[f"{arch}/logits"], want_logits)
     if arch == "qwen2.5-3b":               # the padded ids stay masked
         assert (out[f"{arch}/logits"][..., 500:] == -1e9).all()
+
+
+def test_uneven_batch_steps_match_unsharded(world):
+    """2 rows on 4 data ranks: the products' rows DTensor cannot split
+    evenly are made whole (``layers.matmul``), and the steps give the
+    unsharded port's tokens and logits."""
+    out, params = world
+    want_logits, want_tokens = plain_steps(W.config("qwen2.5-3b"), params["qwen2.5-3b"],
+                                           W.tokens("qwen2.5-3b", W.UNEVEN))
+    np.testing.assert_array_equal(out["uneven/tokens"], want_tokens)
+    _close(out["uneven/logits"], want_logits)
 
 
 def test_sharded_qwen_matches_jax(world):
@@ -192,10 +208,7 @@ def test_mesh_dry_run(fake_mesh, arch):
 
     cfg = smoke_variant(get_config(arch))
     chips = fake_mesh.size()
-    # a batch of one row a data rank: with fewer rows than data ranks
-    # DTensor shards a flattened product's rows unevenly and then cannot
-    # unflatten them (ROADMAP queue 3)
-    batch = fake_mesh.shape[0]
+    batch = fake_mesh.shape[0]              # one row a data rank
     for kind in ("decode", "prefill", "train"):
         shape = shapes.InputShape(f"s_{kind}", kind, 16, batch)
         plain = dryrun.dry_run(cfg, shape)
@@ -219,6 +232,26 @@ def test_mesh_dry_run(fake_mesh, arch):
         assert rep["collective_bytes"] == sum(
             v for k, v in rep["collectives"].items() if k.endswith("_bytes"))
         assert rep["bound_s"] == max(rep["compute_s"], rep["memory_s"], rep["collective_s"])
+
+
+@pytest.mark.parametrize("fake_mesh", [(16, 16)], indirect=True, ids=["16x16"])
+@pytest.mark.parametrize("arch", DRY_ARCHS)
+def test_mesh_dry_run_uneven_batch(fake_mesh, arch):
+    """4 rows on 16 data ranks: DTensor would shard a product's 128
+    flattened rows over the data axis and then fail to unflatten them;
+    ``layers.matmul`` makes such rows whole, and the report counts the
+    unsharded run's flops."""
+    from repro_torch.configs import get_config, smoke_variant
+
+    cfg = smoke_variant(get_config(arch))
+    for kind in ("prefill", "decode", "train"):
+        shape = shapes.InputShape(f"s_{kind}", kind, 32, 4)
+        plain = dryrun.dry_run(cfg, shape)
+        rep = dryrun.dry_run(cfg, shape, mesh=fake_mesh)
+        assert rep["flops"] == plain["flops"], kind
+        assert rep["compute_s"] == pytest.approx(plain["compute_s"] / 256)
+        assert 0 < rep["weight_bytes"] <= plain["weight_bytes"]
+        assert rep["collective_bytes"] > 0 and rep["collective_count"] > 0
 
 
 @pytest.mark.parametrize("fake_mesh", [(1, 1)], indirect=True, ids=["1x1"])
