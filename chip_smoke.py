@@ -167,7 +167,9 @@ Phases (each prints its own lines; any failure exits non-zero):
 8. the offline lifecycle (paper Fig. 3): (a) ``examples/quickstart.py``
    step for step at the paper's size (``TABLE1_A``): ``train_mlp`` 600
    steps (accuracy at least 0.95), ``compress_pipeline`` at 0.8,
-   ``finetune_pruned_mlp`` 200 steps (every pruned zero still 0),
+   ``finetune_pruned_mlp`` 200 steps (every pruned zero still 0), both
+   through their SGD step's CUDA graph (one each) and again eager on the
+   same data (accuracies and the largest parameter difference printed),
    publish, ``calibrate_license`` to 0.70, a full and a free
    ``EdgeClient`` pull (free accuracy below paid) and a 25-weight delta
    update (25 entries), the launch counters zeroed just before the pulls
@@ -178,10 +180,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    projection pruned and quantized again on the CPU and held bit for
    bit) and ``weight_share`` on one 2048 x 11008 slice (indices below k,
    MSE below the linear init's); (c) ``train_loop`` on phase 3's weights
-   at full depth, one 2 x 256-token batch repeated for 4 steps (ms per
-   step, tokens/s, peak memory; finite losses and grad norms, the last
-   loss below the first, the first within 1e-3 of ``lm_loss``), then 2
-   steps at 2 units checkpointed into an in-memory ``WeightStore`` at
+   at full depth, one 2 x 256-token batch repeated for 4 steps, eager
+   and then through its CUDA graph (ms per step, tokens/s, peak memory,
+   the graph's captures, replays and pool bytes; losses and grad norms
+   bit for bit, or else the first differing step printed and every value
+   within 1e-3 relative; finite, the last loss below the first, the
+   first within 1e-3 of ``lm_loss``), then 2 steps through the graph at
+   2 units checkpointed into an in-memory ``WeightStore`` at
    step 2 (seconds and rows per commit; the history must hold "step 2":
    a commit of the 2-unit model takes about a minute of host time, so
    one commit, not one a step);
@@ -312,12 +317,17 @@ Phases (each prints its own lines; any failure exits non-zero):
 13. the batch engine, host sampling and the launch tools on phase 3's
    weights (qwen2.5-3b at full width and depth, tiers full, pro and
    free): (a) ``ServingEngine`` on float views, 6 requests (prompts of
-   64-256 tokens, 16 new, greedy; eager, each decode step timed with a
-   synchronize on each side), its tokens held against the same requests
+   64-256 tokens, 16 new, greedy) through its CUDA graphs (the first run
+   captures them), then in turns eager, graph, graph, eager on the same
+   engine, each decode step timed with a synchronize on each side, greedy
+   tokens identical in every run, captures, replays and pool bytes
+   printed; its tokens held against the same requests
    through ``engine.gateway(record_logits=True)`` on the kernel route,
    parting only at near-ties by phase 4's rule from the rows both
    computed; (b) the same with ``quantized=True`` (252 ``masked_dequant``
-   launches every step) against the gateway's in-scan route; (c) phase
+   launches every eager step, and a replayed prefill or decode step in
+   the device trace of one more graph run) against the gateway's in-scan
+   route; (c) phase
    3's stream with greedy lanes and lanes at temperature 0.8 (top_k 0, 5
    and 50) through the kernel route with ``fuse_sampling`` True and
    False (three waves, the last timed: the second still captures
@@ -326,7 +336,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    fused rows bit for bit, ms a step both ways, and the median epilogue
    and batched device draw of the timed wave; (d)
    ``launch.roofline``'s decode bound at (a)'s largest group beside its
-   step and phase 3's graph step, and ``launch.dryrun``'s weight and
+   graph and eager steps and phase 3's graph step, and ``launch.dryrun``'s weight and
    cache bytes beside what ``init_params`` and ``init_cache`` allocate
    (within 1%).  Phase 13 must launch ``paged_attention``,
    ``paged_decode_write`` and ``masked_dequant``;
@@ -1592,14 +1602,16 @@ TRACE_KERNELS = {"paged_attention": "paged_attention_split_kernel",
 PROFILE_LEAD_IN = 1024
 
 
-def profile_window(label, fn, torch, steps):
+def profile_window(label, fn, torch, steps, keep_kernels=False):
     """Run ``fn`` (``steps`` scheduler steps, then a synchronize) under
     torch.profiler with CPU and CUDA activities.  Returns the window's
     length, the union of its device intervals (kernels, copies, sets) as
     a share of it, kernel launches per step, the five kernels with the
     most device time and the port's kernels among those the window's
-    CUDA calls launched; None when the trace holds no device events.
-    Fails when the trace lost the last of the lead-in's marker kernels."""
+    CUDA calls launched (with ``keep_kernels``, every such kernel's
+    (name, start us, duration us) too, under ``kernel_events``); None
+    when the trace holds no device events.  Fails when the trace lost the
+    last of the lead-in's marker kernels."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     out_dir = ROOT / "build" / "profiles"
@@ -1680,6 +1692,8 @@ def profile_window(label, fn, torch, steps):
                             for n, (t, c) in top],
                most_launched=[dict(name=n[:120], ms=t / 1e3, launches=c)
                               for n, (t, c) in most])
+    if keep_kernels:
+        out["kernel_events"] = [(e["name"], float(e["ts"]), float(e["dur"])) for e in kernels]
     log(f"  profile {label} ({steps} step(s), torch.profiler CPU+CUDA, trace "
         f"{path.relative_to(ROOT)}): window {out['window_ms']:.2f} ms, device busy "
         f"{out['device_busy_ms']:.2f} ms = {100 * out['busy_share']:.1f}% (union of kernel, "
@@ -3289,7 +3303,12 @@ QUICK = dict(n=8000, train=6000, steps=600, sparsity=0.8, finetune=200,
              target=0.70, k_intervals=12, update=25)
 QUICK_MIN_ACC = 0.95
 SHARE = dict(k=32, iters=25)
-TRAIN = dict(seq=256, batch=2, steps=4, lr=1e-4)
+TRAIN = dict(seq=256, batch=2, steps=5, lr=1e-4)
+# kernel families of a training step's device trace: the first whose
+# words a kernel's name holds (lower case), else "other"
+KERNEL_FAMILIES = {"gemm": ("gemm", "xmma", "cutlass", "nvjet"), "softmax": ("softmax",),
+                   "reduce": ("reduce",), "elementwise": ("elementwise",),
+                   "index": ("index", "gather", "scatter", "embedding", "sort")}
 # one checkpoint: a commit of the 2-unit model (its 0.62 B embedding and
 # head parameters among 11,856 zlib pages) takes about a minute of host
 # time on the card's machine (PERF.md section 5), two would pass 90 s
@@ -3297,12 +3316,59 @@ CKPT = dict(units=2, steps=2, every=2)
 LOSS_RTOL = 1e-3
 
 
+class kept_instances:
+    """Inside it, the class ``module.name`` is a subclass that keeps its
+    instances in the list the ``with`` gives (a compiled step's captures
+    and replays, read after its loop returns)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        cls = self.cls = getattr(self.module, self.name)
+        made = self.made = []
+
+        class Kept(cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        setattr(self.module, self.name, Kept)
+        return made
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.cls)
+
+
+class eager_training:
+    """Inside it, the training loops take their eager steps
+    (``train_lib._graph_backend`` returns ``None``), the eager twin of the
+    CUDA graphs they run on the card."""
+
+    def __enter__(self):
+        from repro_torch.training import train_lib
+
+        self.saved = train_lib._graph_backend
+        train_lib._graph_backend = lambda device: None
+
+    def __exit__(self, *exc):
+        from repro_torch.training import train_lib
+
+        train_lib._graph_backend = self.saved
+
+
+def max_diff(a, b, torch):
+    """The largest |difference| of two param trees' leaves."""
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(_leaves(a), _leaves(b)))
+
+
 def quickstart_phase(np, torch, device="cuda"):
     """8a: ``examples/quickstart.py`` step for step at the paper's size
-    (``TABLE1_A``): train, compress and fine-tune, publish, calibrate a
-    free tier, two licensed pulls and a 25-weight delta update.  The
-    launch counters are zeroed just before the pulls and read just
-    after."""
+    (``TABLE1_A``): train and fine-tune through the SGD step's CUDA graph
+    (each beside an eager twin on the same data: accuracies and the
+    largest parameter difference), compress, publish, calibrate a free
+    tier, two licensed pulls and a 25-weight delta update.  The launch
+    counters are zeroed just before the pulls and read just after."""
     from repro_torch.configs.paper_mlp import TABLE1_A
     from repro_torch.core import compress_pipeline, flatten_params, unflatten
     from repro_torch.core.licensing import calibrate_license
@@ -3310,17 +3376,40 @@ def quickstart_phase(np, torch, device="cuda"):
     from repro_torch.core.weightstore import WeightStore
     from repro_torch.data import classification_data
     from repro_torch.kernels import ops
-    from repro_torch.training import finetune_pruned_mlp, mlp_accuracy, train_mlp
+    from repro_torch.training import finetune_pruned_mlp, mlp_accuracy, train_lib, train_mlp
 
     out = {}
     x, y = classification_data(QUICK["n"], TABLE1_A.in_dim, TABLE1_A.num_classes, seed=0)
     n = QUICK["train"]
     xtr, ytr, xte, yte = x[:n], y[:n], x[n:], y[n:]
-    t0 = time.perf_counter()
-    params = train_mlp(TABLE1_A, xtr, ytr, steps=QUICK["steps"], device=device)
-    sync()
-    out["train_s"] = time.perf_counter() - t0
-    out["trained_acc"] = mlp_accuracy(params, xte, yte)
+
+    def twins(label, run):
+        """``run()`` through the graphs, then its eager twin; returns the
+        graph run's params."""
+        with kept_instances(train_lib, "SgdStepGraph") as made:
+            t0 = time.perf_counter()
+            got = run()
+            sync()
+            graph_s = time.perf_counter() - t0
+        with eager_training():
+            t0 = time.perf_counter()
+            twin = run()
+            sync()
+            eager_s = time.perf_counter() - t0
+        if device == "cuda" and len(made) != 1:
+            fail(f"8a: {label} ran {len(made)} SGD step graphs, not 1")
+        row = dict(graph_s=graph_s, eager_s=eager_s, acc=mlp_accuracy(got, xte, yte),
+                   eager_acc=mlp_accuracy(twin, xte, yte),
+                   max_param_diff=max_diff(got, twin, torch),
+                   captures=sum(g.captures for g in made), replays=sum(g.replays for g in made))
+        log(f"  {label}: through the graph {graph_s:.2f} s ({row['captures']} capture, "
+            f"{row['replays']} replays), acc={row['acc']:.4f}; the eager twin {eager_s:.2f} s, "
+            f"acc={row['eager_acc']:.4f}; largest parameter difference {row['max_param_diff']:.3g}")
+        return got, row
+
+    params, out["train"] = twins(f"[1] train {TABLE1_A.name}", lambda: train_mlp(
+        TABLE1_A, xtr, ytr, steps=QUICK["steps"], device=device))
+    out["train_s"], out["trained_acc"] = out["train"]["graph_s"], out["train"]["acc"]
     log(f"  [1] trained {TABLE1_A.name} ({TABLE1_A.num_params} params) {QUICK['steps']} "
         f"steps in {out['train_s']:.2f} s: acc={out['trained_acc']:.4f}")
     if out["trained_acc"] < QUICK_MIN_ACC:
@@ -3328,10 +3417,9 @@ def quickstart_phase(np, torch, device="cuda"):
 
     pruned, _, stats = compress_pipeline(params, sparsity=QUICK["sparsity"])
     zeros = {k: v == 0 for k, v in flatten_params(pruned).items()}
-    t0 = time.perf_counter()
-    pruned = finetune_pruned_mlp(TABLE1_A, pruned, xtr, ytr, steps=QUICK["finetune"])
-    sync()
-    out["finetune_s"] = time.perf_counter() - t0
+    pruned, out["finetune"] = twins("[2] fine-tune", lambda: finetune_pruned_mlp(
+        TABLE1_A, pruned, xtr, ytr, steps=QUICK["finetune"]))
+    out["finetune_s"] = out["finetune"]["graph_s"]
     flat = flatten_params(pruned)
     moved = [k for k, z in zeros.items() if bool((flat[k][z] != 0).any())]
     if moved:
@@ -3473,12 +3561,144 @@ def compression_phase(cfg, params, np, torch):
     return out
 
 
-def training_phase(cfg, params, np, torch):
-    """8c: ``train_loop`` on ``params`` at full depth (one batch repeated),
-    then a checkpointed run at ``CKPT['units']`` units into an in-memory
-    ``WeightStore``."""
+def kernel_families(events):
+    """Device ms and kernels of ``events`` ((name, start us, duration
+    us)) by ``KERNEL_FAMILIES``, and the same of the step's tail: every
+    kernel after its last GEMM (the embedding's gradient, the grad norm
+    and AdamW)."""
+    def family(name):
+        low = name.lower()
+        return next((f for f, words in KERNEL_FAMILIES.items()
+                     if any(w in low for w in words)), "other")
+
+    def split(evs):
+        out, by_name = {}, {}
+        for name, _, dur in evs:
+            f = out.setdefault(family(name), dict(ms=0.0, kernels=0))
+            f["ms"] += dur / 1e3
+            f["kernels"] += 1
+            by_name[name] = by_name.get(name, 0.0) + dur / 1e3
+        for f, v in out.items():          # each family's heaviest kernel
+            v["top"] = max((n for n in by_name if family(n) == f), key=by_name.get)[:100]
+        return out
+
+    gemms = [ts for name, ts, _ in events if family(name) == "gemm"]
+    tail = [e for e in events if gemms and e[1] > max(gemms)]
+    return dict(families=split(events), tail=split(tail),
+                tail_ms=sum(d for _, _, d in tail) / 1e3, tail_kernels=len(tail))
+
+
+def training_run(label, cfg, params, batch, ocfg, np, torch, compiled):
+    """One ``train_loop`` of ``TRAIN['steps']`` steps on ``params``
+    (``batch`` repeated), through its CUDA graph or, ``compiled=False``,
+    eager: each step's ms (host clock between log lines, each after a
+    synchronize), its loss and exact grad norm (the graph's static
+    output, or the eager step's metric), the peak memory and, through
+    the graph, its captures, replays and pool bytes, and its last step's
+    replay profiled (``kernel_families`` of its device trace)."""
     import itertools
-    import re
+
+    from repro_torch.training import train_lib, train_loop
+
+    cuda = torch.cuda.is_available()
+    lines, stamps, gnorms, pools, last = [], [], [], [], []
+    make_train_step = train_lib.make_train_step
+
+    def recording(*a, **kw):
+        fn = make_train_step(*a, **kw)
+
+        def step(*sa, **skw):
+            out = fn(*sa, **skw)
+            last[:] = [out[2]]
+            return out
+        return step
+
+    profiles = []
+
+    def profiled(graph):
+        """``graph.step`` for one call under the profiler."""
+        step = graph.step
+
+        def once(b):
+            del graph.step
+            got = []
+            profiles.append(profile_window("train_step_replay", lambda: got.append(step(b)),
+                                           torch, 1, keep_kernels=True))
+            return got[0]
+        return once
+
+    def log_fn(line):
+        sync()
+        stamps.append(time.perf_counter())
+        if made:
+            gnorms.append(float(made[0].metrics["grad_norm"]))
+            pools.append(made[0].backend.pool_bytes() if cuda else 0)
+            if cuda and len(stamps) == TRAIN["steps"] - 1:
+                made[0].step = profiled(made[0])
+        else:
+            gnorms.append(float(last[0]["grad_norm"]))
+        lines.append(line)
+        log(f"    {line}")
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        made = stack.enter_context(kept_instances(train_lib, "TrainStepGraph"))
+        if not compiled:
+            stack.enter_context(eager_training())
+            train_lib.make_train_step = recording
+            stack.callback(setattr, train_lib, "make_train_step", make_train_step)
+        sync()
+        t0 = time.perf_counter()
+        trained, hist = train_loop(cfg, ocfg, itertools.repeat(batch), TRAIN["steps"],
+                                   params=params, log_every=1, log_fn=log_fn)
+    del trained
+    gc.collect()
+    if compiled and cuda and len(made) != 1:
+        fail(f"8c: the {label} loop ran {len(made)} step graphs, not 1")
+    step_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps, stamps)]
+    tokens = TRAIN["seq"] * TRAIN["batch"]
+    out = dict(loss=hist["loss"], grad_norm=gnorms, step_ms=step_ms,
+               tokens_per_s=[1e3 * tokens / ms for ms in step_ms],
+               steady_ms=float(np.median(step_ms[1:-1])))
+    if cuda:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if made:
+        out.update(captures=made[0].captures, replays=made[0].replays,
+                   pool_gb=max(pools) / 1e9)
+    graphs = (f"; {out['captures']} capture, {out['replays']} replays, pool "
+              f"{out['pool_gb']:.3f} GB" if made else "")
+    log(f"  8c {label}: {TRAIN['steps']} steps of {TRAIN['batch']} x {TRAIN['seq']} tokens: "
+        f"ms per step {[round(ms, 2) for ms in step_ms]} (steps 2-{TRAIN['steps'] - 1} median "
+        f"{out['steady_ms']:.2f}), tokens/s {[round(t, 1) for t in out['tokens_per_s']]}; peak "
+        f"{out.get('peak_gb', 0):.1f} GB{graphs}")
+    prof = profiles[0] if profiles else None
+    if prof is not None:
+        split = kernel_families(prof.pop("kernel_events"))
+        out["replay_profile"] = dict(kernel_ms=prof["kernel_ms_per_step"],
+                                     kernels=prof["kernel_launches_per_step"],
+                                     busy_share=prof["busy_share"], window_ms=prof["window_ms"],
+                                     **split)
+        fams = sorted(split["families"].items(), key=lambda kv: -kv[1]["ms"])
+        log(f"  8c {label}: the last step's replay in the device trace: "
+            f"{prof['kernel_ms_per_step']:.2f} ms of kernels in "
+            f"{prof['kernel_launches_per_step']:.0f} launches; by family (ms / kernels) "
+            + ", ".join(f"{f} {v['ms']:.2f} / {v['kernels']}" for f, v in fams)
+            + "; heaviest kernel of each: " + "; ".join(f"{f} {v['top']}" for f, v in fams)
+            + f"; after the last GEMM {split['tail_ms']:.2f} ms in {split['tail_kernels']} "
+            f"kernels (" + ", ".join(f"{f} {v['ms']:.2f} / {v['kernels']}"
+                                     for f, v in split["tail"].items()) + ")")
+    return out
+
+
+def training_phase(cfg, params, np, torch):
+    """8c: ``train_loop`` on ``params`` at full depth (one batch
+    repeated), eager and then through its CUDA graph: step times, peak
+    memory, and losses and grad norms bit for bit (else the first
+    differing step, and every value within ``LOSS_RTOL`` relative); then
+    a checkpointed run through the graph at ``CKPT['units']`` units into
+    an in-memory ``WeightStore``."""
+    import itertools
 
     from repro_torch.core.weightstore import WeightStore
     from repro_torch.data import LMDataConfig, lm_batches
@@ -3493,41 +3713,27 @@ def training_phase(cfg, params, np, torch):
     with torch.no_grad():
         want = float(lm_loss(params, cfg, torch.from_numpy(batch["tokens"]).to(device),
                              torch.from_numpy(batch["labels"]).to(device))[0])
-    cuda = device.type == "cuda"
-    base = torch.cuda.memory_allocated() if cuda else 0
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-    lines, stamps = [], []
-
-    def log_fn(line):
-        sync()
-        stamps.append(time.perf_counter())
-        lines.append(line)
-        log(f"    {line}")
-
-    sync()
-    t0 = time.perf_counter()
-    trained, hist = train_loop(cfg, ocfg, itertools.repeat(batch), TRAIN["steps"],
-                               params=params, log_every=1, log_fn=log_fn)
-    step_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps, stamps)]
-    tokens = TRAIN["seq"] * TRAIN["batch"]
     n_params = sum(t.numel() for t in _leaves(params))
-    gnorm = [float(re.search(r"gnorm (\S+)", line).group(1)) for line in lines]
-    out.update(loss=hist["loss"], grad_norm=gnorm, step_ms=step_ms,
-               tokens_per_s=[1e3 * tokens / ms for ms in step_ms], lm_loss=want,
-               optimizer_state_bytes=8 * n_params)
-    if cuda:
-        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["peak_above_weights_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
-    del trained
-    gc.collect()
-    log(f"  {TRAIN['steps']} steps of {TRAIN['batch']} x {TRAIN['seq']} tokens: ms per "
-        f"step {[round(ms, 1) for ms in step_ms]}, tokens/s "
-        f"{[round(t, 1) for t in out['tokens_per_s']]}; peak {out.get('peak_gb', 0):.1f} GB "
-        f"({out.get('peak_above_weights_gb', 0):.1f} above the weights), optimizer state "
-        f"{out['optimizer_state_bytes'] / 1e9:.2f} GB; lm_loss of the batch {want:.6f}")
-    if not all(np.isfinite(hist["loss"])) or not all(np.isfinite(gnorm)):
-        fail(f"8c: non-finite loss {hist['loss']} or grad norm {gnorm}")
+    eager = training_run("eager", cfg, params, batch, ocfg, np, torch, compiled=False)
+    graph = training_run("graph", cfg, params, batch, ocfg, np, torch, compiled=True)
+    out.update(graph, eager=eager, lm_loss=want, optimizer_state_bytes=8 * n_params)
+    pairs = list(zip(graph["loss"] + graph["grad_norm"], eager["loss"] + eager["grad_norm"]))
+    differ = [i % TRAIN["steps"] for i, (a, b) in enumerate(pairs) if a != b]
+    out["first_differing_step"] = min(differ) if differ else None
+    worst = max(abs(a - b) / abs(b) for a, b in pairs)
+    log(f"  8c: the graph step {graph['steady_ms']:.2f} ms against {eager['steady_ms']:.2f} ms "
+        f"eager (medians of steps 2-{TRAIN['steps'] - 1}), peak {graph.get('peak_gb', 0):.1f} GB "
+        f"against {eager.get('peak_gb', 0):.1f}; losses and grad norms "
+        + ("bit for bit" if not differ else
+           f"first differ at step {out['first_differing_step']}, at most {worst:.3g} relative")
+        + f"; optimizer state {out['optimizer_state_bytes'] / 1e9:.2f} GB; lm_loss of the batch "
+        f"{want:.6f}")
+    if differ and worst > LOSS_RTOL:
+        fail(f"8c: the graph loop's losses or grad norms differ from the eager loop's by "
+             f"{worst} relative, above {LOSS_RTOL}")
+    hist = graph
+    if not all(np.isfinite(hist["loss"])) or not all(np.isfinite(hist["grad_norm"])):
+        fail(f"8c: non-finite loss {hist['loss']} or grad norm {hist['grad_norm']}")
     if not hist["loss"][-1] < hist["loss"][0]:
         fail(f"8c: the loss did not fall: {hist['loss']}")
     if abs(hist["loss"][0] - want) > LOSS_RTOL * abs(want):
@@ -5053,66 +5259,138 @@ def engine_jobs(cfg, np):
             for n, t in zip(ENGINE_PROMPTS, ENGINE_TIERS)]
 
 
-def engine_run(label, eng, jobs, torch):
-    """Serve ``jobs`` through ``ServingEngine.generate`` (greedy): every
-    decode step timed on the host clock with a synchronize on each side,
-    its ``masked_dequant`` launches counted, and a host copy of the
-    logits row each token is sampled from kept by (request index, token
-    index).  Returns
-    the requests (each with ``rid`` = its index), the rows and a summary."""
+def engine_run(label, eng, jobs, torch, profile=False):
+    """Serve ``jobs`` through ``ServingEngine.generate`` (greedy) on one
+    engine: first through its graphs (``eng._graphs``, whose captures it
+    makes), keeping a host copy of the logits row each token comes from
+    by (request index, token index); then COMPILED_TURNS (eager, graph,
+    graph, eager), every decode step timed on the host clock with a
+    synchronize on each side (eager: ``serve_step``, its
+    ``masked_dequant`` launches counted; graph: ``EngineGraphs.decode``,
+    the inputs' fill and the replay).  Every run's greedy tokens must
+    equal the first run's, and no turn may capture a graph.  With
+    ``profile``, one more graph run under ``torch.profiler``: the device
+    trace's ``masked_dequant`` launches a replayed step.  Returns the
+    requests (each with ``rid`` = its index), the rows and a summary."""
     from types import SimpleNamespace
+
+    import numpy as np
 
     from repro_torch.kernels import ops
     from repro_torch.serving import Request
     from repro_torch.serving import engine as engine_mod
 
-    reqs = [Request(prompt=p, max_new_tokens=ENGINE_NEW, license=t) for p, t in jobs]
-    index = {id(r): i for i, r in enumerate(reqs)}
+    graphs = eng._graphs
+    if graphs is None:
+        fail(f"{label}: the engine holds no compiled steps")
     rows, steps, group = {}, [], []
-    generate_group, sample, serve_step = (eng._generate_group, engine_mod.sample,
-                                          engine_mod.serve_step)
+    generate_group, serve_step = eng._generate_group, engine_mod.serve_step
+    prefill, decode = graphs.prefill, graphs.decode
 
     def in_group(g, tier, seed):
         group[:] = g
         return generate_group(g, tier, seed)
 
-    def recorded(logits, *a, **kw):
-        host = logits.float().cpu()          # the record's copy; the engine copies no row
+    def keep(out):
+        host = out[0].float().cpu()          # the record's copy; the engine copies no row
         for i, r in enumerate(group):
             rows[(index[id(r)], len(r.out_tokens))] = host[i]
-        return sample(logits, *a, **kw)
-
-    def timed(*a, **kw):
-        n = ops.LAUNCHES["masked_dequant"]
-        sync()
-        t0 = time.perf_counter()
-        out = serve_step(*a, **kw)
-        sync()
-        steps.append((time.perf_counter() - t0, ops.LAUNCHES["masked_dequant"] - n))
         return out
 
+    def timed(fn, counted):
+        def step(*a, **kw):
+            n = ops.LAUNCHES["masked_dequant"]
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            steps.append((time.perf_counter() - t0,
+                          ops.LAUNCHES["masked_dequant"] - n if counted else None))
+            return out
+        return step
+
+    def run(kind, record=False):
+        nonlocal index
+        reqs = [Request(prompt=p, max_new_tokens=ENGINE_NEW, license=t) for p, t in jobs]
+        index = {id(r): i for i, r in enumerate(reqs)}
+        steps.clear()
+        if record:
+            graphs.prefill = lambda *a, **kw: keep(prefill(*a, **kw))
+            graphs.decode = lambda *a, **kw: keep(decode(*a, **kw))
+        elif kind == "graph":
+            graphs.decode = timed(decode, counted=False)
+        else:
+            engine_mod.serve_step = timed(serve_step, counted=True)
+            eng._graphs = None
+        try:
+            sync()
+            t0 = time.perf_counter()
+            eng.generate(reqs)
+            sync()
+            dt = time.perf_counter() - t0
+        finally:
+            graphs.__dict__.pop("prefill", None)
+            graphs.__dict__.pop("decode", None)
+            engine_mod.serve_step = serve_step
+            eng._graphs = graphs
+        if any(len(r.out_tokens) != ENGINE_NEW for r in reqs):
+            fail(f"{label}: a request did not get its {ENGINE_NEW} tokens")
+        return reqs, dt, list(steps)
+
+    index = {}
     eng._generate_group = in_group
-    engine_mod.sample, engine_mod.serve_step = recorded, timed
     try:
-        t0 = time.perf_counter()
-        eng.generate(reqs)
-        sync()
-        dt = time.perf_counter() - t0
+        first, first_s, _ = run("graph", record=True)
+        captures = graphs.captures
+        turns = []
+        for kind in COMPILED_TURNS:
+            replays = graphs.replays
+            reqs, dt, st = run(kind)
+            if kind == "graph":
+                per_run = graphs.replays - replays
+            if [r.out_tokens for r in reqs] != [r.out_tokens for r in first]:
+                bad = [i for i, (a, b) in enumerate(zip(reqs, first))
+                       if a.out_tokens != b.out_tokens]
+                fail(f"{label}: the {kind} turn's greedy tokens differ from the graph run's on "
+                     f"requests {bad}")
+            turns.append((kind, dt, st))
+        if graphs.captures != captures:
+            fail(f"{label}: graphs captured in the timed turns: {captures} -> {graphs.captures}")
+        prof = None
+        if profile:
+            replays = graphs.replays
+            prof = profile_window(label.replace(" ", "_").replace(",", ""),
+                                  lambda: run("graph"), torch, per_run)
+            replayed = graphs.replays - replays
     finally:
         del eng._generate_group
-        engine_mod.sample, engine_mod.serve_step = sample, serve_step
-    if any(len(r.out_tokens) != ENGINE_NEW for r in reqs):
-        fail(f"{label}: a request did not get its {ENGINE_NEW} tokens")
-    step_s = sorted(s for s, _ in steps)
-    out = dict(generate_s=dt, decode_steps=len(steps),
-               decode_ms_p50=1e3 * step_s[len(step_s) // 2], decode_ms_max=1e3 * step_s[-1],
-               masked_dequant_per_step=sorted({d for _, d in steps}))
-    log(f"  {label}: {len(reqs)} requests in {len({t for _, t in jobs})} tier groups, "
-        f"{len(reqs) * ENGINE_NEW} tokens in {dt:.2f} s; eager decode step p50 "
-        f"{out['decode_ms_p50']:.2f} ms (max {out['decode_ms_max']:.2f}) over "
-        f"{len(steps)} steps, synchronized on each side; masked_dequant launches a step "
-        f"{out['masked_dequant_per_step']}")
-    return [SimpleNamespace(rid=i, out_tokens=r.out_tokens) for i, r in enumerate(reqs)], \
+    eager_s = sorted(s for k, _, st in turns if k == "eager" for s, _ in st)
+    graph_s = sorted(s for k, _, st in turns if k == "graph" for s, _ in st)
+    dequants = sorted({d for k, _, st in turns if k == "eager" for _, d in st})
+    out = dict(first_generate_s=first_s, decode_steps=len(eager_s) // 2,
+               decode_ms_p50=1e3 * eager_s[len(eager_s) // 2], decode_ms_max=1e3 * eager_s[-1],
+               graph_ms_p50=1e3 * graph_s[len(graph_s) // 2], graph_ms_max=1e3 * graph_s[-1],
+               turns=[(k, 1e3 * float(np.median([s for s, _ in st])), dt) for k, dt, st in turns],
+               masked_dequant_per_step=dequants, captures=graphs.captures,
+               replays=graphs.replays, keys=len(graphs), pool_bytes=graphs.backend.pool_bytes())
+    log(f"  {label}: {len(first)} requests in {len({t for _, t in jobs})} tier groups, "
+        f"{len(first) * ENGINE_NEW} tokens, the first (capturing) run {first_s:.2f} s; a decode "
+        f"step p50 {out['graph_ms_p50']:.2f} ms through the graphs (max "
+        f"{out['graph_ms_max']:.2f}) against {out['decode_ms_p50']:.2f} ms eager (max "
+        f"{out['decode_ms_max']:.2f}), {out['decode_steps']} steps a turn, synchronized on each "
+        f"side; turns " + ", ".join(f"{k} {ms:.2f} ms ({dt:.2f} s)" for k, ms, dt in out["turns"])
+        + f"; greedy tokens identical in all five runs; {out['captures']} captures, "
+        f"{out['replays']} replays, {out['keys']} graphs, pool {out['pool_bytes'] / 1e9:.3f} GB; "
+        f"masked_dequant launches an eager step {dequants}")
+    if prof is not None:
+        per = prof["port_kernels"]["masked_dequant"] / replayed
+        out["trace"] = dict(replays=replayed, masked_dequant=prof["port_kernels"]["masked_dequant"],
+                            masked_dequant_per_step=per, busy_share=prof["busy_share"],
+                            kernels=prof["kernel_launches_per_step"])
+        log(f"  {label}: the device trace of one graph run ({replayed} replayed prefill and "
+            f"decode steps) shows {prof['port_kernels']['masked_dequant']} masked_dequant "
+            f"launches, {per:.0f} a step")
+    return [SimpleNamespace(rid=i, out_tokens=r.out_tokens) for i, r in enumerate(first)], \
         rows, out
 
 
@@ -5216,10 +5494,12 @@ def serve_wave(label, gw, cfg, np):
 def engine_phase(cfg, params, np, torch, graph_step_ms=None, alloc_weight_bytes=None,
                  device="cuda"):
     """Phase 13 (see the module docstring): (a) ``ServingEngine`` on float
-    views against ``engine.gateway(record_logits=True)``, greedy tokens
-    equal up to near-ties; (b) the same with ``quantized=True`` (the
-    in-scan dequant, 252 ``masked_dequant`` launches a step) against the
-    gateway's in-scan route; (c) host sampling: phase 3's stream with
+    views, its CUDA graphs beside its eager steps in turns (identical
+    tokens), against ``engine.gateway(record_logits=True)``, greedy
+    tokens equal up to near-ties; (b) the same with ``quantized=True``
+    (the in-scan dequant, 252 ``masked_dequant`` launches a step, eager
+    and in the device trace of replayed steps) against the gateway's
+    in-scan route; (c) host sampling: phase 3's stream with
     greedy and sampling lanes through the kernel route, fused and host
     mode, tokens identical and the ``record_logits`` rows equal to the
     fused run's bit for bit; (d) ``launch.roofline``'s decode bound and
@@ -5255,9 +5535,15 @@ def engine_phase(cfg, params, np, torch, graph_step_ms=None, alloc_weight_bytes=
         "dequantized in every step")
     eng = ServingEngine(cfg, params, tiers=tiers, quantized=True, device=device)
     want = len(list(qleaves(eng.base_params["units"]))) * cfg.pattern_units
-    e_reqs, e_rows, b = engine_run("13b engine, in-scan int8", eng, jobs, torch)
+    e_reqs, e_rows, b = engine_run("13b engine, in-scan int8", eng, jobs, torch,
+                                   profile=device == "cuda")
     if b["masked_dequant_per_step"] != [want]:
-        fail(f"13b: masked_dequant launches a step {b['masked_dequant_per_step']}, not {want}")
+        fail(f"13b: masked_dequant launches an eager step {b['masked_dequant_per_step']}, "
+             f"not {want}")
+    if device == "cuda" and (b.get("trace") is None
+                             or b["trace"]["masked_dequant_per_step"] != want):
+        fail(f"13b: the device trace shows {b.get('trace')} masked_dequant launches for the "
+             f"replayed steps, not {want} a step")
     g_reqs, g_rows, b["gateway"] = engine_gateway_run("13b", eng, jobs, np, torch)
     b["parts"] = near_ties("13b engine in-scan", e_reqs, g_reqs, e_rows, g_rows,
                            cfg.vocab_size, ref="the gateway's in-scan route")
@@ -5325,8 +5611,8 @@ def engine_phase(cfg, params, np, torch, graph_step_ms=None, alloc_weight_bytes=
     log(f"  13d: decode bound {bound_ms:.4f} ms ({rep['dominant']}: {rep['bytes'] / 1e9:.4f} GB "
         f"at {roofline.CARD_PEAKS[rep['card']][0] / 1e12:.2f} TB/s, {rep['flops'] / 1e9:.2f} "
         f"GFLOP counted against {rep['model_flops'] / 1e9:.2f} of model_step_flops) beside "
-        f"13a's eager engine step {a['decode_ms_p50']:.2f} ms and phase 3's graph step "
-        f"(8 lanes) {graph}")
+        f"13a's engine step {a['graph_ms_p50']:.2f} ms through its graphs and "
+        f"{a['decode_ms_p50']:.2f} eager, and phase 3's graph step (8 lanes) {graph}")
     log(f"  13d: dryrun weight bytes {rep['weight_bytes'] / 1e9:.4f} GB against "
         f"{'not measured' if alloc_weight_bytes is None else f'{alloc_weight_bytes / 1e9:.4f} GB'}"
         f" allocated by init_params; cache bytes {rep['cache_bytes'] / 1e6:.4f} MB against "
@@ -5341,7 +5627,8 @@ def engine_phase(cfg, params, np, torch, graph_step_ms=None, alloc_weight_bytes=
                              model_flops=rep["model_flops"], weight_bytes=rep["weight_bytes"],
                              cache_bytes=rep["cache_bytes"], alloc_weight_bytes=alloc_weight_bytes,
                              alloc_cache_bytes=alloc_cache, graph_step_ms=graph_step_ms,
-                             engine_step_ms=a["decode_ms_p50"])
+                             engine_step_ms=a["decode_ms_p50"],
+                             engine_graph_step_ms=a["graph_ms_p50"])
     launches = dict(ops.LAUNCHES)
     out["s"] = time.perf_counter() - t13
     log(f"  phase 13 took {out['s']:.1f} s")

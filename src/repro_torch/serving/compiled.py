@@ -25,9 +25,10 @@ input copies and one replay instead of ~80 launches a layer.
   with the version's last view.  The kernel path buckets the used table
   width to a power of two (:func:`table_width`), so a view holds at most
   ceil(log2(blocks_per_lane)) + 1 graphs.
-* **Static inputs**, refilled before every replay by ``copy_`` from
-  pinned host buffers: tokens (B, 1) int32, positions (B,) int32, lane
-  ids (B,) int64, one (B, T) int32 table per width.  Static outputs, one
+* **Static inputs**, refilled before every replay by an asynchronous
+  copy from pinned host memory (:class:`_Input`): tokens (B, 1) int32,
+  positions (B,) int32, lane ids (B,) int64, one (B, T) int32 table per
+  width.  Static outputs, one
   pair for every graph: the logits (B, V) f32 and their greedy argmax
   (B,) int32, which the gateway consumes (argmax to the host, sampled
   lanes drawn eagerly from the logits rows) before the next replay.  The
@@ -74,6 +75,15 @@ rings, MoE dispatch) run no host synchronization, and an integer
 position is filled on the device (``layers.device_offset``), so every
 route captures as it is.
 
+``ServingEngine``'s steps (:class:`EngineGraphs`) are the counterpart
+of the JAX engine's two jits (``repro/serving/engine.py``'s ``_prefill``
+and ``_decode``): one prefill graph per (view, lanes, prompt width,
+capacity) and one decode graph per (view, lanes, capacity), the jits'
+shape keys unbucketed (the right-aligned padding enters the outputs),
+kept in the view's ``engine_graphs`` (per tier; one set for every tier
+of the in-scan store).  A group's contiguous cache is a static buffer
+per (lanes, capacity) that the prefill graph zeroes before it fills it.
+
 The backend is a constructor parameter: ``CudaGraphBackend`` on the
 card; the CPU tests pass one whose replay re-runs the captured function.
 """
@@ -113,28 +123,31 @@ def _restore(pool: Any, snapshot: Dict[str, torch.Tensor]) -> None:
 class GraphSet(dict):
     """Table width -> captured decode step, over the weights ``params``;
     ``prefill`` maps (lanes, table width) -> captured prefill chunk over
-    the same weights, and ``bucket`` (family, *key) -> the bucket path's
+    the same weights, ``bucket`` (family, *key) -> the bucket path's
     captured steps (:class:`GatherDecodeGraphs`, :class:`BucketPrefillGraphs`,
-    :class:`SuffixPrefillGraphs`)."""
+    :class:`SuffixPrefillGraphs`) and ``engine`` (family, *key) ->
+    ``ServingEngine``'s (:class:`EngineGraphs`)."""
 
     def __init__(self, params: Any):
         super().__init__()
         self.params = params
         self.prefill: Dict[Tuple[int, int], Any] = {}
         self.bucket: Dict[Tuple[Any, ...], Any] = {}
+        self.engine: Dict[Tuple[Any, ...], Any] = {}
 
 
 class View(tuple):
     """A licensed view ``(params, intervals)``, as ``TierViewCache`` holds
     it, with the :class:`GraphSet` of the decode steps captured on it, its
-    prefill chunks (``prefill_graphs``) and its bucket-path steps
-    (``bucket_graphs``)."""
+    prefill chunks (``prefill_graphs``), its bucket-path steps
+    (``bucket_graphs``) and the engine's steps (``engine_graphs``)."""
 
     def __new__(cls, params: Any, intervals: Any, graphs: GraphSet):
         view = super().__new__(cls, (params, intervals))
         view.graphs = graphs
         view.prefill_graphs = graphs.prefill
         view.bucket_graphs = graphs.bucket
+        view.engine_graphs = graphs.engine
         return view
 
 
@@ -188,19 +201,34 @@ class CudaGraphBackend:
 
 
 class _Input:
-    """A static device input and the host buffer it is refilled from
-    (pinned on the card)."""
+    """A static device input, refilled by an asynchronous copy from a
+    fresh pinned host tensor.  PyTorch's pinned-memory cache reuses that
+    tensor's block only once the copy has run, so a loop that does not
+    wait for the card between its steps (the training loops) never
+    rewrites host memory that a queued copy is still to read."""
 
     def __init__(self, shape, dtype, device: torch.device):
         self.dev = torch.zeros(shape, dtype=dtype, device=device)
-        self.host = torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda")
+        self.np_dtype = torch.zeros((), dtype=dtype).numpy().dtype
+        self.pinned = device.type == "cuda"
 
     def fill(self, values) -> None:
         """Refill the leading ``len(values)`` rows (all of them for the
         decode step; a prefill chunk's ``b`` lanes)."""
-        n = len(values)
-        self.host.numpy()[:n] = values
-        self.dev[:n].copy_(self.host[:n], non_blocking=True)
+        host = torch.from_numpy(np.ascontiguousarray(values, dtype=self.np_dtype))
+        if self.pinned:
+            host = host.pin_memory()
+        self.dev[:len(host)].copy_(host, non_blocking=True)
+
+
+def _load_intervals(static: torch.Tensor, intervals) -> None:
+    """Copy a view's tier intervals into the static (2, MAX_INTERVALS)
+    input; zeros (inert intervals) for a tier that masks nothing."""
+    if intervals is None:
+        static.zero_()
+    else:
+        static[0].copy_(intervals[0])
+        static[1].copy_(intervals[1])
 
 
 class _StepGraphs:
@@ -233,13 +261,8 @@ class _StepGraphs:
 
     def _load_intervals(self, intervals) -> None:
         """In-scan: copy the view's tier intervals into the static input."""
-        if not self.in_scan:
-            return
-        if intervals is None:
-            self.intervals.zero_()
-        else:
-            self.intervals[0].copy_(intervals[0])
-            self.intervals[1].copy_(intervals[1])
+        if self.in_scan:
+            _load_intervals(self.intervals, intervals)
 
     def _static_intervals(self):
         return (self.intervals[0], self.intervals[1]) if self.in_scan else None
@@ -623,3 +646,167 @@ class SuffixPrefillGraphs(_BucketGraphs):
             self._scatter(pool.override_counters(caches, self.fills))
 
         return self._capture_ran(step)
+
+
+class EngineGraphs:
+    """``ServingEngine``'s compiled prefill and decode (see the module
+    docstring).
+
+    ``engine`` is the ``ServingEngine`` whose config, device and views
+    the graphs use; ``backend`` captures and replays (default:
+    ``CudaGraphBackend`` on the engine's device), every graph in its one
+    memory pool.  Static inputs, by shape: the right-aligned prompts (b,
+    max_prompt) int32, the decode tokens (b, 1) int32 and positions (b,)
+    int32, one contiguous cache of b lanes per (b, capacity), and the
+    in-scan intervals (2, MAX_INTERVALS).  Static outputs per b: the
+    last-token logits (b, V) f32 and their greedy argmax (b,) int32,
+    valid until the next step of b lanes.  A prefill capture's warm-up
+    is the prefill (its graph zeroes the cache first, so a replay starts
+    from the pristine state, recurrent state included); a decode
+    capture's warm-up advances the cache, which is put back before the
+    step's replay."""
+
+    def __init__(self, engine: Any, backend: Optional[Any] = None):
+        self.engine = engine
+        dev = engine.device
+        self.backend = backend if backend is not None else CudaGraphBackend(dev)
+        self.intervals = torch.zeros((2, ops.MAX_INTERVALS), dtype=torch.float32, device=dev)
+        self.prompts: Dict[Tuple[int, int], _Input] = {}
+        self.tokens: Dict[int, _Input] = {}
+        self.positions: Dict[int, _Input] = {}
+        self.caches: Dict[Tuple[int, int], Dict[str, Any]] = {}
+        self.outputs: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.captures = 0
+        self.replays = 0
+        # graphs read the static buffers of the set that captured them:
+        # a new set drops what the engine's views hold of an older one
+        for view in engine._views._entries.values():
+            view.engine_graphs.clear()
+
+    def __len__(self) -> int:
+        return len(self.keys())
+
+    def keys(self) -> set:
+        """The live graphs' keys, read from the views that own them:
+        (tier, "prefill", b, max_prompt, capacity) and (tier, "decode", b,
+        capacity); in-scan, where every tier shares one set, without the
+        tier."""
+        in_scan = self.engine.quantized
+        return {key if in_scan else (k[0], *key)
+                for k, view in self.engine._views._entries.items()
+                for key in view.engine_graphs}
+
+    def prefill(self, view: View, tokens: np.ndarray, capacity: int):
+        """The prefill of a group's right-aligned prompts ``tokens`` (b,
+        max_prompt) into its cache of ``capacity`` tokens a lane, through
+        ``view``'s graph for that key, captured on first use.  Returns the
+        static last-token logits (b, V) and greedy tokens (b,)."""
+        b, width = (int(n) for n in tokens.shape)
+        if (b, width) not in self.prompts:
+            self.prompts[(b, width)] = _Input((b, width), torch.int32, self.engine.device)
+        prompt = self.prompts[(b, width)]
+        prompt.fill(tokens)
+        params, li = self._load(view)
+        key = ("prefill", b, width, int(capacity))
+        graph = view.engine_graphs.get(key)
+        if graph is None:
+            # the capture's warm-up ran this prefill: its outputs stand
+            view.engine_graphs[key] = self._capture_prefill(params, li, prompt, int(capacity))
+        else:
+            self.backend.replay(graph)
+            self.replays += 1
+        return self._outputs(b)
+
+    def decode(self, view: View, tokens: torch.Tensor, pos: int, capacity: int):
+        """One decode step of the group's b lanes at position ``pos``:
+        ``tokens`` (b,) int32 on the device (the last step's greedy
+        output or draw) copied into the static input on the device, the
+        positions copied from pinned host memory; through ``view``'s graph
+        for (b, capacity), captured on first use.  Returns the static
+        logits (b, V) and greedy tokens (b,)."""
+        b = int(tokens.shape[0])
+        if b not in self.tokens:
+            self.tokens[b] = _Input((b, 1), torch.int32, self.engine.device)
+            self.positions[b] = _Input((b,), torch.int32, self.engine.device)
+        toks, poss = self.tokens[b], self.positions[b]
+        toks.dev.copy_(tokens.reshape(b, 1))
+        poss.fill(np.full(b, pos, np.int32))
+        params, li = self._load(view)
+        key = ("decode", b, int(capacity))
+        graph = view.engine_graphs.get(key)
+        if graph is None:
+            graph = view.engine_graphs[key] = self._capture_decode(params, li, toks, poss,
+                                                                   int(capacity))
+        self.backend.replay(graph)
+        self.replays += 1
+        return self._outputs(b)
+
+    def _load(self, view: View):
+        """``view``'s weights and, in-scan, the static intervals filled
+        with its tier's."""
+        params, intervals = view
+        if not self.engine.quantized:
+            return params, None
+        _load_intervals(self.intervals, intervals)
+        return params, (self.intervals[0], self.intervals[1])
+
+    def _outputs(self, b: int):
+        if b not in self.outputs:
+            dev = self.engine.device
+            self.outputs[b] = (
+                torch.zeros((b, self.engine.cfg.padded_vocab), dtype=torch.float32, device=dev),
+                torch.zeros((b,), dtype=torch.int32, device=dev))
+        return self.outputs[b]
+
+    def _cache(self, b: int, capacity: int) -> Dict[str, Any]:
+        if (b, capacity) not in self.caches:
+            self.caches[(b, capacity)] = stack_lane_caches(self.engine.cfg, b, capacity,
+                                                           self.engine.device)
+        return self.caches[(b, capacity)]
+
+    def _capture_prefill(self, params: Any, li, prompt: _Input, capacity: int) -> Any:
+        cfg, b = self.engine.cfg, prompt.dev.shape[0]
+        cache = self._cache(b, capacity)
+        leaves = list(flatten_params(cache).values())
+        logits_out, greedy = self._outputs(b)
+
+        def step():
+            for t in leaves:
+                t.zero_()
+            logits, _ = prefill_step(params, cfg, prompt.dev, cache, license_intervals=li)
+            logits_out.copy_(logits)
+            greedy.copy_(torch.argmax(logits, -1))
+
+        try:
+            self.backend.warmup(step)
+            graph = self.backend.capture(step)
+        except BaseException:
+            for t in leaves:             # no half-filled cache: the pristine state
+                t.zero_()
+            raise
+        self.captures += 1
+        return graph
+
+    def _capture_decode(self, params: Any, li, toks: _Input, poss: _Input,
+                        capacity: int) -> Any:
+        cfg, b = self.engine.cfg, toks.dev.shape[0]
+        cache = self._cache(b, capacity)
+        leaves = list(flatten_params(cache).values())
+        logits_out, greedy = self._outputs(b)
+
+        def step():
+            logits, _ = serve_step(params, cfg, toks.dev, cache, poss.dev, li)
+            logits_out.copy_(logits)
+            greedy.copy_(torch.argmax(logits, -1))
+
+        saved = [t.clone() for t in leaves]
+        try:
+            self.backend.warmup(step)
+            graph = self.backend.capture(step)
+        finally:
+            # the warm-up advanced the cache (its len, any recurrent
+            # state): the replay runs this step again
+            for t, s in zip(leaves, saved):
+                t.copy_(s)
+        self.captures += 1
+        return graph

@@ -200,9 +200,14 @@ class ServingEngine:
     Weight views are built once per tier (masking is elementwise and
     cheap beside serving) and cached: the paper's "unlimited licenses,
     one stored model".  Each group of same-tier requests prefills in one
-    step into a fresh contiguous cache and decodes eagerly, every step
-    one ``serve_step``; the gateway (:meth:`gateway`) is the fast path,
-    with the paged pool, the kernels and CUDA graphs.
+    step into a fresh contiguous cache and decodes one ``serve_step`` a
+    token.  On the card both steps are CUDA graphs
+    (``compiled.EngineGraphs`` on the private ``_graphs``: one per
+    (view, lanes, prompt width, capacity) and (view, lanes, capacity),
+    the JAX engine's jit keys); the CPU runs them eagerly, and so does
+    the card with ``_graphs`` set to ``None``.  The gateway
+    (:meth:`gateway`) is the fast path, with the paged pool and the
+    kernels.
 
     ``quantized=True``: ONE int8 store serves every tier, each tier's
     intervals fused into the dequant inside every step (one
@@ -231,9 +236,18 @@ class ServingEngine:
         # (tier, version=None)-keyed views, the gateway's cache; the
         # engine is versionless
         self._views = TierViewCache(self._build_view, capacity=64)
+        from repro_torch.serving.compiled import EngineGraphs, StoreGraphs
+
+        self._store_graphs = StoreGraphs()     # the in-scan tiers' one set
+        # the compiled prefill and decode: CUDA graphs on the card
+        self._graphs = EngineGraphs(self) if self.device.type == "cuda" else None
 
     def _build_view(self, license_name: str, _version):
-        """(params, intervals) licensed view, built once per tier."""
+        """(params, intervals) licensed view, built once per tier: a
+        ``compiled.View`` whose graphs go with it (in-scan, every tier's
+        view holds the store's one set)."""
+        from repro_torch.serving.compiled import GraphSet, View
+
         tier = self.tiers.get(license_name)
         if tier is None:
             raise KeyError(f"unknown license tier {license_name!r}")
@@ -241,8 +255,10 @@ class ServingEngine:
             from repro_torch.serving.quantized import tier_intervals
 
             # one store, every tier
-            return self.base_params, tier_intervals(tier, device=self.device)
-        return apply_license(self.base_params, tier), None
+            return View(self.base_params, tier_intervals(tier, device=self.device),
+                        self._store_graphs.get(None, self.base_params))
+        params = apply_license(self.base_params, tier)
+        return View(params, None, GraphSet(params))
 
     def params_for(self, license_name: str):
         return self._views.get(license_name)[0]
@@ -281,26 +297,35 @@ class ServingEngine:
         return requests
 
     def _generate_group(self, group: List[Request], tier_name: str, seed: int):
-        params = self.params_for(tier_name)
-        li = self.intervals_for(tier_name)
-        cfg, dev = self.cfg, self.device
+        view = self._views.get(tier_name)
+        params, li = view
+        cfg, dev, graphs = self.cfg, self.device, self._graphs
         b = len(group)
         max_prompt = max(len(r.prompt) for r in group)
         max_new = max(r.max_new_tokens for r in group)
+        capacity = max_prompt + max_new
         toks = right_align([r.prompt for r in group], max_prompt, b)
-        cache = model_lib.init_cache(cfg, b, max_prompt + max_new, device=dev)
-        logits, cache = prefill_step(params, cfg, torch.from_numpy(toks).to(dev), cache,
-                                     license_intervals=li)
+        if graphs is not None:
+            logits, greedy = graphs.prefill(view, toks, capacity)
+        else:
+            cache = model_lib.init_cache(cfg, b, capacity, device=dev)
+            logits, cache = prefill_step(params, cfg, torch.from_numpy(toks).to(dev), cache,
+                                         license_intervals=li)
         gen = torch.Generator().manual_seed(int(seed))
         temperature = group[0].temperature
-        cur = sample(logits, gen, temperature=temperature)
+        # a graph's greedy tokens are its static argmax of the logits
+        drawn = graphs is None or temperature > 0
+        cur = sample(logits, gen, temperature=temperature) if drawn else greedy
         # one copy of b token ids a step; the tokens stay on the device
         for i, t in enumerate(cur.tolist()):
             group[i].out_tokens.append(t)
         for step in range(max_new - 1):
-            pos = torch.full((b,), max_prompt + step, dtype=torch.int32, device=dev)
-            logits, cache = serve_step(params, cfg, cur[:, None], cache, pos, li)
-            cur = sample(logits, gen, temperature=temperature)
+            if graphs is not None:
+                logits, greedy = graphs.decode(view, cur, max_prompt + step, capacity)
+            else:
+                pos = torch.full((b,), max_prompt + step, dtype=torch.int32, device=dev)
+                logits, cache = serve_step(params, cfg, cur[:, None], cache, pos, li)
+            cur = sample(logits, gen, temperature=temperature) if drawn else greedy
             for i, t in enumerate(cur.tolist()):
                 if len(group[i].out_tokens) < group[i].max_new_tokens:
                     group[i].out_tokens.append(t)

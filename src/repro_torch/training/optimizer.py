@@ -10,7 +10,10 @@ them, so no Python float rounds differently.
 ``apply_updates`` goes leaf by leaf, in slices of axis 0 of a large
 leaf, and updates ``m`` and ``v`` IN PLACE (the returned state holds the
 same tensors): at qwen2.5-3b's full width they are 24.7 GB, too much to
-hold twice.  The parameters come back as new tensors.
+hold twice.  The parameters come back as new tensors, or in ``out``'s
+(the compiled step's static parameters).  Every constant is filled on
+the device (``full_like``), never copied from the host, so the update
+captures in a CUDA graph (``training/compiled.py``).
 """
 from __future__ import annotations
 
@@ -70,9 +73,9 @@ def state_from_jax(state: Any, *, device) -> AdamWState:
 
 def schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     # tensor divisors: CUDA divides by a host scalar as a reciprocal product
-    warm = torch.clamp(step / step.new_tensor(max(cfg.warmup_steps, 1)), max=1.0)
+    warm = torch.clamp(step / torch.full_like(step, max(cfg.warmup_steps, 1)), max=1.0)
     frac = torch.clamp((step - cfg.warmup_steps)
-                       / step.new_tensor(max(cfg.total_steps - cfg.warmup_steps, 1)),
+                       / torch.full_like(step, max(cfg.total_steps - cfg.warmup_steps, 1)),
                        0.0, 1.0)
     cos = 0.5 * (1 + torch.cos(math.pi * frac))
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
@@ -98,11 +101,14 @@ def _decay_mask(name: str) -> bool:
 
 
 def apply_updates(
-    params: Any, grads: Any, state: AdamWState, cfg: OptimizerConfig,
+    params: Any, grads: Any, state: AdamWState, cfg: OptimizerConfig, *, out: Any = None,
 ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+    """One AdamW step.  ``out``: a tree like ``params`` to write the new
+    parameters into (it may be ``params`` itself: each slice is read
+    before it is written) instead of new tensors."""
     gnorm = global_norm(grads)
     # a tensor numerator: ``scalar / tensor`` would multiply by a reciprocal
-    scale = torch.clamp(gnorm.new_tensor(cfg.grad_clip) / (gnorm + 1e-9), max=1.0)
+    scale = torch.clamp(torch.full_like(gnorm, cfg.grad_clip) / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -110,12 +116,13 @@ def apply_updates(
     bc2 = 1 - torch.pow(b2, step.float())
 
     flat_g, flat_m, flat_v = (flatten_params(t) for t in (grads, state.m, state.v))
+    flat_out = None if out is None else flatten_params(out)
     new_params = {}
     for name, p in flatten_params(params).items():
         p = p.detach()
         g, m, v = flat_g[name], flat_m[name], flat_v[name]
         decay = _decay_mask(name)
-        out = torch.empty_like(p)
+        dst = torch.empty_like(p) if flat_out is None else flat_out[name]
         for s in row_slices(p):
             g32 = g[s].float() * scale
             m[s] = b1 * m[s] + (1 - b1) * g32
@@ -124,7 +131,7 @@ def apply_updates(
             p32 = p[s].float()
             if decay:
                 delta = delta + cfg.weight_decay * p32
-            out[s] = (p32 - lr * delta).to(p.dtype)
-        new_params[name] = out
+            dst[s] = (p32 - lr * delta).to(p.dtype)
+        new_params[name] = dst
     metrics = {"grad_norm": gnorm, "lr": lr}
     return unflatten(new_params), AdamWState(step=step, m=state.m, v=state.v), metrics

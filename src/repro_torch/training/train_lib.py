@@ -5,9 +5,12 @@ the checkpoint substrate — every checkpoint is a delta commit).
 Counterpart of ``repro.training.train_lib``.  Autograd through the
 port's plain layers takes the place of ``jax.value_and_grad`` (no
 function of that path reaches a Pallas kernel, and none has a custom
-VJP); the step is eager, with no ``jit``.  Parameters are held without
-``requires_grad``: each step differentiates with respect to detached
-aliases of them (no copy), so no ``.grad`` accumulates anywhere.
+VJP).  Parameters are held without ``requires_grad``: each step
+differentiates with respect to detached aliases of them (no copy), so
+no ``.grad`` accumulates anywhere.  On the card every step is a CUDA
+graph replay, the counterpart of the JAX package's ``jit``
+(``training/compiled.py``); the CPU runs the steps eagerly, and so does
+the card with the private ``_graph_backend`` returning ``None``.
 
 The MLP half runs the paper's edge classifier (train, prune, fine-tune)
 with the JAX package's batches: the same ``np.random.default_rng`` index
@@ -27,10 +30,22 @@ from repro_torch.core.pytree_io import flatten_params, unflatten
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import hint_sharding
 from repro_torch.training import optimizer as opt_lib
+from repro_torch.training.compiled import SgdStepGraph, TrainStepGraph
 
 
 def _device(params) -> torch.device:
     return next(iter(flatten_params(params).values())).device
+
+
+def _graph_backend(device: torch.device) -> Any:
+    """The capture backend of the compiled steps on ``device``: CUDA
+    graphs on the card, ``None`` (the eager steps) elsewhere.  Every loop
+    asks it once; a comparison or a test replaces it."""
+    if device.type != "cuda":
+        return None
+    from repro_torch.serving.compiled import CudaGraphBackend
+
+    return CudaGraphBackend(device)
 
 
 @dataclass
@@ -56,16 +71,18 @@ def _value_and_grad(loss_fn: Callable, params: Any):
 def make_train_step(
     cfg: ModelConfig, ocfg: opt_lib.OptimizerConfig,
 ) -> Callable:
-    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
+    """Returns train_step(params, opt_state, batch, *, out=None) ->
+    (params, opt_state, metrics).
 
-    ``batch`` = {tokens (B,S), labels (B,S)} as tensors on the params' device.
+    ``batch`` = {tokens (B,S), labels (B,S)} as tensors on the params'
+    device; ``out`` as in ``apply_updates``.
     """
 
     def grad_fn(params, batch):
         return _value_and_grad(
             lambda p: model_lib.lm_loss(p, cfg, batch["tokens"], batch["labels"]), params)
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, *, out=None):
         m = ocfg.grad_accum
         if m <= 1:
             (loss, parts), grads = grad_fn(params, batch)
@@ -91,7 +108,8 @@ def make_train_step(
             grads = unflatten({name: g / m for name, g in grads.items()})
             loss = loss / m
             parts = {"lm_loss": loss, "aux_loss": aux / m}
-        new_params, new_opt, om = opt_lib.apply_updates(params, grads, opt_state, ocfg)
+        new_params, new_opt, om = opt_lib.apply_updates(params, grads, opt_state, ocfg,
+                                                        out=out)
         metrics = {"loss": loss, **parts, **om}
         return new_params, new_opt, metrics
 
@@ -115,19 +133,28 @@ def train_loop(
 ) -> Tuple[Any, Dict[str, list]]:
     """Single-device training loop.  ``params`` default to
     ``init_params(cfg, seed=seed, device=device)``; given, they set the
-    device.  Every ``checkpoint_every`` steps the params are committed to
+    device, and are never written (the compiled step trains a copy).
+    Every ``checkpoint_every`` steps the params are committed to
     ``store`` with the message ``"step N"``."""
     if params is None:
         params = model_lib.init_params(cfg, seed=seed, device=device)
     device = _device(params)
     opt_state = opt_lib.init_state(params)
     step_fn = make_train_step(cfg, ocfg)
+    backend = _graph_backend(device)
+    compiled = (None if backend is None else
+                TrainStepGraph(step_fn, params, opt_state, backend))
 
     history: Dict[str, list] = {"loss": [], "step": []}
     t0 = time.time()
     for step in range(num_steps):
-        batch = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in next(batches).items()}
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if compiled is not None:
+            metrics = compiled.step(next(batches))
+            params = compiled.params
+        else:
+            batch = {k: torch.from_numpy(np.asarray(v)).to(device)
+                     for k, v in next(batches).items()}
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
         if step % log_every == 0 or step == num_steps - 1:
             loss = float(metrics["loss"])
             history["loss"].append(loss)
@@ -183,17 +210,28 @@ def _xent(params, xb, yb):
     return -torch.gather(logp, 1, yb[:, None].long()).mean(), {}
 
 
+def _xent_grads(params, xb, yb):
+    return _value_and_grad(lambda p: _xent(p, xb, yb), params)[1]
+
+
 def _sgd(params, x, y, *, steps, lr, seed, batch, masks=None):
     """``steps`` SGD steps on batches drawn as the JAX package draws them;
-    with ``masks``, each update is multiplied by its mask."""
+    with ``masks``, each update is multiplied by its mask.  On the card
+    one CUDA graph (``SgdStepGraph``) over a copy of ``params``."""
     device = _device(params)
     xs = torch.from_numpy(np.asarray(x)).to(device)
     ys = torch.from_numpy(np.asarray(y)).to(device)
     rng = np.random.default_rng(seed)
+    backend = _graph_backend(device)
+    if backend is not None:
+        compiled = SgdStepGraph(_xent_grads, params, xs, ys, batch, lr=lr, masks=masks,
+                                backend=backend)
+        for _ in range(steps):
+            compiled.step(rng.integers(0, len(x), batch))
+        return compiled.params
     for _ in range(steps):
         idx = torch.from_numpy(rng.integers(0, len(x), batch)).to(device)
-        _, grads = _value_and_grad(lambda p: _xent(p, xs[idx], ys[idx]), params)
-        flat_g = flatten_params(grads)
+        flat_g = flatten_params(_xent_grads(params, xs[idx], ys[idx]))
         new = {}
         for name, p in flatten_params(params).items():
             p = p.detach() - lr * flat_g[name]
