@@ -306,8 +306,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    plain route's up to near-ties; (d) internvl2-26b (GQA 48/8) on float
    views of the ``full`` tier alone (a float ``free`` view
    beside it would not fit), kernel route, then one full-width
-   ``prefill_step`` of 256 vision patches and 64 text tokens (time, peak
-   memory, finite logits); (e) internvl2-26b in-scan in both tiers from
+   ``prefill_step`` of 256 vision patches and 64 text tokens eager (time,
+   peak memory, finite logits) and through ``serving.compiled.MeshGraphs``
+   on plain tensors (the capture, then two timed replays, logits bit for
+   bit the eager step's; captures, replays and pool bytes); (e) internvl2-26b in-scan in both tiers from
    an int8 store built unit by unit, ``vision_proj`` float beside it
    (168 launches a step).  Phase 12 must launch ``paged_attention``,
    ``paged_decode_write`` and ``masked_dequant``.  Phase 2 also runs
@@ -355,7 +357,17 @@ Phases (each prints its own lines; any failure exits non-zero):
    steps and phase 4's tolerance.  The synchronized decode step on the
    mesh and plain (the host's cost of DTensor dispatch), the prefill,
    the collectives of a prefill and a decode step on the one-rank world
-   and the peak memory are printed;
+   and the peak memory are printed.  The same steps then run through
+   ``serving.compiled.MeshGraphs`` on the mesh (CUDA graphs of the
+   DTensor steps: one prefill graph, one decode graph a set, the float
+   tree's and the int8 store's), in turns with the eager mesh steps
+   (eager, graph, graph, eager; the last eager turn MESH_AFTER steps):
+   tokens identical and logits bit for bit the eager mesh steps', the medians of the three printed beside each
+   other with the captures, replays and pool bytes; the device trace of
+   a replayed in-scan prefill and 3 decode steps must show 252
+   ``masked_dequant`` launches a step.  Before it, one functional
+   ``all_reduce`` and its ``wait`` on the NCCL group are captured after
+   an eager warm-up and replayed three times on new values;
 15. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
@@ -5037,12 +5049,17 @@ def weight_bound(peaks, params):
     return 1e3 * sum(t.numel() * t.element_size() for t in _leaves(params)) / peaks[0]
 
 
-def vlm_prefill(label, cfg, params, np, torch, device="cuda"):
+def vlm_prefill(label, cfg, params, np, torch, device="cuda", backend=None):
     """One ``prefill_step(patch_embeds=)`` of VLM_PREFILL's patches and
     text tokens on one lane at full width, twice (the second warm): host
     clock ending in a synchronize, peak memory, and the last row's logits
-    finite over the vocabulary and -1e9 past it."""
+    finite over the vocabulary and -1e9 past it.  Then the same prefill
+    through ``MeshGraphs`` on plain tensors (``backend``: the default
+    ``CudaGraphBackend``): its capture (the warm-up is the step) and two
+    timed replays, each one's logits equal to the eager step's bit for
+    bit."""
     from repro_torch.models import init_cache
+    from repro_torch.serving.compiled import MeshGraphs
     from repro_torch.serving.engine import prefill_step
 
     rng = np.random.default_rng(SEED + 12)
@@ -5074,7 +5091,31 @@ def vlm_prefill(label, cfg, params, np, torch, device="cuda"):
         f"(first {times[0]:.2f} ms; host clock, synchronized, eager), peak "
         f"{out['peak_gb']:.1f} GB, last-row logits finite (max |logit| "
         f"{out['max_abs_logit']:.3f})")
-    del cache, logits
+    del cache
+    graphs = MeshGraphs(cfg, params, backend=backend)
+    host = toks.cpu().numpy()
+    times = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        got, _ = graphs.prefill(host, p + n, patch_embeds=patches)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+        if not torch.equal(got, logits.float()):
+            fail(f"{label}: the prefill graph's logits differ from the eager step's (max "
+                 f"|diff| {float((got - logits.float()).abs().max()):.4g})")
+    out.update(graph_capture_ms=times[0], graph_ms=times[1:], graph_captures=graphs.captures,
+               graph_replays=graphs.replays, graph_pool_bytes=graphs.backend.pool_bytes())
+    if (graphs.captures, graphs.replays) != (1, 2):
+        fail(f"{label}: {graphs.captures} captures and {graphs.replays} replays of one prefill "
+             f"key, not 1 and 2")
+    log(f"  {label}: the same prefill through MeshGraphs on plain tensors: replays "
+        f"{times[1]:.2f} / {times[2]:.2f} ms (host clock, synchronized, the inputs' copies "
+        f"included) against {out['warm_ms']:.2f} ms eager; the capture {times[0]:.2f} ms (its "
+        f"warm-up is the step); logits of all three bit for bit the eager step's; "
+        f"{graphs.captures} capture, {graphs.replays} replays, pool "
+        f"{out['graph_pool_bytes'] / 1e9:.3f} GB")
+    del graphs, logits, got
     return out
 
 
@@ -5638,10 +5679,40 @@ def engine_phase(cfg, params, np, torch, graph_step_ms=None, alloc_weight_bytes=
 # phase 14: the host mesh, on phase 3's first requests
 MESH_REQUESTS = 8
 MESH_NEW = 16
+MESH_AFTER = 4                 # the eager mesh turn after the graph runs: steps
 MESH_TOL = 0.05                # phase 4's: x max(|logit|, 1)
 
 
-def mesh_phase(cfg, params, np, torch, device="cuda"):
+def captured_all_reduce(mesh, torch, device="cuda"):
+    """One functional ``all_reduce`` and its ``wait`` on the mesh's
+    "model" group, run eagerly (NCCL sets up its communicator on a first
+    collective, which a capture cannot), then captured in a CUDA graph and
+    replayed on three new values: the sum over the world of one is the
+    input."""
+    from torch.distributed import _functional_collectives as fc
+
+    group = mesh.get_group("model")
+    x = torch.ones(1024, device=device)
+    eager = fc.wait_tensor(fc.all_reduce(x, "sum", group))
+    sync()
+    if not torch.equal(eager, x):
+        fail("14: the eager all_reduce over the world of one changed its input")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = fc.wait_tensor(fc.all_reduce(x, "sum", group))
+    for k in (2.0, 3.0, 5.0):
+        x.fill_(k)
+        graph.replay()
+        sync()
+        if not bool((y == k).all()):
+            fail(f"14: the replayed all_reduce gave {y.unique().tolist()}, not {k}")
+    log(f"  14: a functional all_reduce and its wait on the {torch.distributed.get_backend(group)}"
+        f" group of the mesh's 'model' axis captured in a CUDA graph after an eager warm-up, "
+        f"replayed 3 times on new values: each sum right")
+    return dict(replays=3)
+
+
+def mesh_phase(cfg, params, np, torch, device="cuda", backend=None):
     """Phase 14 (see the module docstring): ``launch.mesh.make_host_mesh``
     over the card (NCCL, a world of one), the weights and a contiguous
     cache placed by ``distribution.sharding``, and phase 3's first
@@ -5649,8 +5720,10 @@ def mesh_phase(cfg, params, np, torch, device="cuda"):
     ``prefill_step`` and MESH_NEW greedy ``serve_step``s under
     ``implicit_replication``, (a) on float weights and (b) on the int8
     store in-scan in the free tier, ``masked_dequant`` launched through
-    ``local_map``; each held to the same steps on plain tensors.  Returns
-    the summary and the mesh runs' launches."""
+    ``local_map``; each held to the same steps on plain tensors, then run
+    through ``MeshGraphs`` (``backend``: the default ``CudaGraphBackend``)
+    in turns with the eager mesh steps.  Returns the summary and the
+    mesh runs' launches."""
     import os
     import statistics
 
@@ -5663,6 +5736,7 @@ def mesh_phase(cfg, params, np, torch, device="cuda"):
     from repro_torch.launch import op_cost
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import init_cache
+    from repro_torch.serving.compiled import MeshGraphs
     from repro_torch.serving.engine import prefill_step, right_align, serve_step
     from repro_torch.serving.quantized import qleaves, quantize_serving_params, tier_intervals
 
@@ -5679,6 +5753,7 @@ def mesh_phase(cfg, params, np, torch, device="cuda"):
         f"{torch.distributed.get_backend()} in {time.perf_counter() - t0:.2f} s; "
         f"{b} prompts of phase 3's stream right-aligned to {width} tokens, one prefill_step "
         f"and {MESH_NEW} greedy serve_steps on a contiguous cache")
+    collective = captured_all_reduce(mesh, torch, device) if device == "cuda" else None
 
     def full(t):
         return t.full_tensor() if isinstance(t, DTensor) else t
@@ -5686,7 +5761,7 @@ def mesh_phase(cfg, params, np, torch, device="cuda"):
     def placed(tree, shardings):
         return shd.distribute_tree(tree, shardings, mesh)
 
-    def run(p, li, on_mesh, count=None):
+    def run(p, li, on_mesh, count=None, steps=MESH_NEW):
         cache = init_cache(cfg, b, width + MESH_NEW, device=device)
         toks = tokens
         if on_mesh:
@@ -5710,7 +5785,7 @@ def mesh_phase(cfg, params, np, torch, device="cuda"):
             rows.append(full(lg).float())
             sync()
             prefill_ms = 1e3 * (time.perf_counter() - t)
-            for i in range(1 if count is not None else MESH_NEW):
+            for i in range(1 if count is not None else steps):
                 nxt = rows[-1].argmax(-1)
                 picks.append(nxt)
                 pos = torch.full((b,), width + i, dtype=torch.int32, device=device)
@@ -5723,6 +5798,29 @@ def mesh_phase(cfg, params, np, torch, device="cuda"):
         return dict(rows=rows, tokens=torch.stack(picks).T.tolist() if picks else [],
                     prefill_ms=prefill_ms, step_ms=step_ms, launches=dict(ops.LAUNCHES),
                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    def graph_run(graphs, li, steps=MESH_NEW):
+        """``run``'s schedule through ``graphs``: the prefill (captured
+        on the first run: its warm-up is the step) and ``steps`` greedy
+        decode steps, each timed with a synchronize on each side."""
+        rows, picks, step_ms = [], [], []
+        host = tokens.cpu().numpy()
+        sync()
+        t = time.perf_counter()
+        lg, greedy = graphs.prefill(host, width + MESH_NEW, intervals=li)
+        rows.append(lg.clone())
+        sync()
+        prefill_ms = 1e3 * (time.perf_counter() - t)
+        for i in range(steps):
+            picks.append(greedy.clone())
+            sync()
+            t = time.perf_counter()
+            lg, greedy = graphs.decode(greedy, width + i, width + MESH_NEW, intervals=li)
+            rows.append(lg.clone())
+            sync()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+        return dict(rows=rows, tokens=torch.stack(picks).T.tolist(), prefill_ms=prefill_ms,
+                    step_ms=step_ms)
 
     def op_counts(p, li, on_mesh):
         """aten ops of one decode step after the prefill, by name (DTensor's
@@ -5756,7 +5854,67 @@ def mesh_phase(cfg, params, np, torch, device="cuda"):
                 serve_step(p, cfg, full(lg).argmax(-1)[:, None], cache, pos, li)
         return names.n
 
+    def graph_mesh(label, key, graphs, g_runs, meshed, meshed_after, plain, li, graph_launches):
+        """The graph runs against the eager mesh turns around them: tokens
+        identical, logits bit for bit, the medians; in-scan on the card,
+        the device trace of a replayed prefill and 3 decode steps."""
+        for n, g in enumerate(g_runs):
+            if g["tokens"] != meshed["tokens"]:
+                fail(f"{label}: graph run {n + 1}'s greedy tokens differ from the eager mesh "
+                     f"steps'")
+            if not all(torch.equal(a, b) for a, b in zip(g["rows"], meshed["rows"])):
+                diff = max(float((a - b).abs().max()) for a, b in zip(g["rows"], meshed["rows"]))
+                fail(f"{label}: graph run {n + 1}'s logits differ from the eager mesh steps' "
+                     f"(max |diff| {diff:.4g})")
+        if meshed_after["tokens"] != [t[:MESH_AFTER] for t in meshed["tokens"]]:
+            fail(f"{label}: the second eager mesh turn's tokens differ from the first's")
+        g_steps = [ms for g in g_runs for ms in g["step_ms"]][1:]     # the capture's out
+        e_steps = meshed["step_ms"] + meshed_after["step_ms"]
+        res = dict(graph_step_ms=statistics.median(g_steps),
+                   eager_mesh_step_ms=statistics.median(e_steps),
+                   graph_prefill_ms=g_runs[1]["prefill_ms"],
+                   graph_capture_prefill_ms=g_runs[0]["prefill_ms"],
+                   graph_capture_decode_ms=g_runs[0]["step_ms"][0],
+                   eager_mesh_prefill_ms=meshed_after["prefill_ms"],
+                   turns=[("eager", statistics.median(meshed["step_ms"])),
+                          ("graph", statistics.median(g_runs[0]["step_ms"][1:])),
+                          ("graph", statistics.median(g_runs[1]["step_ms"])),
+                          ("eager", statistics.median(meshed_after["step_ms"]))],
+                   graph_captures=graphs.captures, graph_replays=graphs.replays,
+                   graph_keys=sorted(map(str, graphs.keys())),
+                   graph_pool_bytes=graphs.backend.pool_bytes(), graph_launches=graph_launches)
+        log(f"  {label}: through MeshGraphs on the mesh, decode step {res['graph_step_ms']:.2f} "
+            f"ms (median of {len(g_steps)} replays) against {res['eager_mesh_step_ms']:.2f} ms "
+            f"eager on the mesh (median of {len(e_steps)}) and "
+            f"{statistics.median(plain['step_ms']):.2f} ms plain eager; turns "
+            + ", ".join(f"{k} {ms:.2f}" for k, ms in res["turns"])
+            + f" ms; prefill {res['graph_prefill_ms']:.1f} ms replayed against "
+            f"{res['eager_mesh_prefill_ms']:.1f} eager on the mesh (captures: prefill "
+            f"{res['graph_capture_prefill_ms']:.1f} ms, its warm-up the step; decode "
+            f"{res['graph_capture_decode_ms']:.1f} ms with its replay); host clock, synchronized "
+            f"on each side; greedy tokens identical and logits of all {len(meshed['rows'])} "
+            f"steps bit for bit the eager mesh steps' in both graph runs; {graphs.captures} "
+            f"captures, {graphs.replays} replays, keys {res['graph_keys']}, pool "
+            f"{res['graph_pool_bytes'] / 1e9:.3f} GB; launches of the warm-ups {graph_launches}")
+        if key == "b_in_scan" and device == "cuda":
+            want = len(list(qleaves(graphs.params["units"]))) * cfg.pattern_units
+            replays = graphs.replays
+            prof = profile_window("14b_mesh_graph_steps",
+                                  lambda: graph_run(graphs, li, steps=3), torch, 4)
+            n = graphs.replays - replays
+            got = None if prof is None else prof["port_kernels"]["masked_dequant"]
+            if got is None or n != 4 or got != want * n:
+                fail(f"14b: the device trace of {n} replayed steps shows {got} masked_dequant "
+                     f"launches, not {want} a step")
+            res["trace"] = dict(replays=n, masked_dequant=got, masked_dequant_per_step=got / n,
+                                busy_share=prof["busy_share"])
+            log(f"  14b: the device trace of {n} replayed mesh steps (the prefill and 3 decode "
+                f"steps) shows {got} masked_dequant launches, {got // n} a step")
+        return res
+
     out, launches = {}, {}
+    if collective is not None:
+        out["captured_all_reduce"] = collective
     tiers = {"free": LicenseTier(name="free", masks=FREE_TIER)}
     try:
         for key, label in (("a_float", "14a float weights"),
@@ -5771,6 +5929,12 @@ def mesh_phase(cfg, params, np, torch, device="cuda"):
                 log(f"  14b: int8 store built in {time.perf_counter() - t0:.2f} s")
             plain = run(p, li, False)
             meshed = run(p, li, True)
+            graphs = MeshGraphs(cfg, placed(p, shd.params_shardings(p, mesh, cfg)), mesh=mesh,
+                                backend=backend)
+            ops.reset_launches()
+            g_runs = [graph_run(graphs, li) for _ in range(2)]
+            graph_launches = dict(ops.LAUNCHES)
+            meshed_after = run(p, li, True, steps=MESH_AFTER)
             cost = op_cost.OpCostMode()
             run(p, li, True, count=cost)
             per_step = meshed["launches"].get("masked_dequant", 0) // (MESH_NEW + 1)
@@ -5791,6 +5955,9 @@ def mesh_phase(cfg, params, np, torch, device="cuda"):
                 f"{res['collectives'] or 'none'}, {res['collective_bytes']} bytes; "
                 f"peak memory {res['mesh_peak_gb']:.2f} GB on the mesh, {res['plain_peak_gb']:.2f} "
                 f"GB plain; launches on the mesh {meshed['launches']}")
+            res.update(graph_mesh(label, key, graphs, g_runs, meshed, meshed_after, plain, li,
+                                  graph_launches))
+            del graphs, g_runs, meshed_after
             if meshed["tokens"] != plain["tokens"]:
                 fail(f"{label}: greedy tokens on the mesh differ from the plain steps'")
             diffs = [float((m - q).abs().max()) for m, q in zip(meshed["rows"], plain["rows"])]
@@ -5820,7 +5987,7 @@ def mesh_phase(cfg, params, np, torch, device="cuda"):
                          f"want {want} a step")
                 log(f"  14b: masked_dequant launched through local_map {per_step} times a step "
                     f"({meshed['launches']['masked_dequant']} in all), as the plain in-scan steps")
-            for k, v in meshed["launches"].items():
+            for k, v in list(meshed["launches"].items()) + list(graph_launches.items()):
                 launches[k] = launches.get(k, 0) + v
             out[key] = res
             del p, plain, meshed

@@ -316,6 +316,22 @@ def _local_shape(shape: Tuple[int, ...], pls: Placements, mesh) -> Tuple[int, ..
     return tuple(out)
 
 
+def shard_offsets(x: DTensor) -> Tuple[int, ...]:
+    """Where this rank's shard of ``x`` starts in each dim of the whole
+    tensor (the rules' even shards; a dim split over several mesh dims is
+    split in mesh-dim order)."""
+    mesh, local = x.device_mesh, x.to_local().shape
+    coord = mesh.get_coordinate()
+    out = []
+    for d in range(x.ndim):
+        o = 0
+        for c, size, p in zip(coord, tuple(mesh.shape), x.placements):
+            if p.is_shard(d):
+                o = o * size + c
+        out.append(o * local[d])
+    return tuple(out)
+
+
 def distribute_tree(tree: Any, shardings: Any, mesh) -> Any:
     """Every tensor leaf of ``tree`` as a ``DTensor`` on ``mesh`` with
     the placements of the same path in ``shardings``.  A real tensor is

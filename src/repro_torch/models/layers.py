@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.distribution.sharding import axis_sizes, on_mesh, placements
+from repro_torch.distribution.sharding import axis_sizes, on_mesh, placements, shard_offsets
 
 
 # ------------------------------------------------------------------ the mesh
@@ -139,9 +139,9 @@ def write_at(leaf: torch.Tensor, index: Tuple[torch.Tensor, ...], value: torch.T
     its out-of-place one gathers the whole leaf.  Each rank takes the
     indices and the values whole on the mesh dims that shard an indexed
     dim (as the leaf's on the others) and writes only the entries that
-    fall in its own shard.  A ``meta`` leaf (the dry run) has no data to
-    pick those by: every value is written at its place clamped into the
-    shard, which costs what the real write does."""
+    fall in its own shard (:func:`write_local`).  A ``meta`` leaf (the
+    dry run) has no data to pick those by: every value is written at its
+    place clamped into the shard, which costs what the real write does."""
     if not isinstance(leaf, DTensor):
         leaf[index] = value
         return
@@ -154,22 +154,42 @@ def write_at(leaf: torch.Tensor, index: Tuple[torch.Tensor, ...], value: torch.T
     if local.shape[:n] == leaf.shape[:n]:        # no indexed dim is split
         local[idx] = vals
         return
-    coord = mesh.get_coordinate()
-    offsets = []
-    for d in range(n):
-        o = 0
-        for c, size, p in zip(coord, mesh.shape, pls):
-            if p.is_shard(d):
-                o = o * size + c
-        offsets.append(o * local.shape[d])
+    offsets = shard_offsets(leaf)[:n]
     if local.is_meta:
         local[tuple((i - o).clamp(0, size - 1)
                     for i, o, size in zip(idx, offsets, local.shape))] = vals
         return
-    hit = torch.ones(idx[0].shape, dtype=torch.bool, device=local.device)
+    write_local(local, idx, offsets, vals)
+
+
+def write_local(local: torch.Tensor, idx: Tuple[torch.Tensor, ...], offsets: Tuple[int, ...],
+                vals: torch.Tensor) -> None:
+    """Write into ``local``, the shard that starts at ``offsets`` of the
+    indexed dims, the entries of ``vals`` whose indices ``idx`` (each of
+    ``vals``' leading shape) fall in it; the others are dropped.
+
+    Static shapes and no host synchronization, so a CUDA graph captures
+    it: every entry is written, a miss to the slot of the last entry that
+    hits, with that entry's value.  The boolean selection leaves the last
+    hit's value there too, so the shard holds the same bits (an
+    ``index_put_`` whose duplicate destinations carry different values
+    leaves any of them on CUDA; a miss clamped onto a slot of its own
+    could overwrite a hit).  Where no entry hits, every entry writes the
+    value already resident at the first entry's clamped slot."""
+    lead = idx[0].shape
+    k = idx[0].numel()
+    hit = torch.ones(lead, dtype=torch.bool, device=local.device)
     for i, o, size in zip(idx, offsets, local.shape):
         hit &= (i >= o) & (i < o + size)
-    local[tuple(i[hit] - o for i, o in zip(idx, offsets))] = vals[hit]
+    hit = hit.reshape(k)
+    order = torch.arange(k, device=local.device)
+    last = torch.where(hit, order, -1).amax()
+    src = torch.where(hit, order, last.clamp(min=0))    # whose slot and value
+    dest = tuple((i.reshape(k) - o).clamp(0, size - 1)[src]
+                 for i, o, size in zip(idx, offsets, local.shape))
+    vals = vals.reshape(k, *vals.shape[len(lead):])
+    keep = (last >= 0).reshape((1,) * vals.ndim)
+    local[dest] = torch.where(keep, vals[src], local[dest])
 
 
 def index_add_rows(buf: torch.Tensor, index: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:

@@ -84,21 +84,35 @@ kept in the view's ``engine_graphs`` (per tier; one set for every tier
 of the in-scan store).  A group's contiguous cache is a static buffer
 per (lanes, capacity) that the prefill graph zeroes before it fills it.
 
+The dry run's serving steps (:class:`MeshGraphs`) are the counterpart of
+``repro/launch/dryrun.py``'s sharded jits: ``prefill_step`` (with or
+without a vision prefix) and ``serve_step`` (float, or in-scan with a
+tier's intervals) over one weight tree, as DTensors on a mesh or plain
+tensors, one prefill graph per (lanes, prompt width, capacity, patch
+count) and one decode graph per (lanes, capacity).  Its static inputs
+and cache are placed by the partition rules, and its logits come out
+whole.  It shares the engine's contiguous-cache capture
+(:class:`_CacheGraphs`).
+
 The backend is a constructor parameter: ``CudaGraphBackend`` on the
 card; the CPU tests pass one whose replay re-runs the captured function.
 """
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.core.pytree_io import flatten_params
 from repro_torch.kernels import ops
 from repro_torch.serving.engine import (prefill_chunk_step, prefill_step, prefill_suffix_step,
                                         serve_step, serve_step_paged, stack_lane_caches)
+from repro_torch.serving.quantized import qleaves
 
 
 def table_width(used: int, cap: int) -> int:
@@ -205,20 +219,44 @@ class _Input:
     fresh pinned host tensor.  PyTorch's pinned-memory cache reuses that
     tensor's block only once the copy has run, so a loop that does not
     wait for the card between its steps (the training loops) never
-    rewrites host memory that a queued copy is still to read."""
+    rewrites host memory that a queued copy is still to read.
 
-    def __init__(self, shape, dtype, device: torch.device):
-        self.dev = torch.zeros(shape, dtype=dtype, device=device)
-        self.np_dtype = torch.zeros((), dtype=dtype).numpy().dtype
+    With ``mesh`` the input is a ``DTensor`` placed by
+    ``sharding.data_shardings`` (its lanes over the data axes): the
+    values given are whole, and each rank copies its own rows into its
+    local shard."""
+
+    def __init__(self, shape, dtype, device: torch.device, mesh: Any = None):
+        self.dev = self.local = torch.zeros(shape, dtype=dtype, device=device)
+        self.rows = slice(None)
         self.pinned = device.type == "cuda"
+        try:        # None for a dtype numpy lacks (bf16): filled from the device only
+            self.np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        except TypeError:
+            self.np_dtype = None
+        if mesh is not None:
+            from repro_torch.distribution import sharding as shd
+
+            self.dev = shd.distribute_tree({"x": self.local},
+                                           shd.data_shardings({"x": self.local}, mesh), mesh)["x"]
+            self.local = self.dev.to_local()
+            start = shd.shard_offsets(self.dev)[0]
+            self.rows = slice(start, start + self.local.shape[0])
 
     def fill(self, values) -> None:
         """Refill the leading ``len(values)`` rows (all of them for the
-        decode step; a prefill chunk's ``b`` lanes)."""
-        host = torch.from_numpy(np.ascontiguousarray(values, dtype=self.np_dtype))
+        decode step; a prefill chunk's ``b`` lanes) from host values, or
+        from a tensor on the device, copied there."""
+        if isinstance(values, torch.Tensor):
+            src = values[self.rows]
+            self.local[:len(src)].copy_(src)
+            return
+        if self.np_dtype is None:
+            raise TypeError(f"a {self.local.dtype} input is filled from a tensor, not host values")
+        host = torch.from_numpy(np.ascontiguousarray(values, dtype=self.np_dtype))[self.rows]
         if self.pinned:
             host = host.pin_memory()
-        self.dev[:len(host)].copy_(host, non_blocking=True)
+        self.local[:len(host)].copy_(host, non_blocking=True)
 
 
 def _load_intervals(static: torch.Tensor, intervals) -> None:
@@ -648,7 +686,155 @@ class SuffixPrefillGraphs(_BucketGraphs):
         return self._capture_ran(step)
 
 
-class EngineGraphs:
+def _capture_on_cache(backend: Any, step: Callable[[], None], leaves: Sequence[torch.Tensor],
+                      replayed: bool) -> Any:
+    """Warm up and capture ``step``, a step over a contiguous cache whose
+    leaves (a ``DTensor``'s local shards) are ``leaves``.  A prefill
+    (``replayed`` false) zeroes the cache inside its step: the warm-up is
+    the prefill and stands, and a failed capture leaves the cache zeroed,
+    its pristine state.  A decode's warm-up advanced the cache (its len,
+    any recurrent state): the cache is put back, and the caller replays
+    the graph for this step."""
+    saved = [t.clone() for t in leaves] if replayed else ()
+    try:
+        backend.warmup(step)
+        graph = backend.capture(step)
+    except BaseException:
+        if not replayed:
+            for t in leaves:
+                t.zero_()
+        raise
+    finally:
+        for t, s in zip(leaves, saved):
+            t.copy_(s)
+    return graph
+
+
+class _CacheGraphs:
+    """What the contiguous-cache families (:class:`EngineGraphs`,
+    :class:`MeshGraphs`) share: the static inputs by (name, shape), one
+    contiguous cache of b lanes per (b, capacity), the in-scan intervals
+    (2, MAX_INTERVALS), the static outputs per b (the last-token logits
+    (b, V) f32, whole, and their greedy argmax (b,) int32, valid until the
+    next step of b lanes), and the prefill and decode captures.  ``mesh``
+    (None: plain tensors) places the inputs and the cache by the
+    partition rules; the steps then run under ``implicit_replication``."""
+
+    mesh: Any = None
+
+    def __init__(self, cfg: Any, device: Any, backend: Optional[Any] = None):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.backend = backend if backend is not None else CudaGraphBackend(self.device)
+        self.intervals = torch.zeros((2, ops.MAX_INTERVALS), dtype=torch.float32,
+                                     device=self.device)
+        self.inputs: Dict[Tuple[Any, ...], _Input] = {}
+        self.caches: Dict[Tuple[int, int], Dict[str, Any]] = {}
+        self.outputs: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.captures = 0
+        self.replays = 0
+
+    def __len__(self) -> int:
+        return len(self.keys())
+
+    def _input(self, name: str, shape: Tuple[int, ...], dtype) -> _Input:
+        key = (name, *shape)
+        if key not in self.inputs:
+            self.inputs[key] = _Input(shape, dtype, self.device, self.mesh)
+        return self.inputs[key]
+
+    def _fill_step(self, tokens, pos) -> Tuple[_Input, _Input]:
+        """A decode step's static tokens (b, 1) and positions (b,) filled:
+        ``tokens`` (b,) a tensor on the device (the last step's greedy
+        output or draw) or host values, ``pos`` an int or (b,) host
+        positions."""
+        b = int(tokens.shape[0])
+        toks = self._input("tokens", (b, 1), torch.int32)
+        poss = self._input("positions", (b,), torch.int32)
+        toks.fill(tokens.reshape(b, 1))
+        poss.fill(np.array(np.broadcast_to(pos, (b,)), np.int32))
+        return toks, poss
+
+    def _static_intervals(self, in_scan: bool, intervals):
+        """In-scan: the static intervals filled with ``intervals`` (a
+        tier's, None for one that masks nothing); else None."""
+        if not in_scan:
+            return None
+        _load_intervals(self.intervals, intervals)
+        return (self.intervals[0], self.intervals[1])
+
+    def _outputs(self, b: int):
+        if b not in self.outputs:
+            self.outputs[b] = (
+                torch.zeros((b, self.cfg.padded_vocab), dtype=torch.float32, device=self.device),
+                torch.zeros((b,), dtype=torch.int32, device=self.device))
+        return self.outputs[b]
+
+    def _cache(self, b: int, capacity: int) -> Dict[str, Any]:
+        if (b, capacity) not in self.caches:
+            cache = stack_lane_caches(self.cfg, b, capacity, self.device)
+            if self.mesh is not None:
+                from repro_torch.distribution import sharding as shd
+
+                cache = shd.distribute_tree(cache, shd.cache_shardings(cache, self.mesh, b),
+                                            self.mesh)
+            self.caches[(b, capacity)] = cache
+        return self.caches[(b, capacity)]
+
+    def _step(self, b: int, capacity: int, run: Callable[[Dict[str, Any]], torch.Tensor],
+              replayed: bool) -> Any:
+        """Capture ``run`` (the cache -> last-token logits) over the
+        (b, capacity) cache, its logits made whole into the static
+        outputs; a prefill (``replayed`` false) zeroes the cache first."""
+        cache = self._cache(b, capacity)
+        leaves = [t.to_local() if isinstance(t, DTensor) else t
+                  for t in flatten_params(cache).values()]
+        logits_out, greedy = self._outputs(b)
+        modes = implicit_replication if self.mesh is not None else contextlib.nullcontext
+
+        def step():
+            with modes():
+                if not replayed:
+                    for t in leaves:
+                        t.zero_()
+                logits = run(cache)
+                if isinstance(logits, DTensor):     # an all-gather where vocab is sharded
+                    logits = logits.full_tensor()
+                logits_out.copy_(logits)
+                greedy.copy_(torch.argmax(logits, -1))
+
+        graph = _capture_on_cache(self.backend, step, leaves, replayed)
+        self.captures += 1
+        return graph
+
+    def _prefill(self, graphs: Dict[Tuple[Any, ...], Any], key: Tuple[Any, ...], params: Any,
+                 li, prompt: _Input, capacity: int, patches: Optional[_Input] = None):
+        pe = None if patches is None else patches.dev
+        return self._run(graphs, key, prompt.dev.shape[0], capacity, lambda cache: prefill_step(
+            params, self.cfg, prompt.dev, cache, patch_embeds=pe, license_intervals=li)[0],
+            replayed=False)
+
+    def _decode(self, graphs: Dict[Tuple[Any, ...], Any], key: Tuple[Any, ...], params: Any,
+                li, toks: _Input, poss: _Input, capacity: int):
+        return self._run(graphs, key, toks.dev.shape[0], capacity, lambda cache: serve_step(
+            params, self.cfg, toks.dev, cache, poss.dev, li)[0], replayed=True)
+
+    def _run(self, graphs: Dict[Tuple[Any, ...], Any], key: Tuple[Any, ...], b: int,
+             capacity: int, run: Callable[[Dict[str, Any]], torch.Tensor], replayed: bool):
+        """Replay ``graphs[key]``, capturing it first (:meth:`_step`); a
+        prefill's capture ran the step (its warm-up), so no replay follows
+        it.  Returns the static outputs of b lanes."""
+        graph = graphs.get(key)
+        if graph is None:
+            graph = graphs[key] = self._step(b, capacity, run, replayed)
+            if not replayed:
+                return self._outputs(b)
+        self.backend.replay(graph)
+        self.replays += 1
+        return self._outputs(b)
+
+
+class EngineGraphs(_CacheGraphs):
     """``ServingEngine``'s compiled prefill and decode (see the module
     docstring).
 
@@ -658,33 +844,19 @@ class EngineGraphs:
     memory pool.  Static inputs, by shape: the right-aligned prompts (b,
     max_prompt) int32, the decode tokens (b, 1) int32 and positions (b,)
     int32, one contiguous cache of b lanes per (b, capacity), and the
-    in-scan intervals (2, MAX_INTERVALS).  Static outputs per b: the
-    last-token logits (b, V) f32 and their greedy argmax (b,) int32,
-    valid until the next step of b lanes.  A prefill capture's warm-up
+    in-scan intervals (2, MAX_INTERVALS).  A prefill capture's warm-up
     is the prefill (its graph zeroes the cache first, so a replay starts
     from the pristine state, recurrent state included); a decode
     capture's warm-up advances the cache, which is put back before the
     step's replay."""
 
     def __init__(self, engine: Any, backend: Optional[Any] = None):
+        super().__init__(engine.cfg, engine.device, backend)
         self.engine = engine
-        dev = engine.device
-        self.backend = backend if backend is not None else CudaGraphBackend(dev)
-        self.intervals = torch.zeros((2, ops.MAX_INTERVALS), dtype=torch.float32, device=dev)
-        self.prompts: Dict[Tuple[int, int], _Input] = {}
-        self.tokens: Dict[int, _Input] = {}
-        self.positions: Dict[int, _Input] = {}
-        self.caches: Dict[Tuple[int, int], Dict[str, Any]] = {}
-        self.outputs: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-        self.captures = 0
-        self.replays = 0
         # graphs read the static buffers of the set that captured them:
         # a new set drops what the engine's views hold of an older one
         for view in engine._views._entries.values():
             view.engine_graphs.clear()
-
-    def __len__(self) -> int:
-        return len(self.keys())
 
     def keys(self) -> set:
         """The live graphs' keys, read from the views that own them:
@@ -702,20 +874,11 @@ class EngineGraphs:
         ``view``'s graph for that key, captured on first use.  Returns the
         static last-token logits (b, V) and greedy tokens (b,)."""
         b, width = (int(n) for n in tokens.shape)
-        if (b, width) not in self.prompts:
-            self.prompts[(b, width)] = _Input((b, width), torch.int32, self.engine.device)
-        prompt = self.prompts[(b, width)]
+        prompt = self._input("prompt", (b, width), torch.int32)
         prompt.fill(tokens)
         params, li = self._load(view)
-        key = ("prefill", b, width, int(capacity))
-        graph = view.engine_graphs.get(key)
-        if graph is None:
-            # the capture's warm-up ran this prefill: its outputs stand
-            view.engine_graphs[key] = self._capture_prefill(params, li, prompt, int(capacity))
-        else:
-            self.backend.replay(graph)
-            self.replays += 1
-        return self._outputs(b)
+        return self._prefill(view.engine_graphs, ("prefill", b, width, int(capacity)), params, li,
+                             prompt, int(capacity))
 
     def decode(self, view: View, tokens: torch.Tensor, pos: int, capacity: int):
         """One decode step of the group's b lanes at position ``pos``:
@@ -724,89 +887,91 @@ class EngineGraphs:
         positions copied from pinned host memory; through ``view``'s graph
         for (b, capacity), captured on first use.  Returns the static
         logits (b, V) and greedy tokens (b,)."""
-        b = int(tokens.shape[0])
-        if b not in self.tokens:
-            self.tokens[b] = _Input((b, 1), torch.int32, self.engine.device)
-            self.positions[b] = _Input((b,), torch.int32, self.engine.device)
-        toks, poss = self.tokens[b], self.positions[b]
-        toks.dev.copy_(tokens.reshape(b, 1))
-        poss.fill(np.full(b, pos, np.int32))
+        toks, poss = self._fill_step(tokens, pos)
         params, li = self._load(view)
-        key = ("decode", b, int(capacity))
-        graph = view.engine_graphs.get(key)
-        if graph is None:
-            graph = view.engine_graphs[key] = self._capture_decode(params, li, toks, poss,
-                                                                   int(capacity))
-        self.backend.replay(graph)
-        self.replays += 1
-        return self._outputs(b)
+        return self._decode(view.engine_graphs, ("decode", int(tokens.shape[0]), int(capacity)),
+                            params, li, toks, poss, int(capacity))
 
     def _load(self, view: View):
         """``view``'s weights and, in-scan, the static intervals filled
         with its tier's."""
         params, intervals = view
-        if not self.engine.quantized:
-            return params, None
-        _load_intervals(self.intervals, intervals)
-        return params, (self.intervals[0], self.intervals[1])
+        return params, self._static_intervals(self.engine.quantized, intervals)
 
-    def _outputs(self, b: int):
-        if b not in self.outputs:
-            dev = self.engine.device
-            self.outputs[b] = (
-                torch.zeros((b, self.engine.cfg.padded_vocab), dtype=torch.float32, device=dev),
-                torch.zeros((b,), dtype=torch.int32, device=dev))
-        return self.outputs[b]
 
-    def _cache(self, b: int, capacity: int) -> Dict[str, Any]:
-        if (b, capacity) not in self.caches:
-            self.caches[(b, capacity)] = stack_lane_caches(self.engine.cfg, b, capacity,
-                                                           self.engine.device)
-        return self.caches[(b, capacity)]
+class MeshGraphs(_CacheGraphs):
+    """The dry run's serving steps compiled: ``prefill_step`` (with or
+    without a vision prefix) and ``serve_step`` (float, or in-scan from
+    the int8 store with a tier's intervals) as graphs over one weight
+    tree, sharded on ``mesh`` or, with none, on plain tensors.
 
-    def _capture_prefill(self, params: Any, li, prompt: _Input, capacity: int) -> Any:
-        cfg, b = self.engine.cfg, prompt.dev.shape[0]
-        cache = self._cache(b, capacity)
-        leaves = list(flatten_params(cache).values())
-        logits_out, greedy = self._outputs(b)
+    Counterpart of ``repro/launch/dryrun.py``'s serving jits, each one
+    program under ``in_shardings``.  ``params`` are the weights as the
+    caller placed them (``sharding.distribute_tree`` by
+    ``params_shardings`` on a mesh), and the graphs live on their device.
+    An int8 store (any int8 leaf) runs in-scan: its steps read their
+    tier's intervals (plain tensors: the sharded dequant takes no
+    ``DTensor`` lo/hi) from the static (2, MAX_INTERVALS) input, and a
+    float tree refuses intervals.  The float tree and the store each own
+    a set.  One prefill graph per (b, prompt width, capacity, patch count
+    or None) and one decode graph per (b, capacity).  Static inputs: the
+    prompts (b, width) int32, the decode tokens (b, 1) int32 and
+    positions (b,) int32 placed by ``data_shardings`` on a mesh, the
+    patch embeddings (b, P, d_model) in ``cfg.dtype``, one contiguous
+    cache per (b, capacity) from ``init_cache`` placed once by
+    ``cache_shardings``.  The logits come out whole (an all-gather over
+    the model axis where the vocabulary is sharded; none on one rank).
 
-        def step():
-            for t in leaves:
-                t.zero_()
-            logits, _ = prefill_step(params, cfg, prompt.dev, cache, license_intervals=li)
-            logits_out.copy_(logits)
-            greedy.copy_(torch.argmax(logits, -1))
+    The steps run under ``implicit_replication`` on the mesh, warm-up and
+    capture included.  Inside a capture they hold DTensor's functional
+    collectives, which the warm-up has run once eagerly (NCCL sets up a
+    communicator on its first collective, which a capture cannot do)."""
 
-        try:
-            self.backend.warmup(step)
-            graph = self.backend.capture(step)
-        except BaseException:
-            for t in leaves:             # no half-filled cache: the pristine state
-                t.zero_()
-            raise
-        self.captures += 1
-        return graph
+    def __init__(self, cfg: Any, params: Any, *, mesh: Any = None,
+                 backend: Optional[Any] = None):
+        leaf = next(iter(flatten_params(params).values()))
+        self.mesh = mesh
+        super().__init__(cfg, (leaf.to_local() if isinstance(leaf, DTensor) else leaf).device,
+                         backend)
+        self.params = params
+        self.in_scan = next(qleaves(params), None) is not None
+        self.graphs: Dict[Tuple[Any, ...], Any] = {}
 
-    def _capture_decode(self, params: Any, li, toks: _Input, poss: _Input,
-                        capacity: int) -> Any:
-        cfg, b = self.engine.cfg, toks.dev.shape[0]
-        cache = self._cache(b, capacity)
-        leaves = list(flatten_params(cache).values())
-        logits_out, greedy = self._outputs(b)
+    def keys(self) -> set:
+        """("prefill", b, width, capacity, patches or None) and
+        ("decode", b, capacity)."""
+        return set(self.graphs)
 
-        def step():
-            logits, _ = serve_step(params, cfg, toks.dev, cache, poss.dev, li)
-            logits_out.copy_(logits)
-            greedy.copy_(torch.argmax(logits, -1))
+    def prefill(self, tokens: np.ndarray, capacity: int, patch_embeds: Optional[torch.Tensor] = None,
+                intervals=None):
+        """``prefill_step`` of the prompts ``tokens`` (b, width) after
+        the vision prefix ``patch_embeds`` (b, P, d_model), a tensor, if
+        one is given, into the (b, ``capacity``) cache; in-scan in the
+        tier of ``intervals``.  Returns the static last-token logits (b,
+        V) and greedy tokens (b,)."""
+        b, width = (int(n) for n in tokens.shape)
+        prompt = self._input("prompt", (b, width), torch.int32)
+        prompt.fill(tokens)
+        patches, n = None, None
+        if patch_embeds is not None:
+            n = int(patch_embeds.shape[1])
+            patches = self._input("patches", (b, n, self.cfg.d_model), self.cfg.dtype)
+            patches.fill(patch_embeds)
+        return self._prefill(self.graphs, ("prefill", b, width, int(capacity), n), self.params,
+                             self._tier(intervals), prompt, int(capacity), patches)
 
-        saved = [t.clone() for t in leaves]
-        try:
-            self.backend.warmup(step)
-            graph = self.backend.capture(step)
-        finally:
-            # the warm-up advanced the cache (its len, any recurrent
-            # state): the replay runs this step again
-            for t, s in zip(leaves, saved):
-                t.copy_(s)
-        self.captures += 1
-        return graph
+    def decode(self, tokens, pos, capacity: int, intervals=None):
+        """One ``serve_step`` of b lanes over the cache the prefill of
+        (b, ``capacity``) filled: ``tokens`` (b,) on the device (the last
+        step's greedy output) or on the host, ``pos`` an int or (b,)
+        positions.  Returns the static logits (b, V) and greedy tokens
+        (b,)."""
+        toks, poss = self._fill_step(tokens, pos)
+        return self._decode(self.graphs, ("decode", int(tokens.shape[0]), int(capacity)),
+                            self.params, self._tier(intervals), toks, poss, int(capacity))
+
+    def _tier(self, intervals):
+        if intervals is not None and not self.in_scan:
+            raise ValueError("a float weight tree takes no license intervals; "
+                             "serve a tier in-scan from the int8 store")
+        return self._static_intervals(self.in_scan, intervals)

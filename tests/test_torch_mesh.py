@@ -17,6 +17,13 @@ unsharded in-scan steps.
 qwen2.5-3b's steps at 2 rows on a (4, 1) mesh, a batch the data axis
 does not divide, must give the unsharded steps' tokens and logits too.
 
+qwen2.5-3b's float steps on (2, 2), where ``layers.write_at`` writes
+the cache shard by shard, and its in-scan steps on (1, 4) run again
+through ``serving.compiled.MeshGraphs`` on ``_mesh_worker``'s recording
+backend, every warm-up, capture and replay under its host-sync guard:
+the eager sharded steps' tokens, their logits bit for bit, and the JAX
+``serve_step``'s within 1e-4.
+
 (b) ``launch.dryrun.dry_run`` with a mesh on the fake world (made in a
 fixture, destroyed at teardown): decode, prefill and train at (2, 2)
 and (16, 16) on smoke variants, a rank's bytes equal to its local
@@ -147,6 +154,40 @@ def test_sharded_qwen_matches_jax(world):
         lg, cache = jax_serve_step(jparams, jcfg, nxt, cache, W.S + i)
         want.append(np.asarray(lg))
     np.testing.assert_allclose(out["qwen2.5-3b/logits"], np.stack(want), atol=1e-4, rtol=1e-4)
+
+
+def _jax_steps(tokens):
+    """qwen2.5-3b's JAX prefill and ``serve_step``s fed ``tokens``
+    (steps, B): logits (steps + 1, B, V)."""
+    from repro.models import model as jax_model
+
+    jcfg = _jax_cfg("qwen2.5-3b")
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    cache = jax_model.init_cache(jcfg, W.B, W.CAP)
+    lg, cache = jax_prefill_step(jparams, jcfg, W.tokens("qwen2.5-3b").astype(np.int32), cache)
+    want = [np.asarray(lg)]
+    for i in range(W.STEPS):
+        lg, cache = jax_serve_step(jparams, jcfg, tokens[i][:, None].astype(np.int32), cache,
+                                   W.S + i)
+        want.append(np.asarray(lg))
+    return np.stack(want)
+
+
+@pytest.mark.parametrize("run,eager", [("graph", "qwen2.5-3b"), ("int8_graph", "int8")])
+def test_mesh_graphs_match_eager_sharded_steps(world, run, eager):
+    """The prefill's capture ran the step (no replay), each decode key
+    captured once and replayed every step, and the tokens and the logits
+    are the eager sharded steps', bit for bit."""
+    out, _ = world
+    np.testing.assert_array_equal(out[f"{run}/tokens"], out[f"{eager}/tokens"])
+    np.testing.assert_array_equal(out[f"{run}/logits"], out[f"{eager}/logits"])
+    assert out[f"{run}/counts"].tolist() == [2, W.STEPS]
+
+
+def test_mesh_graphs_match_jax(world):
+    out, _ = world
+    np.testing.assert_allclose(out["graph/logits"], _jax_steps(out["graph/tokens"]),
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_sharded_in_scan_dequant_is_bit_identical(world):
