@@ -54,8 +54,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 3c. the compiled decode and prefill steps and the in-scan int8
    dequant: phase 3's stream through float views and through the int8
    store dequantized inside every step (``quantized=True``), each served
-   four times in turns, eager (the slot's decode and prefill graphs
-   taken away) and through the CUDA graphs, the launch counters zeroed
+   three times in turns, eager (the slot's decode and prefill graphs
+   taken away), then twice through the CUDA graphs, the launch counters zeroed
    just before each run and read just after: ``paged_attention`` and
    ``paged_decode_write`` once a layer of every eager decode step or
    decode capture warm-up, and on the in-scan path ``masked_dequant``
@@ -64,8 +64,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    other chunk must be a replay).  Every run's greedy tokens must equal
    phase 3's (float), or phase 3's through materialized int8 views
    (in-scan); ms per step, tokens/s, captures, replays, the chunk p50
-   and the graphs' pool memory are printed.  The last two runs of each
-   mode (graph, eager) profile 8 decode steps as in phase 3; then the
+   and the graphs' pool memory are printed.  The first and the last run
+   of each mode (eager, graph) profile 8 decode steps as in phase 3; then the
    in-scan third run's gateway serves the stream again (prefix cache
    emptied) and profiles its first 8 steps, whose device trace must
    hold each prefill chunk's ``masked_dequant`` launches and each decode
@@ -189,7 +189,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    2 units checkpointed into an in-memory ``WeightStore`` at
    step 2 (seconds and rows per commit; the history must hold "step 2":
    a commit of the 2-unit model takes about a minute of host time, so
-   one commit, not one a step);
+   one commit, not one a step); then internvl2-26b at full width cut to
+   4 of its 48 units (``VLM_TRAIN``), random weights from the seed, 2
+   rows of 256 patch embeddings (numpy, from the seed) and 256 tokens
+   through ``train_loop``, 2 steps eager and 2 through its CUDA graph:
+   losses and grad norms bit for bit (or within 1e-3 relative), finite,
+   the first loss within 1e-3 of ``lm_loss(..., patch_embeds=)``;
 9. the dense family beyond qwen at full width (random bf16 weights from
    the seed, the first 8 requests of phase 3's stream, decode and prefill
    graphs on), each gateway's launch counters zeroed just before its
@@ -320,7 +325,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    weights (qwen2.5-3b at full width and depth, tiers full, pro and
    free): (a) ``ServingEngine`` on float views, 6 requests (prompts of
    64-256 tokens, 16 new, greedy) through its CUDA graphs (the first run
-   captures them), then in turns eager, graph, graph, eager on the same
+   captures them), then in turns eager, graph, graph on the same
    engine, each decode step timed with a synchronize on each side, greedy
    tokens identical in every run, captures, replays and pool bytes
    printed; its tokens held against the same requests
@@ -367,7 +372,16 @@ Phases (each prints its own lines; any failure exits non-zero):
    a replayed in-scan prefill and 3 decode steps must show 252
    ``masked_dequant`` launches a step.  Before it, one functional
    ``all_reduce`` and its ``wait`` on the NCCL group are captured after
-   an eager warm-up and replayed three times on new values;
+   an eager warm-up and replayed three times on new values.  (c) The
+   sharded training step the JAX dry run compiles: ``make_train_step``
+   with ``grad_accum`` 4 and AdamW, 2 steps of 4 x 256 tokens from phase
+   3's weights, first on plain tensors, then, that run freed, on the
+   mesh (params by ``params_shardings``, the moments by
+   ``opt_state_shardings``, the batches by ``data_shardings``): losses,
+   grad norms and the bit sums of every updated param and moment bit for
+   bit the plain steps' (else the losses and grad norms within 1e-3
+   relative), placements unmoved, no collective on the one-rank world;
+   both runs' ms a step and peak memory printed;
 15. a ``kernels`` JSON line, and the result line last.
 
 Imports nothing of JAX.  Exits non-zero without a result when no CUDA
@@ -1836,9 +1850,11 @@ def check_trace_launches(label, cfg, prof, runs):
 # (one per view, pow2 lane count and width) against the eager kernel
 # path (both taken away through the slot's private ``_graphs`` and
 # ``_prefill_graphs``), for float views and the in-scan int8 dequant, in
-# turns: eager, graph, graph, eager on phase 3's stream
+# turns: eager, graph, graph on phase 3's stream (the closing eager run
+# cut to pay for phases 8c and 14c; ``STREAM_TURNS``, phase 13's too)
 COMPILED_MODES = {"float": {}, "in_scan": dict(quantized=True)}
 COMPILED_TURNS = ("eager", "graph", "graph", "eager")
+STREAM_TURNS = ("eager", "graph", "graph")
 # every compiled step family a gateway may hold (``ModelSlot.compile_steps``):
 # the kernel-resident decode, the chunked prefill, and the bucket path's
 # gather/scatter decode, bucket prefill and prefix-hit suffix prefill
@@ -2037,16 +2053,16 @@ def compiled_phase(cfg, params, tiers, np, torch, want_tokens):
     out = {}
     for mode, kw in COMPILED_MODES.items():
         runs = []
-        for i, path in enumerate(COMPILED_TURNS):
+        for i, path in enumerate(STREAM_TURNS):
             gw = LicensedGateway(cfg, params, tiers=tiers, **GEOMETRY, **kw)
             toks, t = compiled_run(f"3c {mode} {path} run {i + 1}", gw, cfg, np, torch,
-                                   graphs=path == "graph", profile=i >= 2)
+                                   graphs=path == "graph", profile=i != 1)
             if toks != want_tokens[mode]:
                 fail(f"3c {mode} {path} run {i + 1}: greedy tokens differ from phase 3's "
                      f"{'float' if mode == 'float' else 'materialized int8'} stream")
             runs.append(dict(path=path, **t))
             if mode == "in_scan" and i == 2:
-                profiled = gw       # its prefill window is profiled after run 4
+                profiled = gw       # its prefill window is profiled after the runs
             del gw
             gc.collect()
             torch.cuda.empty_cache()
@@ -2062,17 +2078,17 @@ def compiled_phase(cfg, params, tiers, np, torch, want_tokens):
                   for r in runs if r["path"] == p] for p in ("eager", "graph")}
         tps = {p: [r["tokens"] / r["serve_s"] for r in runs if r["path"] == p]
                for p in ("eager", "graph")}
-        prof = {r["path"]: r.get("decode_profile") for r in runs[2:]}
+        prof = {r["path"]: r["decode_profile"] for r in runs if "decode_profile" in r}
         p50 = {k: [r["prefill"]["chunk_p50_synced_ms"].get(k) for r in runs]
                for k in ("eager", "replay", "capture")}
         p50 = {k: [v for v in vs if v is not None] for k, vs in p50.items()}
-        log(f"  3c {mode}: greedy tokens identical in all four runs and to phase 3's "
+        log(f"  3c {mode}: greedy tokens identical in all {len(runs)} runs and to phase 3's "
             f"{'float' if mode == 'float' else 'materialized int8'} stream; ms per step "
             f"eager {ms['eager']} against graph {ms['graph']}; tokens/s eager "
             f"{tps['eager']} against graph {tps['graph']}; prefill chunk p50 (synchronized) "
             f"eager {p50['eager']} against replayed {p50['replay']} and captured "
             f"{p50['capture']} ms")
-        if all(prof.values()):
+        if len(prof) == 2 and all(prof.values()):
             e, g = prof["eager"], prof["graph"]
             log(f"  3c {mode}: steady decode (8 unprofiled steps) eager "
                 f"{e['unprofiled_ms_per_step']:.2f} against graph "
@@ -3326,6 +3342,10 @@ KERNEL_FAMILIES = {"gemm": ("gemm", "xmma", "cutlass", "nvjet"), "softmax": ("so
 # time on the card's machine (PERF.md section 5), two would pass 90 s
 CKPT = dict(units=2, steps=2, every=2)
 LOSS_RTOL = 1e-3
+# internvl2-26b's training step with its vision prefix (the patch
+# embeddings of every row through ``vision_proj``), cut to 4 of its 48
+# units: at full depth its weights and AdamW state would not fit one card
+VLM_TRAIN = dict(units=4, batch=2, seq=256, steps=2, lr=1e-4)
 
 
 class kept_instances:
@@ -3600,14 +3620,15 @@ def kernel_families(events):
                 tail_ms=sum(d for _, _, d in tail) / 1e3, tail_kernels=len(tail))
 
 
-def training_run(label, cfg, params, batch, ocfg, np, torch, compiled):
-    """One ``train_loop`` of ``TRAIN['steps']`` steps on ``params``
-    (``batch`` repeated), through its CUDA graph or, ``compiled=False``,
-    eager: each step's ms (host clock between log lines, each after a
-    synchronize), its loss and exact grad norm (the graph's static
-    output, or the eager step's metric), the peak memory and, through
-    the graph, its captures, replays and pool bytes, and its last step's
-    replay profiled (``kernel_families`` of its device trace)."""
+def training_run(label, cfg, params, batch, ocfg, np, torch, compiled, steps=TRAIN["steps"],
+                 profile=True):
+    """One ``train_loop`` of ``steps`` steps on ``params`` (``batch``
+    repeated), through its CUDA graph or, ``compiled=False``, eager: each
+    step's ms (host clock between log lines, each after a synchronize),
+    its loss and exact grad norm (the graph's static output, or the eager
+    step's metric), the peak memory and, through the graph, its captures,
+    replays and pool bytes, and with ``profile`` its last step's replay
+    profiled (``kernel_families`` of its device trace)."""
     import itertools
 
     from repro_torch.training import train_lib, train_loop
@@ -3645,7 +3666,7 @@ def training_run(label, cfg, params, batch, ocfg, np, torch, compiled):
         if made:
             gnorms.append(float(made[0].metrics["grad_norm"]))
             pools.append(made[0].backend.pool_bytes() if cuda else 0)
-            if cuda and len(stamps) == TRAIN["steps"] - 1:
+            if cuda and profile and len(stamps) == steps - 1:
                 made[0].step = profiled(made[0])
         else:
             gnorms.append(float(last[0]["grad_norm"]))
@@ -3662,17 +3683,19 @@ def training_run(label, cfg, params, batch, ocfg, np, torch, compiled):
             stack.callback(setattr, train_lib, "make_train_step", make_train_step)
         sync()
         t0 = time.perf_counter()
-        trained, hist = train_loop(cfg, ocfg, itertools.repeat(batch), TRAIN["steps"],
+        trained, hist = train_loop(cfg, ocfg, itertools.repeat(batch), steps,
                                    params=params, log_every=1, log_fn=log_fn)
     del trained
     gc.collect()
     if compiled and cuda and len(made) != 1:
         fail(f"8c: the {label} loop ran {len(made)} step graphs, not 1")
     step_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps, stamps)]
-    tokens = TRAIN["seq"] * TRAIN["batch"]
+    tokens = batch["tokens"].size
+    # the first step captures, the last is profiled: the median of the others
+    steady = step_ms[1:-1] if steps > 2 else step_ms[1:]
     out = dict(loss=hist["loss"], grad_norm=gnorms, step_ms=step_ms,
                tokens_per_s=[1e3 * tokens / ms for ms in step_ms],
-               steady_ms=float(np.median(step_ms[1:-1])))
+               steady_ms=float(np.median(steady)))
     if cuda:
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if made:
@@ -3680,9 +3703,11 @@ def training_run(label, cfg, params, batch, ocfg, np, torch, compiled):
                    pool_gb=max(pools) / 1e9)
     graphs = (f"; {out['captures']} capture, {out['replays']} replays, pool "
               f"{out['pool_gb']:.3f} GB" if made else "")
-    log(f"  8c {label}: {TRAIN['steps']} steps of {TRAIN['batch']} x {TRAIN['seq']} tokens: "
-        f"ms per step {[round(ms, 2) for ms in step_ms]} (steps 2-{TRAIN['steps'] - 1} median "
-        f"{out['steady_ms']:.2f}), tokens/s {[round(t, 1) for t in out['tokens_per_s']]}; peak "
+    rows, seq = batch["tokens"].shape
+    log(f"  8c {label}: {steps} steps of {rows} x {seq} tokens: "
+        f"ms per step {[round(ms, 2) for ms in step_ms]} ("
+        + (f"steps 2-{steps - 1} median" if steps > 2 else "step 2")
+        + f" {out['steady_ms']:.2f}), tokens/s {[round(t, 1) for t in out['tokens_per_s']]}; peak "
         f"{out.get('peak_gb', 0):.1f} GB{graphs}")
     prof = profiles[0] if profiles else None
     if prof is not None:
@@ -3791,6 +3816,78 @@ def training_phase(cfg, params, np, torch):
     log(f"  checkpointed run ({CKPT['units']} units, {CKPT['steps']} steps, every "
         f"{CKPT['every']}): {out['checkpointed']['s']:.2f} s, history {messages}")
     store.close()
+    del store, trained, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["vlm"] = vlm_training(np, torch)
+    return out
+
+
+def vlm_training(np, torch, device="cuda"):
+    """8c's vision part: internvl2-26b at full width, VLM_TRAIN['units']
+    units, random weights from ``SEED``, one batch of token rows with
+    ``num_patches`` patch embeddings each (numpy, from the seed), through
+    ``train_loop`` VLM_TRAIN['steps'] steps eager and as many through its
+    CUDA graph: losses and grad norms bit for bit (else every value within
+    ``LOSS_RTOL`` relative), finite, and the first loss within
+    ``LOSS_RTOL`` of ``lm_loss(..., patch_embeds=)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataConfig, lm_batches
+    from repro_torch.models import init_params
+    from repro_torch.models.model import lm_loss
+    from repro_torch.training import OptimizerConfig
+
+    t0 = time.perf_counter()
+    full = get_config("internvl2-26b")
+    cfg = full.replace(num_layers=VLM_TRAIN["units"])
+    rows, seq, steps = VLM_TRAIN["batch"], VLM_TRAIN["seq"], VLM_TRAIN["steps"]
+    params = init_params(cfg, seed=SEED, device=device)
+    batch = next(lm_batches(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                         batch_size=rows, seed=SEED)))
+    rng = np.random.default_rng(SEED + 8)
+    batch["patch_embeds"] = (0.1 * rng.standard_normal(
+        (rows, cfg.num_patches, cfg.d_model))).astype(np.float32)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  8c internvl2-26b at full width, {cfg.num_layers} units (depth cut from "
+        f"{full.num_layers}; d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+        f"vocab {cfg.padded_vocab}, {n_params / 1e9:.3f} B parameters): {rows} rows of "
+        f"{cfg.num_patches} patches through vision_proj and {seq} tokens")
+    ocfg = OptimizerConfig(lr=VLM_TRAIN["lr"], warmup_steps=1, total_steps=steps)
+    with torch.no_grad():
+        dev = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        want = float(lm_loss(params, cfg, dev["tokens"], dev["labels"],
+                             patch_embeds=dev["patch_embeds"])[0])
+        del dev
+    eager = training_run("internvl2-26b eager", cfg, params, batch, ocfg, np, torch,
+                         compiled=False, steps=steps, profile=False)
+    graph = training_run("internvl2-26b graph", cfg, params, batch, ocfg, np, torch,
+                         compiled=True, steps=steps, profile=False)
+    del params
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    pairs = list(zip(graph["loss"] + graph["grad_norm"], eager["loss"] + eager["grad_norm"]))
+    worst = max(abs(a - b) / abs(b) for a, b in pairs)
+    out = dict(units=cfg.num_layers, cut_from=full.num_layers, rows=rows, seq=seq,
+               patches=cfg.num_patches, params=n_params, eager=eager, graph=graph,
+               lm_loss=want, max_rel_diff=worst, s=time.perf_counter() - t0)
+    first = "equal" if graph["loss"][0] == want else f"{graph['loss'][0]:.6f}"
+    log(f"  8c internvl2-26b: the graph step {graph['steady_ms']:.2f} ms against "
+        f"{eager['steady_ms']:.2f} ms eager (step 2), peak {graph.get('peak_gb', 0):.1f} GB "
+        f"against {eager.get('peak_gb', 0):.1f}; losses {graph['loss']} and grad norms "
+        + ("bit for bit the eager loop's" if worst == 0 else
+           f"at most {worst:.3g} relative from the eager loop's")
+        + f"; lm_loss(patch_embeds=) of the batch {want:.6f} (the first loss {first}); "
+        f"{out['s']:.1f} s")
+    if worst > LOSS_RTOL:
+        fail(f"8c internvl2-26b: the graph loop's losses or grad norms differ from the eager "
+             f"loop's by {worst} relative, above {LOSS_RTOL}")
+    if not all(np.isfinite(graph["loss"] + graph["grad_norm"])):
+        fail(f"8c internvl2-26b: non-finite loss {graph['loss']} or grad norm "
+             f"{graph['grad_norm']}")
+    if abs(graph["loss"][0] - want) > LOSS_RTOL * abs(want):
+        fail(f"8c internvl2-26b: the first step's loss {graph['loss'][0]} differs from "
+             f"lm_loss(patch_embeds=) {want} by more than {LOSS_RTOL} relative")
     return out
 
 
@@ -5304,8 +5401,8 @@ def engine_run(label, eng, jobs, torch, profile=False):
     """Serve ``jobs`` through ``ServingEngine.generate`` (greedy) on one
     engine: first through its graphs (``eng._graphs``, whose captures it
     makes), keeping a host copy of the logits row each token comes from
-    by (request index, token index); then COMPILED_TURNS (eager, graph,
-    graph, eager), every decode step timed on the host clock with a
+    by (request index, token index); then STREAM_TURNS (eager, graph,
+    graph), every decode step timed on the host clock with a
     synchronize on each side (eager: ``serve_step``, its
     ``masked_dequant`` launches counted; graph: ``EngineGraphs.decode``,
     the inputs' fill and the replay).  Every run's greedy tokens must
@@ -5384,7 +5481,7 @@ def engine_run(label, eng, jobs, torch, profile=False):
         first, first_s, _ = run("graph", record=True)
         captures = graphs.captures
         turns = []
-        for kind in COMPILED_TURNS:
+        for kind in STREAM_TURNS:
             replays = graphs.replays
             reqs, dt, st = run(kind)
             if kind == "graph":
@@ -5408,7 +5505,7 @@ def engine_run(label, eng, jobs, torch, profile=False):
     eager_s = sorted(s for k, _, st in turns if k == "eager" for s, _ in st)
     graph_s = sorted(s for k, _, st in turns if k == "graph" for s, _ in st)
     dequants = sorted({d for k, _, st in turns if k == "eager" for _, d in st})
-    out = dict(first_generate_s=first_s, decode_steps=len(eager_s) // 2,
+    out = dict(first_generate_s=first_s, decode_steps=len(eager_s) // STREAM_TURNS.count("eager"),
                decode_ms_p50=1e3 * eager_s[len(eager_s) // 2], decode_ms_max=1e3 * eager_s[-1],
                graph_ms_p50=1e3 * graph_s[len(graph_s) // 2], graph_ms_max=1e3 * graph_s[-1],
                turns=[(k, 1e3 * float(np.median([s for s, _ in st])), dt) for k, dt, st in turns],
@@ -5420,7 +5517,7 @@ def engine_run(label, eng, jobs, torch, profile=False):
         f"{out['graph_ms_max']:.2f}) against {out['decode_ms_p50']:.2f} ms eager (max "
         f"{out['decode_ms_max']:.2f}), {out['decode_steps']} steps a turn, synchronized on each "
         f"side; turns " + ", ".join(f"{k} {ms:.2f} ms ({dt:.2f} s)" for k, ms, dt in out["turns"])
-        + f"; greedy tokens identical in all five runs; {out['captures']} captures, "
+        + f"; greedy tokens identical in all {1 + len(turns)} runs; {out['captures']} captures, "
         f"{out['replays']} replays, {out['keys']} graphs, pool {out['pool_bytes'] / 1e9:.3f} GB; "
         f"masked_dequant launches an eager step {dequants}")
     if prof is not None:
@@ -5679,8 +5776,161 @@ def engine_phase(cfg, params, np, torch, graph_step_ms=None, alloc_weight_bytes=
 # phase 14: the host mesh, on phase 3's first requests
 MESH_REQUESTS = 8
 MESH_NEW = 16
-MESH_AFTER = 4                 # the eager mesh turn after the graph runs: steps
+MESH_AFTER = 2                 # the eager mesh turn after the graph runs: steps
 MESH_TOL = 0.05                # phase 4's: x max(|logit|, 1)
+# 14c: the sharded training step the JAX dry run compiles (grad_accum 4,
+# AdamW on ZeRO-1-placed moments), eager, on batches of 4 x 256 tokens
+MESH_TRAIN = dict(batch=4, seq=256, grad_accum=4, steps=2, lr=1e-4)
+
+
+def mesh_training(cfg, params, mesh, np, torch, device="cuda"):
+    """14c: ``make_train_step(grad_accum=4)`` for MESH_TRAIN['steps']
+    steps from ``params``, first on plain tensors, then (its params, state
+    and outputs freed: the two sets of AdamW moments are never resident
+    together) on ``mesh`` with the params placed by ``params_shardings``,
+    the state by ``opt_state_shardings`` and each batch by
+    ``data_shardings`` under ``implicit_replication``; the first step
+    writes new params, the next ones into the last step's (``out=``).
+    Each step is timed with a synchronize on each side; the first mesh
+    step runs under :func:`collective_count` (the collectives one rank
+    issues: none on a world of one).  Losses, grad norms and a digest of
+    every updated leaf (params, m, v: the int64 sum of its bits) must be
+    the plain steps' bit for bit, else the largest relative difference of
+    the losses and grad norms is printed and must stay within
+    ``LOSS_RTOL``."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.core.pytree_io import flatten_params
+    from repro_torch.data import LMDataConfig, lm_batches
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.training import OptimizerConfig, init_state, make_train_step
+
+    t0 = time.perf_counter()
+    steps = MESH_TRAIN["steps"]
+    ocfg = OptimizerConfig(lr=MESH_TRAIN["lr"], warmup_steps=1, total_steps=steps,
+                           grad_accum=MESH_TRAIN["grad_accum"])
+    train_step = make_train_step(cfg, ocfg)
+    data = lm_batches(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_TRAIN["seq"],
+                                   batch_size=MESH_TRAIN["batch"], seed=SEED))
+    host = [next(data) for _ in range(steps)]
+    cuda = torch.device(device).type == "cuda"
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def run(on_mesh):
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        p, state = params, init_state(params)
+        if on_mesh:
+            p = shd.distribute_tree(params, shd.params_shardings(params, mesh, cfg), mesh)
+            state = shd.distribute_tree(state, shd.opt_state_shardings(state, params, mesh),
+                                        mesh)
+            placed = placements_of(p, state)
+        res = dict(loss=[], grad_norm=[], step_ms=[])
+        for i, b in enumerate(host):
+            batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+            modes = contextlib.ExitStack()
+            if on_mesh:
+                batch = shd.distribute_tree(batch, shd.data_shardings(batch, mesh), mesh)
+                modes.enter_context(implicit_replication())
+                if i == 0:
+                    cost = modes.enter_context(collective_count())
+            with modes:
+                sync()
+                t = time.perf_counter()
+                p, state, m = train_step(p, state, batch, out=None if i == 0 else p)
+                sync()
+            res["step_ms"].append(1e3 * (time.perf_counter() - t))
+            for k in ("loss", "grad_norm"):
+                res[k].append(float(full(m[k])))
+        res["digests"] = {}
+        for name, tree in (("params", p), ("m", state.m), ("v", state.v)):
+            flat = flatten_params(tree)
+            res["digests"].update(zip((f"{name}/{k}" for k in flat),
+                                      leaf_sums({k: full(t) for k, t in flat.items()}, torch)))
+        if on_mesh:
+            res["collectives"] = dict(cost.counts)
+            now = placements_of(p, state)
+            res["placements_moved"] = [k for k in placed if now.get(k) != placed[k]]
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        return res
+
+    plain = run(False)
+    gc.collect()
+    meshed = run(True)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    pairs = list(zip(meshed["loss"] + meshed["grad_norm"], plain["loss"] + plain["grad_norm"]))
+    worst = max(abs(a - b) / abs(b) for a, b in pairs)
+    differ = [k for k in plain["digests"] if plain["digests"][k] != meshed["digests"][k]]
+    out = dict(plain=plain, mesh=meshed, max_rel_diff=worst, leaves_differ=len(differ),
+               leaves=len(plain["digests"]), s=time.perf_counter() - t0, **MESH_TRAIN)
+    log(f"  14c: make_train_step (grad_accum {MESH_TRAIN['grad_accum']}, AdamW) on "
+        f"{MESH_TRAIN['batch']} x {MESH_TRAIN['seq']} tokens, {steps} steps: ms per step on "
+        f"the mesh {[round(ms, 2) for ms in meshed['step_ms']]} (the first with its "
+        f"collectives counted) against {[round(ms, 2) for ms in plain['step_ms']]} plain "
+        f"eager; host clock, synchronized on each side; peak memory {meshed['peak_gb']} GB on "
+        f"the mesh, {plain['peak_gb']} GB plain; collectives of the first mesh step on the "
+        f"one-rank world {meshed['collectives'] or 'none'}; losses "
+        f"{meshed['loss']}, grad norms {meshed['grad_norm']}; "
+        + ("losses, grad norms and all " + str(out["leaves"]) + " leaf digests (params, m, v) "
+           "bit for bit the plain steps'" if worst == 0 and not differ else
+           f"largest relative difference of the losses and grad norms {worst:.3g}, "
+           f"{len(differ)} of {out['leaves']} leaf digests differ")
+        + f"; placements moved {meshed['placements_moved'] or 'none'}; {out['s']:.1f} s")
+    if meshed["collectives"]:
+        fail(f"14c: the one-rank world issued collectives {meshed['collectives']}")
+    if meshed["placements_moved"]:
+        fail(f"14c: placements moved in the mesh steps: {meshed['placements_moved']}")
+    if not all(np.isfinite(meshed["loss"] + meshed["grad_norm"])):
+        fail(f"14c: non-finite loss or grad norm {meshed['loss']} {meshed['grad_norm']}")
+    if worst > LOSS_RTOL:
+        fail(f"14c: the mesh steps' losses or grad norms differ from the plain steps' by "
+             f"{worst} relative, above {LOSS_RTOL}")
+    return out
+
+
+def collective_count():
+    """A dispatch mode counting, by name, the functional collectives
+    DTensor issues under it (``op_cost.OpCostMode``'s collective count
+    without its per-op costing, which slows a full-width training step
+    2.7x): ``.counts``."""
+    from collections import Counter
+
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch import op_cost
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            if func.namespace == op_cost._C10D and \
+                    func.overloadpacket.__name__.startswith(op_cost._COLLECTIVES):
+                self.counts[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    return Count()
+
+
+def placements_of(params, state):
+    """{path: placements} of a placed params tree and AdamW state."""
+    from repro_torch.core.pytree_io import flatten_params
+
+    trees = (("params", params), ("m", state.m), ("v", state.v),
+             ("step", {"step": state.step}))
+    return {f"{name}/{k}": tuple(t.placements) for name, tree in trees
+            for k, t in flatten_params(tree).items()}
 
 
 def captured_all_reduce(mesh, torch, device="cuda"):
@@ -5993,6 +6243,8 @@ def mesh_phase(cfg, params, np, torch, device="cuda", backend=None):
             del p, plain, meshed
             gc.collect()
             torch.cuda.empty_cache()
+        log(f"  14c: the sharded training step, {cfg.name} at full width and depth")
+        out["c_train"] = mesh_training(cfg, params, mesh, np, torch, device)
     finally:
         torch.distributed.destroy_process_group()
     out["s"] = time.perf_counter() - t14

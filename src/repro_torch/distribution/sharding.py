@@ -210,9 +210,17 @@ def fsdp_spec(pls: Placements, shape: Tuple[int, ...], mesh) -> Placements:
                       mesh)
 
 
+def _is_record(tree) -> bool:
+    """A ``NamedTuple`` such as ``AdamWState``: its fields are subtrees."""
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _map_with_path(fn, tree, path: Tuple[str, ...] = ()):
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if _is_record(tree):
+        return type(tree)(*(_map_with_path(fn, getattr(tree, k), path + (k,))
+                            for k in tree._fields))
     return fn(path, tree)
 
 
@@ -334,12 +342,13 @@ def shard_offsets(x: DTensor) -> Tuple[int, ...]:
 
 def distribute_tree(tree: Any, shardings: Any, mesh) -> Any:
     """Every tensor leaf of ``tree`` as a ``DTensor`` on ``mesh`` with
-    the placements of the same path in ``shardings``.  A real tensor is
-    scattered by ``distribute_tensor`` (every rank passes the same full
-    tensor); a ``meta`` tensor becomes ``DTensor.from_local`` of a meta
-    local shard with the global shape and stride, which allocates
-    nothing.  Non-tensor leaves pass through.  The placements go through
-    :func:`on_mesh` first."""
+    the placements of the same path in ``shardings`` (a NamedTuple's
+    fields are subtrees: an ``AdamWState`` by ``opt_state_shardings``).
+    A real tensor is scattered by ``distribute_tensor`` (every rank passes
+    the same full tensor); a ``meta`` tensor becomes ``DTensor.from_local``
+    of a meta local shard with the global shape and stride, which
+    allocates nothing.  Non-tensor leaves pass through.  The placements go
+    through :func:`on_mesh` first."""
     from torch.distributed.tensor import distribute_tensor
 
     def one(path, leaf):
@@ -358,7 +367,7 @@ def distribute_tree(tree: Any, shardings: Any, mesh) -> Any:
 
 def _lookup(tree, path: Tuple[str, ...]):
     for k in path:
-        tree = tree[k]
+        tree = getattr(tree, k) if _is_record(tree) else tree[k]
     return tree
 
 

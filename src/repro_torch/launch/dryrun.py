@@ -7,9 +7,11 @@ mesh and reads flops and bytes from the compiled HLO; here the port's
 own step runs on ``meta`` tensors (shapes and dtypes, no storage, no
 arithmetic) under ``torch.utils.flop_counter.FlopCounterMode``:
 ``engine.prefill_step``, ``engine.serve_step`` (over the int8 store with
-a tier's intervals under ``--quantized``) or ``lm_loss`` forward and
-backward.  Each combination reports the counted flops beside
-``roofline.model_step_flops``, the weight and cache bytes, whether they
+a tier's intervals under ``--quantized``) or, for a train shape, the JAX
+jit site's step: ``make_train_step`` with AdamW, ``grad_accum`` 4 in the
+sweep (``lm_loss`` forward and backward a micro-batch, the f32
+accumulation, the update).  Each combination reports the counted flops
+beside ``roofline.model_step_flops``, the weight and cache bytes, whether they
 fit one card, and the roofline terms (``launch/roofline.py``), the
 card's peaks and memory both from ``roofline.present_card`` (the card
 present, else an H100 80GB).  Nothing is allocated and no card is
@@ -18,12 +20,12 @@ needed.
 With ``--mesh single|multi`` the step runs sharded, as the JAX dry run
 compiles it: :func:`repro_torch.launch.mesh.fake_world` makes a world of
 256 (16x16) or 512 (2x16x16) ranks in this one process, and the params,
-the cache and the inputs become ``meta`` DTensors placed by
-``distribution.sharding`` (the optimizer's moments, ZeRO-1, are counted
-by their placements).  The step runs under ``implicit_replication``
-(its own plain tensors, masks and positions, count as replicated),
-``FlopCounterMode`` (the global flops) and ``op_cost.OpCostMode``, which
-counts the collectives DTensor inserts, as one rank issues them.  The
+the cache, the inputs and the AdamW state (its moments ZeRO-1) become
+``meta`` DTensors placed by ``distribution.sharding``.  The step runs
+under ``implicit_replication`` (its own plain tensors, masks and
+positions, count as replicated), ``FlopCounterMode`` (the global flops)
+and ``op_cost.OpCostMode``, which counts the collectives DTensor
+inserts, as one rank issues them.  The
 report then adds ``mesh``, ``chips``, the collective bytes and counts by
 kind and the collective term, and its ``weight_bytes``, ``cache_bytes``,
 ``write_bytes`` and ``resident_bytes`` are one rank's local shards: a
@@ -87,14 +89,15 @@ def tree_bytes(tree) -> int:
 
 def dry_run(cfg: ModelConfig, shape: InputShape, *, arch: Optional[str] = None,
             quantized: bool = False, note: str = "", mesh=None,
-            cost: Optional[op_cost.OpCostMode] = None) -> Dict[str, Any]:
+            cost: Optional[op_cost.OpCostMode] = None, grad_accum: int = 1) -> Dict[str, Any]:
     """Run one step of ``cfg`` at ``shape`` on ``meta`` and report its
     counted flops, bytes and roofline terms (``cfg`` as given: the caller
-    adapts it to the shape).  ``quantized`` applies to a decode step.
-    ``mesh`` (a ``DeviceMesh`` over the default process group) runs the
-    step sharded and reports one rank's bytes and collectives.  ``cost``
-    (made here on a mesh) counts the rank's ops (``launch/analyze.py``
-    reads it)."""
+    adapts it to the shape).  ``quantized`` applies to a decode step,
+    ``grad_accum`` (micro-batches; it divides ``shape.batch``) to a train
+    step.  ``mesh`` (a ``DeviceMesh`` over the default process group)
+    runs the step sharded and reports one rank's bytes and collectives.
+    ``cost`` (made here on a mesh) counts the rank's ops
+    (``launch/analyze.py`` reads it)."""
     t0 = time.perf_counter()
     kind, spec = input_specs(cfg, shape)
     quantized = quantized and kind == "decode"
@@ -120,13 +123,19 @@ def dry_run(cfg: ModelConfig, shape: InputShape, *, arch: Optional[str] = None,
                        else _slot_bytes(spec["cache"], grown))
     resident = weight_bytes + cache_bytes
     if kind == "train":
-        from repro_torch.training.optimizer import init_state
+        from repro_torch.training import OptimizerConfig, init_state, make_train_step
 
-        # gradients and AdamW's two f32 moments beside the weights
-        resident += weight_bytes + nbytes(init_state(params))
-        for t in _leaves(params):
-            if t.is_floating_point():
-                t.requires_grad_(True)
+        opt_state = init_state(params)
+        if mesh is not None:
+            opt_state = shd.distribute_tree(
+                opt_state, shd.opt_state_shardings(opt_state, params, mesh), mesh)
+        train_step = make_train_step(cfg, OptimizerConfig(grad_accum=grad_accum))
+        # a micro-batch's gradients in the param dtype, AdamW's two f32
+        # moments and, with micro-batches, the f32 accumulators
+        resident += weight_bytes + nbytes(opt_state)
+        if grad_accum > 1:
+            resident += sum(4 * (t.to_local() if isinstance(t, DTensor) else t).numel()
+                            for t in _leaves(params))
     if cost is None and mesh is not None:
         cost = op_cost.OpCostMode()
     with contextlib.ExitStack() as modes:
@@ -136,10 +145,7 @@ def dry_run(cfg: ModelConfig, shape: InputShape, *, arch: Optional[str] = None,
             modes.enter_context(cost)       # under the flop counter: see op_cost
         counter = modes.enter_context(FlopCounterMode(display=False))
         if kind == "train":
-            batch = spec["batch"]
-            loss, _ = model_lib.lm_loss(params, cfg, batch["tokens"], batch["labels"],
-                                        patch_embeds=batch.get("patch_embeds"))
-            loss.backward()
+            train_step(params, opt_state, spec["batch"])
         elif kind == "prefill":
             prefill_step(params, cfg, spec["tokens"], spec["cache"],
                          patch_embeds=spec.get("patch_embeds"))
@@ -160,6 +166,8 @@ def dry_run(cfg: ModelConfig, shape: InputShape, *, arch: Optional[str] = None,
                                 **{f"{k}_count": v for k, v in coll.count_by_kind.items()}},
                    collective_count=coll.total_count, device_flops=cost.flops,
                    device_traffic_bytes=cost.traffic_bytes)
+    if kind == "train":
+        out["grad_accum"] = grad_accum
     out.update(step_kind=kind, quantized=quantized, batch=shape.batch,
                seq_len=shape.seq_len, weight_bytes=weight_bytes, cache_bytes=cache_bytes,
                write_bytes=write_bytes, resident_bytes=resident, card_bytes=limit,
@@ -186,10 +194,8 @@ def _place(params, spec: Dict[str, Any], cfg: ModelConfig, batch: int, mesh):
     """The step's params and inputs as ``meta`` DTensors on ``mesh`` by
     the partition rules (a decode's ``pos`` replicated, as in the JAX
     dry run), and the byte count of one rank's shards: a DTensor tree
-    counts its local shards; a plain tree, the grown cache or the
-    optimizer's state (ZeRO-1), counts the shards its rules give it."""
-    from repro_torch.training.optimizer import AdamWState
-
+    counts its local shards; a plain tree, the grown cache, counts the
+    shards its rules give it."""
     placed: Dict[str, Any] = {}
     for name, value in spec.items():
         if name == "cache":
@@ -206,9 +212,6 @@ def _place(params, spec: Dict[str, Any], cfg: ModelConfig, batch: int, mesh):
     def nbytes(tree) -> int:
         if tree is None:
             return 0
-        if isinstance(tree, AdamWState):
-            sh = shd.opt_state_shardings(tree, params, mesh)
-            return sum(shd.sharded_bytes(t, p, mesh) for t, p in zip(tree, sh))
         if any(isinstance(t, DTensor) for t in _leaves(tree)):
             return shd.local_bytes(tree)
         return shd.sharded_bytes(tree, shd.cache_shardings(tree, mesh, batch), mesh)
@@ -216,12 +219,18 @@ def _place(params, spec: Dict[str, Any], cfg: ModelConfig, batch: int, mesh):
     return params, placed, nbytes
 
 
+# micro-batches of a train step, as the JAX dry run compiles it
+GRAD_ACCUM = 4
+
+
 def run_combo(arch: str, shape_name: str, *, quantized: bool = False,
               mesh=None) -> Dict[str, Any]:
-    """One (arch, shape) of the sweep, the config adapted to the shape."""
+    """One (arch, shape) of the sweep, the config adapted to the shape; a
+    train shape at ``GRAD_ACCUM`` micro-batches."""
     shape = SHAPES[shape_name]
     cfg, note = adapt_config(get_config(arch), shape)
-    return dry_run(cfg, shape, arch=arch, quantized=quantized, note=note, mesh=mesh)
+    return dry_run(cfg, shape, arch=arch, quantized=quantized, note=note, mesh=mesh,
+                   grad_accum=GRAD_ACCUM if shape.kind == "train" else 1)
 
 
 def production_mesh(kind: str):

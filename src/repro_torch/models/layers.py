@@ -105,6 +105,17 @@ def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], heads, x.shape[-1] // heads)
 
 
+def split_rows(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(B, ...) -> (m, B / m, ...): row block i of ``m``.  Under a mesh
+    that shards B over ranks whose count ``m`` does not divide (256 rows
+    in 4 micro-batches on 16 data ranks), the rows are first made whole:
+    DTensor cannot unflatten such a shard, where GSPMD moves the rows
+    with an all-to-all."""
+    if m % _head_shards(x, 0):
+        x = unshard(x, 0)
+    return x.reshape(m, x.shape[0] // m, *x.shape[1:])
+
+
 def merge_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., heads, d) -> (..., heads * d), the input of the product with
     ``w``.  Under a mesh the merged dim is placed as ``w``'s contraction
@@ -229,10 +240,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with f32 statistics and the population variance
-    (``jnp.var``; ``torch.var`` defaults to the unbiased estimate)."""
+    (``jnp.var``; ``torch.var`` defaults to the unbiased estimate).  On a
+    ``DTensor`` both are sums over the last dim divided by its size:
+    DTensor carries a mean's gradient as a ``P(avg)`` partial, which it
+    cannot redistribute where it meets the ``P(sum)`` partials of the
+    products around it."""
     x32 = x.float()
-    mu = x32.mean(-1, keepdim=True)
-    var = x32.var(-1, unbiased=False, keepdim=True)
+    if isinstance(x32, DTensor):
+        n = x32.shape[-1]
+        mu = x32.sum(-1, keepdim=True) / n
+        var = ((x32 - mu) * (x32 - mu)).sum(-1, keepdim=True) / n
+    else:
+        mu = x32.mean(-1, keepdim=True)
+        var = x32.var(-1, unbiased=False, keepdim=True)
     out = (x32 - mu) * torch.rsqrt(var + eps)
     return (out * scale.float() + bias.float()).to(x.dtype)
 
@@ -291,6 +311,20 @@ def device_offset(pos, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device)
 
 
+def _no_partial(x: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s pending sums reduced (``Replicate()`` there);
+    identity on a plain tensor.  Attention multiplies q by k and the
+    probabilities by v: a product of two pending sums is not the sum of
+    the ranks' products, yet DTensor's einsum keeps the sum pending (at
+    16 x 16, where a vocab-sharded embedding leaves the activations
+    partial and 8 kv heads stay whole, its backward then fails to view
+    the gradient)."""
+    if not isinstance(x, DTensor) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(Replicate() if p.is_partial() else p
+                                               for p in x.placements))
+
+
 def attention_core(
     q: torch.Tensor,              # (B, Sq, H, hd)
     k: torch.Tensor,              # (B, Sk, KH, hd)
@@ -312,6 +346,7 @@ def attention_core(
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     groups = h // kh
+    q, k, v = (_no_partial(t) for t in (q, k, v))
     if groups > 1 and kh % _head_shards(q):
         # under a mesh whose head shards do not divide the kv heads (e.g. 16
         # ranks, 2 kv heads): DTensor cannot split a sharded head dim into

@@ -341,8 +341,12 @@ def forward_aux(
     parts = []
     if patch_embeds is not None:
         proj = params.get("vision_proj")
-        pe = (torch.einsum("bpd,df->bpf", patch_embeds, proj) if proj is not None
-              else patch_embeds)
+        pe = patch_embeds
+        if proj is not None:
+            # in the promoted dtype, as jnp.einsum takes f32 patches on bf16
+            # weights (torch.einsum refuses mixed dtypes)
+            dt = torch.promote_types(pe.dtype, proj.dtype)
+            pe = torch.einsum("bpd,df->bpf", pe.to(dt), proj.to(dt))
         parts.append(pe.to(cfg.dtype))
     if tokens is not None:
         parts.append(params["embed"]["tok"][tokens.long()])
