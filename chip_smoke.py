@@ -17,8 +17,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    extension call alone, without the wrapper's Python); ``masked_dequant``
    bit for bit on two weight slices of a unit (back to back, in a graph,
    L2-cold) and on a whole stacked (36, 2048, 11008) leaf, as one launch
-   and as the per-slice loop with a stack; ``delta_apply_inplace`` also in
-   a graph beside ``index_put_``; then the prefill
+   and as the per-slice loop with a stack; ``delta_apply_inplace`` (the
+   ``delta_apply_parts`` kernel with one rows segment) also in a graph
+   beside ``index_put_``, and at a real stage step's shape in phase 5;
+   then the prefill
    attention and int8 MLP product
    (``flash_attention`` and ``ops.quant_matmul``, which no serving path
    calls) driven through their entry points at qwen2.5-3b's shapes, with
@@ -117,7 +119,20 @@ Phases (each prints its own lines; any failure exits non-zero):
    one ``stager:<phase>`` span per stager step; their ``h_stager`` p50 /
    p99 / max (host clock, no synchronize) print beside the script's
    synchronized longest step.  The third step carrying a stage step runs
-   under ``torch.profiler`` as in phase 3.  This gateway boots through
+   under ``torch.profiler`` as in phase 3, its stager step in a range of
+   its own whose device records must hold one ``delta_apply_parts``
+   kernel and no pageable host-to-device copy.  Every stage step carrying
+   parts must make exactly one ``delta_apply_parts`` launch (the
+   staged sync's one apply a step: rows and chunk pages packed into a
+   pinned ``StepRing`` slot, one upload) and no ``to_tensor``; the stage
+   steps' host span is split into its parts (host-clock laps:
+   ``StageProbe``) and printed with the launches, the steps with parts
+   and the ring's pinned bytes.  After the sync the kernel runs again at
+   the shape of one of those stage steps (its rows parts and pages, on
+   clones of its layers; ``step_case``): bit for bit the plain version,
+   back to back beside the per-page route it replaced, alone in a CUDA
+   graph against its bound, and the pinned upload alone; this case joins
+   phase 2's ``delta_apply_inplace`` row.  This gateway boots through
    a kill-switch transport (every wire call times out while it is
    down) on the host clock plus an offset the phase moves while the
    gateway is idle, with ``lease_policy="floor"``; its lease state is
@@ -131,8 +146,9 @@ Phases (each prints its own lines; any failure exits non-zero):
 6. the same sync on an int8 gateway with materialized views, at full
    width and a depth of 4 units (a second full-depth boot pull would
    cost the same host time again); its v2 int8 store must equal
-   ``quantize_serving_params(v2)``.  Both ``delta_apply`` forms must have
-   been launched on phases 5-6;
+   ``quantize_serving_params(v2)``, and its stage steps are checked,
+   split and printed as phase 5's.  Both ``delta_apply`` forms must have
+   been launched on phases 5-6 (the in-place one as ``delta_apply_parts``);
 7. Algorithm 1 on phase 3's weights (re-created from the seed and
    checked): the quantile edges of every maskable magnitude (by a count
    of bf16 bit patterns on the card, checked against a sort on one
@@ -395,6 +411,7 @@ import json
 import resource
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -995,6 +1012,7 @@ def check_delta_apply(peaks, torch, ref, dev, gen):
     bnd, by = bound_ms(idx.numel() * (8 + 4) + n_live * 2, 0, peaks)
     in_range, cast = idx[:n_live], val[:n_live].bfloat16()
     forms["delta_apply_inplace"] = dict(
+        kernel="delta_apply_parts (one rows segment)", cases={},
         shape=f"N={n_buf} bf16, n={idx.numel()} int64 / f32 ({pad} padding)",
         max_abs_err=err, replaces="src/repro/kernels/delta_apply.py:82",
         ms=time_ms(lambda: delta_apply(work, idx, val, donate=True)),
@@ -1628,7 +1646,7 @@ TRACE_KERNELS = {"paged_attention": "paged_attention_split_kernel",
 PROFILE_LEAD_IN = 1024
 
 
-def profile_window(label, fn, torch, steps, keep_kernels=False):
+def profile_window(label, fn, torch, steps, keep_kernels=False, sub=None):
     """Run ``fn`` (``steps`` scheduler steps, then a synchronize) under
     torch.profiler with CPU and CUDA activities.  Returns the window's
     length, the union of its device intervals (kernels, copies, sets) as
@@ -1636,8 +1654,11 @@ def profile_window(label, fn, torch, steps, keep_kernels=False):
     most device time and the port's kernels among those the window's
     CUDA calls launched (with ``keep_kernels``, every such kernel's
     (name, start us, duration us) too, under ``kernel_events``); None
-    when the trace holds no device events.  Fails when the trace lost the
-    last of the lead-in's marker kernels."""
+    when the trace holds no device events.  With ``sub``, the name of a
+    ``record_function`` range ``fn`` opens, also what the CUDA calls made
+    inside that range put on the device (``sub_records``: kernels and
+    copies/sets by name).  Fails when the trace lost the last of the
+    lead-in's marker kernels."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     out_dir = ROOT / "build" / "profiles"
@@ -1720,6 +1741,15 @@ def profile_window(label, fn, torch, steps, keep_kernels=False):
                               for n, (t, c) in most])
     if keep_kernels:
         out["kernel_events"] = [(e["name"], float(e["ts"]), float(e["dur"])) for e in kernels]
+    if sub is not None:
+        recs = {"kernels": {}, "copies_and_sets": {}, "ranges": 0}
+        for r in (e for e in xs if e.get("name") == sub and e.get("cat") == "user_annotation"):
+            recs["ranges"] += 1
+            t = float(r["ts"])
+            for e in launched(calls_in(t, t + float(r["dur"]))):
+                kind = "kernels" if e["cat"] == "kernel" else "copies_and_sets"
+                recs[kind][e["name"][:80]] = recs[kind].get(e["name"][:80], 0) + 1
+        out["sub_records"] = recs
     log(f"  profile {label} ({steps} step(s), torch.profiler CPU+CUDA, trace "
         f"{path.relative_to(ROOT)}): window {out['window_ms']:.2f} ms, device busy "
         f"{out['device_busy_ms']:.2f} ms = {100 * out['busy_share']:.1f}% (union of kernel, "
@@ -3008,6 +3038,298 @@ class Timed:
         self._undo = []
 
 
+class StageProbe:
+    """The STAGE steps of one staged sync, seen from the host: host-clock
+    laps around what the stager calls (the split of a stage step's
+    span), a check that each stage step carrying parts makes exactly one
+    ``delta_apply_parts`` launch (counted under ``delta_apply_inplace``)
+    and no ``to_tensor`` (the per-page route's pageable copy), the
+    StepRing's pinned bytes, and the segments of one real step (kept for
+    ``step_case``).  Installed on the modules after ``begin_sync``,
+    restored after the flip.  Also drives a tree without the parts
+    kernel (the per-page route: ``apply_delta`` per part, a pageable
+    ``to_tensor`` and a slice ``copy_`` per page), splitting its steps the
+    same way, so ``scripts/stage_split.py`` can hold the two against
+    each other."""
+
+    def __init__(self):
+        self.s = {}
+        self.calls = {}
+        self.paused = False
+        self.parts_route = False
+        self.step_segments = None
+        self.pinned_bytes = 0
+        self.stage_steps = []            # (parts, launches) per stage step
+        self._undo = []
+
+    def _counts(self):
+        """Laps count on the serving thread only (not the fetch worker's)."""
+        return not self.paused and threading.current_thread() is threading.main_thread()
+
+    def _lap(self, owner, attr, label):
+        fn = getattr(owner, attr)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if self._counts():
+                    self.s[label] = self.s.get(label, 0.0) + time.perf_counter() - t0
+                    self.calls[label] = self.calls.get(label, 0) + 1
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def install(self, stager, np, torch):
+        from repro_torch.core import delta as delta_lib
+        from repro_torch.serving import updates as upd_mod
+
+        if stager._fetch_queue is not None:
+            self._lap(stager._fetch_queue, "get", "queue_wait")
+        self._lap(upd_mod.UpdateStager, "_apply_part", "apply_part")
+        self.parts_route = hasattr(upd_mod, "part_segments")
+        if self.parts_route:
+            from repro_torch.kernels import delta_apply as kd
+
+            self._lap(upd_mod, "part_segments", "segments")
+            self._lap(kd, "plan_step", "plan")
+            self._lap(kd, "write_step", "pack")
+            self._lap(kd.StepRing, "_slot", "slot_wait")
+            self._lap(kd.StepRing, "apply", "ring_apply")
+            self._lap(delta_lib, "to_tensor", "to_tensor")
+            keep = upd_mod.UpdateStager._apply_segments
+
+            def apply_segments(st):
+                segs = st._segments
+                if self.step_segments is None and self._counts() and \
+                        any(hasattr(g, "indices") for g in segs) and \
+                        any(not hasattr(g, "indices") for g in segs):
+                    self.step_segments = list(segs)     # a step with rows and pages
+                if st._ring is not None:
+                    self.pinned_bytes = max(self.pinned_bytes, st._ring.pinned_bytes)
+                return keep(st)
+
+            upd_mod.UpdateStager._apply_segments = apply_segments
+            self._undo.append((upd_mod.UpdateStager, "_apply_segments", keep))
+            return
+        self._lap(upd_mod, "apply_delta", "apply_delta")
+        pages = delta_lib.LayerDelta.iter_pages
+
+        def timed_pages(d):
+            it = pages(d)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    if self._counts():
+                        self.s["decode"] = self.s.get("decode", 0.0) + time.perf_counter() - t0
+                yield item
+
+        delta_lib.LayerDelta.iter_pages = timed_pages
+        self._undo.append((delta_lib.LayerDelta, "iter_pages", pages))
+        keep_tt = delta_lib.to_tensor
+
+        def to_tensor(arr, device):
+            # the per-page route's to_tensor, its two copies timed apart
+            t0 = time.perf_counter()
+            arr = np.require(arr, requirements=("C", "W"))
+            t1 = time.perf_counter()
+            if arr.dtype == np.uint16:
+                out = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+            else:
+                out = torch.from_numpy(arr).to(device)
+            if self._counts():
+                self.s["host_copy"] = self.s.get("host_copy", 0.0) + t1 - t0
+                self.s["pageable_h2d"] = self.s.get("pageable_h2d", 0.0) + \
+                    time.perf_counter() - t1
+                self.calls["to_tensor"] = self.calls.get("to_tensor", 0) + 1
+            return out
+
+        delta_lib.to_tensor = to_tensor
+        self._undo.append((delta_lib, "to_tensor", keep_tt))
+
+    def restore(self):
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo = []
+
+    def split_ms(self, span_s, steps):
+        """Each part's host ms per stage step; ``rest`` is the stage spans'
+        remainder (the stager's own bookkeeping, spans and checkpoints)."""
+        s = self.s.get
+        if self.parts_route:
+            ring = s("ring_apply", 0.0)
+            parts = {"queue_wait": s("queue_wait", 0.0),
+                     "page_decode_and_segments": s("segments", 0.0),
+                     "layer_clones": s("apply_part", 0.0) - s("segments", 0.0),
+                     "plan": s("plan", 0.0),
+                     "pack_into_pinned": s("pack", 0.0),
+                     "slot_wait": s("slot_wait", 0.0),
+                     "upload_and_launch": ring - s("plan", 0.0) - s("pack", 0.0)
+                     - s("slot_wait", 0.0)}
+        else:
+            apply = s("apply_delta", 0.0)
+            copies = s("host_copy", 0.0) + s("pageable_h2d", 0.0)
+            parts = {"queue_wait": s("queue_wait", 0.0),
+                     "page_decode": s("decode", 0.0),
+                     "host_copies": s("host_copy", 0.0),
+                     "pageable_h2d": s("pageable_h2d", 0.0),
+                     "launches": apply - s("decode", 0.0) - copies,
+                     "layer_clones": s("apply_part", 0.0) - apply}
+        parts["rest"] = span_s - sum(parts.values())
+        return {k: 1e3 * v / max(steps, 1) for k, v in parts.items()}
+
+
+def stage_report(label, probe, spans, profiled, device):
+    """What the StageProbe saw of a sync's stage steps: the split of their
+    host spans (the profiled step left out), the parts kernel's launches
+    against the steps that carried parts, the ring's pinned bytes and
+    the profiled stager step's own device records.  On the card the
+    parts route must launch once a stage step with parts, never through
+    ``to_tensor``, and put one ``delta_apply_parts`` kernel and no
+    pageable host-to-device copy on the device in the profiled step."""
+    stage = [e[5] for e in spans if e[3] == "stager:stage"]
+    left_out = 1 if "stager_span_ms" in profiled else 0
+    span_s = sum(stage) - profiled.get("stager_span_ms", 0.0) / 1e3
+    split = probe.split_ms(span_s, len(stage) - left_out)
+    with_parts = sum(1 for p, _ in probe.stage_steps if p)
+    launches = sum(n for _, n in probe.stage_steps)
+    route = "parts" if probe.parts_route else "per-page"
+    sub = (profiled.get("profile") or {}).get("sub_records")
+    rep = dict(route=route, split_ms_per_step=split, stage_steps=len(probe.stage_steps),
+               steps_with_parts=with_parts, parts_launches=launches,
+               ring_pinned_bytes=probe.pinned_bytes,
+               to_tensor_calls=probe.calls.get("to_tensor", 0), profiled_stager=sub)
+    log(f"  {label}: stage steps on the {route} route, host ms a step (host clock laps, "
+        f"{len(stage) - left_out} unprofiled steps, {1e3 * span_s / max(1, len(stage) - left_out):.2f}"
+        f" ms of stager:stage span each): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    if probe.parts_route:
+        log(f"  {label}: delta_apply_parts launches this sync {launches} over "
+            f"{len(probe.stage_steps)} stage steps, {with_parts} carrying parts; the StepRing's "
+            f"pinned bytes {probe.pinned_bytes}; to_tensor calls {rep['to_tensor_calls']}")
+    if sub is not None:
+        log(f"  {label}: the profiled stager step's own device records: kernels "
+            f"{sub['kernels']}, copies/sets {sub['copies_and_sets']}")
+    if device != "cuda" or not probe.parts_route:
+        return rep
+    bad = [(p, n) for p, n in probe.stage_steps if n != (1 if p else 0)]
+    if bad:
+        fail(f"{label}: stage steps (parts, delta_apply_parts launches) {bad}: not one launch "
+             f"a step with parts")
+    if rep["to_tensor_calls"]:
+        fail(f"{label}: {rep['to_tensor_calls']} to_tensor calls (pageable copies) in the stage "
+             f"steps")
+    if sub is not None:
+        kernels = sum(n for k, n in sub["kernels"].items() if "delta_apply_parts" in k)
+        pageable = {k: n for k, n in sub["copies_and_sets"].items() if "Pageable" in k}
+        if kernels != (1 if profiled.get("stage_step_parts") else 0) or pageable:
+            fail(f"{label}: the profiled stager step ran {kernels} delta_apply_parts kernels "
+                 f"and pageable copies {pageable}")
+    return rep
+
+
+def step_case(label, segs, peaks, torch):
+    """``delta_apply_parts`` at a real STAGE step's shape (``segs``, one
+    step of phase 5's sync: its rows parts and chunk pages, on clones of
+    the layers they write): bit for bit against the plain version; back to
+    back (host clock per call, ending in a synchronize: pack, copy and
+    launch) beside the per-page route it replaced (a pageable copy and a
+    slice ``copy_`` a page, two copies and the scatter a rows part); the
+    kernel alone in a CUDA graph on the uploaded buffer; the pinned
+    upload alone.  Bounds: the packed buffer read once and the written
+    elements over the memory rate (``bound_ms``), and the packed buffer
+    over the pinned host-to-device rate this case measures."""
+    from repro_torch.core.weightstore import to_tensor
+    from repro_torch.kernels import delta_apply as kd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.build import load_extension
+
+    saved = dict(ops.LAUNCHES)          # this case's launches are not the main path's
+    dev = segs[0].dst.device
+    dsts = {}
+    for g in segs:
+        dsts.setdefault(g.dst.data_ptr(), g.dst)
+    kern = {p: t.clone() for p, t in dsts.items()}
+    plain = {p: t.clone() for p, t in dsts.items()}
+    ks = [g._replace(dst=kern[g.dst.data_ptr()]) for g in segs]
+    ps = [g._replace(dst=plain[g.dst.data_ptr()]) for g in segs]
+    plan = kd.plan_step(ks)
+    ring = kd.StepRing(dev, plan.nbytes, slots=2)
+    n0 = ops.LAUNCHES["delta_apply_inplace"]
+    kd.delta_apply_parts(ks, ring=ring)
+    launches = ops.LAUNCHES["delta_apply_inplace"] - n0
+    ref.delta_apply_parts(ps)
+    torch.cuda.synchronize()
+    err = max((kern[p].float() - plain[p].float()).abs().max().item() for p in dsts)
+    if launches != 1 or not all(torch.equal(kern[p], plain[p]) for p in dsts):
+        fail(f"{label}: delta_apply_parts at a stage step's shape disagrees with its plain "
+             f"version ({launches} launches)")
+    rows = [g for g in segs if isinstance(g, kd.Rows)]
+    runs = [g for g in segs if isinstance(g, kd.Run)]
+    written = sum(int(((g.indices >= 0) & (g.indices < g.dst.numel())).sum())
+                  * g.dst.element_size() for g in rows)
+    written += sum(g.data.nbytes for g in runs)
+    bnd, by = bound_ms(plan.nbytes + written, 0, peaks)
+
+    def per_page():
+        # the route the parts kernel replaced (core.delta.apply_delta's)
+        for g in ks:
+            if isinstance(g, kd.Rows):
+                ops.delta_apply(g.dst, to_tensor(g.indices, dev), to_tensor(g.values, dev),
+                                donate=True)
+            else:
+                g.dst[g.offset: g.offset + g.data.size].copy_(to_tensor(g.data, dev))
+
+    def host_ms(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / iters
+
+    times = {"parts": [], "per_page": []}
+    for r in range(4):                        # in turns: per-page, parts, parts, per-page
+        for name in (("per_page", "parts") if r % 2 == 0 else ("parts", "per_page")):
+            times[name].append(host_ms(per_page if name == "per_page" else
+                                       lambda: kd.delta_apply_parts(ks, ring=ring)))
+    host = torch.empty(plan.nbytes, dtype=torch.uint8, pin_memory=True)
+    kd.write_step(plan, host.numpy())
+    packed = host.to(dev)
+    ext = load_extension()
+    args = (packed, plan.map_off, plan.payload_off, plan.n_tiles)
+    upload_ms = time_ms(lambda: packed.copy_(host, non_blocking=True))
+    rate = plan.nbytes / upload_ms * 1e3              # bytes/s
+    case = dict(
+        shape=f"{len(rows)} rows parts ({sum(g.indices.size for g in rows)} entries), "
+              f"{len(runs)} pages, {plan.nbytes} packed bytes, {plan.n_tiles} tiles",
+        segments=len(segs), packed_bytes=plan.nbytes, tiles=plan.n_tiles,
+        written_bytes=written, max_abs_err=err, launches_per_apply=launches,
+        ms=min(times["parts"]), ms_runs=times["parts"],
+        per_page_ms=min(times["per_page"]), per_page_ms_runs=times["per_page"],
+        ms_graph=time_graph_ms(lambda: ext.delta_apply_parts(*args)),
+        plain_ms=time_ms(lambda: ref.delta_apply_parts(ps), iters=3, warmup=1),
+        upload_ms=upload_ms, pinned_h2d_gb_s=rate / 1e9,
+        bound_ms=bnd, bound_by=by, host_link_bound_ms=plan.nbytes / rate * 1e3,
+        library_ms=None)
+    ring.close()
+    ops.LAUNCHES.update(saved)
+    log(f"  {label}: delta_apply_parts at a stage step's shape [{case['shape']}]: "
+        f"bit for bit the plain version's, one launch; back to back (host clock, pack + "
+        f"copy + launch) {case['ms']:.3f} ms against {case['per_page_ms']:.3f} ms for the "
+        f"per-page route (best of 2 turns each); the kernel alone in a CUDA graph "
+        f"{case['ms_graph']:.4f} ms against its bound {bnd:.4f} ms ({by}); the pinned upload "
+        f"{upload_ms:.4f} ms ({case['pinned_h2d_gb_s']:.1f} GB/s); plain "
+        f"{case['plain_ms']:.3f} ms")
+    return case
+
+
 # the lease walk of phase 5: its gateway boots through a kill-switch
 # transport on a clock the phase moves (the host clock plus an offset,
 # advanced only while the gateway is idle), with the floor policy
@@ -3117,14 +3439,20 @@ def lease_walk(label, gw, tr, clock, server, np):
 
 
 def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None,
-                 max_step_bytes=16 << 20, profile_stage=False, lease=False):
+                 max_step_bytes=16 << 20, profile_stage=False, lease=False,
+                 parts_case=False):
     """Publish v1, boot a gateway from the server, serve the stream, and
-    stage v2 mid-stream; every check of phases 5/6.  With
-    ``profile_stage`` the third scheduler step with a stage step rides
-    under torch.profiler (and is left out of the step times).  With
-    ``lease`` the gateway boots through a kill-switch transport on an
-    offset clock with the floor policy, and walks its lease after the
-    sync.  Returns a summary."""
+    stage v2 mid-stream; every check of phases 5/6.  The sync's stage
+    steps run under a ``StageProbe``: the split of their host span, and
+    on the card one ``delta_apply_parts`` launch a stage step that
+    carries parts and no pageable ``to_tensor``.  With ``profile_stage``
+    the third scheduler step with a stage step rides under torch.profiler
+    (and is left out of the step times and the split), its stager step in
+    a ``record_function`` range whose device records are counted apart.
+    With ``parts_case`` the kernel runs again at the shape of one real
+    stage step (``step_case``).  With ``lease`` the gateway boots through
+    a kill-switch transport on an offset clock with the floor policy, and
+    walks its lease after the sync.  Returns a summary."""
     from repro_torch.core import delta as delta_lib
     from repro_torch.core import transport as transport_lib
     from repro_torch.core.licensing import LicenseTier
@@ -3187,29 +3515,59 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
     phases = {}
     flip_t = None
     profiled = {}
+    probe = StageProbe()
+
+    def profiled_step(stager):
+        from torch.profiler import record_function
+
+        inner = stager.step
+
+        def marked():
+            with record_function("chip_smoke_stager"):
+                return inner()
+
+        acts = []
+        stager.step = marked
+        probe.paused = True
+        try:
+            profiled["profile"] = profile_window(
+                "stage_step", lambda: acts.append(LicensedGateway.step(gw)), torch, 1,
+                sub="chip_smoke_stager")
+        finally:
+            probe.paused = False
+            del stager.step
+        span = [e for e in gw.tracer.events if e[3] == "stager:stage"][-1]
+        profiled["stager_span_ms"] = 1e3 * span[5]
+        log(f"  {label}: the profiled step's stager:stage span (host clock, no "
+            f"synchronize) {profiled['stager_span_ms']:.2f} ms")
+        return acts[0]
 
     def step():
         nonlocal flip_t
         when = ("during" if gw.sync_active else
                 "before" if gw.version == 1 else "after")
+        stager = gw._stager if gw.sync_active else None
+        staging = stager is not None and stager.phase == "stage"
+        if staging:
+            p0 = stager.stats_["parts_applied"]
+            n0 = ops.LAUNCHES["delta_apply_inplace"]
         if gw.sync_active:
             phases[gw._stager.phase] = phases.get(gw._stager.phase, 0) + 1
-            if (profile_stage and not profiled and gw._stager.phase == "stage"
-                    and phases["stage"] == 3):
-                acts = []
-                profiled["profile"] = profile_window(
-                    "stage_step", lambda: acts.append(LicensedGateway.step(gw)), torch, 1)
-                span = [e for e in gw.tracer.events if e[3] == "stager:stage"][-1]
-                profiled["stager_span_ms"] = 1e3 * span[5]
-                log(f"  {label}: the profiled step's stager:stage span (host clock, no "
-                    f"synchronize) {profiled['stager_span_ms']:.2f} ms")
-                return acts[0]
-        t = time.perf_counter()
-        act = LicensedGateway.step(gw)
-        sync()
-        dt = time.perf_counter() - t
-        if act is not None or when == "during":
-            steps[when].append(dt)
+        profiling = profile_stage and not profiled and staging and phases["stage"] == 3
+        if profiling:
+            act = profiled_step(stager)
+        else:
+            t = time.perf_counter()
+            act = LicensedGateway.step(gw)
+            sync()
+            dt = time.perf_counter() - t
+            if act is not None or when == "during":
+                steps[when].append(dt)
+        if staging:
+            probe.stage_steps.append((stager.stats_["parts_applied"] - p0,
+                                      ops.LAUNCHES["delta_apply_inplace"] - n0))
+            if profiling:
+                profiled["stage_step_parts"] = probe.stage_steps[-1][0]
         if flip_t is None and gw.version != 1:
             flip_t = time.perf_counter()
         return act
@@ -3224,8 +3582,12 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
     if not gw.begin_sync(max_step_bytes=max_step_bytes):
         fail(f"{label}: begin_sync found no newer version")
     out["begin_sync_s"] = time.perf_counter() - t_begin
-    gw.run()
-    sync()
+    probe.install(gw._stager, np, torch)
+    try:
+        gw.run()
+        sync()
+    finally:
+        probe.restore()
     st = gw.metrics()["staged_update"]
     lease_states["after_flip"] = gw.metrics()["lease"]["state"]
     log(f"  {label}: lease {lease_states['after_boot']} after the boot, "
@@ -3281,6 +3643,13 @@ def update_phase(label, cfg, gw_kw, torch, np, *, device="cuda", ref_tokens=None
     stager_h = dict(count=gw.h_stager.count, p50_ms=1e3 * gw.h_stager.p50,
                     p99_ms=1e3 * gw.h_stager.p99, max_ms=1e3 * max(e[5] for e in spans),
                     spans_by_phase=span_phases, audit=audit, **profiled)
+    out["stage"] = stage_report(label, probe, spans, profiled, device)
+    if parts_case and device == "cuda" and probe.step_segments:
+        from repro_torch.launch import roofline
+
+        peaks = roofline.CARD_PEAKS[roofline.card_key(torch.cuda.get_device_name(0))]
+        out["step_case"] = step_case(label, probe.step_segments, peaks, torch)
+    probe.step_segments = None
     misses = gw.views.misses
     late = [gw.submit(np.arange(1, 20, dtype=np.int32), license=t, max_new_tokens=4)
             for t in ("full", "free")]
@@ -6468,7 +6837,8 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     upd = update_phase("float gateway", cfg, {}, torch, np,
                        ref_tokens=[r.out_tokens for r in float_reqs], profile_stage=True,
-                       lease=True)
+                       lease=True, parts_case=True)
+    rows["delta_apply_inplace"]["cases"]["phase-5 stage step"] = upd["step_case"]
     upd["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     # the process's peak resident host memory so far (ru_maxrss is in KiB)
     upd["host_maxrss_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9

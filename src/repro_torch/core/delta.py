@@ -9,6 +9,10 @@ side applies it to tensors on their own device:
 * chunk pages are contiguous runs, so each is one slice copy into the
   layer (``buf[a:b].copy_(page)``) — no scatter needed.
 
+The staged sync takes a part apart into ``kernels.delta_apply`` segments
+instead (:func:`part_segments`: one ``Rows`` or one ``Run`` a page, the
+page bytes as they came off the wire) and applies a whole step's segments
+with one ``delta_apply_parts``.
 Nothing goes back to the host: the result stays on the buffer's device.
 ``shard_delta`` splits a packet by each host's flat-index range, so a
 data-parallel host fetches only the bytes its shard needs.
@@ -22,7 +26,7 @@ import torch
 
 from repro_torch.core.pytree_io import flatten_params, unflatten_like
 from repro_torch.core.weightstore import (LayerDelta, UpdatePacket, as_float32,
-                                          host_dtype, to_host, to_tensor)
+                                          cast_host, host_dtype, to_host, to_tensor)
 
 
 def encode_delta(old_params: Any, new_params: Any) -> UpdatePacket:
@@ -75,6 +79,25 @@ def apply_delta(buf: torch.Tensor, d: LayerDelta, *, donate: bool = False) -> to
         out = ops.delta_apply(flat, to_tensor(d.indices, flat.device),
                               to_tensor(d.values, flat.device), donate=donate)
     return out.reshape(buf.shape)
+
+
+def part_segments(flat: torch.Tensor, d: LayerDelta) -> list:
+    """One part of a layer as the segments ``kernels.delta_apply_parts``
+    applies to ``flat`` (the layer's flat staging tensor): its rows as one
+    ``Rows``, or each chunk page as one ``Run`` of the page's own bytes
+    (cast on the host only when the page's dtype is not the layer's)."""
+    from repro_torch.kernels.delta_apply import Rows, Run
+
+    if d.chunks is None:
+        values = d.values
+        if values.dtype not in (np.float32, np.uint16):
+            values = values.astype(np.float32)
+        return [Rows(flat, d.indices, values)]
+    name = str(flat.dtype).removeprefix("torch.")
+    want = host_dtype(name)
+    ce = d.chunk_elems
+    return [Run(flat, ci * ce, page if page.dtype == want else cast_host(page, d.dtype, name))
+            for ci, page in d.iter_pages()]
 
 
 def apply_packet(params: Any, packet: UpdatePacket, *, donate: bool = False) -> Any:

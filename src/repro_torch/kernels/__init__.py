@@ -7,7 +7,9 @@
 - masked_dequant: CUDA C++ (``csrc/``), fused int8 dequant +
   license-interval mask, one launch per stacked (U, R, C) leaf
 - delta_apply / delta_apply_inplace: CUDA C++ (``csrc/``), the sparse
-  weight-delta scatter of the update path
+  weight-delta scatter of the update path; in place as
+  ``delta_apply_parts``, every rows part and chunk page of a staged-sync
+  step in one launch from one pinned upload
 - flash_attention: CUDA C++ (``csrc/``), causal / windowed / offset
   online-softmax attention with GQA (bf16 on wgmma with a cp.async K/V
   ring, f32 on mma.sync; scores on chip)

@@ -10,10 +10,12 @@
 // Python wrappers in repro_torch/kernels/{delta_apply,flash_attention,
 // quant_matmul}.py before these run; those wrappers pick the design
 // (flash_attention vs flash_attention_sm90; quant_matmul vs
-// quant_matmul_splitk / quant_matmul_sm90).
+// quant_matmul_splitk / quant_matmul_sm90).  delta_apply_parts checks its
+// packed buffer's layout here and its destinations in the wrapper.
 
 #include <torch/extension.h>
 
+#include <cstdint>
 #include <initializer_list>
 #include <utility>
 
@@ -37,6 +39,13 @@ void launch_paged_decode_write(void* k_blocks, void* v_blocks, const void* new_k
 void launch_delta_apply(void* buf, const void* indices, const void* values, int64_t n,
                         int64_t size, bool buf_bf16, bool val_bf16, bool idx64,
                         cudaStream_t stream);
+
+void launch_delta_apply_parts(const void* packed, int64_t map_off, int64_t payload_off,
+                              int64_t n_tiles, cudaStream_t stream);
+
+void launch_delta_apply_one(void* buf, const void* indices, const void* values, int64_t n,
+                            int64_t size, bool buf_bf16, bool val_bf16, bool idx64,
+                            cudaStream_t stream);
 
 void launch_masked_dequant(const int8_t* codes, const float* scale, const float* lo,
                            const float* hi, void* out, int64_t units, int64_t unit_rows,
@@ -189,6 +198,36 @@ void delta_apply(at::Tensor buf, const at::Tensor& indices, const at::Tensor& va
                      indices.scalar_type() == at::kLong, at::cuda::getCurrentCUDAStream());
 }
 
+// the single-part in-place form: the parts kernel with one rows segment
+void delta_apply_inplace(at::Tensor buf, const at::Tensor& indices, const at::Tensor& values) {
+  const c10::cuda::CUDAGuard guard(buf.device());
+  launch_delta_apply_one(buf.data_ptr(), indices.data_ptr(), values.data_ptr(), indices.numel(),
+                         buf.numel(), buf.scalar_type() == at::kBFloat16,
+                         values.scalar_type() == at::kBFloat16,
+                         indices.scalar_type() == at::kLong, at::cuda::getCurrentCUDAStream());
+}
+
+// packed (nbytes,) uint8 on the card: the segment table at byte 0, the tile
+// map at map_off, the payload at payload_off (kernels/delta_apply.py packs
+// it and checks every destination the table names)
+void delta_apply_parts(const at::Tensor& packed, int64_t map_off, int64_t payload_off,
+                       int64_t n_tiles) {
+  require_cuda("delta_apply_parts", packed.device(), {{"packed", &packed}});
+  TORCH_CHECK_TYPE(packed.scalar_type() == at::kByte,
+                   "delta_apply_parts: packed must be uint8, got ", packed.scalar_type());
+  TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(packed.data_ptr()) % 16 == 0 &&
+                        map_off % 16 == 0 && payload_off % 16 == 0,
+                    "delta_apply_parts: the packed buffer and its sections must be "
+                    "16-byte aligned");
+  TORCH_CHECK_VALUE(n_tiles >= 0 && n_tiles <= INT32_MAX && map_off >= 0 &&
+                        map_off + 4 * n_tiles <= payload_off && payload_off <= packed.numel(),
+                    "delta_apply_parts: ", n_tiles, " tiles, map at ", map_off,
+                    ", payload at ", payload_off, " do not fit ", packed.numel(), " bytes");
+  const c10::cuda::CUDAGuard guard(packed.device());
+  launch_delta_apply_parts(packed.data_ptr(), map_off, payload_off, n_tiles,
+                           at::cuda::getCurrentCUDAStream());
+}
+
 // codes (R, C) or (U, R, C) int8; scale f32 of codes' rank, broadcast to it
 // as per column (.., 1, C), per row (.., R, 1) or scalar (.., 1, 1), its
 // leading axis U or 1; lo / hi (8,) f32 -> codes' shape, bf16 or f32
@@ -306,7 +345,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("paged_decode_write", &repro_torch::paged_decode_write,
         "in-place write of one K/V token per lane into the block pools");
   m.def("delta_apply", &repro_torch::delta_apply,
-        "in-place scatter buf[indices] = values, out-of-range indices dropped");
+        "scatter buf[indices] = values into buf, out-of-range indices dropped");
+  m.def("delta_apply_inplace", &repro_torch::delta_apply_inplace,
+        "in-place scatter through the parts kernel, one rows segment");
+  m.def("delta_apply_parts", &repro_torch::delta_apply_parts,
+        "every part of a staged-sync step (rows and chunk pages) from one packed buffer");
   m.def("masked_dequant", &repro_torch::masked_dequant,
         "int8 codes * scale with the license intervals zeroed, one launch per (U, R, C) leaf");
   m.def("flash_attention", &repro_torch::flash_attention,

@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -52,6 +53,69 @@ def delta_apply(buf: torch.Tensor, indices: torch.Tensor, values: torch.Tensor,
     keep = (idx >= 0) & (idx < buf.shape[0])
     out[idx[keep]] = values[keep].to(buf.dtype)
     return out
+
+
+def _host_tensor(arr) -> torch.Tensor:
+    """A host array as a CPU tensor; bf16 bits (``np.uint16``) become a
+    ``torch.bfloat16`` view of a copy."""
+    arr = np.require(arr, requirements=("C", "W"))
+    if arr.dtype == np.uint16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def delta_apply_parts(segments) -> None:
+    """Plain version of the staged sync's one apply per step: each segment
+    of ``kernels.delta_apply`` in order, a rows part through
+    :func:`delta_apply` in place, a run (a chunk page) as a slice copy."""
+    for s in segments:
+        dev = s.dst.device
+        if hasattr(s, "indices"):
+            delta_apply(s.dst, _host_tensor(s.indices).to(dev),
+                        _host_tensor(s.values).to(dev), donate=True)
+        else:
+            data = _host_tensor(s.data).reshape(-1).to(dev)
+            s.dst[s.offset: s.offset + data.numel()].copy_(data)
+
+
+def delta_apply_packed(packed: torch.Tensor, map_off: int, payload_off: int,
+                       n_tiles: int, dsts) -> None:
+    """Plain unpacker: apply a packed step (``kernels.delta_apply.plan_step``
+    / ``write_step``) tile by tile, exactly as ``csrc/delta_apply.cu``
+    reads it: each tile's segment through the tile map, a rows tile's
+    entries from the payload through :func:`delta_apply`, a run tile's
+    bytes copied.  ``packed`` is a CPU uint8 tensor; ``dsts`` are the
+    flat destinations, which the table names by address."""
+    from repro_torch.kernels import delta_apply as layout
+
+    if n_tiles == 0:
+        return
+    by_ptr = {t.data_ptr(): t for t in dsts}
+    tile_seg = packed[map_off: map_off + 4 * n_tiles].view(torch.int32).tolist()
+    words = layout.SEGMENT_WORDS
+    table = packed[: map_off].view(torch.int64)
+    for tile, k in enumerate(tile_seg):
+        dst_ptr, size, count, dst_off, idx_off, val_off, first, kind_flags = \
+            table[k * words: (k + 1) * words].tolist()
+        kind, flags = kind_flags & 0xFFFFFFFF, kind_flags >> 32
+        dst, t = by_ptr[dst_ptr], tile - first
+        if kind == layout.RUN:
+            es = (flags >> 8) & 0xFF
+            lo = t * layout.TILE_BYTES
+            hi = min(lo + layout.TILE_BYTES, count * es)
+            src = payload_off + val_off
+            dst.view(torch.uint8)[dst_off * es + lo: dst_off * es + hi] = packed[src + lo: src + hi]
+            continue
+        lo = t * layout.TILE_ROWS
+        hi = min(lo + layout.TILE_ROWS, count)
+        isz, itype = (4, torch.int32) if flags & layout.IDX32 else (8, torch.int64)
+        vsz, vtype = (2, torch.bfloat16) if flags & layout.VAL_BF16 else (4, torch.float32)
+        i0, v0 = payload_off + idx_off, payload_off + val_off
+        idx = packed[i0 + lo * isz: i0 + hi * isz].view(itype)
+        val = packed[v0 + lo * vsz: v0 + hi * vsz].view(vtype)
+        if dst.numel() != size or (dst.dtype == torch.bfloat16) != bool(flags & layout.DST_BF16):
+            raise ValueError("delta_apply_packed: the table's destination does not match")
+        delta_apply(dst, idx, val, donate=True)
 
 
 def paged_attention(q: torch.Tensor, k_blocks: torch.Tensor,

@@ -182,11 +182,19 @@ class StoreGraphs:
 
 class CudaGraphBackend:
     """``torch.cuda.CUDAGraph`` capture and replay, every graph of one
-    slot in one memory pool (replays are serialized on one stream)."""
+    slot in one memory pool (replays are serialized on one stream).
+
+    The pool is a ``torch.cuda.MemPool`` the backend holds for its life.
+    A bare ``graph_pool_handle()`` counts only its live graphs as users:
+    once every graph of the pool is dropped (a version's views at a
+    flip) while tensors it allocated live on, the next capture into it
+    fails the caching allocator's ``use_count > 0`` assertion."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.device(self.device):
+            self._mempool = torch.cuda.MemPool()
+        self.pool = self._mempool.id
         self.stream = torch.cuda.Stream(self.device)
 
     def warmup(self, fn: Callable[[], None]) -> None:

@@ -24,9 +24,13 @@ Invariants the stager preserves:
 
 * **Serving state is untouched until the flip.**  A touched layer's
   staging copy is a ``clone()`` of the serving tensor, made on the card
-  when the layer's first part arrives; every later part of it is applied
-  in place (rows through the ``delta_apply_inplace`` kernel, chunk pages
-  as slice copies).  It stays on the card and is never downloaded.
+  when the layer's first part arrives; its parts are applied in place.
+  On the card a STAGE step applies all of its parts at once: the step is
+  packed (rows and chunk pages, from the wire's bytes) into a pinned slot
+  of a ``StepRing`` (allocated at ``begin``, freed at the flip or an
+  abort), uploaded with one copy, and applied by one launch of the
+  ``delta_apply_parts`` kernel.  The staging copy stays on the card and is
+  never downloaded.
   In-flight requests stay pinned to their admitted version and produce
   the tokens of an update-free run.
 * **Bounded work per step.**  A STAGE step transfers and applies at most
@@ -53,24 +57,31 @@ the trace's stager track and one observation of ``h_stager``, and the
 audit records ``sync_begin`` and ``sync_abort`` (the slot records
 ``sync_retry``/``sync_quarantine``, the gateway ``version_flip``).  The
 step's window is host clock: a stage step's device work (the layer
-clone, the in-place scatter, a requant) is only launched inside it.
+clone, the step's upload and apply, a requant) is only launched inside
+it.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 from repro_torch.analysis import lockstep
-from repro_torch.core.delta import apply_delta
+from repro_torch.core.delta import part_segments
 from repro_torch.core.pytree_io import flatten_params, unflatten_like
 from repro_torch.core.transport import (PayloadCorruption, RetryPolicy, Transport,
                                         TransportError, TransportTimeout,
                                         as_transport)
+from repro_torch.kernels.delta_apply import StepRing, delta_apply_parts
 from repro_torch.serving.tracing import STAGER_TID
 
 # the cursor-protocol fields whose ownership moves with the fetch
 # worker (see the guarded-by annotations in __init__ and
 # repro_torch.analysis.lockstep for the dynamic check)
 _WORKER_FIELDS = ("_cursor", "_pos", "_cursor_dead")
+# a ring slot's room beyond max_step_bytes: one page (the store's chunk
+# size when the server shows it, else this many elements of 4 bytes) and
+# the segment table and tile map of a step
+_PAGE_ELEMS = 65_536
+_TABLE_BYTES = 1 << 16
 
 
 class _ReopenRequired(Exception):
@@ -124,6 +135,7 @@ class UpdateStager:
         self.phase = "idle"
         self.to_version: Optional[int] = None
         self._cursor = None  # guarded-by: owner(__init__, begin, _reopen, abort, _flip)
+        self._ring: Any = None            # pinned upload slots (on the card)
         self._staged: Any = None          # staged float params (assembled at drain)
         self._staged_q: Any = None        # staging int8 store (quantized path)
         self._touched: Set[str] = set()   # layer names the delta touched
@@ -199,7 +211,9 @@ class UpdateStager:
         # reference; a touched layer is cloned on the card at its first
         # part and patched in place from then on
         self._flat = dict(flatten_params(client.params))
-        self._pending_layer: Optional[str] = None
+        self._cloned: Set[str] = set()
+        self._segments: List[Any] = []      # the current step's parts
+        self._ring = self._make_ring()
         self._staged = None
         self._touched = set()
         # incremental requant reuses the live int8 store's untouched
@@ -434,7 +448,9 @@ class UpdateStager:
             gw._staging_version = None
         self._cursor = None
         self._staged = self._staged_q = None
-        self._pending_layer = None
+        self._cloned = set()
+        self._segments = []
+        self._close_ring()
         if gw.obs:
             gw.audit.record("sync_abort", model=gw.model,
                             phase=self.phase, to_version=self.to_version)
@@ -442,18 +458,42 @@ class UpdateStager:
             gw._note_sync_failure(self.to_version)
         self.phase = "failed"
 
+    def _make_ring(self) -> Any:
+        """The pinned upload slots of a stager whose weights are on the
+        card, each ``max_step_bytes`` plus one page plus a table's room
+        (a larger step grows its slot); None on the CPU, where parts take
+        the plain route."""
+        device = next((t.device for t in self._flat.values()
+                       if getattr(t, "device", None) is not None), None)
+        if device is None or device.type != "cuda":
+            return None
+        store = getattr(self.server, "store", None)
+        page = getattr(store, "chunk_elems", _PAGE_ELEMS) * 4
+        return StepRing(device, self.max_step_bytes + page + _TABLE_BYTES)
+
+    def _close_ring(self) -> None:
+        if self._ring is not None:
+            self._ring.close()
+            self._ring = None
+
     def _apply_part(self, part) -> None:
-        """Apply one fetched part to the staging copy of its layer: sparse
-        (index, value) rows through the in-place ``delta_apply`` kernel,
-        chunk pages as slice copies.  The copy is a ``clone()`` of the
-        serving tensor made at the layer's first part, on its device."""
+        """Take one fetched part apart into segments on the staging copy
+        of its layer (its rows, or one run a chunk page) for the step's
+        one apply.  The copy is a ``clone()`` of the serving tensor made
+        at the layer's first part, on its device."""
         if part.layer not in self._flat:
             raise KeyError(f"delta for unknown layer {part.layer!r}")
-        if self._pending_layer != part.layer:
-            self._pending_layer = part.layer
+        if part.layer not in self._cloned:
+            self._cloned.add(part.layer)
             self._flat[part.layer] = self._flat[part.layer].clone()
-        self._flat[part.layer] = apply_delta(self._flat[part.layer], part,
-                                             donate=True)
+        self._segments += part_segments(self._flat[part.layer].reshape(-1), part)
+
+    def _apply_segments(self) -> None:
+        """The step's one apply: every segment of its parts through one
+        ``delta_apply_parts`` (on the card one pinned upload and one
+        launch; the plain version on the CPU)."""
+        segments, self._segments = self._segments, []
+        delta_apply_parts(segments, ring=self._ring)
 
     def _step_stage(self) -> None:
         lockstep.checkpoint("stager.stage")
@@ -481,6 +521,7 @@ class UpdateStager:
         if parts:
             for part in parts:
                 self._apply_part(part)
+            self._apply_segments()
             got = int(sum(p.nbytes for p in parts))
             self.stats_["parts_applied"] += len(parts)
             self.stats_["bytes_applied"] += got
@@ -495,7 +536,6 @@ class UpdateStager:
                 raise RuntimeError(
                     "background fetch worker failed to stop; refusing to "
                     "flip with a live worker still writing")
-            self._pending_layer = None
             # the staged tree: touched layers are the patched copies,
             # untouched leaves the client's tensors by reference
             self._staged = unflatten_like(self.gw._client.params, self._flat)
@@ -570,4 +610,5 @@ class UpdateStager:
         gw._note_sync_success(self.to_version)
         self._cursor = None
         self._staged = self._staged_q = None
+        self._close_ring()
         self.phase = "done"
