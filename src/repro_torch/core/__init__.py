@@ -15,7 +15,7 @@ from repro_torch.core.licensing import (FULL_TIER, CalibrationStep, LicenseTier,
                                         magnitude_quantiles, make_static_tiers,
                                         mask_weight)
 from repro_torch.core.protocol import EdgeClient, LicenseServer
-from repro_torch.core.pytree_io import flatten_params, unflatten, unflatten_like
+from repro_torch.core.pytree_io import flatten_params, tree_map, unflatten, unflatten_like
 from repro_torch.core.transport import (ChaosTransport, DirectTransport, RetryPolicy,
                                         Transport)
 from repro_torch.core.weightstore import LayerDelta, UpdatePacket, WeightStore
@@ -27,6 +27,6 @@ __all__ = ["CompressionStats", "QuantizedTensor", "SharedTensor", "compress_pipe
            "CalibrationStep", "LicenseTier", "apply_license", "calibrate_license",
            "interval_mask", "license_stats", "magnitude_quantiles",
            "make_static_tiers", "mask_weight",
-           "EdgeClient", "LicenseServer", "flatten_params", "unflatten",
+           "EdgeClient", "LicenseServer", "flatten_params", "tree_map", "unflatten",
            "unflatten_like", "ChaosTransport", "DirectTransport", "RetryPolicy",
            "Transport", "LayerDelta", "UpdatePacket", "WeightStore"]

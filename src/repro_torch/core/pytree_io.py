@@ -52,3 +52,13 @@ def unflatten_like(template: Any, flat: Dict[str, Any], prefix: str = "") -> Any
         raise ValueError(f"shape mismatch for {prefix!r}: store "
                          f"{tuple(leaf.shape)} vs template {tuple(template.shape)}")
     return leaf
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` on every leaf of a nested dict, the structure kept (the
+    JAX scripts' ``jax.tree_util.tree_map`` over a parameter dict): e.g.
+    ``tree_map(torch.zeros_like, params)`` is a zeroed template on the
+    params' own device."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, sub) for key, sub in tree.items()}
+    return fn(tree)

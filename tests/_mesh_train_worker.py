@@ -3,7 +3,8 @@
 run compiles it, on a (2, 2) and a (1, 4) mesh.  The params are placed
 by ``params_shardings``, the AdamW state by ``opt_state_shardings``
 (ZeRO-1 moments) and each batch by ``data_shardings``; STEPS steps run
-under ``implicit_replication``, each on the last one's outputs.  After
+under ``implicit_replication``, each on the last one's outputs, for the
+archs ``run`` is given (the test spawns one world per arch).  After
 every step each leaf's placements must be its input placements.
 Imports no JAX: the weights come as ``.npz`` files of the JAX package's
 flat params, and rank 0 writes what it saw (losses, grad norms, the
@@ -97,7 +98,7 @@ def sharded_steps(cfg, params, mesh):
     return out
 
 
-def run(rank: int, world: int, where: str) -> None:
+def run(rank: int, world: int, where: str, archs) -> None:
     torch.set_num_threads(1)
     d = Path(where)
     dist.init_process_group("gloo", store=dist.FileStore(str(d / "store"), world),
@@ -110,7 +111,7 @@ def run(rank: int, world: int, where: str) -> None:
         meshes = {k: init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
                   for k, shape in MESHES.items()}
         out = {}
-        for arch in ARCHS:
+        for arch in archs:
             cfg = config(arch)
             params = model_lib.params_from_jax(dict(np.load(d / f"{arch}.npz")), device="cpu")
             for key, mesh in meshes.items():

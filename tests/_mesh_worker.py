@@ -9,7 +9,8 @@ batch, ``UNEVEN`` rows on a (4, 1) mesh.  qwen2.5-3b's float steps on
 warm-up, capture and replay under :class:`HostSyncGuard`.  Imports no
 JAX: the weights come as ``.npz`` files of the JAX package's flat
 params, and rank 0 writes what it saw to ``out.npz`` in the same
-directory."""
+directory.  ``run`` takes the archs to run (the test spawns one world
+per arch; qwen2.5-3b's world runs its int8, graph and uneven steps)."""
 import sys
 from pathlib import Path
 
@@ -171,7 +172,7 @@ def graph_steps(cfg, params, toks, mesh=None, license_intervals=None):
     return np.stack(logits), np.stack(out), np.array([graphs.captures, graphs.replays])
 
 
-def run(rank: int, world: int, where: str) -> None:
+def run(rank: int, world: int, where: str, archs) -> None:
     torch.set_num_threads(1)
     d = Path(where)
     dist.init_process_group("gloo", store=dist.FileStore(str(d / "store"), world),
@@ -191,7 +192,7 @@ def run(rank: int, world: int, where: str) -> None:
         tp = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
         dp = init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model"))
         out = {}
-        for arch in ARCHS:
+        for arch in archs:
             cfg = config(arch)
             params = model_lib.params_from_jax(dict(np.load(d / f"{arch}.npz")), device="cpu")
             out[f"{arch}/logits"], out[f"{arch}/tokens"] = sharded_steps(

@@ -382,6 +382,28 @@ CARD_ROUTES = {"kernels": {}, "plain_decode": dict(decode_kernels=False),
 FAMILIES = ("_graphs", "_prefill_graphs", "_gather_graphs", "_bucket_graphs", "_suffix_graphs")
 
 
+# the JAX gateway's names for the card routes' arguments
+JAX_ROUTE_ARGS = {"decode_kernels": lambda v: ("decode_pallas", "pallas" if v else "off")}
+
+
+@pytest.mark.parametrize("route", sorted(CARD_ROUTES))
+def test_card_routes_decide_kernel_decode_as_jax(weights, route):
+    """The rule behind the card test's launch counts is the JAX
+    package's: on each card route the port's gateway takes the
+    kernel-resident decode, and the paged pool, exactly where the JAX
+    gateway on the same smoke config does."""
+    jcfg, jparams, cfg, params = weights
+    kw = CARD_ROUTES[route]
+    jkw = dict(JAX_ROUTE_ARGS[k](v) if k in JAX_ROUTE_ARGS else (k, v) for k, v in kw.items())
+    tiers = {"free": LicenseTier(name="free", masks=FREE)}
+    jtiers = {"free": JaxLicenseTier(name="free", masks=FREE)}
+    gw = LicensedGateway(cfg, params, tiers=tiers, device="cpu", **{**GEOMETRY, **kw})
+    jgw = JaxGateway(jcfg, jparams, tiers=jtiers, **{**GEOMETRY, **jkw})
+    assert (gw.metrics()["decode_path"]["kernel_resident"]
+            == jgw.metrics()["decode_path"]["kernel_resident"])
+    assert gw.paged == jgw.paged
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("route", sorted(CARD_ROUTES))
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -411,14 +433,19 @@ def test_cuda_graphs_match_eager_kernels_on_card(weights, cuda, mode, route):
         assert getattr(graph_gw, f).captures > 0, f
     decode = graph_gw._graphs if graph_gw.kernel_decode else graph_gw._gather_graphs
     assert decode.replays == graph_gw.stats["decode_steps"] > decode.captures
-    if route != "kernels":
+    # the counts follow the gateway's own decode path, not the route's
+    # name: the bucket route keeps the kernel-resident decode (both
+    # packages decide it by the pool and the window alone)
+    if graph_gw.kernel_decode and graph_gw.decode_kernels:
+        # the wrappers count the warm-ups' launches, never a capture's
+        units = cfg.pattern_units
+        assert graph_n == units * graph_gw._graphs.captures
+        assert eager_n == units * eager_gw.stats["resident_decode_steps"]
+    else:
         assert graph_n == eager_n == 0
+    if route != "kernels":
         return
     graphs = graph_gw._graphs
     assert graph_gw.decode_kernels and graph_gw.metrics()["decode_path"]["pallas"] == "pallas"
-    # the wrappers count the warm-ups' launches, never a capture's
-    units = cfg.pattern_units
-    assert graph_n == units * graphs.captures
-    assert eager_n == units * eager_gw.stats["resident_decode_steps"]
     bpl = graph_gw.pool.blocks_per_lane
     assert {k[-1] for k in graphs.keys()} <= {table_width(n, bpl) for n in range(1, bpl + 1)}

@@ -2,7 +2,9 @@
 of 4 ranks, and the mesh dry run on torch's fake world.
 
 (a) ``_mesh_worker.run`` on 4 spawned ranks over a ``FileStore``, one
-torch thread each: the smoke variants of qwen2.5-3b, deepseek-moe-16b
+torch thread each, one world per arch (``_gloo_world``: one world at a
+time across pytest's workers, each rank's exit code and log tail in the
+error of a world that fails): the smoke variants of qwen2.5-3b, deepseek-moe-16b
 and mamba2-130m in f32, with the JAX package's ``init_params(PRNGKey(0))``
 weights, every leaf placed by ``distribution.sharding`` on a (2, 2)
 mesh, run ``prefill_step`` and 4 greedy ``serve_step``s.  They must give the unsharded port's greedy tokens and
@@ -35,14 +37,12 @@ import json
 import os
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_variant as jax_smoke_variant
@@ -52,6 +52,7 @@ from repro.serving.engine import prefill_step as jax_prefill_step
 from repro.serving.engine import serve_step as jax_serve_step
 
 import _mesh_worker as W
+from _gloo_world import run_world, shared_dir
 from repro_torch.core.licensing import LicenseTier
 from repro_torch.core.pytree_io import flatten_params
 from repro_torch.distribution import sharding as shd
@@ -62,7 +63,12 @@ from repro_torch.serving.quantized import dequant_tree, quantize_serving_params,
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
-SPAWN_TIMEOUT_S = 120
+# a world's deadline, counted from when it holds the lock: the slowest of
+# the three per-arch worlds (qwen2.5-3b's, with its int8, graph and uneven
+# steps) ran at most 60.1 s, with the whole suite on six xdist workers
+# (``-n 6 --dist loadfile``) or under the README's stress command; 300 s
+# is 5 times that, and the slowest world of either file took 105.6 s
+SPAWN_TIMEOUT_S = 300
 
 
 def _jax_cfg(arch):
@@ -72,29 +78,24 @@ def _jax_cfg(arch):
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    """Write each arch's JAX weights, run the 4-rank world, return its
-    ``out.npz`` and the port's params on the CPU."""
-    d = tmp_path_factory.mktemp("mesh")
-    params = {}
-    for arch in W.ARCHS:
-        flat = {k: np.asarray(v) for k, v in jax_flatten_params(
-            jax_init_params(jax.random.PRNGKey(0), _jax_cfg(arch))).items()}
-        np.savez(d / f"{arch}.npz", **flat)
-        params[arch] = model_lib.params_from_jax(flat, device="cpu")
-    ctx = mp.start_processes(W.run, args=(4, str(d)), nprocs=4, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    try:
-        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"the gloo world took over {SPAWN_TIMEOUT_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join(timeout=10)
-    assert not any(p.is_alive() for p in ctx.processes)
-    return dict(np.load(d / "out.npz")), params
+    """``world(arch)``: write the arch's JAX weights, run its 4-rank world
+    (one world per arch, one world at a time across pytest's workers),
+    return its ``out.npz`` and {arch: the port's params on the CPU}."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            d = tmp_path_factory.mktemp(f"mesh_{arch}")
+            flat = {k: np.asarray(v) for k, v in jax_flatten_params(
+                jax_init_params(jax.random.PRNGKey(0), _jax_cfg(arch))).items()}
+            np.savez(d / f"{arch}.npz", **flat)
+            run_world(W.run, 4, d, SPAWN_TIMEOUT_S, shared_dir(tmp_path_factory),
+                      args=((arch,),), name=f"mesh/{arch}")
+            cache[arch] = (dict(np.load(d / "out.npz")),
+                           {arch: model_lib.params_from_jax(flat, device="cpu")})
+        return cache[arch]
+
+    return get
 
 
 def plain_steps(cfg, params, toks, license_intervals=None):
@@ -121,7 +122,7 @@ def _close(got, want):
 
 @pytest.mark.parametrize("arch", W.ARCHS)
 def test_sharded_steps_match_unsharded(world, arch):
-    out, params = world
+    out, params = world(arch)
     want_logits, want_tokens = plain_steps(W.config(arch), params[arch], W.tokens(arch))
     np.testing.assert_array_equal(out[f"{arch}/tokens"], want_tokens)
     _close(out[f"{arch}/logits"], want_logits)
@@ -133,7 +134,7 @@ def test_uneven_batch_steps_match_unsharded(world):
     """2 rows on 4 data ranks: the products' rows DTensor cannot split
     evenly are made whole (``layers.matmul``), and the steps give the
     unsharded port's tokens and logits."""
-    out, params = world
+    out, params = world("qwen2.5-3b")
     want_logits, want_tokens = plain_steps(W.config("qwen2.5-3b"), params["qwen2.5-3b"],
                                            W.tokens("qwen2.5-3b", W.UNEVEN))
     np.testing.assert_array_equal(out["uneven/tokens"], want_tokens)
@@ -141,7 +142,7 @@ def test_uneven_batch_steps_match_unsharded(world):
 
 
 def test_sharded_qwen_matches_jax(world):
-    out, _ = world
+    out, _ = world("qwen2.5-3b")
     jcfg = _jax_cfg("qwen2.5-3b")
     jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
     from repro.models import model as jax_model
@@ -178,20 +179,20 @@ def test_mesh_graphs_match_eager_sharded_steps(world, run, eager):
     """The prefill's capture ran the step (no replay), each decode key
     captured once and replayed every step, and the tokens and the logits
     are the eager sharded steps', bit for bit."""
-    out, _ = world
+    out, _ = world("qwen2.5-3b")
     np.testing.assert_array_equal(out[f"{run}/tokens"], out[f"{eager}/tokens"])
     np.testing.assert_array_equal(out[f"{run}/logits"], out[f"{eager}/logits"])
     assert out[f"{run}/counts"].tolist() == [2, W.STEPS]
 
 
 def test_mesh_graphs_match_jax(world):
-    out, _ = world
+    out, _ = world("qwen2.5-3b")
     np.testing.assert_allclose(out["graph/logits"], _jax_steps(out["graph/tokens"]),
                                atol=1e-4, rtol=1e-4)
 
 
 def test_sharded_in_scan_dequant_is_bit_identical(world):
-    out, params = world
+    out, params = world("qwen2.5-3b")
     cfg = W.config("qwen2.5-3b")
     store = quantize_serving_params(params["qwen2.5-3b"])
     li = tier_intervals(LicenseTier(name="free", masks={"*": ((0.0, 0.01),)}), device="cpu")

@@ -4,7 +4,9 @@ CPU: the step the JAX dry run compiles (``make_train_step`` with
 tensors.
 
 ``_mesh_train_worker.run`` on 4 spawned ranks over a ``FileStore``, one
-torch thread each: the smoke variants of qwen2.5-3b, deepseek-moe-16b,
+torch thread each, one world per arch (``_gloo_world``: one world at a
+time across pytest's workers, each rank's exit code and log tail in the
+error of a world that fails): the smoke variants of qwen2.5-3b, deepseek-moe-16b,
 musicgen-large and internvl2-26b in f32, with the JAX package's
 ``init_params(PRNGKey(0))`` weights, take two steps of 8 rows x 16 tokens
 (internvl2-26b's rows with ``patch_embeds``) on a (2, 2) and a (1, 4)
@@ -18,14 +20,12 @@ its ZeRO-1 placements.  qwen2.5-3b is also held against the JAX
 ``make_train_step``'s two steps at ``train_loop``'s tolerances (losses at
 rtol 1e-4, params at atol 1e-5).
 """
-import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_variant as jax_smoke_variant
@@ -36,11 +36,16 @@ from repro.training import make_train_step as jax_make_train_step
 from repro.training import optimizer as jax_opt
 
 import _mesh_train_worker as W
+from _gloo_world import run_world, shared_dir
 from repro_torch.core.pytree_io import flatten_params
 from repro_torch.models import model as model_lib
 from repro_torch.training import OptimizerConfig, init_state, make_train_step
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
+# a world's deadline, counted from when it holds the lock: the slowest of
+# the four per-arch worlds ran at most 105.6 s with the whole suite on six
+# xdist workers (``-n 6 --dist loadfile``, a busy host) and 67.5 s under
+# the README's stress command; 300 s is 2.8 times that
 SPAWN_TIMEOUT_S = 300
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)      # test_torch_training.py's gradients
 CASES = [(arch, mesh) for arch in W.ARCHS for mesh in W.MESHES]
@@ -53,28 +58,23 @@ def _jax_params(arch):
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    """Write each arch's JAX weights, run the 4-rank world, return its
-    ``out.npz`` and the port's params on the CPU."""
-    d = tmp_path_factory.mktemp("mesh_train")
-    params = {}
-    for arch in W.ARCHS:
-        flat = {k: np.asarray(v) for k, v in jax_flatten_params(_jax_params(arch)).items()}
-        np.savez(d / f"{arch}.npz", **flat)
-        params[arch] = model_lib.params_from_jax(flat, device="cpu")
-    ctx = mp.start_processes(W.run, args=(4, str(d)), nprocs=4, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    try:
-        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"the gloo world took over {SPAWN_TIMEOUT_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join(timeout=10)
-    assert not any(p.is_alive() for p in ctx.processes)
-    return dict(np.load(d / "out.npz")), params
+    """``world(arch)``: write the arch's JAX weights, run its 4-rank world
+    (one world per arch, one world at a time across pytest's workers),
+    return its ``out.npz`` and {arch: the port's params on the CPU}."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            d = tmp_path_factory.mktemp(f"mesh_train_{arch}")
+            flat = {k: np.asarray(v) for k, v in jax_flatten_params(_jax_params(arch)).items()}
+            np.savez(d / f"{arch}.npz", **flat)
+            run_world(W.run, 4, d, SPAWN_TIMEOUT_S, shared_dir(tmp_path_factory),
+                      args=((arch,),), name=f"mesh_train/{arch}")
+            cache[arch] = (dict(np.load(d / "out.npz")),
+                           {arch: model_lib.params_from_jax(flat, device="cpu")})
+        return cache[arch]
+
+    return get
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +109,7 @@ def _close(out, prefix, tree, fn=lambda a: a, **tol):
 
 @pytest.mark.parametrize("arch,mesh", CASES, ids=IDS)
 def test_sharded_train_step_matches_plain(world, plain, arch, mesh):
-    out, params = world
+    out, params = world(arch)
     metrics, p, state = plain(arch, params[arch])
     key = f"{arch}/{mesh}"
     for k in ("loss", "grad_norm"):
@@ -124,7 +124,7 @@ def test_sharded_train_step_matches_plain(world, plain, arch, mesh):
 
 @pytest.mark.parametrize("arch,mesh", CASES, ids=IDS)
 def test_sharded_train_step_keeps_placements(world, arch, mesh):
-    out, _ = world
+    out, _ = world(arch)
     key = f"{arch}/{mesh}"
     assert out[f"{key}/moved"].tolist() == []
     assert int(out[f"{key}/step"]) == W.STEPS
@@ -132,8 +132,8 @@ def test_sharded_train_step_keeps_placements(world, arch, mesh):
 
 @pytest.mark.parametrize("mesh", list(W.MESHES))
 def test_sharded_qwen_train_step_matches_jax(world, mesh):
-    out, _ = world
     arch = "qwen2.5-3b"
+    out, _ = world(arch)
     jcfg = jax_smoke_variant(jax_get_config(arch))
     jstep = jax.jit(jax_make_train_step(jcfg, JaxOptimizerConfig(**W.OCFG)))
     jp = _jax_params(arch)
